@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, each printed on its own lines:
+
+1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
+2. the build of the CUDA kernels in ``handwritten_math_ocr_api_torch/csrc``
+   with ``nvcc``, and its seconds;
+3. each kernel against its plain PyTorch version on the card, in bf16, at
+   the shapes the served path gives it (a 10-image request padded to the
+   16-row batch bucket), with its time, the plain version's time, the time
+   of one PyTorch library call computing the same attention where there is
+   one, and the least time the card could take (its bound);
+4. served greedy decoding at full width and depth: the ``serving_model_r4``
+   configuration (Swin-T, d_model 256, 8 decoder layers, vocab 138; its
+   ``model_config.json`` and ``vocab.json``) with seeded random weights, ``predict_batch`` on 10 seeded images and
+   ``predict_single`` on one, with every kernel's launch count checked
+   against the path's shape; the encoder memory and the tokens against the
+   plain path on the card (bf16, and float32 where tokens must be equal);
+   images per second;
+5. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+   ``{"ok": true, "device": {...}}``.
+
+It imports torch, numpy and the port only, reads no checkpoint and no image
+file, and exits non-zero on any failure, or when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+SEED = 0
+DEVICE = "cuda"
+MODEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "serving_model_r4")  # its JSON files only
+N_IMAGES = 10
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor rate
+# kernel vs plain, both bf16 on the card: the two differ in float32
+# summation order and so by one or two bf16 roundings of the output
+# (2^-8 relative each)
+KERNEL_ATOL = 2e-2
+KERNEL_RTOL = 2e-2
+# encoder memory, kernel path vs plain path on the card. bf16: each of the
+# 15 kernel launches may round its outputs one bf16 step (2^-8 relative)
+# away from the plain version, and 12 blocks carry that on; the bound is 5%
+# of the largest |value| (the first run on an H100 measured 0.9%).
+# float32: summation order only.
+MEMORY_BF16_REL = 0.05
+MEMORY_F32_ATOL = 1e-3
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+
+
+def bound_by(nbytes: float, flops: float) -> str:
+    return ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+            else "operations")
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def assert_close(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+    import torch
+
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    limit = atol + rtol * want.float().abs()
+    if bool((diff > limit).any()):
+        raise AssertionError(
+            f"{name}: max abs err {diff.max().item():.3g} beyond "
+            f"atol {atol} + rtol {rtol}")
+
+
+class Entry:
+    """One kernel's line of the ``kernels`` JSON, summed over the launches
+    of one pass of the served path (an encode, or a decode step)."""
+
+    def __init__(self, name, source, replaces, unit):
+        self.d = {"name": name, "route": "cuda", "source": source,
+                  "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+                  "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "bound_by": "bytes", "library_ms": None, "unit": unit}
+        self.nbytes = 0.0
+        self.flops = 0.0
+
+    def add(self, times: int, err, ms, plain, lib, nbytes, flops):
+        d = self.d
+        d["max_abs_err"] = max(d["max_abs_err"], err)
+        d["ms"] += times * ms
+        d["plain_ms"] += times * plain
+        if lib is not None:
+            d["library_ms"] = (d["library_ms"] or 0.0) + times * lib
+        self.nbytes += times * nbytes
+        self.flops += times * flops
+        d["bound_ms"] = bound_ms(self.nbytes, self.flops)
+        d["bound_by"] = bound_by(self.nbytes, self.flops)
+
+
+def stage_shapes(cfg, batch):
+    """Per Swin stage: (H, W, C, heads, depth, padded H, padded W)."""
+    sc = cfg.swin
+    ws = sc.window_size
+    h, w = cfg.img_h // sc.patch_size, cfg.img_w // sc.patch_size
+    out = []
+    for i, depth in enumerate(sc.depths):
+        c = sc.embed_dim * 2 ** i
+        ph, pw = -(-h // ws) * ws, -(-w // ws) * ws
+        out.append((h, w, c, sc.num_heads[i], depth, ph, pw))
+        h, w = h // 2, w // 2
+    return out
+
+
+def check_kernels(cfg, params, batch):
+    """Phase 3: every kernel against its plain version at the served
+    shapes. Returns the kernels' JSON entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from handwritten_math_ocr_api_torch.models import swin
+    from handwritten_math_ocr_api_torch.ops import cache_attention as ca
+    from handwritten_math_ocr_api_torch.ops import patch_merging as pm
+    from handwritten_math_ocr_api_torch.ops import window_attention as wa
+
+    dev = torch.device(DEVICE)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    ws = cfg.swin.window_size
+    N = ws * ws
+    win = Entry("window_attention", "handwritten_math_ocr_api_torch/csrc/"
+                "window_attention.cu",
+                "handwritten_math_ocr_api_tpu/ops/window_attention.py:52",
+                f"one encode: {sum(cfg.swin.depths)} launches at "
+                f"{len(cfg.swin.depths)} stage shapes")
+    merge = Entry("patch_merging", "handwritten_math_ocr_api_torch/csrc/"
+                  "patch_merging.cu",
+                  "handwritten_math_ocr_api_tpu/ops/patch_merging.py:41",
+                  f"one encode: {len(cfg.swin.depths) - 1} launches")
+    cache = Entry("cache_append_attention", "handwritten_math_ocr_api_torch/"
+                  "csrc/cache_attention.cu",
+                  "handwritten_math_ocr_api_tpu/ops/cache_attention.py:56",
+                  "one launch at the last slot (pos = T - 1)")
+
+    for i, (h, w, c, nh, depth, ph, pw) in enumerate(stage_shapes(cfg, batch)):
+        dh = c // nh
+        nW = (ph // ws) * (pw // ws)
+        p_attn = params["encoder"]["stages"][i]["blocks"][-1]["attn"]
+        shift_h = 0 if ws >= ph else ws // 2
+        shift_w = 0 if ws >= pw else ws // 2
+        mask = swin.attention_mask(p_attn, ws, nh, ph, pw, shift_h, shift_w)
+        mask = mask.expand(nW, nh, N, N).contiguous()
+        q, k, v = (randn(batch, nW, nh, N, dh) for _ in range(3))
+        got = wa.window_attention_core(q, k, v, mask)
+        want = wa.window_attention_core_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert_close(f"window_attention stage {i + 1}", got, want)
+        ms = cuda_ms(lambda: wa.window_attention_core(q, k, v, mask))
+        plain = cuda_ms(lambda: wa.window_attention_core_plain(q, k, v, mask))
+        q4, k4, v4 = (t.reshape(batch, nW * nh, N, dh) for t in (q, k, v))
+        m4 = mask.reshape(1, nW * nh, N, N).to(bf16)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4))
+        G = batch * nW * nh
+        nbytes = 4 * G * N * dh * 2 + nW * nh * N * N * 4
+        flops = 4 * G * N * N * dh
+        win.add(depth, max_err(got, want), ms, plain, lib, nbytes, flops)
+        log(f"kernel window_attention stage {i + 1}: q {tuple(q.shape)} "
+            f"max_abs_err {max_err(got, want):.3g} ms {ms:.4f} "
+            f"plain_ms {plain:.4f} sdpa_ms {lib:.4f} "
+            f"bound_ms {bound_ms(nbytes, flops):.4f} x{depth}")
+
+        if i == len(cfg.swin.depths) - 1:
+            continue
+        p_merge = params["encoder"]["merges"][i]
+        x = randn(batch, h, w, c)
+        got = pm.fused_patch_merging(p_merge, x)
+        want = pm.patch_merging_plain(p_merge, x)
+        torch.cuda.synchronize()
+        assert_close(f"patch_merging {i + 1}", got, want)
+        ms = cuda_ms(lambda: pm.fused_patch_merging(p_merge, x))
+        plain = cuda_ms(lambda: pm.patch_merging_plain(p_merge, x))
+        M = batch * (h // 2) * (w // 2)
+        nbytes = (x.numel() * 2 + 8 * c * c * 2 + 2 * 4 * c * 4
+                  + M * 2 * c * 2)
+        flops = 2 * M * 4 * c * 2 * c
+        merge.add(1, max_err(got, want), ms, plain, None, nbytes, flops)
+        log(f"kernel patch_merging {i + 1}: x {tuple(x.shape)} "
+            f"max_abs_err {max_err(got, want):.3g} ms {ms:.4f} "
+            f"plain_ms {plain:.4f} bound_ms {bound_ms(nbytes, flops):.4f}")
+
+    H, T, Dh = cfg.nhead, cfg.max_seq_len, cfg.head_dim
+    k_cache, v_cache = randn(batch, H, T, Dh), randn(batch, H, T, Dh)
+    err = 0.0
+    for pos in (0, T // 2, T - 1):
+        q, kn, vn = (randn(batch, H, 1, Dh) for _ in range(3))
+        k2, v2 = k_cache.clone(), v_cache.clone()
+        got = ca.cache_append_attention(q, kn, vn, k_cache, v_cache, pos)
+        want = ca.cache_append_attention_plain(q, kn, vn, k2, v2, pos)
+        torch.cuda.synchronize()
+        assert_close(f"cache_append_attention pos {pos}", got, want)
+        if not (torch.equal(k_cache, k2) and torch.equal(v_cache, v2)):
+            raise AssertionError("cache_append_attention: caches differ "
+                                 f"from the plain update at pos {pos}")
+        err = max(err, max_err(got, want))
+    pos = T - 1
+    ms = cuda_ms(lambda: ca.cache_append_attention(q, kn, vn, k_cache,
+                                                   v_cache, pos))
+    plain = cuda_ms(lambda: ca.cache_append_attention_plain(
+        q, kn, vn, k_cache, v_cache, pos))
+    kp, vp = k_cache[:, :, :pos + 1], v_cache[:, :, :pos + 1]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kp, vp))
+    G = batch * H
+    nbytes = 4 * G * Dh * 2 + 2 * G * pos * Dh * 2 + 2 * G * Dh * 2
+    flops = 4 * G * (pos + 1) * Dh
+    cache.add(1, err, ms, plain, lib, nbytes, flops)
+    log(f"kernel cache_append_attention: caches {tuple(k_cache.shape)} "
+        f"pos {pos} max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
+        f"sdpa_ms {lib:.4f} (prefix attention, no append) "
+        f"bound_ms {bound_ms(nbytes, flops):.4f}")
+    return [win, merge, cache]
+
+
+def check_counts(counts, expected):
+    if counts != expected:
+        raise AssertionError(f"kernel launches {counts} != {expected}")
+
+
+def profile_batch(engine, images, unprofiled_s):
+    """Device busy time of one predict_batch, and its largest kernels. The
+    idle share is given against the profiled wall time and against the
+    best unprofiled one (the profiler slows the host, not the device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.predict_batch(images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    best_ms = unprofiled_s * 1e3
+    if not rows:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    log(f"profile: predict_batch({len(images)}) wall {wall_ms:.1f} ms under "
+        f"the profiler, device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled "
+        f"{best_ms:.1f} ms: {1 - busy_ms / best_ms:.3f})"
+        f", device kernels {sum(e.count for e in rows)}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x {e.key[:100]}")
+
+
+def serve(cfg, np_params, tok, entries):
+    """Phase 4: the served path at full width, through the kernels."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.api import (
+        DecodeEngine,
+        pick_bucket,
+    )
+    from handwritten_math_ocr_api_torch.decode.greedy import greedy_decode
+    from handwritten_math_ocr_api_torch.models import model as model_mod
+    from handwritten_math_ocr_api_torch.ops.cache_attention import (
+        cache_append_attention,
+    )
+    from handwritten_math_ocr_api_torch.ops.patch_merging import (
+        fused_patch_merging,
+    )
+    from handwritten_math_ocr_api_torch.ops.window_attention import (
+        window_attention_core,
+    )
+
+    wrappers = [window_attention_core, fused_patch_merging,
+                cache_append_attention]
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1),
+                          dtype=np.uint8)
+    single = rng.integers(0, 256, (cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+
+    engine = DecodeEngine(np_params, cfg, tokenizer=tok, device=DEVICE)
+    engine.warmup((N_IMAGES,), dtype=np.uint8)
+    torch.cuda.synchronize()
+
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    texts = engine.predict_batch(images)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    steps = engine.last_steps
+    latex, conf = engine.predict_single(single)
+    torch.cuda.synchronize()
+    steps += engine.last_steps
+    counts = [w.launches for w in wrappers]
+    blocks = sum(cfg.swin.depths)
+    merges = len(cfg.swin.depths) - 1
+    expected = [2 * blocks, 2 * merges, cfg.num_decoder_layers * steps]
+    log(f"serve: predict_batch({N_IMAGES}) + predict_single: decode steps "
+        f"{steps}, launches {counts}, expected {expected}")
+    check_counts(counts, expected)
+    for e, n in zip(entries, counts):
+        e.d["launches"] = n
+    if len(texts) != N_IMAGES or not all(isinstance(s, str) for s in texts):
+        raise AssertionError("predict_batch returned malformed texts")
+    if not (isinstance(latex, str) and 0.0 <= conf <= 1.0):
+        raise AssertionError(f"predict_single returned {latex!r}, {conf}")
+    log(f"serve: predict_batch first text {texts[0][:80]!r}")
+    log(f"serve: predict_single {latex[:80]!r} confidence {conf:.4f}")
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.predict_batch(images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    log(f"serve: predict_batch({N_IMAGES}) seconds "
+        f"{[round(t, 4) for t in times]} "
+        f"(first counted run {batch_s:.4f}), {engine.last_steps} steps, "
+        f"images/s {N_IMAGES / best:.2f}")
+
+    profile_batch(engine, images, best)
+
+    # the kernel path against the plain path on the card, bf16
+    x, _ = engine._pad_batch(images)
+    with torch.inference_mode():
+        mem_k = model_mod.encode(engine.params, cfg, x)
+        mem_p = model_mod.encode(engine.params, cfg, x, kernels=False)
+        res_k = greedy_decode(engine.params["decoder"], cfg, mem_k)
+        res_p = greedy_decode(engine.params["decoder"], cfg, mem_p,
+                              kernels=False)
+    if not torch.isfinite(mem_k.float()).all():
+        raise AssertionError("encoder memory is not finite")
+    bucket = pick_bucket(N_IMAGES, engine.decode_cfg.batch_buckets)
+    if tuple(mem_k.shape) != (bucket, cfg.encoder_len, cfg.d_model):
+        raise AssertionError(f"memory shape {tuple(mem_k.shape)}")
+    mem_err = max_err(mem_k, mem_p)
+    scale = mem_p.float().abs().max().item()
+    agree = (res_k.tokens == res_p.tokens).float().mean().item()
+    log(f"serve: bf16 memory kernel vs plain max_abs_err {mem_err:.4g} "
+        f"(memory max |x| {scale:.3g}); greedy tokens agree {agree:.4f}")
+    if mem_err > MEMORY_BF16_REL * scale:
+        raise AssertionError(f"bf16 encoder memory differs by {mem_err}")
+
+    # float32: the same weights through the kernels and the plain path
+    cfg32 = cfg.replace(dtype="float32")
+    engine32 = DecodeEngine(np_params, cfg32, tokenizer=tok, device=DEVICE)
+    x32, _ = engine32._pad_batch(images[:2])
+    with torch.inference_mode():
+        m_k = model_mod.encode(engine32.params, cfg32, x32)
+        m_p = model_mod.encode(engine32.params, cfg32, x32, kernels=False)
+        r_k = greedy_decode(engine32.params["decoder"], cfg32, m_k)
+        r_p = greedy_decode(engine32.params["decoder"], cfg32, m_p,
+                            kernels=False)
+    err32 = max_err(m_k, m_p)
+    log(f"serve: float32 memory kernel vs plain max_abs_err {err32:.3g}; "
+        f"tokens equal {torch.equal(r_k.tokens, r_p.tokens)} "
+        f"over {r_k.steps} steps")
+    if err32 > MEMORY_F32_ATOL:
+        raise AssertionError(f"float32 encoder memory differs by {err32}")
+    if not torch.equal(r_k.tokens, r_p.tokens):
+        raise AssertionError("float32 greedy tokens differ between the "
+                             "kernel path and the plain path")
+    # sums of up to 150 float32 log-probs: summation order only
+    lp_err = (r_k.logprob_sum - r_p.logprob_sum).abs().max().item()
+    if lp_err > 1e-2:
+        raise AssertionError(f"float32 logprob sums differ by {lp_err}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.core.tokenizer import (
+        Tokenizer,
+        load_vocab,
+    )
+    from handwritten_math_ocr_api_torch.decode.api import (
+        DecodeConfig,
+        pick_bucket,
+    )
+    from handwritten_math_ocr_api_torch.ops import _build
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    log(f"device: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} "
+        f"torch.cuda.get_device_name(0) {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    lib_path = _build.build(verbose=True)
+    _build.library()
+    log(f"build: {os.path.relpath(lib_path)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = load_model_config(MODEL_DIR)
+    tok = Tokenizer(*load_vocab(os.path.join(MODEL_DIR, "vocab.json")))
+    if len(tok) != cfg.vocab_size:
+        raise AssertionError("vocab.json does not match model_config.json")
+    np_params = convert.random_params(cfg, SEED)
+    params = convert.to_torch(np_params, cfg, DEVICE)
+    bucket = pick_bucket(N_IMAGES, DecodeConfig().batch_buckets)
+    entries = check_kernels(cfg, params, bucket)
+
+    serve(cfg, np_params, tok, entries)
+
+    log(json.dumps({"kernels": [e.d for e in entries]}))
+    log(f"total seconds {time.perf_counter() - t_start:.1f}")
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
