@@ -8,18 +8,26 @@ Run from the root of a checkout. Phases, each printed on its own lines:
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA kernels in ``handwritten_math_ocr_api_torch/csrc``
    with ``nvcc``, and its seconds;
-3. each kernel against its plain PyTorch version on the card, in bf16, at
-   the shapes the served path gives it (a 10-image request padded to the
-   16-row batch bucket), with its time, the plain version's time, the time
-   of one PyTorch library call computing the same attention where there is
-   one, and the least time the card could take (its bound);
-4. served greedy decoding at full width and depth: the ``serving_model_r4``
-   configuration (Swin-T, d_model 256, 8 decoder layers, vocab 138; its
-   ``model_config.json`` and ``vocab.json``) with seeded random weights, ``predict_batch`` on 10 seeded images and
-   ``predict_single`` on one, with every kernel's launch count checked
-   against the path's shape; the encoder memory and the tokens against the
-   plain path on the card (bf16, and float32 where tokens must be equal);
-   images per second;
+3. each of the five kernels against its plain PyTorch version on the card,
+   in bf16, at the shapes the served paths give it (a 10-image request
+   padded to the 16-row batch bucket): window attention, patch merging and
+   cache-append attention at every stage or slot they serve; the fused
+   decoder step at pos 0, 74 and 149; the whole Swin block at stages 1-3,
+   unshifted and shifted. Each with its time, the plain version's time,
+   the time of one PyTorch library call computing the same function where
+   there is one (else null), and the least time the card could take (its
+   bound, and whether bytes or operations set it);
+4. served greedy decoding at full width and depth on both routes of the
+   engine: the ``serving_model_r4`` configuration (Swin-T, d_model 256, 8
+   decoder layers, vocab 138; its ``model_config.json`` and ``vocab.json``)
+   with seeded random weights (nonzero biases and norms). The routes are
+   ``DecodeEngine()`` (the JAX ``use_pallas=True`` configuration) and
+   ``DecodeEngine(use_fused=True, pallas_encoder_block=True)``. On each,
+   ``predict_batch`` on 10 seeded images and ``predict_single`` on one, with
+   every kernel's launch count set to 0 before and checked against the
+   route's shape after; the encoder memory and the tokens against the
+   route's plain path on the card (bf16, and float32 where tokens must be
+   equal); images per second and the device's idle share;
 5. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +62,12 @@ KERNEL_RTOL = 2e-2
 # float32: summation order only.
 MEMORY_BF16_REL = 0.05
 MEMORY_F32_ATOL = 1e-3
+# fused decoder step, kernel vs plain in bf16: 8 layers of matmul inputs
+# rounded to bf16, any of which may round one step (2^-8 relative) apart
+# when the float32 sums before it differ in order; runs on an H100
+# measured up to 0.018 on LayerNorm outputs of order 1
+STEP_ATOL = 5e-2
+STEP_RTOL = 2e-2
 
 
 def log(*parts):
@@ -113,11 +127,14 @@ def assert_close(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
 
 class Entry:
     """One kernel's line of the ``kernels`` JSON, summed over the launches
-    of one pass of the served path (an encode, or a decode step)."""
+    of one pass of the served path (an encode, or a decode step).
+    ``launches`` sums the counted runs of both routes; ``launches_by_route``
+    gives each."""
 
     def __init__(self, name, source, replaces, unit):
         self.d = {"name": name, "route": "cuda", "source": source,
-                  "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+                  "replaces": replaces, "launches": 0,
+                  "launches_by_route": {}, "max_abs_err": 0.0,
                   "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "bound_by": "bytes", "library_ms": None, "unit": unit}
         self.nbytes = 0.0
@@ -263,6 +280,127 @@ def check_kernels(cfg, params, batch):
     return [win, merge, cache]
 
 
+def check_fused_step(cfg, np_params, batch):
+    """Phase 3: the fused decoder step against its plain version at the
+    served shapes, at the first, a middle and the last slot."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    entry = Entry("fused_decoder_step", "handwritten_math_ocr_api_torch/"
+                  "csrc/fused_step.cu",
+                  "handwritten_math_ocr_api_tpu/ops/fused_step.py:774",
+                  "one launch (all decoder layers) at the last slot "
+                  "(pos = T - 1)")
+    stacked = fs.build_stacked(np_params["decoder"], cfg, dev)
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    F, L_enc = cfg.dim_feedforward, cfg.encoder_len
+    sk, sv = randn(L, batch, T, D), randn(L, batch, T, D)
+    ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
+    x = randn(batch, D)
+    err = 0.0
+    for pos in (0, T // 2 - 1, T - 1):
+        got = fs.fused_decoder_layers_step_v2(stacked, cfg, x, sk, sv, ck,
+                                              cv, pos)
+        want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg, x, sk, sv,
+                                                     ck, cv, pos)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("x_out", "k_new", "v_new"), got, want):
+            assert_close(f"fused_decoder_step pos {pos} {name}", g, w,
+                         STEP_ATOL, STEP_RTOL)
+            err = max(err, max_err(g, w))
+        log(f"kernel fused_decoder_step pos {pos}: max_abs_err "
+            f"{max(max_err(g, w) for g, w in zip(got, want)):.3g}")
+    pos = T - 1
+    ms = cuda_ms(lambda: fs.fused_decoder_layers_step_v2(
+        stacked, cfg, x, sk, sv, ck, cv, pos))
+    plain = cuda_ms(lambda: fs.fused_decoder_layers_step_v2_plain(
+        stacked, cfg, x, sk, sv, ck, cv, pos))
+    weights = L * (D * 3 * D + 3 * D * D + 2 * D * F)
+    small = L * (3 * D + 3 * D + F + D + 6 * D)        # biases, LN (f32)
+    nbytes = (weights * 2 + small * 4 + 2 * L * batch * L_enc * D * 2
+              + 2 * L * batch * pos * D * 2 + batch * D * 2   # caches, x
+              + batch * D * 4 + 2 * L * batch * D * 2)        # outputs
+    flops = (2 * batch * weights
+             + 4 * L * batch * D * (pos + 1 + L_enc))         # attention
+    entry.add(1, err, ms, plain, None, nbytes, flops)
+    log(f"kernel fused_decoder_step: caches {tuple(sk.shape)} pos {pos} "
+        f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
+        f"bound_ms {bound_ms(nbytes, flops):.4f} "
+        f"({bound_by(nbytes, flops)}) library_ms null")
+    return entry
+
+
+def check_swin_block(cfg, params, batch):
+    """Phase 3: the whole-block kernel against its plain version at every
+    stage the route fuses, unshifted and shifted."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.ops import swin_block as sb
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sc = cfg.swin
+    ws = sc.window_size
+    N = ws * ws
+    entry = Entry("swin_block", "handwritten_math_ocr_api_torch/csrc/"
+                  "swin_block.cu",
+                  "handwritten_math_ocr_api_tpu/ops/swin_block.py:129",
+                  f"one encode: {fused_blocks(cfg)} launches at the stage "
+                  f"shapes that fuse")
+    for i, (h, w, c, nh, depth, ph, pw) in enumerate(stage_shapes(cfg,
+                                                                  batch)):
+        hid = int(c * sc.mlp_ratio)
+        if not sb.fits_vmem(c, ws, pw, hid):
+            continue
+        p = params["encoder"]["stages"][i]["blocks"][-1]
+        x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(
+            torch.bfloat16)
+        err = 0.0
+        for shift in (0, ws // 2):
+            got = sb.fused_swin_block(p, x, ws, shift, nh)
+            want = sb.fused_swin_block_plain(p, x, ws, shift, nh)
+            torch.cuda.synchronize()
+            assert_close(f"swin_block stage {i + 1} shift {shift}", got, want)
+            err = max(err, max_err(got, want))
+        ms = cuda_ms(lambda: sb.fused_swin_block(p, x, ws, ws // 2, nh))
+        plain = cuda_ms(lambda: sb.fused_swin_block_plain(p, x, ws, ws // 2,
+                                                          nh))
+        real = batch * h * w
+        weights = c * 3 * c + c * c + 2 * c * hid
+        nbytes = (2 * real * c * 2 + weights * 2 + (5 * c + hid) * 2
+                  + 4 * c * 4 + (2 * ws - 1) ** 2 * nh * 4)
+        # a padded token is 0 at the qkv input (its k, v are the bias) and
+        # its query row is cropped: products over real tokens, attention of
+        # real queries over all N keys of their window
+        flops = (2 * real * c * 3 * c                  # qkv
+                 + 4 * real * N * c                    # attention
+                 + 2 * real * (c * c + 2 * c * hid))   # proj, MLP
+        entry.add(depth, err, ms, plain, None, nbytes, flops)
+        log(f"kernel swin_block stage {i + 1}: x {tuple(x.shape)} "
+            f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
+            f"bound_ms {bound_ms(nbytes, flops):.4f} "
+            f"({bound_by(nbytes, flops)}) library_ms null x{depth}")
+    return entry
+
+
+def fused_blocks(cfg) -> int:
+    """Swin blocks per encode that the route rule sends to the block
+    kernel (10 of 12 on Swin-T at 96x320: stages 1-3)."""
+    from handwritten_math_ocr_api_torch.ops.swin_block import fits_vmem
+
+    ws = cfg.swin.window_size
+    return sum(depth for _, _, c, _, depth, _, pw in stage_shapes(cfg, 1)
+               if fits_vmem(c, ws, pw, int(c * cfg.swin.mlp_ratio)))
+
+
 def check_counts(counts, expected):
     if counts != expected:
         raise AssertionError(f"kernel launches {counts} != {expected}")
@@ -271,7 +409,8 @@ def check_counts(counts, expected):
 def profile_batch(engine, images, unprofiled_s):
     """Device busy time of one predict_batch, and its largest kernels. The
     idle share is given against the profiled wall time and against the
-    best unprofiled one (the profiler slows the host, not the device)."""
+    best unprofiled one (the profiler slows the host, not the device).
+    Returns the latter, or None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -288,7 +427,7 @@ def profile_batch(engine, images, unprofiled_s):
     best_ms = unprofiled_s * 1e3
     if not rows:
         log("profile: the profiler saw no device time (not measured)")
-        return
+        return None
     log(f"profile: predict_batch({len(images)}) wall {wall_ms:.1f} ms under "
         f"the profiler, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled "
@@ -297,10 +436,66 @@ def profile_batch(engine, images, unprofiled_s):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x {e.key[:100]}")
+    return 1 - busy_ms / best_ms
 
 
-def serve(cfg, np_params, tok, entries):
-    """Phase 4: the served path at full width, through the kernels."""
+def kernel_wrappers():
+    """The five wrappers, in the order of the ``kernels`` line."""
+    from handwritten_math_ocr_api_torch.ops.cache_attention import (
+        cache_append_attention,
+    )
+    from handwritten_math_ocr_api_torch.ops.fused_step import (
+        fused_decoder_layers_step_v2,
+    )
+    from handwritten_math_ocr_api_torch.ops.patch_merging import (
+        fused_patch_merging,
+    )
+    from handwritten_math_ocr_api_torch.ops.swin_block import (
+        fused_swin_block,
+    )
+    from handwritten_math_ocr_api_torch.ops.window_attention import (
+        window_attention_core,
+    )
+
+    return [window_attention_core, fused_patch_merging,
+            cache_append_attention, fused_decoder_layers_step_v2,
+            fused_swin_block]
+
+
+def expected_launches(cfg, route, encodes, steps):
+    """Each wrapper's launches for ``encodes`` encodes and ``steps`` decode
+    steps on a route: the default one ("pallas": window attention in every
+    block, cache-append attention in every layer of every step) or the
+    fused one (the block kernel where the route rule fuses, window
+    attention in the other blocks, one step kernel per step)."""
+    blocks = sum(cfg.swin.depths)
+    merges = len(cfg.swin.depths) - 1
+    if route == "pallas":
+        return [encodes * blocks, encodes * merges,
+                cfg.num_decoder_layers * steps, 0, 0]
+    fused = fused_blocks(cfg)
+    return [encodes * (blocks - fused), encodes * merges, 0, steps,
+            encodes * fused]
+
+
+def route_decode(engine, cfg, memory, kernels):
+    """The engine's decode on its route, through the kernels or their
+    plain versions."""
+    from handwritten_math_ocr_api_torch.decode.fused import (
+        greedy_decode_fused,
+    )
+    from handwritten_math_ocr_api_torch.decode.greedy import greedy_decode
+
+    if engine.use_fused:
+        return greedy_decode_fused(engine.params["decoder"], engine.stacked,
+                                   cfg, memory, kernels=kernels)
+    return greedy_decode(engine.params["decoder"], cfg, memory,
+                         kernels=kernels)
+
+
+def serve(cfg, np_params, tok, entries, route, **route_kw):
+    """Phase 4: one route of the served path at full width, through the
+    kernels. Returns (images/s, idle share)."""
     import numpy as np
     import torch
 
@@ -308,26 +503,16 @@ def serve(cfg, np_params, tok, entries):
         DecodeEngine,
         pick_bucket,
     )
-    from handwritten_math_ocr_api_torch.decode.greedy import greedy_decode
     from handwritten_math_ocr_api_torch.models import model as model_mod
-    from handwritten_math_ocr_api_torch.ops.cache_attention import (
-        cache_append_attention,
-    )
-    from handwritten_math_ocr_api_torch.ops.patch_merging import (
-        fused_patch_merging,
-    )
-    from handwritten_math_ocr_api_torch.ops.window_attention import (
-        window_attention_core,
-    )
 
-    wrappers = [window_attention_core, fused_patch_merging,
-                cache_append_attention]
+    wrappers = kernel_wrappers()
     rng = np.random.default_rng(SEED)
     images = rng.integers(0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1),
                           dtype=np.uint8)
     single = rng.integers(0, 256, (cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
 
-    engine = DecodeEngine(np_params, cfg, tokenizer=tok, device=DEVICE)
+    engine = DecodeEngine(np_params, cfg, tokenizer=tok, device=DEVICE,
+                          **route_kw)
     engine.warmup((N_IMAGES,), dtype=np.uint8)
     torch.cuda.synchronize()
 
@@ -342,20 +527,21 @@ def serve(cfg, np_params, tok, entries):
     torch.cuda.synchronize()
     steps += engine.last_steps
     counts = [w.launches for w in wrappers]
-    blocks = sum(cfg.swin.depths)
-    merges = len(cfg.swin.depths) - 1
-    expected = [2 * blocks, 2 * merges, cfg.num_decoder_layers * steps]
-    log(f"serve: predict_batch({N_IMAGES}) + predict_single: decode steps "
-        f"{steps}, launches {counts}, expected {expected}")
+    expected = expected_launches(cfg, route, 2, steps)
+    log(f"serve {route}: predict_batch({N_IMAGES}) + predict_single: decode "
+        f"steps {steps}, launches {counts}, expected {expected} "
+        f"({[e.d['name'] for e in entries]})")
     check_counts(counts, expected)
     for e, n in zip(entries, counts):
-        e.d["launches"] = n
+        e.d["launches"] += n
+        e.d["launches_by_route"][route] = n
     if len(texts) != N_IMAGES or not all(isinstance(s, str) for s in texts):
         raise AssertionError("predict_batch returned malformed texts")
     if not (isinstance(latex, str) and 0.0 <= conf <= 1.0):
         raise AssertionError(f"predict_single returned {latex!r}, {conf}")
-    log(f"serve: predict_batch first text {texts[0][:80]!r}")
-    log(f"serve: predict_single {latex[:80]!r} confidence {conf:.4f}")
+    log(f"serve {route}: predict_batch first text {texts[0][:80]!r}")
+    log(f"serve {route}: predict_single {latex[:80]!r} confidence "
+        f"{conf:.4f}")
 
     times = []
     for _ in range(3):
@@ -364,21 +550,23 @@ def serve(cfg, np_params, tok, entries):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     best = min(times)
-    log(f"serve: predict_batch({N_IMAGES}) seconds "
+    log(f"serve {route}: predict_batch({N_IMAGES}) seconds "
         f"{[round(t, 4) for t in times]} "
         f"(first counted run {batch_s:.4f}), {engine.last_steps} steps, "
         f"images/s {N_IMAGES / best:.2f}")
 
-    profile_batch(engine, images, best)
+    idle = profile_batch(engine, images, best)
 
     # the kernel path against the plain path on the card, bf16
+    block = engine.pallas_encoder_block
     x, _ = engine._pad_batch(images)
     with torch.inference_mode():
-        mem_k = model_mod.encode(engine.params, cfg, x)
-        mem_p = model_mod.encode(engine.params, cfg, x, kernels=False)
-        res_k = greedy_decode(engine.params["decoder"], cfg, mem_k)
-        res_p = greedy_decode(engine.params["decoder"], cfg, mem_p,
-                              kernels=False)
+        mem_k = model_mod.encode(engine.params, cfg, x,
+                                 use_pallas_block=block)
+        mem_p = model_mod.encode(engine.params, cfg, x, kernels=False,
+                                 use_pallas_block=block)
+        res_k = route_decode(engine, cfg, mem_k, True)
+        res_p = route_decode(engine, cfg, mem_p, False)
     if not torch.isfinite(mem_k.float()).all():
         raise AssertionError("encoder memory is not finite")
     bucket = pick_bucket(N_IMAGES, engine.decode_cfg.batch_buckets)
@@ -387,24 +575,27 @@ def serve(cfg, np_params, tok, entries):
     mem_err = max_err(mem_k, mem_p)
     scale = mem_p.float().abs().max().item()
     agree = (res_k.tokens == res_p.tokens).float().mean().item()
-    log(f"serve: bf16 memory kernel vs plain max_abs_err {mem_err:.4g} "
-        f"(memory max |x| {scale:.3g}); greedy tokens agree {agree:.4f}")
+    log(f"serve {route}: bf16 memory kernel vs plain max_abs_err "
+        f"{mem_err:.4g} (memory max |x| {scale:.3g}); greedy tokens agree "
+        f"{agree:.4f}")
     if mem_err > MEMORY_BF16_REL * scale:
         raise AssertionError(f"bf16 encoder memory differs by {mem_err}")
 
     # float32: the same weights through the kernels and the plain path
     cfg32 = cfg.replace(dtype="float32")
-    engine32 = DecodeEngine(np_params, cfg32, tokenizer=tok, device=DEVICE)
+    engine32 = DecodeEngine(np_params, cfg32, tokenizer=tok, device=DEVICE,
+                            **route_kw)
     x32, _ = engine32._pad_batch(images[:2])
     with torch.inference_mode():
-        m_k = model_mod.encode(engine32.params, cfg32, x32)
-        m_p = model_mod.encode(engine32.params, cfg32, x32, kernels=False)
-        r_k = greedy_decode(engine32.params["decoder"], cfg32, m_k)
-        r_p = greedy_decode(engine32.params["decoder"], cfg32, m_p,
-                            kernels=False)
+        m_k = model_mod.encode(engine32.params, cfg32, x32,
+                               use_pallas_block=block)
+        m_p = model_mod.encode(engine32.params, cfg32, x32, kernels=False,
+                               use_pallas_block=block)
+        r_k = route_decode(engine32, cfg32, m_k, True)
+        r_p = route_decode(engine32, cfg32, m_p, False)
     err32 = max_err(m_k, m_p)
-    log(f"serve: float32 memory kernel vs plain max_abs_err {err32:.3g}; "
-        f"tokens equal {torch.equal(r_k.tokens, r_p.tokens)} "
+    log(f"serve {route}: float32 memory kernel vs plain max_abs_err "
+        f"{err32:.3g}; tokens equal {torch.equal(r_k.tokens, r_p.tokens)} "
         f"over {r_k.steps} steps")
     if err32 > MEMORY_F32_ATOL:
         raise AssertionError(f"float32 encoder memory differs by {err32}")
@@ -415,6 +606,7 @@ def serve(cfg, np_params, tok, entries):
     lp_err = (r_k.logprob_sum - r_p.logprob_sum).abs().max().item()
     if lp_err > 1e-2:
         raise AssertionError(f"float32 logprob sums differ by {lp_err}")
+    return N_IMAGES / best, idle
 
 
 def main() -> int:
@@ -458,8 +650,18 @@ def main() -> int:
     params = convert.to_torch(np_params, cfg, DEVICE)
     bucket = pick_bucket(N_IMAGES, DecodeConfig().batch_buckets)
     entries = check_kernels(cfg, params, bucket)
+    entries.append(check_fused_step(cfg, np_params, bucket))
+    entries.append(check_swin_block(cfg, params, bucket))
 
-    serve(cfg, np_params, tok, entries)
+    routes = {"pallas": {},
+              "fused": {"use_fused": True, "pallas_encoder_block": True}}
+    summary = {}
+    for route, kw in routes.items():
+        summary[route] = serve(cfg, np_params, tok, entries, route, **kw)
+    for route, (rate, idle) in summary.items():
+        idle_s = "not measured" if idle is None else f"{idle:.3f}"
+        log(f"route {route}: images/s {rate:.2f}, device idle share "
+            f"{idle_s} (of the best unprofiled predict_batch)")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

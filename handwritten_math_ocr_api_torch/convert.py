@@ -11,9 +11,15 @@ tree after ``np.asarray`` on each leaf) or tensors onto a device:
   tables and the output projection ``fc_out`` stay float32, as the JAX
   functions use them.
 
-``random_params`` builds a tree of the same structure, shapes and
-initialisation as the JAX package's ``init_model`` for the Swin-T encoder,
-with numpy from a seed (numpy's generator, so not the JAX values).
+``random_params`` builds a tree of the same structure and shapes as the JAX
+package's ``init_model`` for the Swin-T encoder, with numpy from a seed
+(numpy's generator, so not the JAX values). Its weights follow
+``init_model``'s initialisers; unlike a fresh ``init_model``, every bias
+and every LayerNorm bias is drawn from N(0, 0.05^2) and every LayerNorm
+scale from 1 + N(0, 0.05^2), as a trained model's are nonzero and not one
+(the same draws as ``tests/torch_swin_oracle.py``'s state dict), so that a
+check on these weights sees a bias or a norm parameter that a kernel drops
+or misplaces.
 """
 
 from __future__ import annotations
@@ -64,22 +70,21 @@ class _Init:
     def normal(self, shape, std: float) -> np.ndarray:
         return (self.rng.standard_normal(shape) * std).astype(np.float32)
 
+    def bias(self, dim: int) -> np.ndarray:
+        return self.normal((dim,), 0.05)
+
     def linear(self, fan_in: int, fan_out: int, bias: bool = True):
         p = {"w": self.xavier(fan_in, fan_out)}
         if bias:
-            p["b"] = np.zeros((fan_out,), np.float32)
+            p["b"] = self.bias(fan_out)
         return p
 
-    @staticmethod
-    def norm(dim: int):
-        return {"scale": np.ones((dim,), np.float32),
-                "bias": np.zeros((dim,), np.float32)}
+    def norm(self, dim: int):
+        return {"scale": 1.0 + self.bias(dim), "bias": self.bias(dim)}
 
     def mha(self, d: int):
-        return {"w_qkv": self.xavier(d, 3 * d),
-                "b_qkv": np.zeros((3 * d,), np.float32),
-                "w_out": self.xavier(d, d),
-                "b_out": np.zeros((d,), np.float32)}
+        return {"w_qkv": self.xavier(d, 3 * d), "b_qkv": self.bias(3 * d),
+                "w_out": self.xavier(d, d), "b_out": self.bias(d)}
 
     def mlp(self, d: int, hidden: int):
         return {"fc1": self.linear(d, hidden), "fc2": self.linear(hidden, d)}
@@ -99,7 +104,7 @@ def random_params(cfg: ModelConfig, seed: int = 0):
             "conv": {"w": init.normal(
                 (ps, ps, sc.in_channels, dim),
                 1.0 / math.sqrt(ps * ps * sc.in_channels)),
-                     "b": np.zeros((dim,), np.float32)},
+                     "b": init.bias(dim)},
             "norm": init.norm(dim),
         },
         "stages": [],

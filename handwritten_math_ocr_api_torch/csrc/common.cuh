@@ -20,6 +20,45 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Round a float32 value to the storage type and back: the value a matmul
+// input or an output takes after the TPU kernels' ``astype(dtype)``.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Sixteen bytes of storage type as floats: four float32 or eight bf16
+// values. The address must be 16-byte aligned.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+};
+
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

@@ -8,11 +8,20 @@ reference's confidence = exp(mean log-prob) and its fallback string),
 ``warmup`` and the batch buckets a request batch is padded up to.
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``, and raises
-without a CUDA device. On the card every encode goes through the window
-attention and patch merging kernels and every decode step through the
-cache-append attention kernel (the JAX engine's ``use_pallas=True``
-configuration). Beam search, sampling, constrained and streaming decoding
-are not ported yet.
+without a CUDA device. It has two routes, both all kernels on the card:
+
+- the default, the JAX engine's ``use_pallas=True`` configuration: every
+  encode through the window attention and patch merging kernels, every
+  decode step through the cache-append attention kernel, layer by layer;
+- ``use_fused=True, pallas_encoder_block=True``, the JAX engine's fused
+  serving configuration (``SERVING_USE_FUSED=1``,
+  ``SERVING_PALLAS_ENCODER=1``): the Swin blocks of stages 1-3 as
+  whole-block kernels (stage 4 keeps window attention, the merges keep
+  their kernel) and every decode step as one launch of the fused
+  decoder-step kernel. The two switches are independent, as in JAX.
+
+Beam search, sampling, constrained and streaming decoding are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from ..core.device import resolve_device
 from ..core.tokenizer import Tokenizer, clean_latex_output
 from ..data.preprocess import normalize
 from ..models import model as model_mod
+from ..ops.fused_step import build_stacked
+from .fused import greedy_decode_fused
 from .greedy import GreedyResult, greedy_decode
 
 EMPTY_RESULT_FALLBACK = (
@@ -47,16 +58,31 @@ class DecodeEngine:
 
     def __init__(self, params, cfg: ModelConfig,
                  decode_cfg: Optional[DecodeConfig] = None,
-                 tokenizer: Optional[Tokenizer] = None, *, device=None):
+                 tokenizer: Optional[Tokenizer] = None, *,
+                 use_fused: bool = False, pallas_encoder_block: bool = False,
+                 device=None):
         """``params``: the model's parameter tree with numpy or tensor
         leaves (a JAX tree after ``np.asarray`` on each leaf, or
         ``convert.random_params``); ``convert.to_torch`` moves it to
-        ``device`` with the port's dtype rules."""
+        ``device`` with the port's dtype rules. ``use_fused`` stacks the
+        decoder weights for the fused step once, here, from ``params``
+        (float32 biases and norms, as the JAX engine's bundle);
+        ``pallas_encoder_block`` selects the whole-block Swin kernel."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.decode_cfg = decode_cfg or DecodeConfig()
         self.tokenizer = tokenizer
         self.params = to_torch(params, cfg, self.device)
+        self.use_fused = use_fused
+        self.pallas_encoder_block = pallas_encoder_block
+        self.stacked = None
+        if use_fused:
+            if cfg.kv_heads != cfg.nhead:
+                raise NotImplementedError(
+                    "use_fused: grouped (MQA/GQA) self-attention is not "
+                    "ported; the fused step takes MHA configs only")
+            self.stacked = build_stacked(params["decoder"], cfg,
+                                          self.device)
         self.last_steps = 0  # decoder steps of the latest decode
 
     def _pad_batch(self, images) -> Tuple[torch.Tensor, int]:
@@ -81,9 +107,16 @@ class DecodeEngine:
         """images: (B, H, W, 1). Returns the GreedyResult of the true batch
         (bucket padding cut off)."""
         x, B = self._pad_batch(images)
-        memory = model_mod.encode(self.params, self.cfg, x)
-        res = greedy_decode(self.params["decoder"], self.cfg, memory,
-                            self.decode_cfg.max_seq_len)
+        memory = model_mod.encode(
+            self.params, self.cfg, x,
+            use_pallas_block=self.pallas_encoder_block)
+        max_len = self.decode_cfg.max_seq_len
+        if self.use_fused:
+            res = greedy_decode_fused(self.params["decoder"], self.stacked,
+                                      self.cfg, memory, max_len)
+        else:
+            res = greedy_decode(self.params["decoder"], self.cfg, memory,
+                                max_len)
         self.last_steps = res.steps
         return GreedyResult(res.tokens[:B], res.lengths[:B],
                             res.logprob_sum[:B], res.token_count[:B],

@@ -14,7 +14,7 @@ flag back from the device per step, to end early.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -30,15 +30,11 @@ class GreedyResult(NamedTuple):
     steps: int                 # decode steps run (each one decoder pass)
 
 
-@torch.inference_mode()
-def greedy_decode(params, cfg: ModelConfig, memory, max_len=None, *,
-                  kernels: bool = True) -> GreedyResult:
-    """memory: (B, L_enc, d_model) from the encoder. ``kernels=False``
-    takes the plain cache attention even on CUDA (the reference path)."""
-    B = memory.shape[0]
-    T = max_len or cfg.max_seq_len
-    dev = memory.device
-    cache = decoder_mod.init_cache(params, cfg, memory, max_len=T)
+def greedy_loop(step_logits: Callable[[torch.Tensor, int], torch.Tensor],
+                B: int, T: int, dev) -> GreedyResult:
+    """The loop and bookkeeping shared by the decode routes:
+    ``step_logits(prev, step)`` returns the float32 (B, vocab) logits of
+    one decoder step fed the previous tokens ``prev`` (B,) at ``step``."""
     tokens = torch.full((B, T), PAD_ID, dtype=torch.int64, device=dev)
     prev = torch.full((B,), SOS_ID, dtype=torch.int64, device=dev)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -46,8 +42,7 @@ def greedy_decode(params, cfg: ModelConfig, memory, max_len=None, *,
     count = torch.zeros((B,), dtype=torch.int64, device=dev)
     step = 0
     while step < T:
-        logits = decoder_mod.decoder_step(params, cfg, prev, step, cache,
-                                          kernels=kernels)
+        logits = step_logits(prev, step)
         nxt = logits.argmax(dim=-1)
         logp_all = torch.log(torch.softmax(logits, dim=-1) + 1e-10)
         logp = logp_all.gather(1, nxt[:, None])[:, 0]
@@ -63,3 +58,16 @@ def greedy_decode(params, cfg: ModelConfig, memory, max_len=None, *,
             break
     lengths = (tokens != PAD_ID).sum(dim=-1)
     return GreedyResult(tokens, lengths, lp_sum, count, step)
+
+
+@torch.inference_mode()
+def greedy_decode(params, cfg: ModelConfig, memory, max_len=None, *,
+                  kernels: bool = True) -> GreedyResult:
+    """memory: (B, L_enc, d_model) from the encoder. ``kernels=False``
+    takes the plain cache attention even on CUDA (the reference path)."""
+    T = max_len or cfg.max_seq_len
+    cache = decoder_mod.init_cache(params, cfg, memory, max_len=T)
+    return greedy_loop(
+        lambda prev, step: decoder_mod.decoder_step(
+            params, cfg, prev, step, cache, kernels=kernels),
+        memory.shape[0], T, memory.device)

@@ -17,15 +17,19 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def encode(params, cfg: ModelConfig, images: torch.Tensor, *,
-           kernels: bool = True) -> torch.Tensor:
+           kernels: bool = True,
+           use_pallas_block: bool = False) -> torch.Tensor:
     """images: (B, H, W, 1) normalized NHWC -> memory (B, L_enc, d_model)
-    in the compute dtype. ``kernels=False`` is the plain reference path."""
+    in the compute dtype. ``use_pallas_block`` runs the Swin blocks of the
+    stages that fuse as whole-block kernels; ``kernels=False`` is the plain
+    reference path."""
     if cfg.encoder != "swin_t":
         raise NotImplementedError(
             f"encoder {cfg.encoder!r} is not ported yet (swin_t only)")
     images = images.to(compute_dtype(cfg))
     feats = swin.swin_apply(params["encoder"], images, cfg.swin,
-                            kernels=kernels)
+                            kernels=kernels,
+                            use_pallas_block=use_pallas_block)
     memory = layers.linear(params["projection"], feats)
     if cfg.memory_norm:
         memory = layers.layer_norm(params["memory_norm"], memory)

@@ -12,14 +12,19 @@ only the shift mask applies), the shift is clamped to 0 along a padded
 dimension that fits in one window, the region mask fills -100, and the
 MLP uses the tanh-approximate GELU of ``jax.nn.gelu``.
 
-``kernels=False`` runs the plain versions of the two kernels even on a CUDA
+``use_pallas_block=True`` (the JAX engine's ``pallas_encoder_block``)
+runs each block of a stage that passes the reference's route rule
+(``ops/swin_block.fits_vmem``: stages 1-3 of Swin-T) as one whole-block
+kernel launch; the other stages keep the window attention kernel.
+
+``kernels=False`` runs the plain versions of the kernels even on a CUDA
 device; it is the reference path that the kernels are held against.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -27,6 +32,11 @@ import torch.nn.functional as F
 
 from ..core.config import SwinConfig
 from ..ops.patch_merging import fused_patch_merging, patch_merging_plain
+from ..ops.swin_block import (
+    fits_vmem,
+    fused_swin_block,
+    fused_swin_block_plain,
+)
 from ..ops.window_attention import fused_window_attention
 from . import layers
 
@@ -126,9 +136,15 @@ def window_attention(p, x: Tensor, ws: int, shift: int, num_heads: int, *,
 
 
 def swin_block(p, x: Tensor, ws: int, shift: int, num_heads: int, *,
-               kernels: bool = True) -> Tensor:
+               kernels: bool = True, use_pallas_block: bool = False) -> Tensor:
     """Pre-norm Swin block: x + attn(LN(x)); x + mlp(LN(x)) (inference:
-    no stochastic depth)."""
+    no stochastic depth). ``use_pallas_block`` takes the whole-block kernel
+    where the reference's route rule lets its stage fuse."""
+    if use_pallas_block:
+        W_pad = -(-x.shape[2] // ws) * ws
+        if fits_vmem(x.shape[-1], ws, W_pad, p["mlp"]["fc1"]["w"].shape[1]):
+            block = fused_swin_block if kernels else fused_swin_block_plain
+            return block(p, x.contiguous(), ws, shift, num_heads)
     h = window_attention(p["attn"], layers.layer_norm(p["norm1"], x), ws,
                          shift, num_heads, kernels=kernels)
     x = x + h
@@ -161,18 +177,31 @@ def patch_embed(p, images: Tensor) -> Tensor:
     return layers.layer_norm(p["norm"], x)
 
 
-def swin_apply(params, images: Tensor, cfg: SwinConfig, *,
-               kernels: bool = True) -> Tensor:
-    """Full Swin trunk: (B, H, W, 1) -> (B, H/32 * W/32, 768)."""
+def swin_apply_stages(params, images: Tensor, cfg: SwinConfig, *,
+                      kernels: bool = True,
+                      use_pallas_block: bool = False) -> List[Tensor]:
+    """The trunk with its taps: [patch-embed out, stage-1 out (after its
+    blocks, before the merge), ..., last-stage out], each (B, h, w, C)."""
     x = patch_embed(params["patch_embed"], images)
+    taps = [x]
     ws = cfg.window_size
     for i, depth in enumerate(cfg.depths):
         blocks = params["stages"][i]["blocks"]
         for d in range(depth):
             shift = 0 if d % 2 == 0 else ws // 2
             x = swin_block(blocks[d], x, ws, shift, cfg.num_heads[i],
-                           kernels=kernels)
+                           kernels=kernels,
+                           use_pallas_block=use_pallas_block)
+        taps.append(x)
         if i < len(cfg.depths) - 1:
             x = patch_merging(params["merges"][i], x, kernels=kernels)
+    return taps
+
+
+def swin_apply(params, images: Tensor, cfg: SwinConfig, *,
+               kernels: bool = True, use_pallas_block: bool = False) -> Tensor:
+    """Full Swin trunk: (B, H, W, 1) -> (B, H/32 * W/32, 768)."""
+    x = swin_apply_stages(params, images, cfg, kernels=kernels,
+                          use_pallas_block=use_pallas_block)[-1]
     B, H, W, C = x.shape
     return x.reshape(B, H * W, C)

@@ -45,6 +45,15 @@ SIGNATURES = {
     # q, k_new, v_new, k_cache, v_cache, out, G, T, Dh, pos, stream
     "cache_append_attention_bf16": (P, P, P, P, P, P, I, I, I, I, P),
     "cache_append_attention_f32": (P, P, P, P, P, P, I, I, I, I, P),
+    # x_emb, 6 x (weight, bias), ln, self_k, self_v, cross_k, cross_v,
+    # x_out, k_new, v_new, L, B, T, D, H, F, L_enc, pos, stream
+    "fused_decoder_step_bf16": (P,) * 21 + (I,) * 8 + (P,),
+    "fused_decoder_step_f32": (P,) * 21 + (I,) * 8 + (P,),
+    # x, norm1 (2), w_qkv, b_qkv, table, w_out, b_out, norm2 (2), fc1 (2),
+    # fc2 (2), out, B, H, W, C, heads, hidden, ws, shift_h, shift_w, G, hc,
+    # smem bytes, stream
+    "swin_block_bf16": (P,) * 15 + (I,) * 12 + (P,),
+    "swin_block_f32": (P,) * 15 + (I,) * 12 + (P,),
 }
 
 _lib = None
@@ -138,8 +147,10 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require(t, name: str, *, dtype=None, shape=None, device=None) -> None:
-    """Validate a tensor before its pointer goes to a kernel."""
+def require(t, name: str, *, dtype=None, shape=None, device=None,
+            aligned: bool = False) -> None:
+    """Validate a tensor before its pointer goes to a kernel; ``aligned``
+    for one that the kernel reads as 16-byte vectors."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if device is not None and t.device != device:
@@ -151,3 +162,5 @@ def require(t, name: str, *, dtype=None, shape=None, device=None) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")

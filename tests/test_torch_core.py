@@ -205,6 +205,38 @@ def test_random_params_tree_matches_jax_init():
     assert got == want
 
 
+def test_random_params_draws_biases_and_norms():
+    """Every bias and LayerNorm bias is drawn around 0 and every LayerNorm
+    scale around 1 (std 0.05), so that checks on these weights see a
+    dropped or misplaced bias or norm parameter; the same seed gives the
+    same tree."""
+    cfg = tcfg.load_model_config(MODEL_DIR)
+    tree = convert.random_params(cfg, seed=0)
+    seen = {"bias": 0, "scale": 0}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, key)
+        elif key in ("b", "b_qkv", "b_out", "bias"):
+            seen["bias"] += 1
+            assert 0.02 < node.std() < 0.1 and abs(node.mean()) < 0.05, key
+        elif key == "scale":
+            seen["scale"] += 1
+            assert 0.02 < node.std() < 0.1, key
+            assert abs(node.mean() - 1.0) < 0.05, key
+
+    walk(tree, None)
+    assert seen["bias"] > 100 and seen["scale"] > 40, seen
+    again = convert.random_params(cfg, seed=0)
+    np.testing.assert_array_equal(
+        again["decoder"]["layers"][3]["norm2"]["bias"],
+        tree["decoder"]["layers"][3]["norm2"]["bias"])
+
+
 def test_to_torch_dtype_rules():
     cfg = tcfg.ModelConfig()  # bfloat16 compute
     tree = {"encoder": {"w_qkv": np.ones((2, 6), np.float32),

@@ -147,5 +147,6 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
         _build.require(torch.zeros(2), "q")
     assert sorted(_build.SIGNATURES) == sorted(
         f"{k}_{t}" for k in ("window_attention", "patch_merging",
-                             "cache_append_attention")
+                             "cache_append_attention", "fused_decoder_step",
+                             "swin_block")
         for t in ("bf16", "f32"))

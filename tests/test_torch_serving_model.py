@@ -3,10 +3,11 @@
 The JAX loader reads the orbax checkpoint; ``convert.to_torch`` carries the
 tree to the port. Both engines decode the first test images of
 ``data_calib_hard`` in float32 (the JAX one on its Pallas route, in
-interpret mode), and the tokens must be equal. Marked ``slow``: a full
-Swin-T encode and up to 150 decode steps through interpreted kernels take
-minutes on the CPU. Skips where the checkpoint is absent (it is not part
-of a git checkout).
+interpret mode), and the tokens must be equal; on the default route, and
+on the port's fused route against JAX's fused decoder step. Marked
+``slow``: a full Swin-T encode and up to 150 decode steps through
+interpreted kernels take minutes on the CPU. Skips where the checkpoint is
+absent (it is not part of a git checkout).
 """
 
 import glob
@@ -21,8 +22,7 @@ IMAGES = sorted(glob.glob(os.path.join(
     REPO, "data_calib_hard", "test_formulas", "*.png")))[:4]
 
 
-@pytest.mark.slow
-def test_serving_model_r4_tokens_match_jax():
+def _engines(**port_route):
     if not os.path.isdir(os.path.join(MODEL_DIR, "params")) or not IMAGES:
         pytest.skip("serving_model_r4 checkpoint or test images absent")
     import jax
@@ -47,13 +47,36 @@ def test_serving_model_r4_tokens_match_jax():
                        for p in IMAGES])[..., None]
     jax_engine = JEngine(params, state, jcfg,
                          tokenizer=JTokenizer(vocab, idx2char),
-                         use_pallas=True)
+                         use_pallas=True,
+                         use_fused=port_route.get("use_fused", False))
     np_params = jax.tree_util.tree_map(np.array, params)
     engine = DecodeEngine(np_params, cfg, tokenizer=Tokenizer(vocab, idx2char),
-                          device="cpu")
+                          device="cpu", **port_route)
+    return jax_engine, engine, images
+
+
+@pytest.mark.slow
+def test_serving_model_r4_tokens_match_jax():
+    jax_engine, engine, images = _engines()
     want = jax_engine.decode_tokens(images)
     got = engine.decode_tokens(images)
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
     np.testing.assert_allclose(got.logprob_sum.numpy(),
                                np.asarray(want.logprob_sum), atol=1e-3)
     assert engine.predict_batch(images) == jax_engine.predict_batch(images)
+
+
+@pytest.mark.slow
+def test_serving_model_r4_fused_route_matches_jax():
+    """The port's fused route on the shipped weights. JAX runs its fused
+    decoder step but not its whole-block encoder kernel: that kernel pads
+    before LN1 and so differs from swin_block on these weights (their LN1
+    biases are nonzero); the port's block kernel computes swin_block's
+    function, which is JAX's default encoder."""
+    jax_engine, engine, images = _engines(use_fused=True,
+                                          pallas_encoder_block=True)
+    want = jax_engine.decode_tokens(images)
+    got = engine.decode_tokens(images)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_allclose(got.logprob_sum.numpy(),
+                               np.asarray(want.logprob_sum), atol=1e-3)
