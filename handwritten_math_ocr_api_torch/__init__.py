@@ -2,9 +2,9 @@
 
 The package mirrors ``handwritten_math_ocr_api_tpu`` module by module and is
 held against it by the ``tests/test_torch_*.py`` parity tests. It imports
-torch and numpy only. Served greedy decoding runs on an NVIDIA Hopper card;
-the TPU's Pallas kernels on that path are hand-written CUDA kernels under
-``csrc/`` (see ``ops/``).
+torch and numpy only. Served greedy decoding and beam search run on an
+NVIDIA Hopper card; the TPU's Pallas kernels on those paths are
+hand-written CUDA kernels under ``csrc/`` (see ``ops/``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device they raise instead of dropping to the CPU.

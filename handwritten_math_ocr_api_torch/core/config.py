@@ -99,8 +99,7 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class DecodeConfig:
     """Autoregressive decode settings: the longest output, the beam width
-    (beam search is not ported yet) and the batch buckets a request batch
-    is padded up to."""
+    and the batch buckets a request batch is padded up to."""
 
     max_seq_len: int = 150
     beam_size: int = 5

@@ -1,12 +1,17 @@
-// KV-cache append + single-query decode attention, one decoder layer.
+// KV-cache append + single-query decode attention, one decoder layer, and
+// the same attention without the append.
 //
-// Replaces the Pallas TPU kernel
-// handwritten_math_ocr_api_tpu/ops/cache_attention.py::cache_append_attention
-// (_kernel). For each (batch, head) group g: write k_new, v_new into row
-// `pos` of the (T, Dh) caches, in place, then
-//   out = softmax(q k_cache[0..pos]^T / sqrt(Dh)) v_cache[0..pos]
-// in float32. Slots after `pos` are masked to -inf in the TPU kernel; they
-// add exactly zero there, so this kernel does not read them at all.
+// Replaces two Pallas TPU kernels:
+// - handwritten_math_ocr_api_tpu/ops/cache_attention.py::
+//   cache_append_attention (_kernel). For each (batch, head) group g: write
+//   k_new, v_new into row `pos` of the (T, Dh) caches, in place, then
+//     out = softmax(q k_cache[0..pos]^T / sqrt(Dh)) v_cache[0..pos]
+//   in float32;
+// - handwritten_math_ocr_api_tpu/ops/decode_attention.py::decode_attention
+//   (_kernel): the same attention over slots 0..pos of the caches as they
+//   are, nothing written (kAppend false).
+// Slots after `pos` are masked to -inf in the TPU kernels; they add exactly
+// zero there, so this kernel does not read them at all.
 //
 // Bound on the H100: device memory. A step reads pos + 1 rows of K and of
 // V and does 4 flops per element read, about 1 flop a byte. Design: one
@@ -32,7 +37,7 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return r;
 }
 
-template <typename T>
+template <typename T, bool kAppend>
 __global__ void __launch_bounds__(kThreads)
 cache_append_attention_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_new,
@@ -54,9 +59,17 @@ cache_append_attention_kernel(const T* __restrict__ q,
   const float scale = 1.0f / sqrtf(static_cast<float>(Dh));
 
   for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    const T kv = k_new[row + d], vv = v_new[row + d];
-    k_cache[cache + static_cast<size_t>(pos) * Dh + d] = kv;
-    v_cache[cache + static_cast<size_t>(pos) * Dh + d] = vv;
+    const size_t at = cache + static_cast<size_t>(pos) * Dh + d;
+    T kv, vv;
+    if (kAppend) {
+      kv = k_new[row + d];
+      vv = v_new[row + d];
+      k_cache[at] = kv;
+      v_cache[at] = vv;
+    } else {
+      kv = k_cache[at];
+      vv = v_cache[at];
+    }
     qs[d] = to_f32(q[row + d]) * scale;
     kn[d] = to_f32(kv);
     vn[d] = to_f32(vv);
@@ -109,16 +122,17 @@ cache_append_attention_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, bool kAppend>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
            void* v_cache, void* out, int G, int T_len, int Dh, int pos,
            void* stream) {
   const size_t smem =
       (static_cast<size_t>(3 * Dh + T_len + 32 + kThreads)) * sizeof(float);
-  cudaError_t err = allow_smem(cache_append_attention_kernel<T>, smem);
+  cudaError_t err =
+      allow_smem(cache_append_attention_kernel<T, kAppend>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cache_append_attention_kernel<T><<<G, kThreads, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cache_append_attention_kernel<T, kAppend><<<G, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_cache),
       static_cast<T*>(v_cache), static_cast<T*>(out), T_len, Dh, pos);
@@ -132,8 +146,8 @@ extern "C" int cache_append_attention_bf16(const void* q, const void* k_new,
                                            void* v_cache, void* out, int G,
                                            int T_len, int Dh, int pos,
                                            void* stream) {
-  return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, out, G,
-                               T_len, Dh, pos, stream);
+  return launch<__nv_bfloat16, true>(q, k_new, v_new, k_cache, v_cache, out,
+                                     G, T_len, Dh, pos, stream);
 }
 
 extern "C" int cache_append_attention_f32(const void* q, const void* k_new,
@@ -141,6 +155,26 @@ extern "C" int cache_append_attention_f32(const void* q, const void* k_new,
                                           void* v_cache, void* out, int G,
                                           int T_len, int Dh, int pos,
                                           void* stream) {
-  return launch<float>(q, k_new, v_new, k_cache, v_cache, out, G, T_len, Dh,
-                       pos, stream);
+  return launch<float, true>(q, k_new, v_new, k_cache, v_cache, out, G,
+                             T_len, Dh, pos, stream);
+}
+
+// q, k, v, out: the caches are read only; k_new and v_new are not used.
+extern "C" int decode_attention_bf16(const void* q, const void* k,
+                                     const void* v, void* out, int G,
+                                     int T_len, int Dh, int pos,
+                                     void* stream) {
+  return launch<__nv_bfloat16, false>(q, nullptr, nullptr,
+                                      const_cast<void*>(k),
+                                      const_cast<void*>(v), out, G, T_len,
+                                      Dh, pos, stream);
+}
+
+extern "C" int decode_attention_f32(const void* q, const void* k,
+                                    const void* v, void* out, int G,
+                                    int T_len, int Dh, int pos,
+                                    void* stream) {
+  return launch<float, false>(q, nullptr, nullptr, const_cast<void*>(k),
+                              const_cast<void*>(v), out, G, T_len, Dh, pos,
+                              stream);
 }

@@ -14,7 +14,9 @@
 // are not masked), as in swin_block and torchvision. Rounding points follow
 // the TPU kernel: LN outputs, qkv, the attention output, proj, x1, the
 // GELU output and fc2 are rounded to the storage type; every product
-// accumulates in float32; LN and softmax are float32.
+// accumulates in float32; the four biases (qkv, proj, fc1, fc2) come in
+// float32 and are added in float32, as the TPU kernel adds them; LN and
+// softmax are float32.
 //
 // Bound on the H100: operations. Per token the block does about
 // 24 C^2 flops against 4 C bytes in and out, so every stage of Swin-T is
@@ -126,12 +128,13 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 swin_block_kernel(const T* __restrict__ x, const float* __restrict__ g1,
                   const float* __restrict__ be1, const T* __restrict__ w_qkv,
-                  const T* __restrict__ b_qkv,
+                  const float* __restrict__ b_qkv,
                   const float* __restrict__ table, const T* __restrict__ w_o,
-                  const T* __restrict__ b_o, const float* __restrict__ g2,
+                  const float* __restrict__ b_o, const float* __restrict__ g2,
                   const float* __restrict__ be2, const T* __restrict__ w1,
-                  const T* __restrict__ b1, const T* __restrict__ w2,
-                  const T* __restrict__ b2, T* __restrict__ out, int H, int W,
+                  const float* __restrict__ b1, const T* __restrict__ w2,
+                  const float* __restrict__ b2, T* __restrict__ out, int H,
+                  int W,
                   int C, int nh, int hid, int ws, int shift_h, int shift_w,
                   int G, int hc) {
   extern __shared__ float smem[];
@@ -180,7 +183,7 @@ swin_block_kernel(const T* __restrict__ x, const float* __restrict__ g1,
           [&](int m, int n, float acc) {
             const int part = n / gq;
             const int col = part * C + h0 * dh + n - part * gq;
-            const float v = round_to<T>(acc + to_f32(b_qkv[col]));
+            const float v = round_to<T>(acc + b_qkv[col]);
             scr[m * ldq + n] = part == 0 ? v * scale : v;
           });
     __syncthreads();
@@ -233,7 +236,7 @@ swin_block_kernel(const T* __restrict__ x, const float* __restrict__ g1,
     const int s = src_of[m];
     if (s < 0) return;
     const size_t at = static_cast<size_t>(s) * C + n;
-    const float proj = round_to<T>(acc + to_f32(b_o[n]));
+    const float proj = round_to<T>(acc + b_o[n]);
     const T x1 = from_f32<T>(to_f32(xb[at]) + proj);
     ob[at] = x1;
     bufA[m * C + n] = to_f32(x1);
@@ -252,7 +255,7 @@ swin_block_kernel(const T* __restrict__ x, const float* __restrict__ g1,
     mm<T>(bufB, C, N, C, w1, hid, c0, hc, 0, hc,
           [&](int m, int n, float acc) {
             scr[m * hc + n] =
-                round_to<T>(gelu_tanh(acc + to_f32(b1[c0 + n])));
+                round_to<T>(gelu_tanh(acc + b1[c0 + n]));
           });
     __syncthreads();
     mm<T>(scr, hc, N, hc, w2 + static_cast<size_t>(c0) * C, C, 0, C, 0, C,
@@ -266,7 +269,7 @@ swin_block_kernel(const T* __restrict__ x, const float* __restrict__ g1,
     const int s = src_of[m];
     if (s < 0) continue;
     T* o = ob + static_cast<size_t>(s) * C + n;
-    const float h2 = round_to<T>(bufA[idx] + to_f32(b2[n]));
+    const float h2 = round_to<T>(bufA[idx] + b2[n]);
     *o = from_f32<T>(to_f32(*o) + h2);
   }
 }
@@ -287,10 +290,10 @@ int launch(const void* x, const void* g1, const void* be1,
   swin_block_kernel<T><<<B * windows, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<CT>(x), static_cast<CF>(g1), static_cast<CF>(be1),
-      static_cast<CT>(w_qkv), static_cast<CT>(b_qkv),
-      static_cast<CF>(table), static_cast<CT>(w_o), static_cast<CT>(b_o),
+      static_cast<CT>(w_qkv), static_cast<CF>(b_qkv),
+      static_cast<CF>(table), static_cast<CT>(w_o), static_cast<CF>(b_o),
       static_cast<CF>(g2), static_cast<CF>(be2), static_cast<CT>(w1),
-      static_cast<CT>(b1), static_cast<CT>(w2), static_cast<CT>(b2),
+      static_cast<CF>(b1), static_cast<CT>(w2), static_cast<CF>(b2),
       static_cast<T*>(out), H, W, C, nh, hid, ws, shift_h, shift_w, G, hc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,10 +45,21 @@ SIGNATURES = {
     # q, k_new, v_new, k_cache, v_cache, out, G, T, Dh, pos, stream
     "cache_append_attention_bf16": (P, P, P, P, P, P, I, I, I, I, P),
     "cache_append_attention_f32": (P, P, P, P, P, P, I, I, I, I, P),
+    # q, k, v, out, G, T, Dh, pos, stream
+    "decode_attention_bf16": (P, P, P, P, I, I, I, I, P),
+    "decode_attention_f32": (P, P, P, P, I, I, I, I, P),
     # x_emb, 6 x (weight, bias), ln, self_k, self_v, cross_k, cross_v,
     # x_out, k_new, v_new, L, B, T, D, H, F, L_enc, pos, stream
     "fused_decoder_step_bf16": (P,) * 21 + (I,) * 8 + (P,),
     "fused_decoder_step_f32": (P,) * 21 + (I,) * 8 + (P,),
+    # prev, pos, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
+    # cross_k, cross_v, w_head, b_head, logits, nxt, logp, k_new, v_new,
+    # L, R, T, D, H, F, L_enc, V, T_pos, stream
+    "ragged_step_bf16": (P,) * 28 + (I,) * 9 + (P,),
+    "ragged_step_f32": (P,) * 28 + (I,) * 9 + (P,),
+    # k_in, v_in, src, k_out, v_out, L, R, T_in, T_out, t_ext, row bytes,
+    # stream (one entry for every type: the kernel copies bytes)
+    "beam_cache_gather": (P,) * 5 + (I,) * 6 + (P,),
     # x, norm1 (2), w_qkv, b_qkv, table, w_out, b_out, norm2 (2), fc1 (2),
     # fc2 (2), out, B, H, W, C, heads, hidden, ws, shift_h, shift_w, G, hc,
     # smem bytes, stream

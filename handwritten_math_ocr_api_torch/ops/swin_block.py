@@ -14,7 +14,11 @@ TPU kernel pads before LN1, and its padded keys then carry
 pins the difference). Rounding points are the TPU kernel's: the LN
 outputs, qkv, the attention output, proj, the residual sums, the GELU
 output and fc2 are rounded to the activation dtype; products accumulate
-in float32.
+in float32, and the four biases (``attn.b_qkv``, ``attn.b_out``,
+``mlp.fc1.b``, ``mlp.fc2.b``) are float32 and added in float32, as the TPU
+kernel adds them. ``convert.to_torch`` gives those biases the compute
+dtype, as the jnp ``swin_block`` uses them; ``with_float32_biases`` makes
+the kernel's bundle from the float32 parameter tree.
 
 ``fits_vmem`` is the JAX route rule, kept so that the same stages take
 the kernel as in the reference (stages 1-3 of Swin-T). The CUDA wrapper
@@ -24,6 +28,7 @@ activations of one window must fit; it raises beyond it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models import layers
@@ -33,6 +38,38 @@ _ENTRY = {torch.bfloat16: "swin_block_bf16", torch.float32: "swin_block_f32"}
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 _SUBLANE = 16
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+
+
+BIAS_PATHS = (("attn", "b_qkv"), ("attn", "b_out"), ("mlp", "fc1", "b"),
+              ("mlp", "fc2", "b"))
+
+
+def with_float32_biases(encoder_np, encoder):
+    """The block kernel's bundle: a copy of the encoder tree ``encoder``
+    (tensors) whose blocks take their four biases (``BIAS_PATHS``) in
+    float32 from ``encoder_np``, the same tree with float32 leaves (numpy
+    arrays or tensors). Every other leaf is shared. A block that does not
+    take the kernel casts its biases to the compute dtype at use, so it
+    computes what it did with ``encoder``'s biases."""
+    out = dict(encoder)
+    out["stages"] = []
+    for stage_np, stage in zip(encoder_np["stages"], encoder["stages"]):
+        blocks = []
+        for blk_np, blk in zip(stage_np["blocks"], stage["blocks"]):
+            blk = {**blk, "attn": dict(blk["attn"]),
+                   "mlp": {k: dict(v) for k, v in blk["mlp"].items()}}
+            for path in BIAS_PATHS:
+                node, node_np = blk, blk_np
+                for key in path[:-1]:
+                    node, node_np = node[key], node_np[key]
+                leaf = node_np[path[-1]]
+                t = (leaf if isinstance(leaf, torch.Tensor)
+                     else torch.from_numpy(np.array(leaf)))
+                node[path[-1]] = t.to(device=node[path[-1]].device,
+                                      dtype=torch.float32).contiguous()
+            blocks.append(blk)
+        out["stages"].append({**stage, "blocks": blocks})
+    return out
 
 
 def fits_vmem(C: int, ws: int, W_pad: int, hid: int) -> bool:
@@ -145,17 +182,17 @@ def fused_swin_block(p, x, ws: int, shift: int, num_heads: int):
         ("norm1 scale", p["norm1"]["scale"], f32, (C,)),
         ("norm1 bias", p["norm1"]["bias"], f32, (C,)),
         ("w_qkv", attn_p["w_qkv"], dt, (C, 3 * C)),
-        ("b_qkv", attn_p["b_qkv"], dt, (3 * C,)),
+        ("b_qkv", attn_p["b_qkv"], f32, (3 * C,)),
         ("rel_bias_table", attn_p["rel_bias_table"], f32,
          ((2 * ws - 1) ** 2, num_heads)),
         ("w_out", attn_p["w_out"], dt, (C, C)),
-        ("b_out", attn_p["b_out"], dt, (C,)),
+        ("b_out", attn_p["b_out"], f32, (C,)),
         ("norm2 scale", p["norm2"]["scale"], f32, (C,)),
         ("norm2 bias", p["norm2"]["bias"], f32, (C,)),
         ("fc1 w", mlp_p["fc1"]["w"], dt, (C, hid)),
-        ("fc1 b", mlp_p["fc1"]["b"], dt, (hid,)),
+        ("fc1 b", mlp_p["fc1"]["b"], f32, (hid,)),
         ("fc2 w", mlp_p["fc2"]["w"], dt, (hid, C)),
-        ("fc2 b", mlp_p["fc2"]["b"], dt, (C,)),
+        ("fc2 b", mlp_p["fc2"]["b"], f32, (C,)),
     ]
     for name, t, dtype, shape in operands:
         _build.require(t, name, dtype=dtype, shape=shape, device=dev,

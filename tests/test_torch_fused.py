@@ -202,6 +202,45 @@ def test_swin_block_plain_matches_swin_block(case, shift):
     np.testing.assert_array_equal(routed.numpy(), got.numpy())
 
 
+@pytest.mark.parametrize("shift", [0, 3])
+def test_swin_block_bf16_biases_match_pallas_block(shift):
+    """In bf16 the block kernel takes its four biases in float32 and adds
+    them in float32, as the TPU kernel does. Biases drawn from N(0, 6^2),
+    far off the bf16 grid, LN1's bias zero (where the reference computes
+    swin_block's function), on a padded map: rounding the biases to bf16
+    moves the output from the TPU kernel's by more than 0.02 on average;
+    the port with the engine's float32 bundle (``with_float32_biases``)
+    stays within a quarter of that gap. The remaining difference is bf16
+    rounding of intermediates whose float32 sums differ in order (about
+    a tenth of the outputs move by one bf16 step)."""
+    C, heads = 32, 2
+    jp, _ = _block(C, heads, key=7, norm1_bias=0.0)
+    rng = np.random.default_rng(shift)
+    for path in tblock.BIAS_PATHS:
+        node = jp
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = 6.0 * rng.standard_normal(
+            node[path[-1]].shape).astype(np.float32)
+    x = jnp.asarray(rng.standard_normal((2, 10, 16, C)).astype(np.float32)
+                    ).astype(jnp.bfloat16)
+    want = np.asarray(j_fused_swin_block(_j(jp), x, 7, shift, heads,
+                                         interpret=True).astype(jnp.float32))
+    encoder = {"stages": [{"blocks": [jp]}]}
+    bf16 = convert.to_torch(encoder, CFG.replace(dtype="bfloat16"), "cpu")
+    bundle = tblock.with_float32_biases(encoder, bf16)
+    p32 = bundle["stages"][0]["blocks"][0]
+    p16 = bf16["stages"][0]["blocks"][0]
+    assert p32["mlp"]["fc2"]["b"].dtype == torch.float32
+    assert p16["mlp"]["fc2"]["b"].dtype == torch.bfloat16  # not shared
+    xt = _t(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    got = tblock.fused_swin_block(p32, xt, 7, shift, heads).float().numpy()
+    old = tblock.fused_swin_block(p16, xt, 7, shift, heads).float().numpy()
+    gap = np.abs(old - want).mean()
+    assert gap > 0.02
+    assert np.abs(got - want).mean() < gap / 4
+
+
 def test_reference_block_kernel_pads_before_ln1():
     """The reference's deviation, pinned: the TPU whole-block kernel pads
     the map before LN1, so on a padded map with LN1 bias 0.5 its padded

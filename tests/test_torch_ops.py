@@ -1,4 +1,4 @@
-"""The port's three kernel modules against the JAX package's Pallas kernels.
+"""The port's small kernel modules against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version, and the
 JAX kernel runs in Pallas interpret mode, as ``tests/test_ops.py`` runs it.
@@ -7,7 +7,7 @@ tolerances cover float32 summation order only: the two sides compute the
 same float32 arithmetic in different orders (1e-5 relative for sums of a
 few dozen terms, 1e-4 where a LayerNorm and a 4C-term product stack up).
 The CUDA kernels themselves are held against these plain versions on the
-card, by ``chip_smoke.py``.
+card, by ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``.
 """
 
 import numpy as np
@@ -18,6 +18,9 @@ import jax.numpy as jnp
 
 from handwritten_math_ocr_api_tpu.ops.cache_attention import (
     cache_append_attention as j_cache_attention,
+)
+from handwritten_math_ocr_api_tpu.ops.decode_attention import (
+    decode_attention as j_decode_attention,
 )
 from handwritten_math_ocr_api_tpu.ops.patch_merging import (
     fused_patch_merging as j_patch_merging,
@@ -132,6 +135,27 @@ def test_cache_append_attention_matches_pallas(pos):
     np.testing.assert_array_equal(vc.numpy(), np.asarray(v_want))
 
 
+@pytest.mark.parametrize("pos", [0, 4, 8])
+def test_decode_attention_matches_pallas(pos):
+    """The attention without the append: caches read, never written."""
+    rng = np.random.default_rng(4)
+    B, H, T, Dh = 2, 3, 9, 32
+    k_cache, v_cache = (rng.standard_normal((B, H, T, Dh)).astype(np.float32)
+                        for _ in range(2))
+    q = rng.standard_normal((B, H, 1, Dh)).astype(np.float32)
+    want = j_decode_attention(jnp.asarray(q), jnp.asarray(k_cache),
+                              jnp.asarray(v_cache), jnp.int32(pos),
+                              interpret=True)
+    kc, vc = _t(k_cache.copy()), _t(v_cache.copy())
+    before = ca.decode_attention.launches
+    got = ca.decode_attention(_t(q), kc, vc, pos)
+    assert ca.decode_attention.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_array_equal(kc.numpy(), k_cache)
+    np.testing.assert_array_equal(vc.numpy(), v_cache)
+
+
 def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
     """Without nvcc the build raises a clear error; a non-zero launch code
     raises; a CPU tensor is refused before its pointer reaches a kernel."""
@@ -146,7 +170,8 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         _build.require(torch.zeros(2), "q")
     assert sorted(_build.SIGNATURES) == sorted(
-        f"{k}_{t}" for k in ("window_attention", "patch_merging",
-                             "cache_append_attention", "fused_decoder_step",
-                             "swin_block")
-        for t in ("bf16", "f32"))
+        [f"{k}_{t}" for k in ("window_attention", "patch_merging",
+                              "cache_append_attention", "decode_attention",
+                              "fused_decoder_step", "ragged_step",
+                              "swin_block")
+         for t in ("bf16", "f32")] + ["beam_cache_gather"])
