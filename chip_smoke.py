@@ -8,33 +8,47 @@ Run from the root of a checkout. Phases, each printed on its own lines:
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA kernels in ``handwritten_math_ocr_api_torch/csrc``
    with ``nvcc``, and its seconds;
-3. each of the eight kernels against its plain PyTorch version on the
+3. each of the eleven kernels against its plain PyTorch version on the
    card, in bf16, at the shapes the served paths give it (a 10-image
    request padded to the 16-row batch bucket; beam search at beam 5 on the
    10 images, 50 rows): window attention, patch merging, cache-append
    attention and decode attention at every stage or slot they serve; the
-   fused decoder step at pos 0, 74 and 149; the whole Swin block at stages
-   1-3, unshifted and shifted; the ragged step at pos 0, 74, 149 and a
-   ragged position vector, in both head modes (and in float32, where its
-   argmax must be equal); the beam cache reorder over the whole cache and
-   a prefix (exactly equal). Each with its time, the plain version's time,
-   the time of one PyTorch library call computing the same function where
-   there is one (else null), and the least time the card could take (its
-   bound, and whether bytes or operations set it);
-4. served decoding at full width and depth on both routes of the engine:
+   fused decoder step at pos 0, 74 and 149, with the float bundle and the
+   int8 one; the whole Swin block at stages 1-3, unshifted and shifted;
+   the ragged step at pos 0, 74, 149 and a ragged position vector, in both
+   head modes, with both bundles (and in float32, where its argmax must be
+   equal, for the int8 bundle wherever the plain logits are no near-tie);
+   the beam cache reorder over the whole cache and a prefix (exactly
+   equal); the int8 dequant matmul at each projection of a decoder layer
+   and the float32 head at 16 and 50 rows, and the cross K/V projection at
+   480 and 1500. Each with its device time (``torch.profiler``: the
+   kernels' own time, not the host's launch rate), the plain version's
+   time, the time of one PyTorch library call computing the same function
+   where there is one
+   (else null; for the dequant matmul the nearest call, a matmul with the
+   weight dequantized beforehand), and the least time the card could take
+   (its bound, and whether bytes or operations set it);
+4. served decoding at full width and depth on four routes of the engine:
    the ``serving_model_r4`` configuration (Swin-T, d_model 256, 8 decoder
    layers, vocab 138; its ``model_config.json`` and ``vocab.json``) with
    seeded random weights (nonzero biases and norms). The routes are
-   ``DecodeEngine()`` (the JAX ``use_pallas=True`` configuration) and
-   ``DecodeEngine(use_fused=True, pallas_encoder_block=True)``. On each,
-   greedy: ``predict_batch`` on 10 seeded images and ``predict_single`` on
-   one; then beam search: ``predict_batch`` of the 10 images with
+   ``DecodeEngine()`` (the JAX ``use_pallas=True`` configuration),
+   ``DecodeEngine(use_fused=True, pallas_encoder_block=True)``, and each
+   with ``quantize=True`` (the int8 decoder). On each, greedy:
+   ``predict_batch`` on 10 seeded images and ``predict_single`` on one;
+   then beam search: ``predict_batch`` of the 10 images with
    ``beam_size=5``. Each path with every kernel's launch count set to 0
    before and checked against the route's shape after; the encoder memory
    and the tokens against the route's plain path on the card (bf16, and
    float32 where tokens must be equal; the fused beam's float32 tokens also
-   equal to the default beam's); images per second and the device's idle
-   share;
+   equal to the default beam's). On the fused int8 route, whose steps
+   round their matmul inputs to bf16 even in float32, the float32 check is
+   a decode whose every step runs both steps (B1 and B7) beside the plain
+   one on the plain path's tokens: their logits within the bf16 step
+   tolerance, and any token where the kernel's argmax differs reported
+   with the plain logits' margin there. Images per second and the
+   device's idle share; the int8 routes' bf16 tokens against the float
+   route of the same kind (printed);
 5. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -80,6 +94,10 @@ STEP_RTOL = 2e-2
 # the decoder steps in float32, kernel vs plain: summation order only,
 # through 8 layers of LayerNorm
 F32_STEP_ATOL = 1e-3
+# the int8 bundle of the decoder steps rounds every matmul input to bf16,
+# in a float32 configuration too, so kernel and plain carry the bf16
+# steps' rounding differences: they are held at STEP_ATOL / STEP_RTOL in
+# both dtypes
 
 
 def log(*parts):
@@ -94,21 +112,40 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
+    """Mean device time of one call of ``fn``: the device time of the
+    kernels and copies it launches (``torch.profiler``) over ``iters``
+    back-to-back calls. Time the device spends waiting for the host is not
+    counted: back to back, a call of a few microseconds of kernels is
+    bound by the host's launch rate, which says more about the host than
+    about the kernel. The profiler on the GPU machine can miss some
+    launches of a session (the first ones, or all), so each kind of kernel
+    counts at its mean time a launch, times its launches per call (its
+    recorded count over ``iters``, rounded); a session that recorded no
+    device activity is run again, up to ``tries`` sessions in all."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+        per_call = sum(e.self_device_time_total / e.count
+                       * round(e.count / iters) for e in rows)
+        if per_call > 0:
+            return per_call / 1e3
+        log("cuda_ms: the profiler recorded no device activity; "
+            "profiling again")
+    raise AssertionError(f"the profiler recorded no device activity in "
+                         f"{tries} sessions")
 
 
 def ops_s(flops: float, f32_flops: float = 0.0) -> float:
@@ -322,9 +359,10 @@ def check_kernels(cfg, params, batch):
     return [win, merge, cache, decode]
 
 
-def check_fused_step(cfg, np_params, batch):
+def check_fused_step(cfg, np_params, batch, quantize=False):
     """Phase 3: the fused decoder step against its plain version at the
-    served shapes, at the first, a middle and the last slot."""
+    served shapes, at the first, a middle and the last slot; with the
+    float bundle, or with ``quantize`` the int8 one (its int8 entry)."""
     import torch
 
     from handwritten_math_ocr_api_torch.ops import fused_step as fs
@@ -336,12 +374,14 @@ def check_fused_step(cfg, np_params, batch):
         return torch.randn(*shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    entry = Entry("fused_decoder_step", "handwritten_math_ocr_api_torch/"
-                  "csrc/fused_step.cu",
+    name = "fused_step_int8" if quantize else "fused_decoder_step"
+    entry = Entry(name, "handwritten_math_ocr_api_torch/csrc/fused_step.cu",
                   "handwritten_math_ocr_api_tpu/ops/fused_step.py:774",
                   "one launch (all decoder layers) at the last slot "
                   "(pos = T - 1)")
     stacked = fs.build_stacked(np_params["decoder"], cfg, dev)
+    if quantize:
+        stacked = fs.quantize_stacked(stacked)
     L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
     F, L_enc = cfg.dim_feedforward, cfg.encoder_len
     sk, sv = randn(L, batch, T, D), randn(L, batch, T, D)
@@ -354,30 +394,42 @@ def check_fused_step(cfg, np_params, batch):
         want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg, x, sk, sv,
                                                      ck, cv, pos)
         torch.cuda.synchronize()
-        for name, g, w in zip(("x_out", "k_new", "v_new"), got, want):
-            assert_close(f"fused_decoder_step pos {pos} {name}", g, w,
-                         STEP_ATOL, STEP_RTOL)
+        for what, g, w in zip(("x_out", "k_new", "v_new"), got, want):
+            assert_close(f"{name} pos {pos} {what}", g, w, STEP_ATOL,
+                         STEP_RTOL)
             err = max(err, max_err(g, w))
-        log(f"kernel fused_decoder_step pos {pos}: max_abs_err "
+        log(f"kernel {name} pos {pos}: max_abs_err "
             f"{max(max_err(g, w) for g, w in zip(got, want)):.3g}")
     pos = T - 1
     ms = cuda_ms(lambda: fs.fused_decoder_layers_step_v2(
         stacked, cfg, x, sk, sv, ck, cv, pos))
     plain = cuda_ms(lambda: fs.fused_decoder_layers_step_v2_plain(
         stacked, cfg, x, sk, sv, ck, cv, pos))
-    weights = L * (D * 3 * D + 3 * D * D + 2 * D * F)
-    small = L * (3 * D + 3 * D + F + D + 6 * D)        # biases, LN (f32)
-    nbytes = (weights * 2 + small * 4 + 2 * L * batch * L_enc * D * 2
-              + 2 * L * batch * pos * D * 2 + batch * D * 2   # caches, x
-              + batch * D * 4 + 2 * L * batch * D * 2)        # outputs
+    nbytes, weights = step_weight_bytes(cfg, quantize)
+    nbytes += (2 * L * batch * L_enc * D * 2
+               + 2 * L * batch * pos * D * 2 + batch * D * 2  # caches, x
+               + batch * D * 4 + 2 * L * batch * D * 2)       # outputs
     flops = (2 * batch * weights
              + 4 * L * batch * D * (pos + 1 + L_enc))         # attention
     entry.add(1, err, ms, plain, None, nbytes, flops)
-    log(f"kernel fused_decoder_step: caches {tuple(sk.shape)} pos {pos} "
+    log(f"kernel {name}: caches {tuple(sk.shape)} pos {pos} "
         f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
         f"bound_ms {bound_ms(nbytes, flops):.4f} "
         f"({bound_by(nbytes, flops)}) library_ms null")
     return entry
+
+
+def step_weight_bytes(cfg, quantize):
+    """(bytes of the stacked layer weights a decoder step reads once: bf16,
+    or int8 with their float32 scales; plus the float32 biases and
+    LayerNorm tables, and the weights' element count)."""
+    L, D, F = cfg.num_decoder_layers, cfg.d_model, cfg.dim_feedforward
+    weights = L * (D * 3 * D + 3 * D * D + 2 * D * F)
+    cols = L * (3 * D + 3 * D + F + D)             # output columns
+    small = (cols + 6 * L * D) * 4                 # biases, LN (f32)
+    if quantize:
+        return weights + cols * 4 + small, weights
+    return weights * 2 + small, weights
 
 
 def check_swin_block(cfg, np_params, params, batch):
@@ -435,24 +487,28 @@ def check_swin_block(cfg, np_params, params, batch):
     return entry
 
 
-def check_ragged_step(cfg, np_params, rows):
+def check_ragged_step(cfg, np_params, rows, quantize=False):
     """Phase 3: the ragged step against its plain version at the beam's
     rows (10 images x beam 5), at uniform pos 0, 74 and 149 and at a
     ragged position vector, in both head modes: bf16 within the decoder
     step's tolerance, and in float32 its argmax equal to the plain
-    version's."""
+    version's. With ``quantize``, the int8 bundle (its int8 entry): float32
+    within the bf16 tolerance too, and the argmax equal wherever the plain
+    logits' top two lie further apart than twice the largest logits
+    error."""
     import torch
 
     from handwritten_math_ocr_api_torch.ops import fused_step as fs
 
     dev = torch.device(DEVICE)
-    entry = Entry("ragged_step", "handwritten_math_ocr_api_torch/csrc/"
+    name = "ragged_step_int8" if quantize else "ragged_step"
+    entry = Entry(name, "handwritten_math_ocr_api_torch/csrc/"
                   "ragged_step.cu",
                   "handwritten_math_ocr_api_tpu/ops/fused_step.py:1220",
                   f"one launch (embedding, all decoder layers, head logits) "
                   f"for {rows} rows at the last slot (pos = T - 1)")
     L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
-    F, L_enc, V = cfg.dim_feedforward, cfg.encoder_len, cfg.vocab_size
+    L_enc, V = cfg.encoder_len, cfg.vocab_size
     err = 0.0
     for dtype in ("bfloat16", "float32"):
         c = cfg.replace(dtype=dtype)
@@ -463,6 +519,8 @@ def check_ragged_step(cfg, np_params, rows):
             return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
         stacked = fs.build_stacked_full(np_params["decoder"], c, dev)
+        if quantize:
+            stacked = fs.quantize_stacked(stacked)
         sk, sv = randn(L, rows, T, D), randn(L, rows, T, D)
         ck, cv = randn(L, rows, L_enc, D), randn(L, rows, L_enc, D)
         prev = torch.randint(0, V, (rows,), generator=gen, device=dev,
@@ -472,7 +530,9 @@ def check_ragged_step(cfg, np_params, rows):
                  for p in (0, T // 2 - 1, T - 1)}
         cases["ragged"] = torch.randint(0, T, (rows,), generator=gen,
                                         device=dev, dtype=torch.int32)
-        for name, pos in cases.items():
+        tol = ((STEP_ATOL, STEP_RTOL) if dtype == "bfloat16" or quantize
+               else (F32_STEP_ATOL, F32_STEP_ATOL))
+        for case, pos in cases.items():
             for logits in (True, False):
                 got = fs.fused_ragged_step(stacked, c, prev, pos, sk, sv, ck,
                                            cv, return_logits=logits)
@@ -480,15 +540,24 @@ def check_ragged_step(cfg, np_params, rows):
                                                   sv, ck, cv,
                                                   return_logits=logits)
                 torch.cuda.synchronize()
-                what = f"ragged_step {dtype} {name} logits {logits}"
-                if not logits:
+                what = f"{name} {dtype} {case} logits {logits}"
+                if logits:
+                    plain_logits, logit_err = want[0], max_err(got[0],
+                                                               want[0])
+                else:
                     agree = (got[0] == want[0]).float().mean().item()
-                    if dtype == "float32" and agree < 1.0:
-                        raise AssertionError(f"{what}: argmax differs")
                     log(f"kernel {what}: argmax agrees {agree:.4f}")
+                    differ = got[0] != want[0]
+                    if dtype == "float32" and quantize and agree < 1.0:
+                        top2 = plain_logits.topk(2, dim=-1).values
+                        margin = top2[:, 0] - top2[:, 1]
+                        log(f"kernel {what}: plain top-2 margin where the "
+                            f"argmax differs {margin[differ].max():.3g}, "
+                            f"logits max_abs_err {logit_err:.3g}")
+                        differ &= margin > 2 * logit_err   # no near-tie
+                    if dtype == "float32" and bool(differ.any()):
+                        raise AssertionError(f"{what}: argmax differs")
                     got, want = got[1:], want[1:]
-                tol = ((STEP_ATOL, STEP_RTOL) if dtype == "bfloat16"
-                       else (F32_STEP_ATOL, F32_STEP_ATOL))
                 for g, w in zip(got, want):
                     assert_close(what, g, w, *tol)
                 e = max(max_err(g, w) for g, w in zip(got, want))
@@ -501,20 +570,90 @@ def check_ragged_step(cfg, np_params, rows):
     ms = cuda_ms(lambda: fs.fused_ragged_step(*timed, return_logits=True))
     plain = cuda_ms(lambda: fs.fused_ragged_step_plain(*timed,
                                                        return_logits=True))
-    weights = L * (D * 3 * D + 3 * D * D + 2 * D * F)
-    small = L * (3 * D + 3 * D + F + D + 6 * D)        # biases, LN (f32)
-    nbytes = (weights * 2 + small * 4 + (D * V + V) * 4    # head (f32)
-              + 2 * rows * 4 + 2 * rows * D * 4            # prev, pos, rows
-              + 2 * L * rows * L_enc * D * 2               # cross K/V
-              + 2 * L * rows * pos * D * 2                 # cache prefix
-              + rows * V * 4 + 2 * L * rows * D * 2)       # outputs
+    nbytes, weights = step_weight_bytes(cfg, quantize)
+    nbytes += ((D * V + V) * 4                             # head (f32)
+               + 2 * rows * 4 + 2 * rows * D * 4           # prev, pos, rows
+               + 2 * L * rows * L_enc * D * 2              # cross K/V
+               + 2 * L * rows * pos * D * 2                # cache prefix
+               + rows * V * 4 + 2 * L * rows * D * 2)      # outputs
     flops = 2 * rows * weights + 4 * L * rows * D * (pos + 1 + L_enc)
     f32_flops = 2 * rows * D * V                           # the head
     entry.add(1, err, ms, plain, None, nbytes, flops, f32_flops)
-    log(f"kernel ragged_step: caches {tuple(timed[4].shape)} pos {pos} "
+    log(f"kernel {name}: caches {tuple(timed[4].shape)} pos {pos} "
         f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
         f"bound_ms {bound_ms(nbytes, flops, f32_flops):.4f} "
         f"({bound_by(nbytes, flops, f32_flops)}) library_ms null")
+    return entry
+
+
+def check_dequant_matmul(cfg, np_params, batch, rows):
+    """Phase 3: the int8 dequant matmul against its plain version at every
+    shape the default int8 route gives it: the six projections of a
+    decoder layer (the cross q a column slice of the packed matrix) and
+    the float32 head at the greedy bucket and the beam's rows, and the
+    cross K/V projection (a column slice) of the encoder memory at both."""
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.ops import quant
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    L, D, L_enc = cfg.num_decoder_layers, cfg.d_model, cfg.encoder_len
+    dec = convert.to_torch(
+        {"decoder": quant.quantize_decoder_params(np_params["decoder"])},
+        cfg, dev)["decoder"]
+    sa, ca = dec["layers"][0]["self_attn"], dec["layers"][0]["cross_attn"]
+    ffn = dec["layers"][0]["ffn"]
+    layer = [("qkv", sa["w_qkv_q"], sa["w_qkv_scale"]),
+             ("out", sa["w_out_q"], sa["w_out_scale"]),
+             ("cross q", ca["w_qkv_q"][:, :D], ca["w_qkv_scale"][:D]),
+             ("cross out", ca["w_out_q"], ca["w_out_scale"]),
+             ("fc1", ffn["fc1"]["w_q"], ffn["fc1"]["w_scale"]),
+             ("fc2", ffn["fc2"]["w_q"], ffn["fc2"]["w_scale"])]
+    head = ("head", dec["fc_out"]["w_q"], dec["fc_out"]["w_scale"])
+    cross_k = ("cross k", ca["w_qkv_q"][:, D:2 * D],
+               ca["w_qkv_scale"][D:2 * D])
+    entry = Entry("dequant_matmul", "handwritten_math_ocr_api_torch/csrc/"
+                  "dequant_matmul.cu",
+                  "handwritten_math_ocr_api_tpu/ops/quant.py:79",
+                  f"one greedy decode step at the {batch}-row bucket: "
+                  f"{L} layers x {len(layer)} projections and the float32 "
+                  f"head")
+    entry.d["library"] = ("torch.matmul of x with the weight dequantized to "
+                          "x's dtype beforehand: the nearest single cuBLAS "
+                          "call, not the same function (no int8 load)")
+    cases = [(*w, M, torch.bfloat16) for M in (batch, rows) for w in layer]
+    cases += [(*head, M, torch.float32) for M in (batch, rows)]
+    cases += [(*cross_k, M * L_enc, torch.bfloat16) for M in (batch, rows)]
+    for name, w_q, scale, M, dt in cases:
+        K, N = w_q.shape
+        x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+        got = quant.dequant_matmul(x, w_q, scale)
+        want = quant.dequant_matmul_plain(x, w_q, scale)
+        torch.cuda.synchronize()
+        f32 = dt == torch.float32
+        tol = (F32_STEP_ATOL, F32_STEP_ATOL) if f32 else (KERNEL_ATOL,
+                                                          KERNEL_RTOL)
+        assert_close(f"dequant_matmul {name} M {M}", got, want, *tol)
+        err = max_err(got, want)
+        w_deq = (w_q.float() * scale).to(dt)
+        ms = cuda_ms(lambda: quant.dequant_matmul(x, w_q, scale))
+        plain = cuda_ms(lambda: quant.dequant_matmul_plain(x, w_q, scale))
+        lib = cuda_ms(lambda: torch.matmul(x, w_deq))
+        esz = x.element_size()
+        nbytes = M * K * esz + K * N + N * 4 + M * N * esz
+        flops = 2 * M * K * N
+        ops = (0.0, flops) if f32 else (flops, 0.0)
+        if M == batch:
+            entry.add(1 if name == "head" else L, err, ms, plain, lib,
+                      nbytes, *ops)
+        log(f"kernel dequant_matmul {name}: x {tuple(x.shape)} "
+            f"{str(dt)[6:]} w {tuple(w_q.shape)} (row stride "
+            f"{w_q.stride(0)}) max_abs_err {err:.3g} ms {ms:.4f} "
+            f"plain_ms {plain:.4f} matmul_ms {lib:.4f} "
+            f"bound_ms {bound_ms(nbytes, *ops):.5f} "
+            f"({bound_by(nbytes, *ops)})")
     return entry
 
 
@@ -523,7 +662,7 @@ def check_beam_reorder(cfg, rows):
     beam's rows, over the whole cache and over a prefix, fresh and into a
     preallocated pair: exactly equal. Its time is the kernel's alone (the
     C entry called directly); the wrapper's call, which first reads the
-    range of ``src`` on the host, is timed beside it."""
+    range of ``src`` back to the host, is timed beside it."""
     import torch
 
     from handwritten_math_ocr_api_torch.ops import _build
@@ -568,8 +707,9 @@ def check_beam_reorder(cfg, rows):
     nbytes = 2 * 2 * L * rows * T * D * 2 + rows * 4
     entry.add(1, 0.0, ms, plain, lib, nbytes, 0.0)
     log(f"kernel beam_cache_gather: caches {tuple(sk.shape)} t_ext {T} "
-        f"exact; ms {ms:.4f} (the wrapper's call with its host check of "
-        f"src: {wrapped:.4f}) plain_ms {plain:.4f} index_select_ms "
+        f"exact; ms {ms:.4f} (the wrapper's call, with the device work of "
+        f"its check of src: {wrapped:.4f}) plain_ms {plain:.4f} "
+        f"index_select_ms "
         f"{lib:.4f} (two calls) bound_ms {bound_ms(nbytes, 0.0):.4f}")
     return entry
 
@@ -589,42 +729,65 @@ def check_counts(counts, expected):
         raise AssertionError(f"kernel launches {counts} != {expected}")
 
 
-def profile_batch(engine, images, unprofiled_s, beam_size=None):
+# the port's kernels as the profiler names them
+PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
+    "window_attention", "patch_merging", "cache_append_attention",
+    "fused_step", "swin_block", "ragged_step", "beam_gather",
+    "dequant_matmul"))
+
+
+def profile_batch(engine, images, unprofiled_s, beam_size=None, tries=3):
     """Device busy time of one predict_batch, and its largest kernels. The
     idle share is given against the profiled wall time and against the
     best unprofiled one (the profiler slows the host, not the device).
-    Returns the latter, or None when the profiler saw no device time."""
+    Returns the latter, or None when the profiler saw no device time. The
+    profiler on the GPU machine can miss the first launches of a session:
+    a session that recorded fewer of the port's kernels than its wrappers
+    launched is run again, up to ``tries`` sessions; the last one's count
+    is printed beside its busy time, which then is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.predict_batch(images, beam_size=beam_size)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    best_ms = unprofiled_s * 1e3
+    for _ in range(tries):
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.predict_batch(images, beam_size=beam_size)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+        seen = sum(e.count for e in rows
+                   if any(k in e.key for k in PORT_KERNELS))
+        launched = sum(read_counts())
+        if rows and seen == launched:
+            break
+        log(f"profile: {seen} of the {launched} launches of the port's "
+            f"kernels recorded")
     if not rows:
         log("profile: the profiler saw no device time (not measured)")
         return None
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    best_ms = unprofiled_s * 1e3
     log(f"profile: predict_batch({len(images)}, beam_size={beam_size}) "
         f"wall {wall_ms:.1f} ms under "
         f"the profiler, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled "
         f"{best_ms:.1f} ms: {1 - busy_ms / best_ms:.3f})"
-        f", device kernels {sum(e.count for e in rows)}")
+        f", device kernels {sum(e.count for e in rows)}, the port's "
+        f"{seen} of {launched}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x {e.key[:100]}")
     return 1 - busy_ms / best_ms
 
 
-def kernel_wrappers():
-    """The eight wrappers, in the order of the ``kernels`` line."""
+def kernel_counters():
+    """(wrapper, count attribute) of each kernel of the ``kernels`` line,
+    in its order: the decoder steps count their int8 entries apart."""
     from handwritten_math_ocr_api_torch.ops.beam_reorder import (
         beam_cache_gather,
     )
@@ -639,6 +802,7 @@ def kernel_wrappers():
     from handwritten_math_ocr_api_torch.ops.patch_merging import (
         fused_patch_merging,
     )
+    from handwritten_math_ocr_api_torch.ops.quant import dequant_matmul
     from handwritten_math_ocr_api_torch.ops.swin_block import (
         fused_swin_block,
     )
@@ -646,30 +810,51 @@ def kernel_wrappers():
         window_attention_core,
     )
 
-    return [window_attention_core, fused_patch_merging,
-            cache_append_attention, decode_attention,
-            fused_decoder_layers_step_v2, fused_swin_block,
-            fused_ragged_step, beam_cache_gather]
+    wrappers = [window_attention_core, fused_patch_merging,
+                cache_append_attention, decode_attention,
+                fused_decoder_layers_step_v2, fused_swin_block,
+                fused_ragged_step, beam_cache_gather, dequant_matmul]
+    return ([(w, "launches") for w in wrappers]
+            + [(fused_decoder_layers_step_v2, "int8_launches"),
+               (fused_ragged_step, "int8_launches")])
+
+
+def reset_counts():
+    for wrapper, attr in kernel_counters():
+        setattr(wrapper, attr, 0)
+
+
+def read_counts():
+    return [getattr(wrapper, attr) for wrapper, attr in kernel_counters()]
 
 
 def expected_launches(cfg, route, encodes, steps, beam=False):
-    """Each wrapper's launches for ``encodes`` encodes and ``steps`` decode
-    steps (greedy, or beam search with ``beam``) on a route: the default
-    one ("pallas": window attention in every block, cache-append attention
-    in every layer of every step) or the fused one (the block kernel where
-    the route rule fuses, window attention in the other blocks; per step
-    one launch of the decoder step, or for beam search one of the ragged
-    step and one of the beam cache reorder). No path runs decode
-    attention."""
+    """Each kernel's launches for ``encodes`` encodes (each followed by one
+    decode) and ``steps`` decode steps (greedy, or beam search with
+    ``beam``) on a route: the default one ("pallas": window attention in
+    every block, cache-append attention in every layer of every step) or
+    the fused one (the block kernel where the route rule fuses, window
+    attention in the other blocks; per step one launch of the decoder
+    step, or for beam search one of the ragged step and one of the beam
+    cache reorder). An "_int8" route adds, on the default route, the
+    dequant matmul in every projection of every layer and the head each
+    step and in the cross K and V projection of every layer each decode;
+    on the fused route it moves the steps' launches to their int8
+    entries. No path runs decode attention."""
     blocks = sum(cfg.swin.depths)
     merges = len(cfg.swin.depths) - 1
-    if route == "pallas":
-        return [encodes * blocks, encodes * merges,
-                cfg.num_decoder_layers * steps, 0, 0, 0, 0, 0]
+    L = cfg.num_decoder_layers
+    quantized = route.endswith("_int8")
+    if route.startswith("pallas"):
+        dq = (6 * L + 1) * steps + 2 * L * encodes if quantized else 0
+        return [encodes * blocks, encodes * merges, L * steps, 0, 0, 0, 0,
+                0, dq, 0, 0]
     fused = fused_blocks(cfg)
-    per_step = [0, steps, steps] if beam else [steps, 0, 0]
-    return [encodes * (blocks - fused), encodes * merges, 0, 0,
-            per_step[0], encodes * fused, *per_step[1:]]
+    b1, b7, b8 = (0, steps, steps) if beam else (steps, 0, 0)
+    b1, b1_int8 = (0, b1) if quantized else (b1, 0)
+    b7, b7_int8 = (0, b7) if quantized else (b7, 0)
+    return [encodes * (blocks - fused), encodes * merges, 0, 0, b1,
+            encodes * fused, b7, b8, 0, b1_int8, b7_int8]
 
 
 def route_decode(engine, cfg, memory, kernels):
@@ -690,7 +875,8 @@ def route_decode(engine, cfg, memory, kernels):
 def serve(cfg, np_params, tok, entries, route, **route_kw):
     """Phase 4: one route of the served path at full width, through the
     kernels: greedy, then beam search (``serve_beam``). Returns
-    ((images/s, idle share) of greedy, serve_beam's result)."""
+    ((images/s, idle share, bf16 greedy tokens) of greedy, serve_beam's
+    result)."""
     import numpy as np
     import torch
 
@@ -700,7 +886,6 @@ def serve(cfg, np_params, tok, entries, route, **route_kw):
     )
     from handwritten_math_ocr_api_torch.models import model as model_mod
 
-    wrappers = kernel_wrappers()
     rng = np.random.default_rng(SEED)
     images = rng.integers(0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1),
                           dtype=np.uint8)
@@ -711,8 +896,7 @@ def serve(cfg, np_params, tok, entries, route, **route_kw):
     engine.warmup((N_IMAGES,), dtype=np.uint8)
     torch.cuda.synchronize()
 
-    for w in wrappers:
-        w.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     texts = engine.predict_batch(images)
     torch.cuda.synchronize()
@@ -721,7 +905,7 @@ def serve(cfg, np_params, tok, entries, route, **route_kw):
     latex, conf = engine.predict_single(single)
     torch.cuda.synchronize()
     steps += engine.last_steps
-    counts = [w.launches for w in wrappers]
+    counts = read_counts()
     expected = expected_launches(cfg, route, 2, steps)
     log(f"serve {route}: predict_batch({N_IMAGES}) + predict_single: decode "
         f"steps {steps}, launches {counts}, expected {expected} "
@@ -786,23 +970,96 @@ def serve(cfg, np_params, tok, entries, route, **route_kw):
                                use_pallas_block=block)
         m_p = model_mod.encode(engine32.params, cfg32, x32, kernels=False,
                                use_pallas_block=block)
-        r_k = route_decode(engine32, cfg32, m_k, True)
-        r_p = route_decode(engine32, cfg32, m_p, False)
     err32 = max_err(m_k, m_p)
     log(f"serve {route}: float32 memory kernel vs plain max_abs_err "
-        f"{err32:.3g}; tokens equal {torch.equal(r_k.tokens, r_p.tokens)} "
-        f"over {r_k.steps} steps")
+        f"{err32:.3g}")
     if err32 > MEMORY_F32_ATOL:
         raise AssertionError(f"float32 encoder memory differs by {err32}")
-    if not torch.equal(r_k.tokens, r_p.tokens):
-        raise AssertionError("float32 greedy tokens differ between the "
-                             "kernel path and the plain path")
-    # sums of up to 150 float32 log-probs: summation order only
-    lp_err = (r_k.logprob_sum - r_p.logprob_sum).abs().max().item()
-    if lp_err > 1e-2:
-        raise AssertionError(f"float32 logprob sums differ by {lp_err}")
+    if engine.use_fused and engine.quantize:
+        fused_int8_trace(engine32, cfg32, m_p, route)
+    else:
+        with torch.inference_mode():
+            r_k = route_decode(engine32, cfg32, m_k, True)
+            r_p = route_decode(engine32, cfg32, m_p, False)
+        log(f"serve {route}: float32 tokens equal "
+            f"{torch.equal(r_k.tokens, r_p.tokens)} over {r_k.steps} steps")
+        if not torch.equal(r_k.tokens, r_p.tokens):
+            raise AssertionError("float32 greedy tokens differ between the "
+                                 "kernel path and the plain path")
+        # sums of up to 150 float32 log-probs: summation order only
+        lp_err = (r_k.logprob_sum - r_p.logprob_sum).abs().max().item()
+        if lp_err > 1e-2:
+            raise AssertionError(f"float32 logprob sums differ by {lp_err}")
     beam = serve_beam(engine, engine32, images, entries, route)
-    return (N_IMAGES / best, idle), beam
+    return (N_IMAGES / best, idle, res_k.tokens), beam
+
+
+def fused_int8_trace(engine32, cfg32, memory, route):
+    """The fused int8 route in float32: a greedy decode of ``memory`` whose
+    every step runs the plain step and, on caches of their own, the int8
+    B1 and B7 kernels, all fed the plain path's tokens. The kernels'
+    logits must stay within the bf16 step tolerance of the plain ones
+    (their matmul inputs round to bf16, in float32 too); where a kernel's
+    argmax differs from the plain one (the first such step is where its
+    own decode would flip), the plain logits' top-2 margin there is
+    reported."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.fused import init_fused_cache
+    from handwritten_math_ocr_api_torch.decode.greedy import greedy_loop
+    from handwritten_math_ocr_api_torch.models import layers
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    dec, stacked = engine32.params["decoder"], engine32.stacked
+    B, T = memory.shape[0], cfg32.max_seq_len
+    sk, sv, ck, cv = init_fused_cache(dec, cfg32, memory, T)
+    caches = {k: (sk.clone(), sv.clone()) for k in ("plain", "b1", "b7")}
+    emb, pos_table = dec["embedding"]["table"], dec["pos"]["table"]
+    err = {"b1": 0.0, "b7": 0.0}
+    flips = {"b1": [], "b7": []}
+
+    def append(key, step, k_new, v_new):
+        k, v = caches[key]
+        k[:, :, step] = k_new
+        v[:, :, step] = v_new
+
+    def step_logits(prev, step):
+        x_emb = (emb[prev] + pos_table[step]).float()
+        logits = {}
+        for key, fn in (("plain", fs.fused_decoder_layers_step_v2_plain),
+                        ("b1", fs.fused_decoder_layers_step_v2)):
+            x, k_new, v_new = fn(stacked, cfg32, x_emb, *caches[key], ck, cv,
+                                 step)
+            append(key, step, k_new, v_new)
+            logits[key] = layers.linear(dec["fc_out"], x)
+        pos = torch.full((B,), step, dtype=torch.int32, device=prev.device)
+        logits["b7"], k_new, v_new = fs.fused_ragged_step(
+            stacked, cfg32, prev.to(torch.int32), pos, *caches["b7"], ck, cv,
+            return_logits=True)
+        append("b7", step, k_new, v_new)
+        plain = logits["plain"]
+        top2 = plain.topk(2, dim=-1).values
+        for key in ("b1", "b7"):
+            err[key] = max(err[key], max_err(logits[key], plain))
+            for row in (logits[key].argmax(-1) != plain.argmax(-1)).nonzero():
+                r = int(row)
+                flips[key].append(
+                    (r, step, float(top2[r, 0] - top2[r, 1])))
+        return plain
+
+    with torch.inference_mode():
+        res = greedy_loop(step_logits, B, T, memory.device)
+    for key in ("b1", "b7"):
+        first = (f"first at row {flips[key][0][0]} step {flips[key][0][1]}, "
+                 f"plain top-2 margin {flips[key][0][2]:.3g}"
+                 if flips[key] else "none")
+        log(f"serve {route}: float32 {key} int8 logits vs plain over "
+            f"{res.steps} steps of the plain path's tokens: max_abs_err "
+            f"{err[key]:.3g}; argmax differs at {len(flips[key])} "
+            f"(row, step) of {B * res.steps} ({first})")
+        if err[key] > STEP_ATOL:
+            raise AssertionError(f"float32 {key} int8 logits differ by "
+                                 f"{err[key]}")
 
 
 def route_beam(engine, cfg, memory, kernels):
@@ -826,25 +1083,26 @@ def serve_beam(engine, engine32, images, entries, route):
     against the route's shape; then the tokens against the route's plain
     path (bf16: agreement printed; float32 on two images: equal) and, on
     the fused route, the float32 fused beam against the default beam on
-    the same memory. Returns (images/s, idle share, steps)."""
+    the same memory. The fused int8 route's float32 beam tokens are
+    reported, not held equal: its steps round their matmul inputs to bf16
+    (``fused_int8_trace`` holds its step logits). Returns (images/s, idle
+    share, steps, bf16 beam tokens)."""
     import torch
 
     from handwritten_math_ocr_api_torch.decode.beam import beam_decode
     from handwritten_math_ocr_api_torch.models import model as model_mod
 
-    wrappers = kernel_wrappers()
     cfg, cfg32 = engine.cfg, engine32.cfg
     name = f"{route} beam"
     engine.predict_batch(images, beam_size=BEAM)       # warm up
     torch.cuda.synchronize()
-    for w in wrappers:
-        w.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     texts = engine.predict_batch(images, beam_size=BEAM)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     steps = engine.last_steps
-    counts = [w.launches for w in wrappers]
+    counts = read_counts()
     expected = expected_launches(cfg, route, 1, steps, beam=True)
     log(f"serve {name}: predict_batch({N_IMAGES}, beam_size={BEAM}): "
         f"decode steps {steps}, launches {counts}, expected {expected}")
@@ -891,7 +1149,7 @@ def serve_beam(engine, engine32, images, entries, route):
         r_k = route_beam(engine32, cfg32, m_k, True)
         r_p = route_beam(engine32, cfg32, m_p, False)
         other = (beam_decode(engine32.params["decoder"], cfg32, m_k, BEAM)
-                 if engine.use_fused else None)
+                 if engine.use_fused and not engine.quantize else None)
     score_err = (r_k.scores - r_p.scores).abs().max().item()
     log(f"serve {name}: float32 beam tokens equal to the plain path "
         f"{torch.equal(r_k.tokens, r_p.tokens)} over {r_k.steps} steps "
@@ -899,6 +1157,13 @@ def serve_beam(engine, engine32, images, entries, route):
         + ("" if other is None else
            f"; fused beam equal to the default beam "
            f"{torch.equal(r_k.tokens, other.tokens)}"))
+    if engine.use_fused and engine.quantize:
+        differ = (r_k.tokens != r_p.tokens).nonzero()
+        if len(differ):
+            log(f"serve {name}: float32 beam tokens first differ at image "
+                f"{int(differ[0, 0])} step {int(differ[0, 1])} (reported, "
+                f"not held: see the float32 step logits above)")
+        return N_IMAGES / best, idle, steps, res_k.tokens
     if not torch.equal(r_k.tokens, r_p.tokens):
         raise AssertionError("float32 beam tokens differ between the "
                              "kernel path and the plain path")
@@ -908,7 +1173,7 @@ def serve_beam(engine, engine32, images, entries, route):
     if other is not None and not torch.equal(r_k.tokens, other.tokens):
         raise AssertionError("float32 fused beam tokens differ from the "
                              "default route's beam")
-    return N_IMAGES / best, idle, steps
+    return N_IMAGES / best, idle, steps, res_k.tokens
 
 
 def main() -> int:
@@ -951,23 +1216,41 @@ def main() -> int:
     np_params = convert.random_params(cfg, SEED)
     params = convert.to_torch(np_params, cfg, DEVICE)
     bucket = pick_bucket(N_IMAGES, DecodeConfig().batch_buckets)
+    rows = N_IMAGES * BEAM
+    t0 = time.perf_counter()
     entries = check_kernels(cfg, params, bucket)
     entries.append(check_fused_step(cfg, np_params, bucket))
     entries.append(check_swin_block(cfg, np_params, params, bucket))
-    entries.append(check_ragged_step(cfg, np_params, N_IMAGES * BEAM))
-    entries.append(check_beam_reorder(cfg, N_IMAGES * BEAM))
+    entries.append(check_ragged_step(cfg, np_params, rows))
+    entries.append(check_beam_reorder(cfg, rows))
+    entries.append(check_dequant_matmul(cfg, np_params, bucket, rows))
+    entries.append(check_fused_step(cfg, np_params, bucket, quantize=True))
+    entries.append(check_ragged_step(cfg, np_params, rows, quantize=True))
+    log(f"kernels: phase seconds {time.perf_counter() - t0:.1f}")
 
-    routes = {"pallas": {},
-              "fused": {"use_fused": True, "pallas_encoder_block": True}}
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    routes = {"pallas": {}, "fused": fused,
+              "pallas_int8": {"quantize": True},
+              "fused_int8": {**fused, "quantize": True}}
     summary = {}
     for route, kw in routes.items():
+        t0 = time.perf_counter()
         summary[route] = serve(cfg, np_params, tok, entries, route, **kw)
+        log(f"serve {route}: phase seconds {time.perf_counter() - t0:.1f}")
     for route, (greedy, beam) in summary.items():
-        for mode, (rate, idle, *_) in (("greedy", greedy),
-                                       (f"beam {BEAM}", beam)):
+        for mode, (rate, idle, *_), tokens in (
+                ("greedy", greedy, greedy[-1]),
+                (f"beam {BEAM}", beam, beam[-1])):
             idle_s = "not measured" if idle is None else f"{idle:.3f}"
             log(f"route {route} {mode}: images/s {rate:.2f}, device idle "
                 f"share {idle_s} (of the best unprofiled predict_batch)")
+            if route.endswith("_int8"):
+                base = summary[route[:-len("_int8")]]
+                ref = base[0][-1] if mode == "greedy" else base[1][-1]
+                log(f"route {route} {mode}: bf16 tokens agree with route "
+                    f"{route[:-len('_int8')]}'s "
+                    f"{(tokens == ref).float().mean().item():.4f} "
+                    f"(int8 against bf16 weights; not held)")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

@@ -9,7 +9,10 @@ tree after ``np.asarray`` on each leaf) or tensors onto a device:
   dtype the JAX functions cast them to at each use;
 - LayerNorm scales and biases, embedding tables, relative-position bias
   tables and the output projection ``fc_out`` stay float32, as the JAX
-  functions use them.
+  functions use them;
+- in a tree from ``ops/quant.py::quantize_decoder_params``, the int8
+  weights ``{k}_q`` stay int8 and their scales ``{k}_scale`` float32 (the
+  JAX dequant matmul multiplies by them in float32).
 
 ``random_params`` builds a tree of the same structure and shapes as the JAX
 package's ``init_model`` for the Swin-T encoder, with numpy from a seed
@@ -49,8 +52,13 @@ def to_torch(tree, cfg: ModelConfig, device=None):
             return [walk(v, key, in_fc_out) for v in node]
         t = (node if isinstance(node, torch.Tensor)
              else torch.from_numpy(np.array(node)))  # a writable copy
-        dtype = (torch.float32 if in_fc_out or key in _FLOAT32_LEAVES
-                 else compute)
+        if t.dtype == torch.int8:
+            dtype = torch.int8
+        elif (in_fc_out or key in _FLOAT32_LEAVES
+              or key.endswith("_scale")):
+            dtype = torch.float32
+        else:
+            dtype = compute
         return t.to(device=dev, dtype=dtype).contiguous()
 
     return walk(tree, None, False)

@@ -1,12 +1,17 @@
 // Shared helpers of the port's CUDA kernels: float <-> storage type and
-// warp reductions. Storage is bf16 (the serving dtype) or float32; every
-// kernel computes in float32.
+// warp reductions. Storage is bf16 (the serving dtype) or float32, and
+// int8 for quantized weights; every kernel computes in float32.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -27,8 +32,8 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// Sixteen bytes of storage type as floats: four float32 or eight bf16
-// values. The address must be 16-byte aligned.
+// Sixteen bytes of storage type as floats: four float32, eight bf16 or
+// sixteen int8 values (exact). The address must be 16-byte aligned.
 template <typename T>
 struct Vec;
 template <>
@@ -38,6 +43,10 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
+};
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
 };
 
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
@@ -57,6 +66,16 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
+  union {
+    uint4 v;
+    int8_t c[16];
+  } u;
+  u.v = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(u.c[i]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -9,19 +9,28 @@
 //     x = LN1(x + (attn(q, self cache[:pos] + fresh row) W_out + b_out))
 //     x = LN2(x + (attn(x W_cq + b_cq, cross K/V) W_co + b_co))
 //     x = LN3(x + (relu(x W_ff1 + b_ff1) W_ff2 + b_ff2))
-// with the TPU kernels' numerics: every matmul input rounded to the weight
-// type and accumulated in float32, float32 biases, LayerNorm and softmax,
-// the fresh K/V row rounded to the cache type before it joins attention at
-// slot pos, and no slot after pos read (the TPU kernels' -inf mask). The
-// caches are read only; the caller appends k_new and v_new.
+// with the TPU kernels' numerics: every matmul input rounded to the
+// matmul input type and accumulated in float32, float32 biases, LayerNorm
+// and softmax, the fresh K/V row rounded to the cache type before it joins
+// attention at slot pos, and no slot after pos read (the TPU kernels' -inf
+// mask). The caches are read only; the caller appends k_new and v_new.
+//
+// Three types: W the weights, C the caches (and the step's activation
+// dtype), X the matmul inputs. The bf16 and float32 bundles have
+// W = C = X. The int8 bundle (quantize_stacked, the TPU kernels'
+// "quantized" mode) has W = int8 with a float32 scale per output column,
+// X = bf16 whatever C is (the TPU kernels' x.astype(bfloat16) @
+// w.astype(bfloat16)), and the scale multiplies the float32 sum before
+// the bias is added.
 //
 // Weight rows stream from device memory (L2 after the first block reads
-// them) as 16-byte vectors, each thread owning 8 (bf16) or 4 (float32)
-// adjacent columns and a slice of the reduction, partial sums meeting in
-// shared memory.
+// them) as 16-byte vectors, each thread owning 16 (int8), 8 (bf16) or 4
+// (float32) adjacent columns and a slice of the reduction, partial sums
+// meeting in shared memory.
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -29,6 +38,11 @@ namespace decoder {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+
+// The type a matmul input is rounded to for weights of type W.
+template <typename W>
+using InputOf =
+    std::conditional_t<std::is_same_v<W, int8_t>, __nv_bfloat16, W>;
 
 // Sum over the block; every thread gets the total. scratch: kWarps floats.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
@@ -40,13 +54,15 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return warp_sum(lane < kWarps ? scratch[lane] : 0.0f);
 }
 
-// y[n] = bias[n] + sum_k x[k] W[k, n]; x (K floats) in shared memory,
-// W (K, N) row-major in device memory, N a multiple of the vector width.
-template <typename T>
-__device__ void matvec(const float* x, const T* __restrict__ W,
+// y[n] = (sum_k x[k] W[k, n]) * scale[n] + bias[n] (no scale if null);
+// x (K floats) in shared memory, W (K, N) row-major in device memory, N a
+// multiple of the vector width.
+template <typename W>
+__device__ void matvec(const float* x, const W* __restrict__ Wt,
+                       const float* __restrict__ scale,
                        const float* __restrict__ bias, float* y, int K,
                        int N, float* red) {
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Vec<W>::N;
   const int ncv = N / V;
   const int kparts = ncv >= kThreads ? 1 : kThreads / ncv;
   const int kchunk = (K + kparts - 1) / kparts;
@@ -58,7 +74,7 @@ __device__ void matvec(const float* x, const T* __restrict__ W,
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     for (int k = k0; k < k1; ++k) {
       float w[V];
-      load_vec(W + static_cast<size_t>(k) * N + cv * V, w);
+      load_vec(Wt + static_cast<size_t>(k) * N + cv * V, w);
       const float xv = x[k];
 #pragma unroll
       for (int j = 0; j < V; ++j) acc[j] = fmaf(xv, w[j], acc[j]);
@@ -71,7 +87,7 @@ __device__ void matvec(const float* x, const T* __restrict__ W,
   for (int n = threadIdx.x; n < N; n += kThreads) {
     float s = 0.0f;
     for (int kp = 0; kp < kparts; ++kp) s += red[kp * N + n];
-    y[n] = s + bias[n];
+    y[n] = (scale != nullptr ? __fmul_rn(s, scale[n]) : s) + bias[n];
   }
   __syncthreads();
 }
@@ -102,14 +118,15 @@ __device__ __forceinline__ void add_layer_norm(float* x, const float* y,
 // Multi-head single-query attention. q (D floats, pre-scaled) in shared
 // memory; rows s < n_cache of K and V (row stride D) in device memory; if
 // fresh_k is given, row n_cache is fresh_k / fresh_v (shared memory).
-// out[d] (rounded to T) = sum_s softmax_s(q_h . k_s) v_s[d], h = d / dh.
-template <typename T>
-__device__ void attend(const float* q, const T* __restrict__ K,
-                       const T* __restrict__ Vv, int n_cache,
+// out[d] (rounded to X, the next matmul's input type) =
+// sum_s softmax_s(q_h . k_s) v_s[d], h = d / dh. C is the cache type.
+template <typename C, typename X>
+__device__ void attend(const float* q, const C* __restrict__ K,
+                       const C* __restrict__ Vv, int n_cache,
                        const float* fresh_k, const float* fresh_v, int D,
                        int H, float* logits, int lstride, float* out,
                        float* red) {
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Vec<C>::N;
   const int dh = D / H;
   const int n = n_cache + (fresh_k != nullptr ? 1 : 0);
   for (int item = threadIdx.x; item < n * H; item += kThreads) {
@@ -117,7 +134,7 @@ __device__ void attend(const float* q, const T* __restrict__ K,
     const float* qh = q + h * dh;
     float acc = 0.0f;
     if (s < n_cache) {
-      const T* kr = K + static_cast<size_t>(s) * D + h * dh;
+      const C* kr = K + static_cast<size_t>(s) * D + h * dh;
       for (int d = 0; d < dh; d += V) {
         float kv[V];
         load_vec(kr + d, kv);
@@ -167,46 +184,69 @@ __device__ void attend(const float* q, const T* __restrict__ K,
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float s = 0.0f;
     for (int g = 0; g < groups; ++g) s += red[g * D + d];
-    out[d] = round_to<T>(s);
+    out[d] = round_to<X>(s);
   }
   __syncthreads();
 }
 
-// The stacked weights of every layer (build_stacked's bundle): weights
-// (L, K, N) in the storage type, biases (L, 1, N) and LayerNorm (L, 6, D)
-// in float32.
-template <typename T>
+// One stacked weight of every layer: (L, K, N) of type W, its scales
+// (L, 1, N) float32 (null unless W is int8) and its bias (L, 1, N)
+// float32.
+template <typename W>
+struct Linear {
+  const W* w;
+  const float* s;
+  const float* b;
+};
+
+// Layer l's matvec of a stacked weight: y = x W_l (* s_l) + b_l, K x N.
+// The Linear comes by value, so no address of a kernel parameter is taken.
+template <typename W>
+__device__ __forceinline__ void layer_matvec(Linear<W> lin, int l,
+                                             const float* x, float* y, int K,
+                                             int N, float* red) {
+  const size_t n = static_cast<size_t>(l) * N;
+  matvec<W>(x, lin.w + n * K, lin.s != nullptr ? lin.s + n : nullptr,
+            lin.b + n, y, K, N, red);
+}
+
+// The stacked weights of every layer (build_stacked's bundle, or
+// quantize_stacked's), and LayerNorm (L, 6, D) in float32.
+template <typename W>
 struct Weights {
-  const T* w_qkv;
-  const float* b_qkv;
-  const T* w_out;
-  const float* b_out;
-  const T* w_cq;
-  const float* b_cq;
-  const T* w_co;
-  const float* b_co;
-  const T* w_ff1;
-  const float* b_ff1;
-  const T* w_ff2;
-  const float* b_ff2;
+  Linear<W> qkv, out, cq, co, ff1, ff2;
   const float* ln;
 };
 
+// The Weights of a C entry's pointers: six (weight, scale, bias) triples
+// (scale null for a float bundle) and the LayerNorm table.
+template <typename W>
+__host__ inline Weights<W> make_weights(const void* const* p,
+                                        const void* ln) {
+  Linear<W> lin[6];
+  for (int i = 0; i < 6; ++i)
+    lin[i] = {static_cast<const W*>(p[3 * i]),
+              static_cast<const float*>(p[3 * i + 1]),
+              static_cast<const float*>(p[3 * i + 2])};
+  return {lin[0], lin[1], lin[2], lin[3], lin[4], lin[5],
+          static_cast<const float*>(ln)};
+}
+
 // Floats of the partial-sum region: matvec's kparts x N and attend's
 // groups x D.
-template <typename T>
+template <typename W>
 __host__ __device__ inline int red_floats(int D, int F) {
-  const int a = kThreads * Vec<T>::N, b = 3 * D > F ? 3 * D : F;
+  const int a = kThreads * Vec<W>::N, b = 3 * D > F ? 3 * D : F;
   return a > b ? a : b;
 }
 
 // Shared memory of one block (the regions of Smem), in floats, for D, F,
 // H and a logits row of lstride slots (at least the longest horizon + 1
-// and L_enc).
-template <typename T>
+// and L_enc), with weights of type W.
+template <typename W>
 __host__ inline size_t smem_floats(int D, int F, int H, size_t lstride) {
   return 32 + D + std::max(D, F) + std::max(3 * D, F) + H * lstride +
-         red_floats<T>(D, F);
+         red_floats<W>(D, F);
 }
 
 // Scratch regions carved from the block's shared memory (smem_floats).
@@ -232,15 +272,16 @@ struct Smem {
 // self_k/self_v + ((l * B + row) * Tc) * D and cross_k/cross_v +
 // ((l * B + row) * L_enc) * D; it attends self slots [0, pos) and its
 // fresh row at pos. Its fresh K/V rows go to k_new/v_new[(l * B + row)].
-template <typename T>
-__device__ void run_layers(const Weights<T>& w, const T* __restrict__ self_k,
-                           const T* __restrict__ self_v,
-                           const T* __restrict__ cross_k,
-                           const T* __restrict__ cross_v,
-                           T* __restrict__ k_new, T* __restrict__ v_new,
+template <typename W, typename C>
+__device__ void run_layers(const Weights<W>& w, const C* __restrict__ self_k,
+                           const C* __restrict__ self_v,
+                           const C* __restrict__ cross_k,
+                           const C* __restrict__ cross_v,
+                           C* __restrict__ k_new, C* __restrict__ v_new,
                            int L, int B, int row_index, int Tc, int D, int H,
                            int F, int L_enc, int pos, int lstride,
                            const Smem& s) {
+  using X = InputOf<W>;
   const int N3 = 3 * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D / H));
   float* x = s.x;
@@ -251,12 +292,11 @@ __device__ void run_layers(const Weights<T>& w, const T* __restrict__ self_k,
     const size_t row = static_cast<size_t>(l) * B + row_index;
 
     // self-attention over the cache prefix and the fresh row
-    for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<T>(x[d]);
+    for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<X>(x[d]);
     __syncthreads();
-    matvec<T>(xr, w.w_qkv + static_cast<size_t>(l) * D * N3,
-              w.b_qkv + static_cast<size_t>(l) * N3, y, D, N3, s.red);
+    layer_matvec(w.qkv, l, xr, y, D, N3, s.red);
     for (int d = threadIdx.x; d < D; d += kThreads) {
-      const T k = from_f32<T>(y[D + d]), v = from_f32<T>(y[2 * D + d]);
+      const C k = from_f32<C>(y[D + d]), v = from_f32<C>(y[2 * D + d]);
       k_new[row * D + d] = k;
       v_new[row * D + d] = v;
       y[d] *= scale;
@@ -264,35 +304,31 @@ __device__ void run_layers(const Weights<T>& w, const T* __restrict__ self_k,
       y[2 * D + d] = to_f32(v);
     }
     __syncthreads();
-    attend<T>(y, self_k + row * Tc * D, self_v + row * Tc * D, pos, y + D,
-              y + 2 * D, D, H, s.logits, lstride, xr, s.red);
-    matvec<T>(xr, w.w_out + static_cast<size_t>(l) * D * D,
-              w.b_out + static_cast<size_t>(l) * D, y, D, D, s.red);
+    attend<C, X>(y, self_k + row * Tc * D, self_v + row * Tc * D, pos,
+                 y + D, y + 2 * D, D, H, s.logits, lstride, xr, s.red);
+    layer_matvec(w.out, l, xr, y, D, D, s.red);
     add_layer_norm(x, y, lnl, lnl + D, D, s.scratch);
 
     // cross-attention over the encoder K/V
-    for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<T>(x[d]);
+    for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<X>(x[d]);
     __syncthreads();
-    matvec<T>(xr, w.w_cq + static_cast<size_t>(l) * D * D,
-              w.b_cq + static_cast<size_t>(l) * D, y, D, D, s.red);
+    layer_matvec(w.cq, l, xr, y, D, D, s.red);
     for (int d = threadIdx.x; d < D; d += kThreads) y[d] *= scale;
     __syncthreads();
-    attend<T>(y, cross_k + row * L_enc * D, cross_v + row * L_enc * D, L_enc,
-              nullptr, nullptr, D, H, s.logits, lstride, xr, s.red);
-    matvec<T>(xr, w.w_co + static_cast<size_t>(l) * D * D,
-              w.b_co + static_cast<size_t>(l) * D, y, D, D, s.red);
+    attend<C, X>(y, cross_k + row * L_enc * D, cross_v + row * L_enc * D,
+                 L_enc, nullptr, nullptr, D, H, s.logits, lstride, xr,
+                 s.red);
+    layer_matvec(w.co, l, xr, y, D, D, s.red);
     add_layer_norm(x, y, lnl + 2 * D, lnl + 3 * D, D, s.scratch);
 
     // ReLU FFN
-    for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<T>(x[d]);
+    for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<X>(x[d]);
     __syncthreads();
-    matvec<T>(xr, w.w_ff1 + static_cast<size_t>(l) * D * F,
-              w.b_ff1 + static_cast<size_t>(l) * F, y, D, F, s.red);
+    layer_matvec(w.ff1, l, xr, y, D, F, s.red);
     for (int f = threadIdx.x; f < F; f += kThreads)
-      xr[f] = round_to<T>(fmaxf(y[f], 0.0f));
+      xr[f] = round_to<X>(fmaxf(y[f], 0.0f));
     __syncthreads();
-    matvec<T>(xr, w.w_ff2 + static_cast<size_t>(l) * F * D,
-              w.b_ff2 + static_cast<size_t>(l) * D, y, F, D, s.red);
+    layer_matvec(w.ff2, l, xr, y, F, D, s.red);
     add_layer_norm(x, y, lnl + 4 * D, lnl + 5 * D, D, s.scratch);
   }
 }

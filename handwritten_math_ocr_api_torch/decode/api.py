@@ -23,6 +23,15 @@ without a CUDA device. It has two routes, both all kernels on the card:
   kernel, every beam step as one launch of the ragged step kernel and one
   of the beam cache reorder. The two switches are independent, as in JAX.
 
+``quantize=True`` is the JAX engine's weight-only int8 decoder
+(``SERVING_QUANTIZE=1``), on either route as in JAX. On the default route
+every decoder projection and the head are int8 with per-column scales
+(``ops/quant.py::quantize_decoder_params``, from the float32 tree) and run
+through the dequant matmul kernel. On the fused route the greedy and beam
+steps stream the int8 bundle (``ops/fused_step.py::quantize_stacked`` of
+the stacked, compute-dtype weights) through their int8 entries, while the
+cross K/V projection and the greedy float32 head keep the float weights.
+
 Beam search decodes the images of the request only: the zero images that
 pad a batch to its bucket are encoded (the encoder runs at the bucket) but
 not decoded, as their rows of the result are dropped anyway. Sampling,
@@ -42,7 +51,8 @@ from ..core.device import resolve_device
 from ..core.tokenizer import Tokenizer, clean_latex_output
 from ..data.preprocess import normalize
 from ..models import model as model_mod
-from ..ops.fused_step import build_stacked_full
+from ..ops.fused_step import build_stacked_full, quantize_stacked
+from ..ops.quant import quantize_decoder_params
 from ..ops.swin_block import with_float32_biases
 from .beam import beam_decode
 from .fused import beam_decode_fused, greedy_decode_fused
@@ -67,7 +77,7 @@ class DecodeEngine:
                  decode_cfg: Optional[DecodeConfig] = None,
                  tokenizer: Optional[Tokenizer] = None, *,
                  use_fused: bool = False, pallas_encoder_block: bool = False,
-                 device=None):
+                 quantize: bool = False, device=None):
         """``params``: the model's parameter tree with numpy or tensor
         leaves (a JAX tree after ``np.asarray`` on each leaf, or
         ``convert.random_params``); ``convert.to_torch`` moves it to
@@ -76,17 +86,24 @@ class DecodeEngine:
         (``build_stacked_full``: float32 biases, norms, embedding and head
         tables, as the JAX engine's bundle; greedy and beam share it);
         ``pallas_encoder_block`` selects the whole-block Swin kernel and
-        gives its blocks their float32 biases."""
+        gives its blocks their float32 biases. ``quantize`` makes the
+        decoder's weights int8: the stacked bundle's with ``use_fused``,
+        else the decoder tree's (quantized from ``params`` before it moves
+        to the device)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.decode_cfg = decode_cfg or DecodeConfig()
         self.tokenizer = tokenizer
+        if quantize and not use_fused:
+            params = dict(params)
+            params["decoder"] = quantize_decoder_params(params["decoder"])
         self.params = to_torch(params, cfg, self.device)
         if pallas_encoder_block:
             self.params["encoder"] = with_float32_biases(
                 params["encoder"], self.params["encoder"])
         self.use_fused = use_fused
         self.pallas_encoder_block = pallas_encoder_block
+        self.quantize = quantize
         self.stacked = None
         if use_fused:
             if cfg.kv_heads != cfg.nhead:
@@ -95,6 +112,8 @@ class DecodeEngine:
                     "ported; the fused step takes MHA configs only")
             self.stacked = build_stacked_full(params["decoder"], cfg,
                                                self.device)
+            if quantize:
+                self.stacked = quantize_stacked(self.stacked)
         self.last_steps = 0  # decoder steps of the latest decode
 
     def _pad_batch(self, images) -> Tuple[torch.Tensor, int]:

@@ -115,13 +115,14 @@ def beam_decode(params, cfg: ModelConfig, memory, beam_size: int = 5,
                 max_len=None, *, alpha: float = 0.0,
                 kernels: bool = True) -> BeamResult:
     """memory: (B, L_enc, d_model) from the encoder. ``kernels=False``
-    takes the plain cache attention even on CUDA (the reference path)."""
+    takes the plain cache attention and dequant matmul even on CUDA (the
+    reference path)."""
     B = memory.shape[0]
     K = beam_size
     T = max_len or cfg.max_seq_len
     cache = decoder_mod.init_cache(params, cfg,
                                    memory.repeat_interleave(K, dim=0),
-                                   max_len=T)
+                                   max_len=T, kernels=kernels)
     beams = BeamSearch(B, K, T, memory.device)
     step = 0
     while step < T:

@@ -64,9 +64,11 @@ def greedy_loop(step_logits: Callable[[torch.Tensor, int], torch.Tensor],
 def greedy_decode(params, cfg: ModelConfig, memory, max_len=None, *,
                   kernels: bool = True) -> GreedyResult:
     """memory: (B, L_enc, d_model) from the encoder. ``kernels=False``
-    takes the plain cache attention even on CUDA (the reference path)."""
+    takes the plain cache attention and dequant matmul even on CUDA (the
+    reference path)."""
     T = max_len or cfg.max_seq_len
-    cache = decoder_mod.init_cache(params, cfg, memory, max_len=T)
+    cache = decoder_mod.init_cache(params, cfg, memory, max_len=T,
+                                   kernels=kernels)
     return greedy_loop(
         lambda prev, step: decoder_mod.decoder_step(
             params, cfg, prev, step, cache, kernels=kernels),

@@ -13,6 +13,12 @@ final decoder LayerNorm.
   cache-append attention kernel (the JAX ``use_pallas=True`` route), which
   writes the new K/V row into the cache in place.
 
+A tree from ``ops/quant.py::quantize_decoder_params`` (``w_qkv_q``,
+``w_out_q``, ``w_q`` with their ``*_scale``) runs every projection and
+the head through the dequant matmul kernel, as the JAX functions run
+``dequant_matmul``; the cross projection's q, k and v are column slices of
+the packed int8 matrix, read in place.
+
 Self-attention is MHA only here (``nhead_kv`` unset), as the kernel is.
 """
 
@@ -45,16 +51,22 @@ def _embed(params, tgt_ids, positions, dtype):
     return (tok + pos).to(dtype)
 
 
-def _proj(p, x, part: str):
+def _linear(p, w: str, b: str, x, kernels: bool, cols=slice(None)):
+    """x @ p[w][:, cols] + p[b][cols]; from the int8 weight ``{w}_q`` and
+    its scales when the tree is quantized (a column slice is a view: no
+    weight is copied)."""
+    if f"{w}_q" in p:
+        lin = {"w_q": p[f"{w}_q"][:, cols], "w_scale": p[f"{w}_scale"][cols]}
+    else:
+        lin = {"w": p[w][:, cols]}
+    lin["b"] = p[b][cols]
+    return layers.linear(lin, x, kernels=kernels)
+
+
+def _proj(p, x, part: str, kernels: bool = True):
     d = x.shape[-1]
     lo = {"q": 0, "k": d, "v": 2 * d}[part]
-    w = p["w_qkv"][:, lo:lo + d].to(x.dtype)
-    b = p["b_qkv"][lo:lo + d].to(x.dtype)
-    return x @ w + b
-
-
-def _out_proj(p, x):
-    return layers.linear({"w": p["w_out"], "b": p["b_out"]}, x)
+    return _linear(p, "w_qkv", "b_qkv", x, kernels, slice(lo, lo + d))
 
 
 def decoder_forward(params, cfg: ModelConfig, memory, tgt_ids):
@@ -78,9 +90,11 @@ def decoder_forward(params, cfg: ModelConfig, memory, tgt_ids):
 
 
 def init_cache(params, cfg: ModelConfig, memory,
-               max_len: Optional[int] = None) -> Cache:
+               max_len: Optional[int] = None, *,
+               kernels: bool = True) -> Cache:
     """Empty self-attention K/V caches (B, H, T, Dh) and the precomputed
-    cross-attention K/V (B, H, L_enc, Dh) of every layer."""
+    cross-attention K/V (B, H, L_enc, Dh) of every layer. ``kernels=False``
+    takes the plain dequant matmul even on CUDA."""
     _check_mha(cfg)
     B = memory.shape[0]
     T = max_len or cfg.max_seq_len
@@ -90,8 +104,10 @@ def init_cache(params, cfg: ModelConfig, memory,
     cache: Cache = {}
     for i, p in enumerate(params["layers"]):
         cp = p["cross_attn"]
-        cache[f"cross_k_{i}"] = layers.split_heads(_proj(cp, memory, "k"), nh)
-        cache[f"cross_v_{i}"] = layers.split_heads(_proj(cp, memory, "v"), nh)
+        cache[f"cross_k_{i}"] = layers.split_heads(
+            _proj(cp, memory, "k", kernels), nh)
+        cache[f"cross_v_{i}"] = layers.split_heads(
+            _proj(cp, memory, "v", kernels), nh)
         cache[f"self_k_{i}"] = torch.zeros((B, nh, T, dh), dtype=dtype,
                                            device=memory.device)
         cache[f"self_v_{i}"] = torch.zeros((B, nh, T, dh), dtype=dtype,
@@ -106,7 +122,8 @@ def decoder_step(params, cfg: ModelConfig, tok_ids, pos: int, cache: Cache,
     Returns float32 logits (B, vocab). The self-attention caches in
     ``cache`` are updated in place at ``pos``. Equal to ``decoder_forward``
     on the full prefix at its last position (the tests check it).
-    ``kernels=False`` takes the plain cache attention even on CUDA.
+    ``kernels=False`` takes the plain cache attention (and, on an int8
+    tree, the plain dequant matmul) even on CUDA.
     """
     dtype = compute_dtype(cfg)
     nh = cfg.nhead
@@ -116,21 +133,21 @@ def decoder_step(params, cfg: ModelConfig, tok_ids, pos: int, cache: Cache,
               else cache_append_attention_plain)
     for i, p in enumerate(params["layers"]):
         sp = p["self_attn"]
-        qkv = x @ sp["w_qkv"].to(dtype) + sp["b_qkv"].to(dtype)
+        qkv = _linear(sp, "w_qkv", "b_qkv", x, kernels)
         q, k_new, v_new = (layers.split_heads(t, nh).contiguous()
                            for t in qkv.split(cfg.d_model, dim=-1))
         sa = attend(q, k_new, v_new, cache[f"self_k_{i}"],
                     cache[f"self_v_{i}"], pos)
-        sa = _out_proj(sp, layers.merge_heads(sa))
+        sa = _linear(sp, "w_out", "b_out", layers.merge_heads(sa), kernels)
         x = layers.layer_norm(p["norm1"], x + sa)
 
         cp = p["cross_attn"]
-        qc = layers.split_heads(_proj(cp, x, "q"), nh)
+        qc = layers.split_heads(_proj(cp, x, "q", kernels), nh)
         ca = layers.attention(qc, cache[f"cross_k_{i}"], cache[f"cross_v_{i}"])
-        ca = _out_proj(cp, layers.merge_heads(ca))
+        ca = _linear(cp, "w_out", "b_out", layers.merge_heads(ca), kernels)
         x = layers.layer_norm(p["norm2"], x + ca)
 
-        ff = layers.mlp(p["ffn"], x, activation=torch.relu)
+        ff = layers.mlp(p["ffn"], x, activation=torch.relu, kernels=kernels)
         x = layers.layer_norm(p["norm3"], x + ff)
-    logits = layers.linear(params["fc_out"], x.float())
+    logits = layers.linear(params["fc_out"], x.float(), kernels=kernels)
     return logits[:, 0, :]

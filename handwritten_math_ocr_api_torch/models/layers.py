@@ -16,11 +16,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.quant import dequant_matmul, dequant_matmul_plain
+
 Tensor = torch.Tensor
 
 
-def linear(p, x: Tensor) -> Tensor:
-    y = x @ p["w"].to(x.dtype)
+def linear(p, x: Tensor, *, kernels: bool = True) -> Tensor:
+    """x @ w + b. A weight-only int8 layer (``w_q``, ``w_scale``) goes
+    through the dequant matmul (the kernel on CUDA; its plain version with
+    ``kernels=False``), rounded to x's dtype before the bias is added, as
+    the JAX function does."""
+    if "w_q" in p:
+        mm = dequant_matmul if kernels else dequant_matmul_plain
+        y = mm(x, p["w_q"], p["w_scale"])
+    else:
+        y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -85,8 +95,10 @@ def gelu_tanh(x: Tensor) -> Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x: Tensor, activation=torch.relu) -> Tensor:
-    return linear(p["fc2"], activation(linear(p["fc1"], x)))
+def mlp(p, x: Tensor, activation=torch.relu, *,
+        kernels: bool = True) -> Tensor:
+    h = activation(linear(p["fc1"], x, kernels=kernels))
+    return linear(p["fc2"], h, kernels=kernels)
 
 
 def causal_mask(length: int, device=None) -> Tensor:

@@ -52,11 +52,20 @@ SIGNATURES = {
     # x_out, k_new, v_new, L, B, T, D, H, F, L_enc, pos, stream
     "fused_decoder_step_bf16": (P,) * 21 + (I,) * 8 + (P,),
     "fused_decoder_step_f32": (P,) * 21 + (I,) * 8 + (P,),
+    # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
+    "fused_decoder_step_i8_bf16": (P,) * 27 + (I,) * 8 + (P,),
+    "fused_decoder_step_i8_f32": (P,) * 27 + (I,) * 8 + (P,),
     # prev, pos, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, logits, nxt, logp, k_new, v_new,
     # L, R, T, D, H, F, L_enc, V, T_pos, stream
     "ragged_step_bf16": (P,) * 28 + (I,) * 9 + (P,),
     "ragged_step_f32": (P,) * 28 + (I,) * 9 + (P,),
+    # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
+    "ragged_step_i8_bf16": (P,) * 34 + (I,) * 9 + (P,),
+    "ragged_step_i8_f32": (P,) * 34 + (I,) * 9 + (P,),
+    # x, w_q, scale, y, M, K, N, row stride of w_q, 16-byte loads, stream
+    "dequant_matmul_bf16": (P,) * 4 + (I,) * 5 + (P,),
+    "dequant_matmul_f32": (P,) * 4 + (I,) * 5 + (P,),
     # k_in, v_in, src, k_out, v_out, L, R, T_in, T_out, t_ext, row bytes,
     # stream (one entry for every type: the kernel copies bytes)
     "beam_cache_gather": (P,) * 5 + (I,) * 6 + (P,),

@@ -20,17 +20,27 @@ steps and their weight bundles:
 The caller appends the fresh rows to the caches. Both kernels share their
 layer code (``csrc/decoder_layers.cuh``).
 
+Both steps take the bf16/float32 bundles and the int8 one
+(``quantize_stacked``, the JAX "v2q" bundle of ``DecodeEngine(use_fused=
+True, quantize=True)``): the six layer weights int8 with float32 scales
+``{k}_s`` (L, 1, N) per output column, everything else as before. A
+bundle with ``w_qkv_s`` is the int8 one, as JAX detects it; the wrappers
+then launch the kernels' int8 entries (counted in ``int8_launches``, the
+float bundles in ``launches``).
+
 Numerics of the TPU kernels: the activation row is carried in float32
-across the sublayers; each matmul input is rounded to the weight dtype and
-accumulated in float32; biases and LayerNorm parameters are float32;
+across the sublayers; each matmul input is rounded to the weight dtype
+(to bf16 for int8 weights, whatever the compute dtype) and accumulated in
+float32, an int8 product times its column's scale; biases and LayerNorm
+parameters are float32;
 attention logits and softmax are float32; the fresh K/V row is rounded to
 the cache dtype before it joins attention at slot ``pos``, and slots after
 ``pos`` are not attended (the TPU kernels' -inf mask). The ragged step's
-embedding, positional and head tables are float32 too.
+embedding, positional and head tables are float32 too, and its embedding
+sum is rounded to the compute dtype.
 
 Caches are merged-head: self ``(L, B, T, D)``, cross ``(L, B, L_enc, D)``,
-heads interleaved along D in torch's order. Only the bf16/float32 weight
-bundles are ported; the int8 one (``quantize_stacked``) is not.
+heads interleaved along D in torch's order.
 """
 
 from __future__ import annotations
@@ -44,11 +54,17 @@ import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from . import _build
+from .quant import quantize_weight
 
-_ENTRY = {torch.bfloat16: "fused_decoder_step_bf16",
-          torch.float32: "fused_decoder_step_f32"}
-_RAGGED_ENTRY = {torch.bfloat16: "ragged_step_bf16",
-                 torch.float32: "ragged_step_f32"}
+# C entries by (int8 bundle, cache dtype)
+_ENTRY = {(False, torch.bfloat16): "fused_decoder_step_bf16",
+          (False, torch.float32): "fused_decoder_step_f32",
+          (True, torch.bfloat16): "fused_decoder_step_i8_bf16",
+          (True, torch.float32): "fused_decoder_step_i8_f32"}
+_RAGGED_ENTRY = {(False, torch.bfloat16): "ragged_step_bf16",
+                 (False, torch.float32): "ragged_step_f32",
+                 (True, torch.bfloat16): "ragged_step_i8_bf16",
+                 (True, torch.float32): "ragged_step_i8_f32"}
 WEIGHT_KEYS = ("w_qkv", "w_out", "w_cq", "w_co", "w_ff1", "w_ff2")
 BIAS_KEYS = ("b_qkv", "b_out", "b_cq", "b_co", "b_ff1", "b_ff2")
 
@@ -127,6 +143,60 @@ def build_stacked_full(decoder_params, cfg: ModelConfig,
     return st
 
 
+def quantize_stacked(stacked) -> Dict[str, torch.Tensor]:
+    """The int8 bundle of the JAX ``quantize_stacked``: each of the six
+    stacked layer weights quantized per layer and output column
+    (``ops/quant.py`` semantics, from the bundle's values: bf16-rounded in
+    a bf16 config) into int8 ``{k}`` and float32 scales ``{k}_s``
+    (L, 1, N); every other entry shared with ``stacked``."""
+    out = dict(stacked)
+    for k in WEIGHT_KEYS:
+        w_q, scale = quantize_weight(stacked[k])
+        out[k] = w_q.contiguous()
+        out[f"{k}_s"] = scale[:, None, :].contiguous()
+    return out
+
+
+def _is_int8(stacked) -> bool:
+    """The bundle is the int8 one; its weights and scales must agree."""
+    quantized = "w_qkv_s" in stacked
+    for k in WEIGHT_KEYS:
+        if (stacked[k].dtype == torch.int8) != quantized or (
+                f"{k}_s" in stacked) != quantized:
+            raise ValueError(f"bundle mixes int8 and float weights or lacks "
+                             f"scales at {k}")
+    return quantized
+
+
+def _weight_ptrs(stacked, cfg: ModelConfig, L: int, dt, dev):
+    """Check the six stacked weights (in ``dt``, or int8 with their
+    scales), their biases and the LayerNorm table for a kernel; return
+    (int8 bundle, the entry's pointers: per weight (w, b), or (w, s, b)
+    for int8, then ln)."""
+    D, ff = cfg.d_model, cfg.dim_feedforward
+    quantized = _is_int8(stacked)
+    shapes = {"w_qkv": (L, D, 3 * D), "w_out": (L, D, D),
+              "w_cq": (L, D, D), "w_co": (L, D, D), "w_ff1": (L, D, ff),
+              "w_ff2": (L, ff, D)}
+    f32 = torch.float32
+    ptrs = []
+    for (name, shape), bias in zip(shapes.items(), BIAS_KEYS):
+        _build.require(stacked[name], name,
+                       dtype=torch.int8 if quantized else dt, shape=shape,
+                       device=dev, aligned=True)
+        ptrs.append(stacked[name].data_ptr())
+        if quantized:
+            _build.require(stacked[f"{name}_s"], f"{name}_s", dtype=f32,
+                           shape=(L, 1, shape[-1]), device=dev)
+            ptrs.append(stacked[f"{name}_s"].data_ptr())
+        _build.require(stacked[bias], bias, dtype=f32,
+                       shape=(L, 1, shape[-1]), device=dev)
+        ptrs.append(stacked[bias].data_ptr())
+    _build.require(stacked["ln"], "ln", dtype=f32, shape=(L, 6, D),
+                   device=dev)
+    return quantized, ptrs + [stacked["ln"].data_ptr()]
+
+
 def _heads_attention(q, k, v, nhead: int, keep=None):
     """q (B, D) float32 pre-scaled; k, v (B, S, D) float32 -> (B, D).
     ``keep`` (B, S) bool: the slots each row attends (all if None)."""
@@ -169,7 +239,7 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     H, ff = cfg.nhead, cfg.dim_feedforward
     dt = x_emb.dtype
     dev = x_emb.device
-    if dt not in _ENTRY:
+    if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"decoder step kernel takes bf16 or float32, "
                          f"not {dt}")
     if D != cfg.d_model or D % H or (D // H) % 8 or ff % 8:
@@ -187,37 +257,28 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
         _build.require(t, name, dtype=dt, shape=(L, B, L_enc, D),
                        device=dev, aligned=True)
-    shapes = {"w_qkv": (L, D, 3 * D), "w_out": (L, D, D),
-              "w_cq": (L, D, D), "w_co": (L, D, D), "w_ff1": (L, D, ff),
-              "w_ff2": (L, ff, D)}
-    for name, shape in shapes.items():
-        _build.require(stacked[name], name, dtype=dt, shape=shape,
-                       device=dev, aligned=True)
-    for name, key in zip(BIAS_KEYS, WEIGHT_KEYS):
-        _build.require(stacked[name], name, dtype=torch.float32,
-                       shape=(L, 1, shapes[key][-1]), device=dev)
-    _build.require(stacked["ln"], "ln", dtype=torch.float32,
-                   shape=(L, 6, D), device=dev)
+    quantized, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
 
     x_out = torch.empty((B, D), dtype=torch.float32, device=dev)
     k_new = torch.empty((L, B, D), dtype=dt, device=dev)
     v_new = torch.empty((L, B, D), dtype=dt, device=dev)
-    lib = _build.library()
-    ptrs = [x_emb.data_ptr()]
-    for w, b in zip(WEIGHT_KEYS, BIAS_KEYS):
-        ptrs += [stacked[w].data_ptr(), stacked[b].data_ptr()]
-    ptrs += [stacked["ln"].data_ptr()]
+    entry = _ENTRY[quantized, dt]
+    ptrs = [x_emb.data_ptr(), *weights]
     ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v, x_out,
                                     k_new, v_new)]
-    code = getattr(lib, _ENTRY[dt])(
+    code = getattr(_build.library(), entry)(
         *ptrs, L, B, T, D, H, ff, L_enc, int(pos),
         _build.stream_handle(dev))
-    _build.check(code, _ENTRY[dt])
-    fused_decoder_layers_step_v2.launches += 1
+    _build.check(code, entry)
+    if quantized:
+        fused_decoder_layers_step_v2.int8_launches += 1
+    else:
+        fused_decoder_layers_step_v2.launches += 1
     return x_out, k_new, v_new
 
 
 fused_decoder_layers_step_v2.launches = 0
+fused_decoder_layers_step_v2.int8_launches = 0
 
 
 def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
@@ -228,7 +289,8 @@ def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
     L, R, T, D = self_k.shape
     H = cfg.nhead
     scale = 1.0 / math.sqrt(D // H)
-    wdt = stacked["w_qkv"].dtype
+    quantized = _is_int8(stacked)
+    xdt = torch.bfloat16 if quantized else stacked["w_qkv"].dtype
     cdt = self_k.dtype
     ln = stacked["ln"]
     slot = torch.arange(T, device=x.device)[None, :]
@@ -237,8 +299,10 @@ def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
     keep = (slot <= pos[:, None])
 
     def mm(x, name, bias):
-        w = stacked[name][layer].float()
-        return x.to(wdt).float() @ w + stacked[bias][layer, 0]
+        y = x.to(xdt).float() @ stacked[name][layer].float()
+        if quantized:
+            y = y * stacked[f"{name}_s"][layer, 0]
+        return y + stacked[bias][layer, 0]
 
     def norm(x, i):
         return F.layer_norm(x, (D,), ln[layer, 2 * i], ln[layer, 2 * i + 1],
@@ -297,7 +361,10 @@ def fused_ragged_step_plain(stacked, cfg: ModelConfig, prev, pos, self_k,
     pos = pos.long()
     if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) >= T):
         raise ValueError(f"a position lies outside the cache of {T} slots")
-    wdt = stacked["w_qkv"].dtype
+    # rounded to cfg.dtype under int8 weights, as the JAX kernel, else to
+    # the weights' dtype (the same in a build_stacked_full bundle)
+    wdt = (getattr(torch, cfg.dtype) if _is_int8(stacked)
+           else stacked["w_qkv"].dtype)
     x = (stacked["emb"][prev.long()] + stacked["pos_emb"][pos]).to(wdt)
     x, k_new, v_new = _layers_plain(stacked, cfg, x.float(), self_k, self_v,
                                     cross_k, cross_v, pos)
@@ -321,7 +388,7 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     tile: one block per row), the ``t_active`` prefix bucket (the kernel
     reads no slot after a row's position anyway) and the zeroing of V past
     the horizon (NaN protection that becomes not reading those slots).
-    Ring mode, ``n_chunks``, the int8 bundle and MQA are not ported."""
+    Ring mode, ``n_chunks`` and MQA are not ported."""
     if not self_k.is_cuda:
         return fused_ragged_step_plain(stacked, cfg, prev, pos, self_k,
                                        self_v, cross_k, cross_v,
@@ -332,7 +399,7 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     dt = self_k.dtype
     dev = self_k.device
     V, Tpos = stacked["emb"].shape[0], stacked["pos_emb"].shape[0]
-    if dt not in _RAGGED_ENTRY:
+    if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"ragged step kernel takes bf16 or float32, "
                          f"not {dt}")
     if D != cfg.d_model or D % H or (D // H) % 8 or ff % 8:
@@ -349,18 +416,13 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
         _build.require(t, name, dtype=dt, shape=(L, R, L_enc, D),
                        device=dev, aligned=True)
-    shapes = {"w_qkv": (L, D, 3 * D), "w_out": (L, D, D),
-              "w_cq": (L, D, D), "w_co": (L, D, D), "w_ff1": (L, D, ff),
-              "w_ff2": (L, ff, D)}
-    for name, shape in shapes.items():
-        _build.require(stacked[name], name, dtype=dt, shape=shape,
-                       device=dev, aligned=True)
+    quantized, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
+    if quantized and dt != getattr(torch, cfg.dtype):
+        raise ValueError(f"int8 ragged step: caches are {dt}, the compute "
+                         f"dtype {cfg.dtype}")
     f32 = torch.float32
-    for name, key in zip(BIAS_KEYS, WEIGHT_KEYS):
-        _build.require(stacked[name], name, dtype=f32,
-                       shape=(L, 1, shapes[key][-1]), device=dev)
-    tables = {"ln": (L, 6, D), "emb": (V, D), "pos_emb": (Tpos, D),
-              "w_head": (D, V), "b_head": (1, V)}
+    tables = {"emb": (V, D), "pos_emb": (Tpos, D), "w_head": (D, V),
+              "b_head": (1, V)}
     for name, shape in tables.items():
         _build.require(stacked[name], name, dtype=f32, shape=shape,
                        device=dev)
@@ -375,19 +437,20 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
                 torch.empty((R,), dtype=f32, device=dev))
         heads = [None, outs[0].data_ptr(), outs[1].data_ptr()]
     ptrs = [prev.data_ptr(), pos.data_ptr(), stacked["emb"].data_ptr(),
-            stacked["pos_emb"].data_ptr()]
-    for w, b in zip(WEIGHT_KEYS, BIAS_KEYS):
-        ptrs += [stacked[w].data_ptr(), stacked[b].data_ptr()]
-    ptrs += [t.data_ptr() for t in (stacked["ln"], self_k, self_v, cross_k,
-                                    cross_v, stacked["w_head"],
-                                    stacked["b_head"])]
+            stacked["pos_emb"].data_ptr(), *weights]
+    ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v,
+                                    stacked["w_head"], stacked["b_head"])]
     ptrs += heads + [k_new.data_ptr(), v_new.data_ptr()]
-    lib = _build.library()
-    code = getattr(lib, _RAGGED_ENTRY[dt])(
+    entry = _RAGGED_ENTRY[quantized, dt]
+    code = getattr(_build.library(), entry)(
         *ptrs, L, R, T, D, H, ff, L_enc, V, Tpos, _build.stream_handle(dev))
-    _build.check(code, _RAGGED_ENTRY[dt])
-    fused_ragged_step.launches += 1
+    _build.check(code, entry)
+    if quantized:
+        fused_ragged_step.int8_launches += 1
+    else:
+        fused_ragged_step.launches += 1
     return (*outs, k_new, v_new)
 
 
 fused_ragged_step.launches = 0
+fused_ragged_step.int8_launches = 0

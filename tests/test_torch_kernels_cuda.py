@@ -20,7 +20,10 @@ round an output one or two bf16 steps apart); the decoder steps atol 5e-2
 + rtol 2e-2 in bf16 (8 layers of bf16-rounded matmul inputs); float32
 atol 1e-4 + rtol 1e-4 for one kernel and 1e-3 for the decoder steps
 (summation order only); the ragged step's argmax equal in float32; the
-beam cache reorder exactly (a copy).
+beam cache reorder exactly (a copy). The int8 bundle of the decoder steps
+rounds its matmul inputs to bf16 in float32 too, so it is held at the bf16
+step tolerance in both dtypes, and its float32 argmax only where the plain
+logits' top two lie further apart than twice their largest error.
 """
 
 import pytest
@@ -33,6 +36,7 @@ from handwritten_math_ocr_api_torch.ops import beam_reorder as br
 from handwritten_math_ocr_api_torch.ops import cache_attention as ca
 from handwritten_math_ocr_api_torch.ops import fused_step as fs
 from handwritten_math_ocr_api_torch.ops import patch_merging as pm
+from handwritten_math_ocr_api_torch.ops import quant
 from handwritten_math_ocr_api_torch.ops import swin_block as sb
 from handwritten_math_ocr_api_torch.ops import window_attention as wa
 
@@ -71,10 +75,10 @@ def _close(got, want, tol):
                                rtol=rtol)
 
 
-def _launched(wrapper, fn):
-    before = wrapper.launches
+def _launched(wrapper, fn, attr="launches"):
+    before = getattr(wrapper, attr)
     out = fn()
-    assert wrapper.launches == before + 1
+    assert getattr(wrapper, attr) == before + 1
     return out
 
 
@@ -148,6 +152,62 @@ def test_fused_decoder_step(dev, np_params, dtype, B):
             _close(g, w, STEP_TOL[dtype])
 
 
+@pytest.mark.parametrize("B", [1, 16])
+def test_fused_decoder_step_int8(dev, np_params, B):
+    cfg = CFG.replace(dtype="bfloat16")
+    stacked = fs.quantize_stacked(fs.build_stacked(np_params["decoder"], cfg,
+                                                   dev))
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    sk, sv = (_randn(dev, "bfloat16", L, B, T, D, seed=i) for i in range(2))
+    ck, cv = (_randn(dev, "bfloat16", L, B, L_enc, D, seed=2 + i)
+              for i in range(2))
+    x = _randn(dev, "bfloat16", B, D, seed=4)
+    for pos in (0, 74, 149):
+        got = _launched(fs.fused_decoder_layers_step_v2,
+                        lambda: fs.fused_decoder_layers_step_v2(
+                            stacked, cfg, x, sk, sv, ck, cv, pos),
+                        "int8_launches")
+        want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg, x, sk, sv,
+                                                     ck, cv, pos)
+        for g, w in zip(got, want):
+            _close(g, w, STEP_TOL["bfloat16"])
+
+
+def _dequant_cases(dec, batch):
+    """(name, w_q, scale, M) at every shape the default int8 route serves:
+    a layer's six projections and the head at ``batch`` rows, the cross
+    K/V projection of the memory (a column slice)."""
+    D, L_enc = CFG.d_model, CFG.encoder_len
+    sa, ca = dec["layers"][0]["self_attn"], dec["layers"][0]["cross_attn"]
+    ffn = dec["layers"][0]["ffn"]
+    return [("qkv", sa["w_qkv_q"], sa["w_qkv_scale"], batch),
+            ("out", sa["w_out_q"], sa["w_out_scale"], batch),
+            ("cross q", ca["w_qkv_q"][:, :D], ca["w_qkv_scale"][:D], batch),
+            ("cross out", ca["w_out_q"], ca["w_out_scale"], batch),
+            ("fc1", ffn["fc1"]["w_q"], ffn["fc1"]["w_scale"], batch),
+            ("fc2", ffn["fc2"]["w_q"], ffn["fc2"]["w_scale"], batch),
+            ("head", dec["fc_out"]["w_q"], dec["fc_out"]["w_scale"], batch),
+            ("cross v", ca["w_qkv_q"][:, 2 * D:], ca["w_qkv_scale"][2 * D:],
+             batch * L_enc)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch", [1, 16, 50])
+def test_dequant_matmul(dev, np_params, dtype, batch):
+    """Both entries (bf16 x, float32 x) at every served shape: the
+    138-column head (byte loads) and the strided column slices included."""
+    cfg = CFG.replace(dtype=dtype)
+    dec = convert.to_torch(
+        {"decoder": quant.quantize_decoder_params(np_params["decoder"])},
+        cfg, dev)["decoder"]
+    for i, (name, w_q, scale, M) in enumerate(_dequant_cases(dec, batch)):
+        x = _randn(dev, dtype, M, w_q.shape[0], seed=10 + i)
+        got = _launched(quant.dequant_matmul,
+                        lambda: quant.dequant_matmul(x, w_q, scale))
+        assert got.dtype == x.dtype and tuple(got.shape) == (M, w_q.shape[1])
+        _close(got, quant.dequant_matmul_plain(x, w_q, scale), TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_swin_block(dev, np_params, dtype, stage):
@@ -196,6 +256,45 @@ def test_ragged_step(dev, np_params, dtype, R):
                 got, want = got[1:], want[1:]
             for g, w in zip(got, want):
                 _close(g, w, STEP_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", [1, 50])
+def test_ragged_step_int8(dev, np_params, dtype, R):
+    cfg = CFG.replace(dtype=dtype)
+    stacked = fs.quantize_stacked(fs.build_stacked_full(np_params["decoder"],
+                                                        cfg, dev))
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    sk, sv = (_randn(dev, dtype, L, R, T, D, seed=i) for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, R, L_enc, D, seed=2 + i)
+              for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prev = torch.randint(0, cfg.vocab_size, (R,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    for pos in (torch.full((R,), 0, dtype=torch.int32, device=dev),
+                torch.full((R,), 149, dtype=torch.int32, device=dev),
+                torch.randint(0, T, (R,), generator=gen, device=dev,
+                              dtype=torch.int32)):
+        got = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, sk, sv, ck, cv,
+                            return_logits=True), "int8_launches")
+        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, sk, sv,
+                                          ck, cv, return_logits=True)
+        for g, w in zip(got, want):
+            _close(g, w, STEP_TOL["bfloat16"])
+        logits_err = (got[0] - want[0]).abs().max()
+        top2 = want[0].topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 2 * logits_err
+        nxt = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, sk, sv, ck, cv),
+                        "int8_launches")
+        want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, sk,
+                                              sv, ck, cv)
+        assert torch.equal(nxt[0][clear], want_nxt[0][clear])
+        for g, w in zip(nxt[1:], want_nxt[1:]):
+            _close(g, w, STEP_TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

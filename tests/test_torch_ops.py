@@ -173,5 +173,6 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
         [f"{k}_{t}" for k in ("window_attention", "patch_merging",
                               "cache_append_attention", "decode_attention",
                               "fused_decoder_step", "ragged_step",
-                              "swin_block")
+                              "swin_block", "dequant_matmul",
+                              "fused_decoder_step_i8", "ragged_step_i8")
          for t in ("bf16", "f32")] + ["beam_cache_gather"])
