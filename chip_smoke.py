@@ -8,13 +8,21 @@ Run from the root of a checkout. Phases, each printed on its own lines:
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA kernels in ``handwritten_math_ocr_api_torch/csrc``
    with ``nvcc``, and its seconds;
-3. each of the eleven kernels against its plain PyTorch version on the
-   card, in bf16, at the shapes the served paths give it (a 10-image
-   request padded to the 16-row batch bucket; beam search at beam 5 on the
-   10 images, 50 rows): window attention, patch merging, cache-append
-   attention and decode attention at every stage or slot they serve; the
-   fused decoder step at pos 0, 74 and 149, with the float bundle and the
-   int8 one; the whole Swin block at stages 1-3, unshifted and shifted;
+3. each of the fifteen kernel entries against its plain PyTorch version
+   on the card, in bf16, at the shapes the served paths give it (a
+   10-image request padded to the 16-row batch bucket; beam search at
+   beam 5 on the 10 images, 50 rows): window attention, patch merging,
+   cache-append attention and decode attention at every stage or slot
+   they serve; the fused decoder step at pos 0, 74 and 149, with the float
+   bundle and the int8 one; the "v1" step that writes its rows into the
+   caches (x_out and the written slot within the step tolerance, every
+   other slot unchanged) and the whole step of "v3"/"v4" in both cache
+   layouts (its argmax equal wherever the plain logits' top-2 margin
+   exceeds the step tolerance), each at pos 0, 74 and 149; the whole
+   decode of 150 steps with the bf16 and the int8 resident bundle (its
+   tokens equal to the plain version's up to a first difference at such a
+   near-tie in a row); the whole Swin block at stages 1-3, unshifted and
+   shifted;
    the ragged step at pos 0, 74, 149 and a ragged position vector, in both
    head modes, with both bundles (and in float32, where its argmax must be
    equal, for the int8 bundle wherever the plain logits are no near-tie);
@@ -23,7 +31,9 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    and the float32 head at 16 and 50 rows, and the cross K/V projection at
    480 and 1500. Each with its device time (``torch.profiler``: the
    kernels' own time, not the host's launch rate), the plain version's
-   time, the time of one PyTorch library call computing the same function
+   time (for the whole decode, whose plain version launches some 40,000
+   small kernels, the synchronized wall of its one reference run), the
+   time of one PyTorch library call computing the same function
    where there is one
    (else null; for the dequant matmul the nearest call, a matmul with the
    weight dequantized beforehand), and the least time the card could take
@@ -49,7 +59,15 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    with the plain logits' margin there. Images per second and the
    device's idle share; the int8 routes' bf16 tokens against the float
    route of the same kind (printed);
-5. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+5. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
+   v1, v2, v3, v4, and v5 with the int8 and the bf16 resident bundle) at
+   full width on the fused route's encoder memory of the 10-image request:
+   each arm's launch counts (150 of its step kernel, or one whole decode),
+   the wall of a decode, images/s and the device's idle share; float32
+   tokens of every arm equal to its plain path's and v2's (the int8 v5,
+   whose matmul inputs round to bf16, held as the whole decode is in
+   phase 3);
+6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port only, reads no checkpoint and no image
@@ -98,6 +116,13 @@ F32_STEP_ATOL = 1e-3
 # in a float32 configuration too, so kernel and plain carry the bf16
 # steps' rounding differences: they are held at STEP_ATOL / STEP_RTOL in
 # both dtypes
+# the whole decode's log-prob sums over the rows whose tokens agree, 150
+# steps, kernel vs plain: in bf16 (either bundle) and for the int8 bundle
+# in float32 (its matmul inputs round to bf16). Runs on an H100 measured
+# 0.191 (bf16 bundle), 0.105 (int8) and 0.046 (int8 in float32); the
+# limits leave about 2.5x room above those
+WHOLE_DECODE_LP_ATOL = 0.5
+WHOLE_DECODE_INT8_F32_LP_ATOL = 0.15
 
 
 def log(*parts):
@@ -714,6 +739,302 @@ def check_beam_reorder(cfg, rows):
     return entry
 
 
+def check_layers_step(cfg, np_params, batch):
+    """Phase 3: the "v1" layer step (B11) against its plain version at the
+    greedy bucket, bf16, at the first, a middle and the last slot: x_out
+    and the written slot within the decoder step's tolerance, every other
+    slot of the caches bit for bit unchanged."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    entry = Entry("layers_step_in_place", "handwritten_math_ocr_api_torch/"
+                  "csrc/fused_step.cu",
+                  "handwritten_math_ocr_api_tpu/ops/fused_step.py:896",
+                  "one launch (all decoder layers, the fresh rows written "
+                  "into the caches) at the last slot (pos = T - 1)")
+    entry.d["library"] = "none (no single call)"
+    stacked = fs.build_stacked(np_params["decoder"], cfg, dev)
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    L_enc = cfg.encoder_len
+    sk, sv = randn(L, batch, T, D), randn(L, batch, T, D)
+    ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
+    x = randn(batch, D)
+    err = 0.0
+    for pos in (0, T // 2 - 1, T - 1):
+        got_k, got_v = sk.clone(), sv.clone()
+        want_k, want_v = sk.clone(), sv.clone()
+        got = fs.fused_decoder_layers_step(stacked, cfg, x, got_k, got_v, ck,
+                                           cv, pos)
+        want = fs.fused_decoder_layers_step_plain(stacked, cfg, x, want_k,
+                                                  want_v, ck, cv, pos)
+        torch.cuda.synchronize()
+        other = torch.arange(T, device=dev) != pos
+        pairs = [("x_out", got[0], want[0])]
+        for what, g, w, old in (("k", got_k, want_k, sk),
+                                ("v", got_v, want_v, sv)):
+            pairs.append((f"cache {what} slot {pos}", g[:, :, pos],
+                          w[:, :, pos]))
+            if not torch.equal(g[:, :, other], old[:, :, other]):
+                raise AssertionError(f"layers_step_in_place pos {pos}: it "
+                                     f"wrote {what} outside slot {pos}")
+        for what, g, w in pairs:
+            assert_close(f"layers_step_in_place pos {pos} {what}", g, w,
+                         STEP_ATOL, STEP_RTOL)
+        e = max(max_err(g, w) for _, g, w in pairs)
+        err = max(err, e)
+        log(f"kernel layers_step_in_place pos {pos}: max_abs_err {e:.3g}, "
+            f"other slots unchanged")
+    pos = T - 1
+    ms = cuda_ms(lambda: fs.fused_decoder_layers_step(
+        stacked, cfg, x, sk, sv, ck, cv, pos))
+    plain = cuda_ms(lambda: fs.fused_decoder_layers_step_plain(
+        stacked, cfg, x, sk, sv, ck, cv, pos))
+    nbytes, weights = step_weight_bytes(cfg, False)
+    nbytes += (2 * L * batch * L_enc * D * 2
+               + 2 * L * batch * pos * D * 2 + batch * D * 2  # caches, x
+               + batch * D * 4 + 2 * L * batch * D * 2)       # x_out, rows
+    flops = 2 * batch * weights + 4 * L * batch * D * (pos + 1 + L_enc)
+    entry.add(1, err, ms, plain, None, nbytes, flops)
+    log(f"kernel layers_step_in_place: caches {tuple(sk.shape)} pos {pos} "
+        f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
+        f"bound_ms {bound_ms(nbytes, flops):.4f} "
+        f"({bound_by(nbytes, flops)}) library_ms null")
+    return entry
+
+
+def margin_of(logits):
+    """The top-2 margin of each row of float32 logits (..., V)."""
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def check_whole_step(cfg, np_params, batch):
+    """Phase 3: the whole step of "v3"/"v4" (B10) against its plain version
+    at the greedy bucket, bf16, in both cache layouts, at the first, a
+    middle and the last slot: logp and the fresh rows within the decoder
+    step's tolerance, nxt equal wherever the plain logits' top-2 margin
+    exceeds it, and in the time-major layout every other slot bit for bit
+    unchanged. The time is the time-major entry's ("v4", JAX's default);
+    the batch-major one's is printed beside it."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    entry = Entry("whole_step", "handwritten_math_ocr_api_torch/csrc/"
+                  "whole_step.cu",
+                  "handwritten_math_ocr_api_tpu/ops/fused_step.py:654",
+                  "one launch (embedding, all decoder layers, float32 head "
+                  "and argmax; time-major caches written in place) at the "
+                  "last slot (pos = T - 1)")
+    entry.d["library"] = "none (no single call)"
+    stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    L_enc, V = cfg.encoder_len, cfg.vocab_size
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
+    prev = torch.randint(0, V, (batch,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    err, timed = 0.0, {}
+    for time_major in (True, False):
+        shape = (L, T, batch, D) if time_major else (L, batch, T, D)
+        sk, sv = randn(*shape), randn(*shape)
+        layout = "time-major" if time_major else "batch-major"
+        for pos in (0, T // 2 - 1, T - 1):
+            got_k, got_v = sk.clone(), sv.clone()
+            want_k, want_v = sk.clone(), sv.clone()
+            got = fs.fused_whole_step(stacked, cfg, prev, got_k, got_v, ck,
+                                      cv, pos, time_major=time_major)
+            want = fs.fused_whole_step_plain(stacked, cfg, prev, want_k,
+                                             want_v, ck, cv, pos,
+                                             time_major=time_major)
+            view = ((want_k.transpose(1, 2), want_v.transpose(1, 2))
+                    if time_major else (want_k, want_v))
+            logits = fs.fused_ragged_step_plain(
+                stacked, cfg, prev,
+                torch.full((batch,), pos, dtype=torch.int32, device=dev),
+                *view, ck, cv, return_logits=True)[0]
+            torch.cuda.synchronize()
+            what = f"whole_step {layout} pos {pos}"
+            clear = margin_of(logits) > STEP_ATOL
+            agree = (got[0] == want[0]).float().mean().item()
+            if not torch.equal(got[0][clear], want[0][clear]):
+                raise AssertionError(f"{what}: nxt differs where the plain "
+                                     f"logits' top-2 margin exceeds "
+                                     f"{STEP_ATOL}")
+            pairs = [("logp", got[1], want[1])]
+            if time_major:
+                other = torch.arange(T, device=dev) != pos
+                for name, g, w, old in (("k", got_k, want_k, sk),
+                                        ("v", got_v, want_v, sv)):
+                    pairs.append((f"cache {name} slot {pos}", g[:, pos],
+                                  w[:, pos]))
+                    if not torch.equal(g[:, other], old[:, other]):
+                        raise AssertionError(f"{what}: it wrote {name} "
+                                             f"outside slot {pos}")
+            else:
+                if not (torch.equal(got_k, sk) and torch.equal(got_v, sv)):
+                    raise AssertionError(f"{what}: it wrote to the caches")
+                pairs += [("k_new", got[2], want[2]),
+                          ("v_new", got[3], want[3])]
+            for name, g, w in pairs:
+                assert_close(f"{what} {name}", g, w, STEP_ATOL, STEP_RTOL)
+            e = max(max_err(g, w) for _, g, w in pairs)
+            err = max(err, e)
+            log(f"kernel {what}: nxt agrees {agree:.4f} (equal where the "
+                f"margin exceeds {STEP_ATOL}), max_abs_err {e:.3g}")
+        pos = T - 1
+        timed[time_major] = cuda_ms(lambda: fs.fused_whole_step(
+            stacked, cfg, prev, sk, sv, ck, cv, pos, time_major=time_major))
+        if time_major:
+            plain = cuda_ms(lambda: fs.fused_whole_step_plain(
+                stacked, cfg, prev, sk, sv, ck, cv, pos, time_major=True))
+    nbytes, weights = step_weight_bytes(cfg, False)
+    nbytes += ((D * V + V) * 4 + batch * D * 4 + D * 4     # head, emb rows
+               + batch * 4 + batch * 8                     # prev, nxt, logp
+               + 2 * L * batch * L_enc * D * 2             # cross K/V
+               + 2 * L * batch * pos * D * 2               # cache prefix
+               + 2 * L * batch * D * 2)                    # fresh rows
+    flops = 2 * batch * weights + 4 * L * batch * D * (pos + 1 + L_enc)
+    f32_flops = 2 * batch * D * V
+    entry.add(1, err, timed[True], plain, None, nbytes, flops, f32_flops)
+    log(f"kernel whole_step: time-major caches ({L}, {T}, {batch}, {D}) pos "
+        f"{pos} max_abs_err {err:.3g} ms {timed[True]:.4f} (batch-major "
+        f"{timed[False]:.4f}) plain_ms {plain:.4f} "
+        f"bound_ms {bound_ms(nbytes, flops, f32_flops):.4f} "
+        f"({bound_by(nbytes, flops, f32_flops)}) library_ms null")
+    return entry
+
+
+def hold_decode(name, got, want, logits):
+    """A greedy decode against its plain version: each row's tokens equal
+    up to its first difference, which must come where the plain logits'
+    top-2 margin lies under STEP_ATOL (a near-tie: the kernel's logits may
+    lie that far from the plain ones); rows that agree throughout have
+    equal counts. Prints the agreement and each first difference; returns
+    the largest log-prob sum error over the rows that agree throughout."""
+    import torch
+
+    flips, err = [], 0.0
+    for r in range(got.tokens.shape[0]):
+        differ = (got.tokens[r] != want.tokens[r]).nonzero()
+        if len(differ):
+            t = int(differ[0])
+            flips.append((r, t, float(margin_of(logits[r, t]))))
+        elif got.token_count[r] != want.token_count[r]:
+            raise AssertionError(f"{name}: row {r} counts differ")
+        else:
+            err = max(err, abs(float(got.logprob_sum[r]
+                                     - want.logprob_sum[r])))
+    agree = (got.tokens == want.tokens).float().mean().item()
+    log(f"{name}: tokens agree {agree:.4f} with the plain version; first "
+        f"differences (row, step, plain top-2 margin) {flips}")
+    bad = [f for f in flips if f[2] >= STEP_ATOL]
+    if bad:
+        raise AssertionError(f"{name}: tokens differ where the plain "
+                             f"logits' margin is at least {STEP_ATOL}: {bad}")
+    if not torch.isfinite(got.logprob_sum).all():
+        raise AssertionError(f"{name}: log-prob sums are not finite")
+    return err
+
+
+def steps_per_row(tokens, eos_id):
+    """The steps each row of a greedy decode runs: to its EOS step, or
+    every step."""
+    T = tokens.shape[1]
+    return [row.index(eos_id) + 1 if eos_id in row else T
+            for row in tokens.tolist()]
+
+
+def check_whole_decode(cfg, np_params, batch, quantize):
+    """Phase 3: the whole decode (B12) against its plain version at the
+    greedy bucket, bf16, over T steps from random encoder memory, with the
+    resident bundle float or, with ``quantize``, int8: tokens held by
+    ``hold_decode``. Times are one whole decode's."""
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import EOS_ID
+    from handwritten_math_ocr_api_torch.ops import whole_decode as wd
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    name = "whole_decode_int8" if quantize else "whole_decode"
+    entry = Entry(name, "handwritten_math_ocr_api_torch/csrc/"
+                  "whole_decode.cu",
+                  "handwritten_math_ocr_api_tpu/ops/whole_decode.py:336",
+                  f"one launch: a whole greedy decode of {batch} rows over "
+                  f"T steps; bound with each input read once and each "
+                  f"self-cache slot written once (the re-reads of the "
+                  f"cache fit in L2 with the weights); plain_ms is the "
+                  f"synchronized wall of one plain decode")
+    entry.d["library"] = "none (no single call)"
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    L_enc, V = cfg.encoder_len, cfg.vocab_size
+    dec = convert.to_torch({"decoder": np_params["decoder"]}, cfg,
+                           dev)["decoder"]
+    resident = wd.build_resident(dec, cfg, quantize)
+    memory = torch.randn(batch, L_enc, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = wd.fused_whole_decode(resident, cfg, memory)
+    # the plain decode launches some 40,000 small kernels, and a profiled
+    # run of it costs tens of seconds of the host's time: its one
+    # reference run is timed by the synchronized wall clock instead
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
+                                               return_logits=True)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    if tuple(got.tokens.shape) != (batch, T):
+        raise AssertionError(f"{name}: tokens {tuple(got.tokens.shape)}")
+    err = hold_decode(f"kernel {name}", got, want, logits)
+    if err > WHOLE_DECODE_LP_ATOL:
+        raise AssertionError(f"{name}: log-prob sums differ by {err}")
+    ms = cuda_ms(lambda: wd.fused_whole_decode(resident, cfg, memory),
+                 iters=3, warmup=1)
+    nbytes, weights = step_weight_bytes(cfg, quantize)
+    runs = steps_per_row(got.tokens, EOS_ID)
+    steps = sum(runs)                                      # (row, step) pairs
+    # step t of a row reads its t earlier K and V slots in every layer;
+    # at most 2 L B T D bf16 (19.7 MB at 16 rows), they fit in the 50 MB
+    # L2 with the weights, so the bound counts each slot written once and
+    # the re-reads not at all
+    slots = L * sum(n * (n - 1) // 2 for n in runs)
+    reads = 2 * slots * D * 2
+    nbytes += ((D * V + V) * 4                             # head (f32)
+               + (V + T) * D * 4                           # emb tables
+               + 2 * L * batch * L_enc * D * 2             # cross K/V
+               + steps * 2 * L * D * 2                     # cache writes
+               + batch * T * 4 + batch * 8)                # outputs
+    attended = slots + steps * L * (1 + L_enc)
+    flops = 2 * steps * weights + 4 * D * attended
+    f32_flops = 2 * steps * D * V
+    entry.add(1, err, ms, plain, None, nbytes, flops, f32_flops)
+    log(f"kernel {name}: memory {tuple(memory.shape)} {steps} (row, step) "
+        f"pairs, log-prob sums max_abs_err {err:.3g} (rows that agree); "
+        f"ms {ms:.4f} plain_ms "
+        f"{plain:.4f} bound_ms {bound_ms(nbytes, flops, f32_flops):.4f} "
+        f"({bound_by(nbytes, flops, f32_flops)}; {nbytes / 1e6:.2f} MB "
+        f"moved, each input read once, each cache slot written once; the "
+        f"{reads / 1e9:.3f} GB of cache re-reads not counted) "
+        f"plain_ms is one synchronized wall; library_ms null")
+    return entry
+
+
 def fused_blocks(cfg) -> int:
     """Swin blocks per encode that the route rule sends to the block
     kernel (10 of 12 on Swin-T at 96x320: stages 1-3)."""
@@ -733,11 +1054,11 @@ def check_counts(counts, expected):
 PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "window_attention", "patch_merging", "cache_append_attention",
     "fused_step", "swin_block", "ragged_step", "beam_gather",
-    "dequant_matmul"))
+    "dequant_matmul", "whole_step", "whole_decode"))
 
 
-def profile_batch(engine, images, unprofiled_s, beam_size=None, tries=3):
-    """Device busy time of one predict_batch, and its largest kernels. The
+def profile_call(fn, what, unprofiled_s, tries=3):
+    """Device busy time of one call of ``fn``, and its largest kernels. The
     idle share is given against the profiled wall time and against the
     best unprofiled one (the profiler slows the host, not the device).
     Returns the latter, or None when the profiler saw no device time. The
@@ -754,7 +1075,7 @@ def profile_batch(engine, images, unprofiled_s, beam_size=None, tries=3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.predict_batch(images, beam_size=beam_size)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = [e for e in prof.key_averages()
@@ -772,8 +1093,7 @@ def profile_batch(engine, images, unprofiled_s, beam_size=None, tries=3):
         return None
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     best_ms = unprofiled_s * 1e3
-    log(f"profile: predict_batch({len(images)}, beam_size={beam_size}) "
-        f"wall {wall_ms:.1f} ms under "
+    log(f"profile: {what} wall {wall_ms:.1f} ms under "
         f"the profiler, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled "
         f"{best_ms:.1f} ms: {1 - busy_ms / best_ms:.3f})"
@@ -783,6 +1103,13 @@ def profile_batch(engine, images, unprofiled_s, beam_size=None, tries=3):
         log(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x {e.key[:100]}")
     return 1 - busy_ms / best_ms
+
+
+def profile_batch(engine, images, unprofiled_s, beam_size=None):
+    """``profile_call`` of one ``predict_batch``."""
+    return profile_call(
+        lambda: engine.predict_batch(images, beam_size=beam_size),
+        f"predict_batch({len(images)}, beam_size={beam_size})", unprofiled_s)
 
 
 def kernel_counters():
@@ -796,8 +1123,10 @@ def kernel_counters():
         decode_attention,
     )
     from handwritten_math_ocr_api_torch.ops.fused_step import (
+        fused_decoder_layers_step,
         fused_decoder_layers_step_v2,
         fused_ragged_step,
+        fused_whole_step,
     )
     from handwritten_math_ocr_api_torch.ops.patch_merging import (
         fused_patch_merging,
@@ -805,6 +1134,9 @@ def kernel_counters():
     from handwritten_math_ocr_api_torch.ops.quant import dequant_matmul
     from handwritten_math_ocr_api_torch.ops.swin_block import (
         fused_swin_block,
+    )
+    from handwritten_math_ocr_api_torch.ops.whole_decode import (
+        fused_whole_decode,
     )
     from handwritten_math_ocr_api_torch.ops.window_attention import (
         window_attention_core,
@@ -816,7 +1148,11 @@ def kernel_counters():
                 fused_ragged_step, beam_cache_gather, dequant_matmul]
     return ([(w, "launches") for w in wrappers]
             + [(fused_decoder_layers_step_v2, "int8_launches"),
-               (fused_ragged_step, "int8_launches")])
+               (fused_ragged_step, "int8_launches"),
+               (fused_decoder_layers_step, "launches"),
+               (fused_whole_step, "launches"),
+               (fused_whole_decode, "launches"),
+               (fused_whole_decode, "int8_launches")])
 
 
 def reset_counts():
@@ -840,7 +1176,8 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
     dequant matmul in every projection of every layer and the head each
     step and in the cross K and V projection of every layer each decode;
     on the fused route it moves the steps' launches to their int8
-    entries. No path runs decode attention."""
+    entries. No path runs decode attention, nor B10-B12 (only
+    ``serve_variants`` does)."""
     blocks = sum(cfg.swin.depths)
     merges = len(cfg.swin.depths) - 1
     L = cfg.num_decoder_layers
@@ -848,13 +1185,13 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
     if route.startswith("pallas"):
         dq = (6 * L + 1) * steps + 2 * L * encodes if quantized else 0
         return [encodes * blocks, encodes * merges, L * steps, 0, 0, 0, 0,
-                0, dq, 0, 0]
+                0, dq, 0, 0, 0, 0, 0, 0]
     fused = fused_blocks(cfg)
     b1, b7, b8 = (0, steps, steps) if beam else (steps, 0, 0)
     b1, b1_int8 = (0, b1) if quantized else (b1, 0)
     b7, b7_int8 = (0, b7) if quantized else (b7, 0)
     return [encodes * (blocks - fused), encodes * merges, 0, 0, b1,
-            encodes * fused, b7, b8, 0, b1_int8, b7_int8]
+            encodes * fused, b7, b8, 0, b1_int8, b7_int8, 0, 0, 0, 0]
 
 
 def route_decode(engine, cfg, memory, kernels):
@@ -1176,6 +1513,135 @@ def serve_beam(engine, engine32, images, entries, route):
     return N_IMAGES / best, idle, steps, res_k.tokens
 
 
+# the fused greedy decode's arms: (variant, int8 resident bundle); the
+# index in kernel_counters() of the kernel each launches, and whether it
+# launches once a step or once a decode
+ARMS = {"v1": ("v1", False), "v2": ("v2", False), "v3": ("v3", False),
+        "v4": ("v4", False), "v5 int8": ("v5", True), "v5": ("v5", False)}
+ARM_KERNEL = {"v1": (11, True), "v2": (4, True), "v3": (12, True),
+              "v4": (12, True), "v5 int8": (14, False), "v5": (13, False)}
+
+
+def arm_launches(arm, steps):
+    counts = [0] * len(kernel_counters())
+    index, per_step = ARM_KERNEL[arm]
+    counts[index] = steps if per_step else 1
+    return counts
+
+
+def serve_variants(cfg, np_params, tok, entries):
+    """Phase 5: the fused greedy decode's A/B arms
+    (``greedy_decode_fused(variant=...)``: v1, v2, v3, v4, and v5 with the
+    int8 and the bf16 resident bundle) at full width on the fused route's
+    encoder memory of the 10-image request (bucket 16), T steps each. Per
+    arm: every launch count set to 0 before one decode and checked after;
+    the wall of a decode (best of 3), images/s, device busy and idle share
+    (one profiled decode), steps; bf16 tokens against v2's (printed). Then
+    in float32: the tokens of v1, v3, v4 and v5 (float bundle) equal to
+    their plain path's and to v2's; the int8 v5, which rounds its matmul
+    inputs to bf16, held by ``hold_decode`` against its plain version.
+    Returns {arm: (images/s, idle share, steps)}."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.decode.fused import (
+        greedy_decode_fused,
+    )
+    from handwritten_math_ocr_api_torch.models import model as model_mod
+    from handwritten_math_ocr_api_torch.ops import whole_decode as wd
+
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1),
+                          dtype=np.uint8)
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+
+    def setup(c):
+        engine = DecodeEngine(np_params, c, tokenizer=tok, device=DEVICE,
+                              **fused)
+        x, _ = engine._pad_batch(images)
+        with torch.inference_mode():
+            memory = model_mod.encode(engine.params, c, x,
+                                      use_pallas_block=True)
+        dec = engine.params["decoder"]
+        bundles = {arm: (wd.build_resident(dec, c, int8) if v == "v5"
+                         else engine.stacked)
+                   for arm, (v, int8) in ARMS.items()}
+        return dec, memory, bundles
+
+    dec, memory, bundles = setup(cfg)
+    summary, tokens = {}, {}
+    for arm, (variant, _) in ARMS.items():
+        def decode(kernels=True):
+            return greedy_decode_fused(dec, bundles[arm], cfg, memory,
+                                       variant=variant, kernels=kernels)
+
+        decode()                                   # warm up
+        torch.cuda.synchronize()
+        reset_counts()
+        res = decode()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = arm_launches(arm, res.steps)
+        log(f"variant {arm}: {res.steps} steps, launches {counts}, "
+            f"expected {expected}")
+        check_counts(counts, expected)
+        for e, n in zip(entries, counts):
+            e.d["launches"] += n
+            e.d["launches_by_route"][f"variant {arm}"] = n
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+        log(f"variant {arm}: greedy_decode_fused seconds "
+            f"{[round(t, 4) for t in times]}, images/s {N_IMAGES / best:.2f}")
+        idle = profile_call(decode, f"greedy_decode_fused variant {arm}",
+                            best)
+        summary[arm] = (N_IMAGES / best, idle, res.steps)
+        tokens[arm] = res.tokens
+    for arm in ARMS:
+        agree = (tokens[arm] == tokens["v2"]).float().mean().item()
+        log(f"variant {arm}: bf16 tokens agree with v2's {agree:.4f} "
+            f"(not held)")
+
+    cfg32 = cfg.replace(dtype="float32")
+    dec32, m32, bundles32 = setup(cfg32)
+    with torch.inference_mode():
+        v2 = greedy_decode_fused(dec32, bundles32["v2"], cfg32, m32)
+        for arm, (variant, int8) in ARMS.items():
+            got = greedy_decode_fused(dec32, bundles32[arm], cfg32, m32,
+                                      variant=variant)
+            if int8:
+                want, logits = wd.fused_whole_decode_plain(
+                    bundles32[arm], cfg32, m32, return_logits=True)
+                err = hold_decode(f"variant {arm} float32", got, want, logits)
+                log(f"variant {arm} float32: log-prob sums max_abs_err "
+                    f"{err:.3g} over the rows that agree")
+                if err > WHOLE_DECODE_INT8_F32_LP_ATOL:
+                    raise AssertionError(f"variant {arm}: float32 log-prob "
+                                         f"sums differ by {err}")
+                continue
+            want = greedy_decode_fused(dec32, bundles32[arm], cfg32, m32,
+                                       variant=variant, kernels=False)
+            lp_err = (got.logprob_sum - want.logprob_sum).abs().max().item()
+            log(f"variant {arm} float32: tokens equal to the plain path "
+                f"{torch.equal(got.tokens, want.tokens)}, to v2 "
+                f"{torch.equal(got.tokens, v2.tokens)}, over {got.steps} "
+                f"steps; log-prob sums max_abs_err {lp_err:.3g}")
+            if not (torch.equal(got.tokens, want.tokens)
+                    and torch.equal(got.tokens, v2.tokens)):
+                raise AssertionError(f"variant {arm}: float32 tokens differ "
+                                     f"from the plain path's or v2's")
+            # sums of up to 150 float32 log-probs: summation order only
+            if lp_err > 1e-2:
+                raise AssertionError(f"variant {arm}: float32 log-prob sums "
+                                     f"differ by {lp_err}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1226,6 +1692,10 @@ def main() -> int:
     entries.append(check_dequant_matmul(cfg, np_params, bucket, rows))
     entries.append(check_fused_step(cfg, np_params, bucket, quantize=True))
     entries.append(check_ragged_step(cfg, np_params, rows, quantize=True))
+    entries.append(check_layers_step(cfg, np_params, bucket))
+    entries.append(check_whole_step(cfg, np_params, bucket))
+    entries.append(check_whole_decode(cfg, np_params, bucket, False))
+    entries.append(check_whole_decode(cfg, np_params, bucket, True))
     log(f"kernels: phase seconds {time.perf_counter() - t0:.1f}")
 
     fused = {"use_fused": True, "pallas_encoder_block": True}
@@ -1251,6 +1721,14 @@ def main() -> int:
                     f"{route[:-len('_int8')]}'s "
                     f"{(tokens == ref).float().mean().item():.4f} "
                     f"(int8 against bf16 weights; not held)")
+
+    t0 = time.perf_counter()
+    arms = serve_variants(cfg, np_params, tok, entries)
+    log(f"variants: phase seconds {time.perf_counter() - t0:.1f}")
+    for arm, (rate, idle, steps) in arms.items():
+        idle_s = "not measured" if idle is None else f"{idle:.3f}"
+        log(f"variant {arm}: images/s {rate:.2f}, device idle share "
+            f"{idle_s} (of the best unprofiled decode), {steps} steps")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

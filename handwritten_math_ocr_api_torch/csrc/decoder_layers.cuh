@@ -1,6 +1,7 @@
-// The decoder layers of one step for one row, shared by the decode-step
-// kernels: fused_step.cu (B1, one position for the batch) and
-// ragged_step.cu (B7, a position per row).
+// The decoder layers of one step for one row, and the float32 output head,
+// shared by the decode-step kernels: fused_step.cu (B1 and B11, one
+// position for the batch), ragged_step.cu (B7, a position per row),
+// whole_step.cu (B10) and whole_decode.cu (B12, every step of a decode).
 //
 // One block of kThreads threads runs every post-norm layer of one
 // row, the row in shared memory in float32:
@@ -12,8 +13,14 @@
 // with the TPU kernels' numerics: every matmul input rounded to the
 // matmul input type and accumulated in float32, float32 biases, LayerNorm
 // and softmax, the fresh K/V row rounded to the cache type before it joins
-// attention at slot pos, and no slot after pos read (the TPU kernels' -inf
-// mask). The caches are read only; the caller appends k_new and v_new.
+// attention at slot pos (B12 attends it unrounded, in float32, as its TPU
+// kernel does), and no slot after pos read (the TPU kernels' -inf mask).
+// The fresh rows go where FreshRows says: to (L, B, D) outputs that the
+// caller appends (B1, B7, B10 "v3"), or into the self cache at slot pos,
+// in place (B11, B10 "v4", B12). The self cache is batch-major
+// (L, B, T, D) or time-major (L, T, B, D) (CacheLayout). Its pointers carry
+// no __restrict__: B12 reads in one step the slot it wrote in the step
+// before, which the read-only data path may not serve.
 //
 // Three types: W the weights, C the caches (and the step's activation
 // dtype), X the matmul inputs. The bf16 and float32 bundles have
@@ -36,6 +43,10 @@
 
 namespace decoder {
 
+// The kernels launch kThreads threads a block, declared as
+// __launch_bounds__(kThreads, 1): with no minimum of blocks an SM, ptxas
+// capped some entries at 64 registers and spilled (B1's bf16 entry among
+// them); with one block an SM each entry fits in at most 128, unspilled.
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
@@ -116,16 +127,15 @@ __device__ __forceinline__ void add_layer_norm(float* x, const float* y,
 }
 
 // Multi-head single-query attention. q (D floats, pre-scaled) in shared
-// memory; rows s < n_cache of K and V (row stride D) in device memory; if
-// fresh_k is given, row n_cache is fresh_k / fresh_v (shared memory).
-// out[d] (rounded to X, the next matmul's input type) =
+// memory; rows s < n_cache of K and V (row stride ``stride`` elements) in
+// device memory; if fresh_k is given, row n_cache is fresh_k / fresh_v
+// (shared memory). out[d] (rounded to X, the next matmul's input type) =
 // sum_s softmax_s(q_h . k_s) v_s[d], h = d / dh. C is the cache type.
 template <typename C, typename X>
-__device__ void attend(const float* q, const C* __restrict__ K,
-                       const C* __restrict__ Vv, int n_cache,
-                       const float* fresh_k, const float* fresh_v, int D,
-                       int H, float* logits, int lstride, float* out,
-                       float* red) {
+__device__ void attend(const float* q, const C* K, const C* Vv,
+                       size_t stride, int n_cache, const float* fresh_k,
+                       const float* fresh_v, int D, int H, float* logits,
+                       int lstride, float* out, float* red) {
   constexpr int V = Vec<C>::N;
   const int dh = D / H;
   const int n = n_cache + (fresh_k != nullptr ? 1 : 0);
@@ -134,7 +144,7 @@ __device__ void attend(const float* q, const C* __restrict__ K,
     const float* qh = q + h * dh;
     float acc = 0.0f;
     if (s < n_cache) {
-      const C* kr = K + static_cast<size_t>(s) * D + h * dh;
+      const C* kr = K + s * stride + h * dh;
       for (int d = 0; d < dh; d += V) {
         float kv[V];
         load_vec(kr + d, kv);
@@ -173,9 +183,8 @@ __device__ void attend(const float* q, const C* __restrict__ K,
     const int s1 = min(n, (g + 1) * per);
     float acc = 0.0f;
     for (int s = g * per; s < s1; ++s) {
-      const float v = s < n_cache
-                          ? to_f32(Vv[static_cast<size_t>(s) * D + d])
-                          : fresh_v[d];
+      const float v =
+          s < n_cache ? to_f32(Vv[s * stride + d]) : fresh_v[d];
       acc = fmaf(p[s], v, acc);
     }
     red[g * D + d] = acc;
@@ -267,29 +276,73 @@ struct Smem {
   }
 };
 
+// Where a self cache lies: element d of slot t of row r in layer l is at
+// base + l * layer + r * row + t * slot + d.
+struct CacheLayout {
+  size_t layer, row, slot;
+};
+
+// (L, B, T, D): a row's slots are contiguous (B1, B7, B10 "v3", B11, B12).
+__host__ __device__ inline CacheLayout batch_major(int B, int T, int D) {
+  return {static_cast<size_t>(B) * T * D, static_cast<size_t>(T) * D,
+          static_cast<size_t>(D)};
+}
+
+// (L, T, B, D): a slot's rows are contiguous (B10 "v4").
+__host__ __device__ inline CacheLayout time_major(int B, int T, int D) {
+  return {static_cast<size_t>(T) * B * D, static_cast<size_t>(D),
+          static_cast<size_t>(B) * D};
+}
+
+// Where a step's fresh K/V rows go: row r of layer l at k + l * layer +
+// r * row (and v alike).
+template <typename C>
+struct FreshRows {
+  C* k;
+  C* v;
+  size_t layer, row;
+};
+
+// (L, B, D) outputs that the caller appends.
+template <typename C>
+__host__ inline FreshRows<C> rows_out(void* k, void* v, int B, int D) {
+  return {static_cast<C*>(k), static_cast<C*>(v),
+          static_cast<size_t>(B) * D, static_cast<size_t>(D)};
+}
+
+// The self cache itself at slot pos, written in place: the step reads only
+// slots before pos, so no block reads what another writes.
+template <typename C>
+__host__ __device__ inline FreshRows<C> rows_in_place(C* k, C* v,
+                                                      CacheLayout c,
+                                                      int pos) {
+  return {k + pos * c.slot, v + pos * c.slot, c.layer, c.row};
+}
+
 // Every layer of one row: s.x holds the layer-0 input (float32) on entry
-// and the last layer's output on return. The row's caches are
-// self_k/self_v + ((l * B + row) * Tc) * D and cross_k/cross_v +
-// ((l * B + row) * L_enc) * D; it attends self slots [0, pos) and its
-// fresh row at pos. Its fresh K/V rows go to k_new/v_new[(l * B + row)].
+// and the last layer's output on return. The row attends slots [0, pos) of
+// its self cache (self_k/self_v laid out as ``self``) and its fresh row at
+// pos, rounded to C first if ``round_fresh``, and every slot of its cross
+// K/V (L, B, L_enc, D). Its fresh K/V rows, rounded to C, go to ``fresh``.
 template <typename W, typename C>
-__device__ void run_layers(const Weights<W>& w, const C* __restrict__ self_k,
-                           const C* __restrict__ self_v,
-                           const C* __restrict__ cross_k,
-                           const C* __restrict__ cross_v,
-                           C* __restrict__ k_new, C* __restrict__ v_new,
-                           int L, int B, int row_index, int Tc, int D, int H,
-                           int F, int L_enc, int pos, int lstride,
-                           const Smem& s) {
+__device__ void run_layers(const Weights<W>& w, const C* self_k,
+                           const C* self_v, CacheLayout self,
+                           const C* cross_k, const C* cross_v,
+                           FreshRows<C> fresh, int L, int B, int row_index,
+                           int D, int H, int F, int L_enc, int pos,
+                           bool round_fresh, int lstride, const Smem& s) {
   using X = InputOf<W>;
   const int N3 = 3 * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D / H));
+  const CacheLayout cross = batch_major(B, L_enc, D);
   float* x = s.x;
   float* xr = s.xr;
   float* y = s.y;
   for (int l = 0; l < L; ++l) {
     const float* lnl = w.ln + static_cast<size_t>(l) * 6 * D;
-    const size_t row = static_cast<size_t>(l) * B + row_index;
+    const size_t self_at = l * self.layer + row_index * self.row;
+    const size_t cross_at = l * cross.layer + row_index * cross.row;
+    const size_t fresh_at = l * fresh.layer + row_index * fresh.row;
 
     // self-attention over the cache prefix and the fresh row
     for (int d = threadIdx.x; d < D; d += kThreads) xr[d] = round_to<X>(x[d]);
@@ -297,14 +350,16 @@ __device__ void run_layers(const Weights<W>& w, const C* __restrict__ self_k,
     layer_matvec(w.qkv, l, xr, y, D, N3, s.red);
     for (int d = threadIdx.x; d < D; d += kThreads) {
       const C k = from_f32<C>(y[D + d]), v = from_f32<C>(y[2 * D + d]);
-      k_new[row * D + d] = k;
-      v_new[row * D + d] = v;
+      fresh.k[fresh_at + d] = k;
+      fresh.v[fresh_at + d] = v;
       y[d] *= scale;
-      y[D + d] = to_f32(k);
-      y[2 * D + d] = to_f32(v);
+      if (round_fresh) {
+        y[D + d] = to_f32(k);
+        y[2 * D + d] = to_f32(v);
+      }
     }
     __syncthreads();
-    attend<C, X>(y, self_k + row * Tc * D, self_v + row * Tc * D, pos,
+    attend<C, X>(y, self_k + self_at, self_v + self_at, self.slot, pos,
                  y + D, y + 2 * D, D, H, s.logits, lstride, xr, s.red);
     layer_matvec(w.out, l, xr, y, D, D, s.red);
     add_layer_norm(x, y, lnl, lnl + D, D, s.scratch);
@@ -315,7 +370,7 @@ __device__ void run_layers(const Weights<W>& w, const C* __restrict__ self_k,
     layer_matvec(w.cq, l, xr, y, D, D, s.red);
     for (int d = threadIdx.x; d < D; d += kThreads) y[d] *= scale;
     __syncthreads();
-    attend<C, X>(y, cross_k + row * L_enc * D, cross_v + row * L_enc * D,
+    attend<C, X>(y, cross_k + cross_at, cross_v + cross_at, cross.slot,
                  L_enc, nullptr, nullptr, D, H, s.logits, lstride, xr,
                  s.red);
     layer_matvec(w.co, l, xr, y, D, D, s.red);
@@ -331,6 +386,85 @@ __device__ void run_layers(const Weights<W>& w, const C* __restrict__ self_k,
     layer_matvec(w.ff2, l, xr, y, F, D, s.red);
     add_layer_norm(x, y, lnl + 4 * D, lnl + 5 * D, D, s.scratch);
   }
+}
+
+// Floats of shared memory the head needs beyond smem_floats: its V outputs
+// and its partial sums.
+__host__ __device__ inline int head_floats(int V) {
+  return V + (V > kThreads ? V : kThreads);
+}
+
+// y[n] = b[n] + sum_k x[k] W[k, n] for float32 W (D, V), any V; x and y in
+// shared memory, red max(kThreads, V) floats.
+__device__ inline void head(const float* x, const float* __restrict__ W,
+                            const float* __restrict__ b, float* y, int D,
+                            int V, float* red) {
+  const int kparts = V >= kThreads ? 1 : kThreads / V;
+  const int kchunk = (D + kparts - 1) / kparts;
+  for (int item = threadIdx.x; item < V * kparts; item += kThreads) {
+    const int n = item % V, kp = item / V;
+    const int k1 = min(D, (kp + 1) * kchunk);
+    float acc = 0.0f;
+    for (int k = kp * kchunk; k < k1; ++k)
+      acc = fmaf(x[k], W[static_cast<size_t>(k) * V + n], acc);
+    red[kp * V + n] = acc;
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < V; n += kThreads) {
+    float s = 0.0f;
+    for (int kp = 0; kp < kparts; ++kp) s += red[kp * V + n];
+    y[n] = s + b[n];
+  }
+  __syncthreads();
+}
+
+// A row's greedy pick from its V float32 logits in shared memory: the
+// first index of the max (jnp.argmax) and log(p_max + 1e-10) with
+// p_max = exp(mv - (mv + log(sum exp(y - mv)))), the TPU kernels'
+// expressions. Every thread returns the same pick.
+struct Pick {
+  int index;
+  float logp;
+};
+
+__device__ inline Pick argmax_logp(const float* y, int V, float* scratch) {
+  __shared__ float warp_v[kWarps];
+  __shared__ int warp_i[kWarps];
+  float mv = -INFINITY;
+  int mi = V;
+  for (int n = threadIdx.x; n < V; n += kThreads) {
+    if (y[n] > mv) {
+      mv = y[n];
+      mi = n;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, mv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
+    if (ov > mv || (ov == mv && oi < mi)) {
+      mv = ov;
+      mi = oi;
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // an earlier pick may still read warp_v
+  if (lane == 0) {
+    warp_v[warp] = mv;
+    warp_i[warp] = mi;
+  }
+  __syncthreads();
+  mv = warp_v[0];
+  mi = warp_i[0];
+  for (int i = 1; i < kWarps; ++i) {
+    if (warp_v[i] > mv || (warp_v[i] == mv && warp_i[i] < mi)) {
+      mv = warp_v[i];
+      mi = warp_i[i];
+    }
+  }
+  float se = 0.0f;
+  for (int n = threadIdx.x; n < V; n += kThreads) se += expf(y[n] - mv);
+  se = block_sum(se, scratch);
+  return {mi, logf(expf(mv - (mv + logf(se))) + 1e-10f)};
 }
 
 }  // namespace decoder

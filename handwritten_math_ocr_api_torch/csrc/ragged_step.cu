@@ -27,38 +27,13 @@
 namespace {
 
 using decoder::kThreads;
-using decoder::kWarps;
-
-// y[n] = b[n] + sum_k x[k] W[k, n] for float32 W (D, V), any V; x and y in
-// shared memory, red max(kThreads, V) floats.
-__device__ void head(const float* x, const float* __restrict__ W,
-                     const float* __restrict__ b, float* y, int D, int V,
-                     float* red) {
-  const int kparts = V >= kThreads ? 1 : kThreads / V;
-  const int kchunk = (D + kparts - 1) / kparts;
-  for (int item = threadIdx.x; item < V * kparts; item += kThreads) {
-    const int n = item % V, kp = item / V;
-    const int k1 = min(D, (kp + 1) * kchunk);
-    float acc = 0.0f;
-    for (int k = kp * kchunk; k < k1; ++k)
-      acc = fmaf(x[k], W[static_cast<size_t>(k) * V + n], acc);
-    red[kp * V + n] = acc;
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < V; n += kThreads) {
-    float s = 0.0f;
-    for (int kp = 0; kp < kparts; ++kp) s += red[kp * V + n];
-    y[n] = s + b[n];
-  }
-  __syncthreads();
-}
 
 template <typename W, typename C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 ragged_step_kernel(const int* __restrict__ prev, const int* __restrict__ pos,
                    const float* __restrict__ emb,
                    const float* __restrict__ pos_emb, decoder::Weights<W> w,
-                   const C* __restrict__ self_k, const C* __restrict__ self_v,
+                   const C* self_k, const C* self_v,
                    const C* __restrict__ cross_k,
                    const C* __restrict__ cross_v,
                    const float* __restrict__ w_head,
@@ -68,8 +43,6 @@ ragged_step_kernel(const int* __restrict__ prev, const int* __restrict__ pos,
                    C* __restrict__ v_new, int L, int R, int Tc, int D, int H,
                    int F, int L_enc, int V, int Tpos) {
   extern __shared__ float smem[];
-  __shared__ float warp_max_v[kWarps];
-  __shared__ int warp_max_i[kWarps];
   const int r = blockIdx.x;
   const int lstride = max(Tc, L_enc);
   const decoder::Smem s(smem, D, F, H, lstride);
@@ -99,54 +72,22 @@ ragged_step_kernel(const int* __restrict__ prev, const int* __restrict__ pos,
     s.x[d] = round_to<C>(emb[static_cast<size_t>(tok) * D + d] +
                          pos_emb[static_cast<size_t>(p) * D + d]);
   __syncthreads();
-  decoder::run_layers<W, C>(w, self_k, self_v, cross_k, cross_v, k_new,
-                            v_new, L, R, r, Tc, D, H, F, L_enc, p, lstride,
-                            s);
-  head(s.x, w_head, b_head, hy, D, V, hred);
+  decoder::run_layers<W, C>(w, self_k, self_v,
+                            decoder::batch_major(R, Tc, D), cross_k, cross_v,
+                            {k_new, v_new, static_cast<size_t>(R) * D,
+                             static_cast<size_t>(D)},
+                            L, R, r, D, H, F, L_enc, p, true, lstride, s);
+  decoder::head(s.x, w_head, b_head, hy, D, V, hred);
 
   if (logits != nullptr) {
     for (int n = threadIdx.x; n < V; n += kThreads)
       logits[static_cast<size_t>(r) * V + n] = hy[n];
     return;
   }
-  // argmax (first index of the max) and log(p_max + 1e-10)
-  float mv = -INFINITY;
-  int mi = V;
-  for (int n = threadIdx.x; n < V; n += kThreads) {
-    if (hy[n] > mv) {
-      mv = hy[n];
-      mi = n;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, mv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
-    if (ov > mv || (ov == mv && oi < mi)) {
-      mv = ov;
-      mi = oi;
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    warp_max_v[warp] = mv;
-    warp_max_i[warp] = mi;
-  }
-  __syncthreads();
-  mv = warp_max_v[0];
-  mi = warp_max_i[0];
-  for (int i = 1; i < kWarps; ++i) {
-    if (warp_max_v[i] > mv || (warp_max_v[i] == mv && warp_max_i[i] < mi)) {
-      mv = warp_max_v[i];
-      mi = warp_max_i[i];
-    }
-  }
-  float se = 0.0f;
-  for (int n = threadIdx.x; n < V; n += kThreads) se += expf(hy[n] - mv);
-  se = decoder::block_sum(se, s.scratch);
+  const decoder::Pick pick = decoder::argmax_logp(hy, V, s.scratch);
   if (threadIdx.x == 0) {
-    const float p_max = expf(mv - (mv + logf(se)));
-    nxt[r] = mi;
-    logp[r] = logf(p_max + 1e-10f);
+    nxt[r] = pick.index;
+    logp[r] = pick.logp;
   }
 }
 
@@ -160,8 +101,8 @@ int launch(const void* prev, const void* pos, const void* emb,
            int L, int R, int Tc, int D, int H, int F, int L_enc, int V,
            int Tpos, void* stream) {
   const size_t lstride = static_cast<size_t>(std::max(Tc, L_enc));
-  const size_t floats = decoder::smem_floats<W>(D, F, H, lstride) + V +
-                        std::max(kThreads, V);
+  const size_t floats =
+      decoder::smem_floats<W>(D, F, H, lstride) + decoder::head_floats(V);
   const size_t smem = floats * sizeof(float);
   cudaError_t err = allow_smem(ragged_step_kernel<W, C>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,42 +1,72 @@
 """Greedy and beam decode over the fused decoder-step kernels.
 
-Port of ``handwritten_math_ocr_api_tpu/decode/fused.py`` for greedy decode
-in its default variant "v2" and for ``beam_decode_fused``, on merged-head
-caches: self ``(L, B, T, D)``, cross ``(L, B, L_enc, D)``.
+Port of ``handwritten_math_ocr_api_tpu/decode/fused.py``: greedy decode in
+each of its variants and ``beam_decode_fused``, on merged-head caches:
+self ``(L, B, T, D)`` (v4: time-major ``(L, T, B, D)``), cross
+``(L, B, L_enc, D)``.
 
 - ``greedy_decode_fused``: the same tokens, early exit and confidence
-  bookkeeping as ``decode/greedy.py`` (the loop is shared), but each step
-  is one launch of ``ops/fused_step.fused_decoder_layers_step_v2``
-  through all decoder layers. The step returns the fresh K/V rows, which
-  the loop appends at ``step``.
+  bookkeeping as ``decode/greedy.py`` (the loop is shared), each step
+  through all decoder layers in one launch. Its ``variant`` picks the
+  kernel, as the JAX function's A/B arms do:
+
+  - "v2" (the default, the engine's) and "v2m": one launch of
+    ``ops/fused_step.fused_decoder_layers_step_v2`` (B1) a step, whose
+    fresh K/V rows the loop appends at ``step``, then the float32 head.
+    "v2m" is the TPU kernel's MXU formulation of the same attention; the
+    JAX tests hold both to one reference step, so the port runs B1 for
+    both;
+  - "v1": one launch of ``fused_decoder_layers_step`` (B11) a step, which
+    writes the fresh rows into the caches itself, then the float32 head;
+  - "v3" and "v4": one launch of ``fused_whole_step`` (B10) a step: the
+    embedding, the layers, the float32 head and its argmax; "v3" over the
+    batch-major caches (the loop appends the fresh rows), "v4" over
+    time-major ones that the kernel writes in place;
+  - "v5": one launch of ``ops/whole_decode.fused_whole_decode`` (B12) for
+    the whole decode, with its bundle of ``build_resident``.
+
+  v1, v3 and v4 take a float bundle (their TPU kernels would cast
+  activations to int8 on an int8 one); v2, v2m and v5 also the int8 one.
 - ``beam_decode_fused``: the bookkeeping of ``decode/beam.py`` over B*K
   rows, each step one launch of ``ops/fused_step.fused_ragged_step``
   (embedding, every layer and the float32 head; its logits) and one of
   ``ops/beam_reorder.beam_cache_gather`` (the parent gather of both self
   caches).
 
-The JAX loop chains one while-loop per T-prefix bucket (``t_buckets``), so
-that the TPU kernel's block DMA fetches only a prefix of the cache. The
-port's kernel reads only the slots before ``pos`` in the first place, so
-one loop does the same work. The cross K/V are not padded (the TPU kernel
-padded L_enc to its 16-row tile and masked the padding), so the step
-attends to all their slots.
+The JAX loop of "v2" chains one while-loop per T-prefix bucket
+(``t_buckets``), so that the TPU kernel's block DMA fetches only a prefix
+of the cache. The port's kernels read only the slots before ``pos`` in the
+first place, so one loop does the same work and ``t_buckets`` has no
+effect. The cross K/V are not padded (the TPU kernels padded L_enc to
+their 16-row tile and masked the padding), so a step attends to all their
+slots.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.config import ModelConfig
+from ..core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from ..models import layers
 from ..models.decoder import _check_mha, _proj
 from ..models.model import compute_dtype
 from ..ops.beam_reorder import beam_cache_gather, beam_cache_gather_plain
 from ..ops.fused_step import (
+    _is_int8,
+    build_stacked_full,
+    fused_decoder_layers_step,
+    fused_decoder_layers_step_plain,
     fused_decoder_layers_step_v2,
     fused_decoder_layers_step_v2_plain,
     fused_ragged_step,
     fused_ragged_step_plain,
+    fused_whole_step,
+    fused_whole_step_plain,
+)
+from ..ops.whole_decode import (
+    build_resident,
+    fused_whole_decode,
+    fused_whole_decode_plain,
 )
 from .beam import BeamResult, BeamSearch
 from .greedy import GreedyResult, greedy_loop
@@ -52,13 +82,15 @@ def project_cross_kv_merged(decoder_params, cfg: ModelConfig, memory):
 
 
 def init_fused_cache(decoder_params, cfg: ModelConfig, memory,
-                     max_len=None):
-    """(self_k, self_v, cross_k, cross_v): zero self caches
-    (L, B, T, D) and the projected cross K/V."""
+                     max_len=None, *, time_major: bool = False):
+    """(self_k, self_v, cross_k, cross_v): zero self caches (L, B, T, D),
+    or with ``time_major`` (the "v4" step's) (L, T, B, D), and the
+    projected cross K/V."""
     _check_mha(cfg)
     B = memory.shape[0]
     T = max_len or cfg.max_seq_len
-    shape = (cfg.num_decoder_layers, B, T, cfg.d_model)
+    L, D = cfg.num_decoder_layers, cfg.d_model
+    shape = (L, T, B, D) if time_major else (L, B, T, D)
     dtype = compute_dtype(cfg)
     self_k = torch.zeros(shape, dtype=dtype, device=memory.device)
     self_v = torch.zeros(shape, dtype=dtype, device=memory.device)
@@ -66,28 +98,94 @@ def init_fused_cache(decoder_params, cfg: ModelConfig, memory,
             *project_cross_kv_merged(decoder_params, cfg, memory))
 
 
+VARIANTS = ("v1", "v2", "v2m", "v3", "v4", "v5")
+
+
+def _steps_run(tokens, eos_id: int, T: int) -> int:
+    """The steps of the shared loop for these tokens: up to the step at
+    which the last row emitted eos_id, or all T."""
+    is_eos = tokens == eos_id
+    if tokens.shape[0] == 0 or not bool(is_eos.any(dim=1).all()):
+        return T
+    return int(is_eos.int().argmax(dim=1).max()) + 1
+
+
 @torch.inference_mode()
 def greedy_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
-                        max_len=None, *, kernels: bool = True
-                        ) -> GreedyResult:
-    """``stacked`` from ``ops/fused_step.build_stacked``. ``kernels=False``
-    takes the step's plain version even on CUDA (the reference path)."""
+                        max_len=None, *, sos_id: int = SOS_ID,
+                        eos_id: int = EOS_ID, pad_id: int = PAD_ID,
+                        variant: str = "v2",
+                        t_buckets: tuple = (40, 80, 120),
+                        kernels: bool = True) -> GreedyResult:
+    """Greedy decode of ``memory`` (B, L_enc, D) through the kernel of
+    ``variant`` (module docstring). ``stacked`` from
+    ``ops/fused_step.build_stacked`` (v1, v2, v2m; or its int8 form for
+    v2, v2m), ``build_stacked_full`` (v3, v4; built here from
+    ``decoder_params`` when its tables are missing) or
+    ``ops/whole_decode.build_resident`` (v5; built here, int8 when
+    ``stacked`` holds scales, when its tables or ``_params`` are
+    missing). ``t_buckets`` is accepted and has no effect. ``kernels=False``
+    takes the plain versions even on CUDA (the reference path)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} is none of {VARIANTS}")
+    _check_mha(cfg)
     T = max_len or cfg.max_seq_len
+    ids = {"sos_id": sos_id, "eos_id": eos_id, "pad_id": pad_id}
+    if variant == "v5":
+        if "emb" not in stacked or "_params" not in stacked:
+            # int8 only when the caller's bundle was quantized, as JAX
+            quantized = any(k.endswith("_s") for k in stacked)
+            stacked = build_resident(decoder_params, cfg, quantized,
+                                     memory.device)
+        decode = fused_whole_decode if kernels else fused_whole_decode_plain
+        res = decode(stacked, cfg, memory, T, **ids)
+        tokens = res.tokens.long()
+        return GreedyResult(tokens, res.lengths, res.logprob_sum,
+                            res.token_count.long(),
+                            _steps_run(tokens, eos_id, T))
+    if variant in ("v1", "v3", "v4") and _is_int8(stacked):
+        raise ValueError(f"variant {variant!r} takes a bf16 or float32 "
+                         f"bundle: its TPU kernel would cast activations to "
+                         f"int8 on the int8 one")
+    if variant in ("v3", "v4") and "emb" not in stacked:
+        stacked = build_stacked_full(decoder_params, cfg, memory.device)
+    sk, sv, ck, cv = init_fused_cache(decoder_params, cfg, memory, T,
+                                      time_major=variant == "v4")
+
+    if variant in ("v3", "v4"):
+        whole = fused_whole_step if kernels else fused_whole_step_plain
+
+        def pick(prev, step):
+            nxt, logp, k, v = whole(stacked, cfg, prev.to(torch.int32), sk,
+                                    sv, ck, cv, step,
+                                    time_major=variant == "v4")
+            if variant == "v3":
+                sk[:, :, step] = k
+                sv[:, :, step] = v
+            return nxt, logp
+
+        return greedy_loop(pick, memory.shape[0], T, memory.device, **ids,
+                           argmax_in_step=True)
+
     dtype = compute_dtype(cfg)
-    sk, sv, ck, cv = init_fused_cache(decoder_params, cfg, memory, T)
     emb = decoder_params["embedding"]["table"]
     pos_table = decoder_params["pos"]["table"]
-    step_fn = (fused_decoder_layers_step_v2 if kernels
-               else fused_decoder_layers_step_v2_plain)
+    if variant == "v1":
+        step_fn = (fused_decoder_layers_step if kernels
+                   else fused_decoder_layers_step_plain)
+    else:
+        step_fn = (fused_decoder_layers_step_v2 if kernels
+                   else fused_decoder_layers_step_v2_plain)
 
     def step_logits(prev, step):
         x_emb = (emb[prev] + pos_table[step]).to(dtype)
-        x, k_new, v_new = step_fn(stacked, cfg, x_emb, sk, sv, ck, cv, step)
-        sk[:, :, step] = k_new
-        sv[:, :, step] = v_new
+        x, k, v = step_fn(stacked, cfg, x_emb, sk, sv, ck, cv, step)
+        if variant != "v1":  # v1 wrote the rows into the caches itself
+            sk[:, :, step] = k
+            sv[:, :, step] = v
         return layers.linear(decoder_params["fc_out"], x.float())
 
-    return greedy_loop(step_logits, memory.shape[0], T, memory.device)
+    return greedy_loop(step_logits, memory.shape[0], T, memory.device, **ids)
 
 
 @torch.inference_mode()

@@ -30,33 +30,42 @@ class GreedyResult(NamedTuple):
     steps: int                 # decode steps run (each one decoder pass)
 
 
-def greedy_loop(step_logits: Callable[[torch.Tensor, int], torch.Tensor],
-                B: int, T: int, dev) -> GreedyResult:
+def greedy_loop(step_fn: Callable, B: int, T: int, dev, *,
+                sos_id: int = SOS_ID, eos_id: int = EOS_ID,
+                pad_id: int = PAD_ID,
+                argmax_in_step: bool = False) -> GreedyResult:
     """The loop and bookkeeping shared by the decode routes:
-    ``step_logits(prev, step)`` returns the float32 (B, vocab) logits of
-    one decoder step fed the previous tokens ``prev`` (B,) at ``step``."""
-    tokens = torch.full((B, T), PAD_ID, dtype=torch.int64, device=dev)
-    prev = torch.full((B,), SOS_ID, dtype=torch.int64, device=dev)
+    ``step_fn(prev, step)`` runs one decoder step fed the previous tokens
+    ``prev`` (B,) at ``step`` and returns its float32 (B, vocab) logits,
+    or with ``argmax_in_step`` (the whole-step kernels, which pick the
+    token themselves) each row's argmax and its log(p + 1e-10), (nxt,
+    logp)."""
+    tokens = torch.full((B, T), pad_id, dtype=torch.int64, device=dev)
+    prev = torch.full((B,), sos_id, dtype=torch.int64, device=dev)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     lp_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
     count = torch.zeros((B,), dtype=torch.int64, device=dev)
     step = 0
     while step < T:
-        logits = step_logits(prev, step)
-        nxt = logits.argmax(dim=-1)
-        logp_all = torch.log(torch.softmax(logits, dim=-1) + 1e-10)
-        logp = logp_all.gather(1, nxt[:, None])[:, 0]
-        is_eos = nxt == EOS_ID
+        if argmax_in_step:
+            nxt, logp = step_fn(prev, step)
+            nxt = nxt.long()
+        else:
+            logits = step_fn(prev, step)
+            nxt = logits.argmax(dim=-1)
+            logp_all = torch.log(torch.softmax(logits, dim=-1) + 1e-10)
+            logp = logp_all.gather(1, nxt[:, None])[:, 0]
+        is_eos = nxt == eos_id
         lp_sum += torch.where(finished, 0.0, logp)
         count += (~(finished | is_eos)).to(count.dtype)
-        tokens[:, step] = torch.where(finished, PAD_ID, nxt)
+        tokens[:, step] = torch.where(finished, pad_id, nxt)
         finished |= is_eos
         # feed the true argmax (incl. eos), eos once a row has finished
-        prev = torch.where(finished, EOS_ID, nxt)
+        prev = torch.where(finished, eos_id, nxt)
         step += 1
         if bool(finished.all()):
             break
-    lengths = (tokens != PAD_ID).sum(dim=-1)
+    lengths = (tokens != pad_id).sum(dim=-1)
     return GreedyResult(tokens, lengths, lp_sum, count, step)
 
 

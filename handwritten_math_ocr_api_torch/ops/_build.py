@@ -55,6 +55,26 @@ SIGNATURES = {
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
     "fused_decoder_step_i8_bf16": (P,) * 27 + (I,) * 8 + (P,),
     "fused_decoder_step_i8_f32": (P,) * 27 + (I,) * 8 + (P,),
+    # B11: x_emb, 6 x (weight, bias), ln, self_k, self_v (written at pos),
+    # cross_k, cross_v, x_out, L, B, T, D, H, F, L_enc, pos, stream
+    "layers_step_in_place_bf16": (P,) * 19 + (I,) * 8 + (P,),
+    "layers_step_in_place_f32": (P,) * 19 + (I,) * 8 + (P,),
+    # B10: prev, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
+    # cross_k, cross_v, w_head, b_head, nxt, logp, [k_new, v_new,]
+    # L, B, T, D, H, F, L_enc, V, pos, stream; time-major caches written at
+    # pos, or batch-major ones read only and the fresh rows out
+    "whole_step_time_major_bf16": (P,) * 24 + (I,) * 9 + (P,),
+    "whole_step_time_major_f32": (P,) * 24 + (I,) * 9 + (P,),
+    "whole_step_rows_bf16": (P,) * 26 + (I,) * 9 + (P,),
+    "whole_step_rows_f32": (P,) * 26 + (I,) * 9 + (P,),
+    # B12: emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v (scratch),
+    # cross_k, cross_v, w_head, b_head, tokens, lp, cnt, L, B, T_out, D, H,
+    # F, L_enc, V, sos_id, eos_id, pad_id, stream
+    "whole_decode_bf16": (P,) * 24 + (I,) * 11 + (P,),
+    "whole_decode_f32": (P,) * 24 + (I,) * 11 + (P,),
+    # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
+    "whole_decode_i8_bf16": (P,) * 30 + (I,) * 11 + (P,),
+    "whole_decode_i8_f32": (P,) * 30 + (I,) * 11 + (P,),
     # prev, pos, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, logits, nxt, logp, k_new, v_new,
     # L, R, T, D, H, F, L_enc, V, T_pos, stream

@@ -1,32 +1,44 @@
 """Whole decode steps through every decoder layer: CUDA kernels + plain.
 
-Port of ``handwritten_math_ocr_api_tpu/ops/fused_step.py`` for two of its
+Port of ``handwritten_math_ocr_api_tpu/ops/fused_step.py`` for its four
 steps and their weight bundles:
 
 - the compute-only "v2" greedy step (``fused_decoder_layers_step_v2``,
-  body ``_make_kernel_v2``; bundle ``build_stacked``), kernel
+  body ``_make_kernel_v2``, B1; bundle ``build_stacked``), kernel
   ``csrc/fused_step.cu``: one launch runs all L post-norm decoder layers of
   one step at one position for the batch (packed qkv projection,
   self-attention over the read-only cache plus the fresh row, output
   projection, residual and LayerNorm; cross-attention over the encoder
   K/V, residual and LayerNorm; ReLU FFN, residual and LayerNorm) and
   returns the last layer's activations and each layer's fresh K/V row;
-- the ragged step (``fused_ragged_step``, body ``_make_kernel_ragged``;
-  bundle ``build_stacked_full``), kernel ``csrc/ragged_step.cu``: the
+- the "v1" step (``fused_decoder_layers_step``, body ``_make_kernel``,
+  B11), kernel ``csrc/fused_step.cu``: the same layers, the fresh rows
+  written into the caches at ``pos`` in place (the TPU kernel's aliased
+  caches);
+- the whole step of "v3"/"v4" (``fused_whole_step``, body
+  ``_make_kernel_v4``, B10; bundle ``build_stacked_full``), kernel
+  ``csrc/whole_step.cu``: the embedding, the same layers, the float32 head
+  and its argmax, over batch-major caches whose fresh rows the caller
+  appends ("v3") or time-major ``(L, T, B, D)`` caches written at ``pos``
+  in place ("v4");
+- the ragged step (``fused_ragged_step``, body ``_make_kernel_ragged``,
+  B7; bundle ``build_stacked_full``), kernel ``csrc/ragged_step.cu``: the
   embedding, the same layers and the float32 output head in one launch,
   each row at its own position, returning the head's logits (beam search)
   or each row's argmax and its log-probability.
 
-The caller appends the fresh rows to the caches. Both kernels share their
-layer code (``csrc/decoder_layers.cuh``).
+The kernels share their layer code and their head
+(``csrc/decoder_layers.cuh``).
 
-Both steps take the bf16/float32 bundles and the int8 one
+B1 and B7 take the bf16/float32 bundles and the int8 one
 (``quantize_stacked``, the JAX "v2q" bundle of ``DecodeEngine(use_fused=
 True, quantize=True)``): the six layer weights int8 with float32 scales
 ``{k}_s`` (L, 1, N) per output column, everything else as before. A
 bundle with ``w_qkv_s`` is the int8 one, as JAX detects it; the wrappers
 then launch the kernels' int8 entries (counted in ``int8_launches``, the
-float bundles in ``launches``).
+float bundles in ``launches``). B10 and B11 take the float bundles only:
+their TPU kernels cast activations to the weights' dtype, int8 on an int8
+bundle, so the port raises ``ValueError`` there.
 
 Numerics of the TPU kernels: the activation row is carried in float32
 across the sublayers; each matmul input is rounded to the weight dtype
@@ -35,12 +47,12 @@ float32, an int8 product times its column's scale; biases and LayerNorm
 parameters are float32;
 attention logits and softmax are float32; the fresh K/V row is rounded to
 the cache dtype before it joins attention at slot ``pos``, and slots after
-``pos`` are not attended (the TPU kernels' -inf mask). The ragged step's
-embedding, positional and head tables are float32 too, and its embedding
-sum is rounded to the compute dtype.
+``pos`` are not attended (the TPU kernels' -inf mask). The whole and
+ragged steps' embedding, positional and head tables are float32 too, and
+their embedding sum is rounded to the compute dtype.
 
-Caches are merged-head: self ``(L, B, T, D)``, cross ``(L, B, L_enc, D)``,
-heads interleaved along D in torch's order.
+Caches are merged-head: self ``(L, B, T, D)`` (v4: ``(L, T, B, D)``),
+cross ``(L, B, L_enc, D)``, heads interleaved along D in torch's order.
 """
 
 from __future__ import annotations
@@ -61,6 +73,12 @@ _ENTRY = {(False, torch.bfloat16): "fused_decoder_step_bf16",
           (False, torch.float32): "fused_decoder_step_f32",
           (True, torch.bfloat16): "fused_decoder_step_i8_bf16",
           (True, torch.float32): "fused_decoder_step_i8_f32"}
+_IN_PLACE_ENTRY = {torch.bfloat16: "layers_step_in_place_bf16",
+                   torch.float32: "layers_step_in_place_f32"}
+_WHOLE_ENTRY = {(True, torch.bfloat16): "whole_step_time_major_bf16",
+                (True, torch.float32): "whole_step_time_major_f32",
+                (False, torch.bfloat16): "whole_step_rows_bf16",
+                (False, torch.float32): "whole_step_rows_f32"}
 _RAGGED_ENTRY = {(False, torch.bfloat16): "ragged_step_bf16",
                  (False, torch.float32): "ragged_step_f32",
                  (True, torch.bfloat16): "ragged_step_i8_bf16",
@@ -168,6 +186,40 @@ def _is_int8(stacked) -> bool:
     return quantized
 
 
+def _require_float(stacked, what: str) -> None:
+    """B10 and B11 take float bundles: their TPU kernels cast each matmul
+    input to the weights' dtype, which for int8 weights would be int8."""
+    if _is_int8(stacked):
+        raise ValueError(f"{what} takes a bf16 or float32 bundle, not the "
+                         f"int8 one (its TPU kernel would cast activations "
+                         f"to int8)")
+
+
+def _check_layer_shapes(cfg: ModelConfig, what: str, dt, D: int,
+                        L_enc: int) -> None:
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} kernel takes bf16 or float32, not {dt}")
+    H, ff = cfg.nhead, cfg.dim_feedforward
+    if D != cfg.d_model or D % H or (D // H) % 8 or ff % 8:
+        raise ValueError(f"{what} kernel needs D = d_model, head dim and FFN "
+                         f"width multiples of 8 (D {D}, {H} heads, FFN {ff})")
+    if L_enc < 1:
+        raise ValueError("no encoder slots to attend")
+
+
+def _table_ptrs(stacked, D: int, dev):
+    """Check build_stacked_full's float32 tables for a kernel; return
+    (V, T_pos) and their pointers (emb, pos_emb, w_head, b_head)."""
+    V = stacked["emb"].shape[0]
+    Tpos = stacked["pos_emb"].shape[0]
+    tables = {"emb": (V, D), "pos_emb": (Tpos, D), "w_head": (D, V),
+              "b_head": (1, V)}
+    for name, shape in tables.items():
+        _build.require(stacked[name], name, dtype=torch.float32,
+                       shape=shape, device=dev)
+    return V, Tpos, [stacked[k].data_ptr() for k in tables]
+
+
 def _weight_ptrs(stacked, cfg: ModelConfig, L: int, dt, dev):
     """Check the six stacked weights (in ``dt``, or int8 with their
     scales), their biases and the LayerNorm table for a kernel; return
@@ -226,6 +278,25 @@ def fused_decoder_layers_step_v2_plain(stacked, cfg: ModelConfig, x_emb,
                          cross_k, cross_v, rows)
 
 
+def _check_step(cfg: ModelConfig, what: str, x_emb, self_k, self_v,
+                cross_k, cross_v, pos: int):
+    """Check the operands of B1 or B11; return (L, B, T, D, L_enc)."""
+    L, B, T, D = self_k.shape
+    L_enc = cross_k.shape[2]
+    dt, dev = x_emb.dtype, x_emb.device
+    _check_layer_shapes(cfg, what, dt, D, L_enc)
+    if not 0 <= pos < T:
+        raise ValueError(f"pos {pos} outside the cache of {T} slots")
+    _build.require(x_emb, "x_emb", shape=(B, D), device=dev)
+    for name, t in (("self_k", self_k), ("self_v", self_v)):
+        _build.require(t, name, dtype=dt, shape=(L, B, T, D), device=dev,
+                       aligned=True)
+    for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
+        _build.require(t, name, dtype=dt, shape=(L, B, L_enc, D),
+                       device=dev, aligned=True)
+    return L, B, T, D, L_enc
+
+
 def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
                                  self_v, cross_k, cross_v, pos: int):
     """Same contract as ``fused_decoder_layers_step_v2_plain``; CUDA tensors
@@ -234,29 +305,9 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     if not x_emb.is_cuda:
         return fused_decoder_layers_step_v2_plain(
             stacked, cfg, x_emb, self_k, self_v, cross_k, cross_v, pos)
-    L, B, T, D = self_k.shape
-    L_enc = cross_k.shape[2]
-    H, ff = cfg.nhead, cfg.dim_feedforward
-    dt = x_emb.dtype
-    dev = x_emb.device
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"decoder step kernel takes bf16 or float32, "
-                         f"not {dt}")
-    if D != cfg.d_model or D % H or (D // H) % 8 or ff % 8:
-        raise ValueError(f"decoder step kernel needs D = d_model, head dim "
-                         f"and FFN width multiples of 8 (D {D}, {H} heads, "
-                         f"FFN {ff})")
-    if not 0 <= pos < T:
-        raise ValueError(f"pos {pos} outside the cache of {T} slots")
-    if L_enc < 1:
-        raise ValueError("no encoder slots to attend")
-    _build.require(x_emb, "x_emb", shape=(B, D), device=dev)
-    for name, t in (("self_k", self_k), ("self_v", self_v)):
-        _build.require(t, name, dtype=dt, shape=(L, B, T, D), device=dev,
-                       aligned=True)
-    for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
-        _build.require(t, name, dtype=dt, shape=(L, B, L_enc, D),
-                       device=dev, aligned=True)
+    L, B, T, D, L_enc = _check_step(cfg, "decoder step", x_emb, self_k,
+                                    self_v, cross_k, cross_v, pos)
+    dt, dev = x_emb.dtype, x_emb.device
     quantized, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
 
     x_out = torch.empty((B, D), dtype=torch.float32, device=dev)
@@ -267,7 +318,7 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v, x_out,
                                     k_new, v_new)]
     code = getattr(_build.library(), entry)(
-        *ptrs, L, B, T, D, H, ff, L_enc, int(pos),
+        *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, int(pos),
         _build.stream_handle(dev))
     _build.check(code, entry)
     if quantized:
@@ -281,11 +332,57 @@ fused_decoder_layers_step_v2.launches = 0
 fused_decoder_layers_step_v2.int8_launches = 0
 
 
+def fused_decoder_layers_step_plain(stacked, cfg: ModelConfig, x_emb, self_k,
+                                    self_v, cross_k, cross_v, pos: int):
+    """The "v1" step: x_emb (B, D); self caches (L, B, T, D), their slot
+    ``pos`` overwritten in place with each layer's fresh K/V row (rounded
+    to the cache dtype); cross K/V (L, B, L_enc, D), every slot attended.
+    Returns (x_out (B, D) float32, self_k, self_v), the caches the ones
+    given (the JAX function returns its aliased, updated caches). A float
+    bundle only."""
+    _require_float(stacked, "the v1 step")
+    x, k_new, v_new = fused_decoder_layers_step_v2_plain(
+        stacked, cfg, x_emb, self_k, self_v, cross_k, cross_v, pos)
+    self_k[:, :, pos] = k_new
+    self_v[:, :, pos] = v_new
+    return x, self_k, self_v
+
+
+def fused_decoder_layers_step(stacked, cfg: ModelConfig, x_emb, self_k,
+                              self_v, cross_k, cross_v, pos: int):
+    """Same contract as ``fused_decoder_layers_step_plain``; CUDA tensors
+    go to the kernel (one launch for all layers, writing slot ``pos`` of
+    the caches in place, counted), CPU tensors to the plain version."""
+    if not x_emb.is_cuda:
+        return fused_decoder_layers_step_plain(
+            stacked, cfg, x_emb, self_k, self_v, cross_k, cross_v, pos)
+    _require_float(stacked, "the v1 step")
+    L, B, T, D, L_enc = _check_step(cfg, "v1 step", x_emb, self_k, self_v,
+                                    cross_k, cross_v, pos)
+    dt, dev = x_emb.dtype, x_emb.device
+    _, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
+    x_out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    entry = _IN_PLACE_ENTRY[dt]
+    ptrs = [x_emb.data_ptr(), *weights]
+    ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v, x_out)]
+    code = getattr(_build.library(), entry)(
+        *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, int(pos),
+        _build.stream_handle(dev))
+    _build.check(code, entry)
+    fused_decoder_layers_step.launches += 1
+    return x_out, self_k, self_v
+
+
+fused_decoder_layers_step.launches = 0
+
+
 def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
-                  cross_v, pos):
+                  cross_v, pos, round_fresh: bool = True):
     """Every layer on float32 rows x (R, D), row r at slot pos[r] (R,):
-    it attends its cache slots before pos[r] and its fresh row. Returns
-    (x, k_new, v_new (L, R, D) in the cache dtype)."""
+    it attends its cache slots before pos[r] and its fresh row, rounded to
+    the cache dtype first if ``round_fresh`` (else in float32, as the
+    whole-decode kernel B12 does). Returns (x, k_new, v_new (L, R, D) in
+    the cache dtype)."""
     L, R, T, D = self_k.shape
     H = cfg.nhead
     scale = 1.0 / math.sqrt(D // H)
@@ -319,9 +416,10 @@ def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
     for layer in range(L):
         qkv = mm(x, "w_qkv", "b_qkv")
         q, k_new, v_new = qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
-        k_new, v_new = k_new.to(cdt), v_new.to(cdt)
-        k_out.append(k_new)
-        v_out.append(v_new)
+        k_out.append(k_new.to(cdt))
+        v_out.append(v_new.to(cdt))
+        if round_fresh:
+            k_new, v_new = k_out[-1], v_out[-1]
         attn = _heads_attention(q * scale, with_fresh(self_k[layer], k_new),
                                 with_fresh(self_v[layer], v_new), H, keep)
         x = norm(x + mm(attn, "w_out", "b_out"), 0)
@@ -365,9 +463,9 @@ def fused_ragged_step_plain(stacked, cfg: ModelConfig, prev, pos, self_k,
     # the weights' dtype (the same in a build_stacked_full bundle)
     wdt = (getattr(torch, cfg.dtype) if _is_int8(stacked)
            else stacked["w_qkv"].dtype)
-    x = (stacked["emb"][prev.long()] + stacked["pos_emb"][pos]).to(wdt)
-    x, k_new, v_new = _layers_plain(stacked, cfg, x.float(), self_k, self_v,
-                                    cross_k, cross_v, pos)
+    x, k_new, v_new = _layers_plain(stacked, cfg,
+                                    _embed_full(stacked, prev, pos, wdt),
+                                    self_k, self_v, cross_k, cross_v, pos)
     logits = x @ stacked["w_head"] + stacked["b_head"][0]
     if return_logits:
         return logits, k_new, v_new
@@ -395,19 +493,9 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
                                        return_logits=return_logits)
     L, R, T, D = self_k.shape
     L_enc = cross_k.shape[2]
-    H, ff = cfg.nhead, cfg.dim_feedforward
     dt = self_k.dtype
     dev = self_k.device
-    V, Tpos = stacked["emb"].shape[0], stacked["pos_emb"].shape[0]
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"ragged step kernel takes bf16 or float32, "
-                         f"not {dt}")
-    if D != cfg.d_model or D % H or (D // H) % 8 or ff % 8:
-        raise ValueError(f"ragged step kernel needs D = d_model, head dim "
-                         f"and FFN width multiples of 8 (D {D}, {H} heads, "
-                         f"FFN {ff})")
-    if L_enc < 1:
-        raise ValueError("no encoder slots to attend")
+    _check_layer_shapes(cfg, "ragged step", dt, D, L_enc)
     for name, t in (("prev", prev), ("pos", pos)):
         _build.require(t, name, dtype=torch.int32, shape=(R,), device=dev)
     for name, t in (("self_k", self_k), ("self_v", self_v)):
@@ -420,12 +508,8 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     if quantized and dt != getattr(torch, cfg.dtype):
         raise ValueError(f"int8 ragged step: caches are {dt}, the compute "
                          f"dtype {cfg.dtype}")
+    V, Tpos, (emb, pos_emb, w_head, b_head) = _table_ptrs(stacked, D, dev)
     f32 = torch.float32
-    tables = {"emb": (V, D), "pos_emb": (Tpos, D), "w_head": (D, V),
-              "b_head": (1, V)}
-    for name, shape in tables.items():
-        _build.require(stacked[name], name, dtype=f32, shape=shape,
-                       device=dev)
 
     k_new = torch.empty((L, R, D), dtype=dt, device=dev)
     v_new = torch.empty((L, R, D), dtype=dt, device=dev)
@@ -436,14 +520,13 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
         outs = (torch.empty((R,), dtype=torch.int32, device=dev),
                 torch.empty((R,), dtype=f32, device=dev))
         heads = [None, outs[0].data_ptr(), outs[1].data_ptr()]
-    ptrs = [prev.data_ptr(), pos.data_ptr(), stacked["emb"].data_ptr(),
-            stacked["pos_emb"].data_ptr(), *weights]
-    ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v,
-                                    stacked["w_head"], stacked["b_head"])]
-    ptrs += heads + [k_new.data_ptr(), v_new.data_ptr()]
+    ptrs = [prev.data_ptr(), pos.data_ptr(), emb, pos_emb, *weights]
+    ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v)]
+    ptrs += [w_head, b_head, *heads, k_new.data_ptr(), v_new.data_ptr()]
     entry = _RAGGED_ENTRY[quantized, dt]
     code = getattr(_build.library(), entry)(
-        *ptrs, L, R, T, D, H, ff, L_enc, V, Tpos, _build.stream_handle(dev))
+        *ptrs, L, R, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V, Tpos,
+        _build.stream_handle(dev))
     _build.check(code, entry)
     if quantized:
         fused_ragged_step.int8_launches += 1
@@ -454,3 +537,100 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
 
 fused_ragged_step.launches = 0
 fused_ragged_step.int8_launches = 0
+
+
+def _embed_full(stacked, prev, pos, dtype):
+    """float32 rows (R, D) of the embedding sum emb[prev] + pos_emb[pos]
+    rounded to ``dtype``, as the whole and ragged steps begin."""
+    return (stacked["emb"][prev.long()] + stacked["pos_emb"][pos]).to(
+        dtype).float()
+
+
+def fused_whole_step_plain(stacked, cfg: ModelConfig, prev, self_k, self_v,
+                           cross_k, cross_v, pos: int, *,
+                           time_major: bool = True):
+    """One whole greedy step for the batch at position ``pos``: the
+    embedding, every layer and the float32 head's argmax. prev (B,) int32;
+    cross K/V (L, B, L_enc, D), every slot attended; ``stacked`` from
+    ``build_stacked_full``, a float bundle.
+
+    ``time_major`` ("v4"): self caches (L, T, B, D), slot ``pos``
+    overwritten in place with the fresh rows; returns (nxt (B,) int32,
+    logp (B,) float32, self_k, self_v). Else ("v3"): self caches
+    (L, B, T, D), read only; returns (nxt, logp, k_new, v_new (L, B, D)),
+    which the caller appends. logp is log(p_max + 1e-10), nxt the first
+    index of the max."""
+    _require_float(stacked, "the whole step")
+    # a batch-major view of time-major caches: (L, B, T, D)
+    view_k, view_v = ((self_k.transpose(1, 2), self_v.transpose(1, 2))
+                      if time_major else (self_k, self_v))
+    L, B, T, D = view_k.shape
+    if not 0 <= pos < min(T, stacked["pos_emb"].shape[0]):
+        raise ValueError(f"pos {pos} outside the cache of {T} slots or the "
+                         f"position table")
+    x = _embed_full(stacked, prev, pos, stacked["w_qkv"].dtype)
+    rows = torch.full((B,), pos, dtype=torch.long, device=x.device)
+    x, k_new, v_new = _layers_plain(stacked, cfg, x, view_k, view_v, cross_k,
+                                    cross_v, rows)
+    nxt, logp = _argmax_head(x @ stacked["w_head"] + stacked["b_head"][0])
+    if time_major:
+        self_k[:, pos] = k_new
+        self_v[:, pos] = v_new
+        return nxt, logp, self_k, self_v
+    return nxt, logp, k_new, v_new
+
+
+def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
+                     cross_k, cross_v, pos: int, *, time_major: bool = True):
+    """Same contract as ``fused_whole_step_plain``; CUDA tensors go to the
+    kernel (one launch for the embedding, every layer, the head and its
+    argmax, counted), CPU tensors to the plain version. ``prev`` stays in
+    device memory; ``pos`` is a Python int passed by value. A row whose
+    ``prev`` lies outside the vocabulary gets nxt -1, logp NaN and NaN
+    fresh rows. The TPU kernel's padding of the vocabulary to 128 columns
+    (a -1e9 head bias) and of the position table are dropped."""
+    if not self_k.is_cuda:
+        return fused_whole_step_plain(stacked, cfg, prev, self_k, self_v,
+                                      cross_k, cross_v, pos,
+                                      time_major=time_major)
+    _require_float(stacked, "the whole step")
+    if time_major:
+        L, T, B, D = self_k.shape
+        shape = (L, T, B, D)
+    else:
+        L, B, T, D = self_k.shape
+        shape = (L, B, T, D)
+    L_enc = cross_k.shape[2]
+    dt, dev = self_k.dtype, self_k.device
+    _check_layer_shapes(cfg, "whole step", dt, D, L_enc)
+    _build.require(prev, "prev", dtype=torch.int32, shape=(B,), device=dev)
+    for name, t in (("self_k", self_k), ("self_v", self_v)):
+        _build.require(t, name, dtype=dt, shape=shape, device=dev,
+                       aligned=True)
+    for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
+        _build.require(t, name, dtype=dt, shape=(L, B, L_enc, D),
+                       device=dev, aligned=True)
+    _, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
+    V, Tpos, (emb, pos_emb, w_head, b_head) = _table_ptrs(stacked, D, dev)
+    if not 0 <= pos < min(T, Tpos):
+        raise ValueError(f"pos {pos} outside the cache of {T} slots or the "
+                         f"position table of {Tpos}")
+
+    nxt = torch.empty((B,), dtype=torch.int32, device=dev)
+    logp = torch.empty((B,), dtype=torch.float32, device=dev)
+    rows = () if time_major else tuple(
+        torch.empty((L, B, D), dtype=dt, device=dev) for _ in range(2))
+    ptrs = [prev.data_ptr(), emb, pos_emb, *weights]
+    ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v)]
+    ptrs += [w_head, b_head, nxt.data_ptr(), logp.data_ptr()]
+    ptrs += [t.data_ptr() for t in rows]
+    entry = _WHOLE_ENTRY[time_major, dt]
+    code = getattr(_build.library(), entry)(
+        *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V,
+        int(pos), _build.stream_handle(dev))
+    _build.check(code, entry)
+    fused_whole_step.launches += 1
+    return (nxt, logp, *(rows or (self_k, self_v)))
+
+
+fused_whole_step.launches = 0

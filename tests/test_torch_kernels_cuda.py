@@ -23,7 +23,12 @@ atol 1e-4 + rtol 1e-4 for one kernel and 1e-3 for the decoder steps
 beam cache reorder exactly (a copy). The int8 bundle of the decoder steps
 rounds its matmul inputs to bf16 in float32 too, so it is held at the bf16
 step tolerance in both dtypes, and its float32 argmax only where the plain
-logits' top two lie further apart than twice their largest error.
+logits' top two lie further apart than twice their largest error. The
+whole step (B10) and the whole decode (B12) are held so too in bf16: a
+token may differ from the plain version's only where the plain logits'
+top two lie within the step tolerance (a near-tie), and a decode's tokens
+must agree up to such a step in each row; in float32 they are equal, and
+the whole decode's log-prob sums within 1e-2 (150 float32 log-probs).
 """
 
 import pytest
@@ -38,6 +43,7 @@ from handwritten_math_ocr_api_torch.ops import fused_step as fs
 from handwritten_math_ocr_api_torch.ops import patch_merging as pm
 from handwritten_math_ocr_api_torch.ops import quant
 from handwritten_math_ocr_api_torch.ops import swin_block as sb
+from handwritten_math_ocr_api_torch.ops import whole_decode as wd
 from handwritten_math_ocr_api_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.cuda
@@ -171,6 +177,140 @@ def test_fused_decoder_step_int8(dev, np_params, B):
                                                      ck, cv, pos)
         for g, w in zip(got, want):
             _close(g, w, STEP_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 16])
+def test_layers_step_in_place(dev, np_params, dtype, B):
+    """B11: x_out and the written slot within the step tolerance of the
+    plain step's; every other slot of the caches bit for bit unchanged."""
+    cfg = CFG.replace(dtype=dtype)
+    stacked = fs.build_stacked(np_params["decoder"], cfg, dev)
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    sk, sv = (_randn(dev, dtype, L, B, T, D, seed=i) for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=2 + i)
+              for i in range(2))
+    x = _randn(dev, dtype, B, D, seed=4)
+    for pos in (0, 74, 149):
+        got_k, got_v = sk.clone(), sv.clone()
+        want_k, want_v = sk.clone(), sv.clone()
+        got = _launched(fs.fused_decoder_layers_step,
+                        lambda: fs.fused_decoder_layers_step(
+                            stacked, cfg, x, got_k, got_v, ck, cv, pos))
+        want = fs.fused_decoder_layers_step_plain(stacked, cfg, x, want_k,
+                                                  want_v, ck, cv, pos)
+        _close(got[0], want[0], STEP_TOL[dtype])
+        other = torch.arange(T, device=dev) != pos
+        for g, w, old in ((got_k, want_k, sk), (got_v, want_v, sv)):
+            _close(g[:, :, pos], w[:, :, pos], STEP_TOL[dtype])
+            assert torch.equal(g[:, :, other], old[:, :, other])
+
+
+def _hold_picks(nxt, want_nxt, logits, atol):
+    """Greedy picks equal wherever the plain logits' top two lie further
+    apart than ``atol``."""
+    top2 = logits.topk(2, dim=-1).values
+    clear = top2[..., 0] - top2[..., 1] > atol
+    assert torch.equal(nxt[clear], want_nxt[clear])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("time_major", [True, False])
+@pytest.mark.parametrize("B", [1, 16])
+def test_whole_step(dev, np_params, dtype, time_major, B):
+    """B10 in both layouts: nxt as the plain step's (equal in float32;
+    in bf16 except at near-ties), logp and the fresh rows within the step
+    tolerance; time-major caches written at pos, every other slot bit for
+    bit unchanged."""
+    cfg = CFG.replace(dtype=dtype)
+    stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    shape = (L, T, B, D) if time_major else (L, B, T, D)
+    sk, sv = (_randn(dev, dtype, *shape, seed=i) for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=2 + i)
+              for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    prev = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for pos in (0, 74, 149):
+        got_k, got_v = sk.clone(), sv.clone()
+        want_k, want_v = sk.clone(), sv.clone()
+        got = _launched(fs.fused_whole_step,
+                        lambda: fs.fused_whole_step(
+                            stacked, cfg, prev, got_k, got_v, ck, cv, pos,
+                            time_major=time_major))
+        want = fs.fused_whole_step_plain(stacked, cfg, prev, want_k, want_v,
+                                         ck, cv, pos, time_major=time_major)
+        # the plain step's logits, for the near-tie rule
+        cache_k = want_k.transpose(1, 2) if time_major else want_k
+        cache_v = want_v.transpose(1, 2) if time_major else want_v
+        logits = fs.fused_ragged_step_plain(
+            stacked, cfg, prev, torch.full((B,), pos, dtype=torch.int32,
+                                           device=dev),
+            cache_k, cache_v, ck, cv, return_logits=True)[0]
+        torch.cuda.synchronize()
+        if dtype == "float32":
+            assert torch.equal(got[0], want[0])
+        else:
+            _hold_picks(got[0], want[0], logits, STEP_TOL[dtype][0])
+        _close(got[1], want[1], STEP_TOL[dtype])
+        if time_major:
+            other = torch.arange(T, device=dev) != pos
+            for g, w, old in ((got_k, want_k, sk), (got_v, want_v, sv)):
+                _close(g[:, pos], w[:, pos], STEP_TOL[dtype])
+                assert torch.equal(g[:, other], old[:, other])
+        else:
+            assert torch.equal(got_k, sk) and torch.equal(got_v, sv)
+            for g, w in zip(got[2:], want[2:]):
+                _close(g, w, STEP_TOL[dtype])
+
+
+def _hold_decode(got, want, logits, atol):
+    """Each row's tokens equal the plain decode's up to its first
+    difference, which must come where the plain logits' top two lie
+    within ``atol``; rows without one have equal counts. Returns the
+    rows that agree throughout."""
+    same = []
+    for r in range(got.tokens.shape[0]):
+        differ = (got.tokens[r] != want.tokens[r]).nonzero()
+        if len(differ):
+            t = int(differ[0])
+            top2 = logits[r, t].topk(2).values
+            assert float(top2[0] - top2[1]) < atol, (r, t)
+        else:
+            assert got.token_count[r] == want.token_count[r]
+            same.append(r)
+    return same
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("B", [1, 16])
+def test_whole_decode(dev, np_params, bundle, B):
+    """B12 over 150 steps from random encoder memory, against its plain
+    version: float32 tokens, lengths and counts equal and log-prob sums
+    within 1e-2; bf16 and the int8 bundle (bf16 caches) held by
+    ``_hold_decode``."""
+    dtype = "float32" if bundle == "float32" else "bfloat16"
+    cfg = CFG.replace(dtype=dtype)
+    params = convert.to_torch(np_params, cfg, dev)
+    resident = wd.build_resident(params["decoder"], cfg, bundle == "int8")
+    memory = _randn(dev, dtype, B, cfg.encoder_len, cfg.d_model, seed=9)
+    attr = "int8_launches" if bundle == "int8" else "launches"
+    got = _launched(wd.fused_whole_decode,
+                    lambda: wd.fused_whole_decode(resident, cfg, memory),
+                    attr)
+    want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
+                                               return_logits=True)
+    torch.cuda.synchronize()
+    assert got.tokens.shape == (B, cfg.max_seq_len)
+    assert torch.equal(got.lengths, (got.tokens != 0).sum(-1))
+    if bundle == "float32":
+        assert torch.equal(got.tokens, want.tokens)
+        assert torch.equal(got.token_count, want.token_count)
+        torch.testing.assert_close(got.logprob_sum, want.logprob_sum,
+                                   atol=1e-2, rtol=0)
+    else:
+        _hold_decode(got, want, logits, STEP_TOL["bfloat16"][0])
 
 
 def _dequant_cases(dec, batch):

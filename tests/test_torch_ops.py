@@ -174,5 +174,8 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
                               "cache_append_attention", "decode_attention",
                               "fused_decoder_step", "ragged_step",
                               "swin_block", "dequant_matmul",
-                              "fused_decoder_step_i8", "ragged_step_i8")
+                              "fused_decoder_step_i8", "ragged_step_i8",
+                              "layers_step_in_place",
+                              "whole_step_time_major", "whole_step_rows",
+                              "whole_decode", "whole_decode_i8")
          for t in ("bf16", "f32")] + ["beam_cache_gather"])
