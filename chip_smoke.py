@@ -11,9 +11,12 @@ Run from the root of a checkout. Phases, each printed on its own lines:
 3. each of the fifteen kernel entries against its plain PyTorch version
    on the card, in bf16, at the shapes the served paths give it (a
    10-image request padded to the 16-row batch bucket; beam search at
-   beam 5 on the 10 images, 50 rows): window attention, patch merging,
-   cache-append attention and decode attention at every stage or slot
-   they serve; the fused decoder step at pos 0, 74 and 149, with the float
+   beam 5 on the 10 images, 50 rows): window attention at every stage,
+   unshifted (one (1, nh, N, N) mask for all windows) and shifted, patch
+   merging, cache-append attention and decode attention at slots 0, 1,
+   7, 8, 74, 75, 148 and 149 (and at 0, 74 and 149 on the beam's 50
+   rows), each redesigned kernel's time also as a ratio to SDPA's; the
+   fused decoder step at pos 0, 74 and 149, with the float
    bundle and the int8 one; the "v1" step that writes its rows into the
    caches (x_out and the written slot within the step tolerance, every
    other slot unchanged) and the whole step of "v3"/"v4" in both cache
@@ -250,9 +253,10 @@ def stage_shapes(cfg, batch):
     return out
 
 
-def check_kernels(cfg, params, batch):
+def check_kernels(cfg, params, batch, rows):
     """Phase 3: every kernel against its plain version at the served
-    shapes. Returns the kernels' JSON entries."""
+    shapes (``batch`` greedy rows, ``rows`` beam rows). Returns the
+    kernels' JSON entries."""
     import torch
     import torch.nn.functional as F
 
@@ -292,30 +296,40 @@ def check_kernels(cfg, params, batch):
     for i, (h, w, c, nh, depth, ph, pw) in enumerate(stage_shapes(cfg, batch)):
         dh = c // nh
         nW = (ph // ws) * (pw // ws)
-        p_attn = params["encoder"]["stages"][i]["blocks"][-1]["attn"]
-        shift_h = 0 if ws >= ph else ws // 2
-        shift_w = 0 if ws >= pw else ws // 2
-        mask = swin.attention_mask(p_attn, ws, nh, ph, pw, shift_h, shift_w)
-        mask = mask.expand(nW, nh, N, N).contiguous()
         q, k, v = (randn(batch, nW, nh, N, dh) for _ in range(3))
-        got = wa.window_attention_core(q, k, v, mask)
-        want = wa.window_attention_core_plain(q, k, v, mask)
-        torch.cuda.synchronize()
-        assert_close(f"window_attention stage {i + 1}", got, want)
-        ms = cuda_ms(lambda: wa.window_attention_core(q, k, v, mask))
-        plain = cuda_ms(lambda: wa.window_attention_core_plain(q, k, v, mask))
         q4, k4, v4 = (t.reshape(batch, nW * nh, N, dh) for t in (q, k, v))
-        m4 = mask.reshape(1, nW * nh, N, N).to(bf16)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=m4))
         G = batch * nW * nh
-        nbytes = 4 * G * N * dh * 2 + nW * nh * N * N * 4
         flops = 4 * G * N * N * dh
-        win.add(depth, max_err(got, want), ms, plain, lib, nbytes, flops)
-        log(f"kernel window_attention stage {i + 1}: q {tuple(q.shape)} "
-            f"max_abs_err {max_err(got, want):.3g} ms {ms:.4f} "
-            f"plain_ms {plain:.4f} sdpa_ms {lib:.4f} "
-            f"bound_ms {bound_ms(nbytes, flops):.4f} x{depth}")
+        # the stage's even blocks are unshifted, with one (1, nh, N, N)
+        # mask for every window; its odd blocks shift where the map is
+        # wider than a window, with an (nW, nh, N, N) mask
+        for d, blocks in ((0, depth - depth // 2), (1, depth // 2)):
+            if not blocks:
+                continue
+            p_attn = params["encoder"]["stages"][i]["blocks"][d]["attn"]
+            shift = d * (ws // 2)
+            shift_h = 0 if ws >= ph else shift
+            shift_w = 0 if ws >= pw else shift
+            mask = swin.attention_mask(p_attn, ws, nh, ph, pw, shift_h,
+                                       shift_w).contiguous()
+            kind = "shifted" if shift_h or shift_w else "unshifted"
+            got = wa.window_attention_core(q, k, v, mask)
+            want = wa.window_attention_core_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            assert_close(f"window_attention stage {i + 1} {kind}", got, want)
+            ms = cuda_ms(lambda: wa.window_attention_core(q, k, v, mask))
+            plain = cuda_ms(
+                lambda: wa.window_attention_core_plain(q, k, v, mask))
+            m4 = mask.expand(nW, nh, N, N).reshape(1, nW * nh, N, N).to(bf16)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4))
+            nbytes = 4 * G * N * dh * 2 + mask.numel() * 4
+            win.add(blocks, max_err(got, want), ms, plain, lib, nbytes, flops)
+            log(f"kernel window_attention stage {i + 1} {kind}: q "
+                f"{tuple(q.shape)} mask {tuple(mask.shape)} max_abs_err "
+                f"{max_err(got, want):.3g} ms {ms:.4f} plain_ms {plain:.4f} "
+                f"sdpa_ms {lib:.4f} ratio_to_sdpa {ms / lib:.3f} "
+                f"bound_ms {bound_ms(nbytes, flops):.4f} x{blocks}")
 
         if i == len(cfg.swin.depths) - 1:
             continue
@@ -336,28 +350,56 @@ def check_kernels(cfg, params, batch):
             f"max_abs_err {max_err(got, want):.3g} ms {ms:.4f} "
             f"plain_ms {plain:.4f} bound_ms {bound_ms(nbytes, flops):.4f}")
 
+    d = win.d
+    log(f"kernel window_attention: one encode ms {d['ms']:.4f} sdpa_ms "
+        f"{d['library_ms']:.4f} ratio_to_sdpa "
+        f"{d['ms'] / d['library_ms']:.3f} bound_ms {d['bound_ms']:.4f}")
+
     H, T, Dh = cfg.nhead, cfg.max_seq_len, cfg.head_dim
-    k_cache, v_cache = randn(batch, H, T, Dh), randn(batch, H, T, Dh)
-    err = err_dec = 0.0
-    for pos in (0, T // 2, T - 1):
-        q, kn, vn = (randn(batch, H, 1, Dh) for _ in range(3))
-        k2, v2 = k_cache.clone(), v_cache.clone()
-        got = ca.cache_append_attention(q, kn, vn, k_cache, v_cache, pos)
-        want = ca.cache_append_attention_plain(q, kn, vn, k2, v2, pos)
-        torch.cuda.synchronize()
-        assert_close(f"cache_append_attention pos {pos}", got, want)
-        if not (torch.equal(k_cache, k2) and torch.equal(v_cache, v2)):
-            raise AssertionError("cache_append_attention: caches differ "
-                                 f"from the plain update at pos {pos}")
-        err = max(err, max_err(got, want))
-        got = ca.decode_attention(q, k_cache, v_cache, pos)
-        want = ca.decode_attention_plain(q, k_cache, v_cache, pos)
-        torch.cuda.synchronize()
-        assert_close(f"decode_attention pos {pos}", got, want)
-        if not (torch.equal(k_cache, k2) and torch.equal(v_cache, v2)):
-            raise AssertionError("decode_attention wrote to the caches")
-        err_dec = max(err_dec, max_err(got, want))
+
+    def cache_case(n, positions):
+        """Both kernels against their plain versions on n rows at each
+        slot of ``positions``; returns the caches, the last slot's inputs
+        and the largest errors."""
+        k_cache, v_cache = randn(n, H, T, Dh), randn(n, H, T, Dh)
+        err = err_dec = 0.0
+        for pos in positions:
+            q, kn, vn = (randn(n, H, 1, Dh) for _ in range(3))
+            k2, v2 = k_cache.clone(), v_cache.clone()
+            got = ca.cache_append_attention(q, kn, vn, k_cache, v_cache, pos)
+            want = ca.cache_append_attention_plain(q, kn, vn, k2, v2, pos)
+            torch.cuda.synchronize()
+            assert_close(f"cache_append_attention {n} rows pos {pos}", got,
+                         want)
+            if not (torch.equal(k_cache, k2) and torch.equal(v_cache, v2)):
+                raise AssertionError("cache_append_attention: caches differ "
+                                     f"from the plain update at pos {pos}")
+            err = max(err, max_err(got, want))
+            got = ca.decode_attention(q, k_cache, v_cache, pos)
+            want = ca.decode_attention_plain(q, k_cache, v_cache, pos)
+            torch.cuda.synchronize()
+            assert_close(f"decode_attention {n} rows pos {pos}", got, want)
+            if not (torch.equal(k_cache, k2) and torch.equal(v_cache, v2)):
+                raise AssertionError("decode_attention wrote to the caches")
+            err_dec = max(err_dec, max_err(got, want))
+        return k_cache, v_cache, q, kn, vn, err, err_dec
+
+    # the default beam route's 50 rows (G = 400): gates, and B5's time
     pos = T - 1
+    k_cache, v_cache, q, kn, vn, err, _ = cache_case(
+        rows, (0, T // 2 - 1, T - 1))
+    ms = cuda_ms(lambda: ca.cache_append_attention(q, kn, vn, k_cache,
+                                                   v_cache, pos))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k_cache[:, :, :pos + 1], v_cache[:, :, :pos + 1]))
+    log(f"kernel cache_append_attention: caches {tuple(k_cache.shape)} "
+        f"pos {pos} max_abs_err {err:.3g} ms {ms:.4f} sdpa_ms {lib:.4f} "
+        f"ratio_to_sdpa {ms / lib:.3f} (beam rows; not in the kernels line)")
+
+    # the served greedy batch: every gate slot, both ends of a 16-byte
+    # copy's tail, and the timed entries at the last slot
+    k_cache, v_cache, q, kn, vn, err, err_dec = cache_case(
+        batch, (0, 1, 7, 8, T // 2 - 1, T // 2, T - 2, T - 1))
     ms = cuda_ms(lambda: ca.cache_append_attention(q, kn, vn, k_cache,
                                                    v_cache, pos))
     plain = cuda_ms(lambda: ca.cache_append_attention_plain(
@@ -370,8 +412,8 @@ def check_kernels(cfg, params, batch):
     cache.add(1, err, ms, plain, lib, nbytes, flops)
     log(f"kernel cache_append_attention: caches {tuple(k_cache.shape)} "
         f"pos {pos} max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
-        f"sdpa_ms {lib:.4f} (prefix attention, no append) "
-        f"bound_ms {bound_ms(nbytes, flops):.4f}")
+        f"sdpa_ms {lib:.4f} (prefix attention, no append) ratio_to_sdpa "
+        f"{ms / lib:.3f} bound_ms {bound_ms(nbytes, flops):.4f}")
 
     ms = cuda_ms(lambda: ca.decode_attention(q, k_cache, v_cache, pos))
     plain = cuda_ms(lambda: ca.decode_attention_plain(q, k_cache, v_cache,
@@ -380,7 +422,8 @@ def check_kernels(cfg, params, batch):
     decode.add(1, err_dec, ms, plain, lib, nbytes, flops)
     log(f"kernel decode_attention: caches {tuple(k_cache.shape)} pos {pos} "
         f"max_abs_err {err_dec:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
-        f"sdpa_ms {lib:.4f} bound_ms {bound_ms(nbytes, flops):.4f}")
+        f"sdpa_ms {lib:.4f} ratio_to_sdpa {ms / lib:.3f} "
+        f"bound_ms {bound_ms(nbytes, flops):.4f}")
     return [win, merge, cache, decode]
 
 
@@ -1052,7 +1095,8 @@ def check_counts(counts, expected):
 
 # the port's kernels as the profiler names them
 PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
-    "window_attention", "patch_merging", "cache_append_attention",
+    "window_attention", "window_attention_mma", "patch_merging",
+    "cache_append_attention",
     "fused_step", "swin_block", "ragged_step", "beam_gather",
     "dequant_matmul", "whole_step", "whole_decode"))
 
@@ -1684,7 +1728,7 @@ def main() -> int:
     bucket = pick_bucket(N_IMAGES, DecodeConfig().batch_buckets)
     rows = N_IMAGES * BEAM
     t0 = time.perf_counter()
-    entries = check_kernels(cfg, params, bucket)
+    entries = check_kernels(cfg, params, bucket, rows)
     entries.append(check_fused_step(cfg, np_params, bucket))
     entries.append(check_swin_block(cfg, np_params, params, bucket))
     entries.append(check_ragged_step(cfg, np_params, rows))

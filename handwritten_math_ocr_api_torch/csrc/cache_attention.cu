@@ -14,29 +14,40 @@
 // zero there, so this kernel does not read them at all.
 //
 // Bound on the H100: device memory. A step reads pos + 1 rows of K and of
-// V and does 4 flops per element read, about 1 flop a byte. Design: one
-// block per group, one warp per cache row for the logits (each warp reads
-// a 64-byte bf16 row, coalesced), a block reduction for the softmax, and
-// the weighted sum split over thread groups that each stride over the rows.
+// V and does 4 flops per element read, about 1 flop a byte: 19.2 KB a
+// group at pos 149 (Dh 32, bf16), under a microsecond for the 128 groups
+// of a served step. What a kernel this small has to avoid is latency: a
+// warp that walks the rows one load after another waits for L2 or HBM some
+// 70 times. Design: one block of 256 threads per group stages the whole
+// prefix of K and V in shared memory with 16-byte cp.async copies, all in
+// flight together, and waits once (a prefix longer than one 40 KB wave
+// goes in several waves with an online softmax; no served shape needs a
+// second). With the append, row `pos` is copied from k_new / v_new, not
+// read back from the cache it is written to. Then each row is taken by
+// Dh / (16 bytes) neighbouring threads, one 16-byte vector each, for its
+// logit (a few shuffles) and, after one block reduction for the max, for
+// its share of the weighted sum and of the softmax denominator; shuffles
+// and one pass through shared memory add the rows' shares up, and the sum
+// is divided by the denominator in float32 at the end. One launch per call.
 // `pos` comes by value: the kernel needs no host round trip.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWaveBytes = 40 * 1024;  // K and V rows staged per wave
 
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red may still be read from a previous reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < nwarps; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+// Shared memory of a launch: the K and V rows of a wave, their logits, the
+// warps' maxima, and the warps' partial sums (Dh values and a denominator).
+__host__ __device__ inline size_t smem_bytes(int rows, int Dh, int itemsize) {
+  return 2 * static_cast<size_t>(rows) * Dh * itemsize +
+         (static_cast<size_t>(rows) + kWarps + kWarps * (Dh + 1)) *
+             sizeof(float);
 }
 
+// nvec = Dh * sizeof(T) / 16, a power of two <= 32 (the wrapper checks);
+// thread t takes row slot t / nvec and 16-byte vector t % nvec of a row.
 template <typename T, bool kAppend>
 __global__ void __launch_bounds__(kThreads)
 cache_append_attention_kernel(const T* __restrict__ q,
@@ -44,81 +55,132 @@ cache_append_attention_kernel(const T* __restrict__ q,
                               const T* __restrict__ v_new,
                               T* __restrict__ k_cache,
                               T* __restrict__ v_cache, T* __restrict__ out,
-                              int T_len, int Dh, int pos) {
-  extern __shared__ float s[];
-  float* qs = s;                 // Dh, scaled by 1/sqrt(Dh)
-  float* kn = qs + Dh;           // Dh, the new K row
-  float* vn = kn + Dh;           // Dh, the new V row
-  float* p = vn + Dh;            // T_len logits, then probabilities
-  float* red = p + T_len;        // 32 floats of reduction scratch
-  float* part = red + 32;        // blockDim partial sums of the P.V product
+                              int T_len, int Dh, int pos, int wave_rows) {
+  constexpr int kVec = Vec<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);               // wave_rows x Dh
+  T* vs = ks + static_cast<size_t>(wave_rows) * Dh;     // wave_rows x Dh
+  float* p = reinterpret_cast<float*>(vs + static_cast<size_t>(wave_rows) *
+                                               Dh);     // wave_rows logits
+  float* red = p + wave_rows;                           // kWarps maxima
+  float* part = red + kWarps;                           // kWarps x (Dh + 1)
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nvec = Dh / kVec;
+  const int vec = tid & (nvec - 1), slot = tid / nvec;
+  const int slots = kThreads / nvec;
+  const int col = vec * kVec;
   const int g = blockIdx.x;
   const size_t row = static_cast<size_t>(g) * Dh;
   const size_t cache = static_cast<size_t>(g) * T_len * Dh;
   const float scale = 1.0f / sqrtf(static_cast<float>(Dh));
 
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    const size_t at = cache + static_cast<size_t>(pos) * Dh + d;
-    T kv, vv;
-    if (kAppend) {
-      kv = k_new[row + d];
-      vv = v_new[row + d];
-      k_cache[at] = kv;
-      v_cache[at] = vv;
-    } else {
-      kv = k_cache[at];
-      vv = v_cache[at];
+  // K and V rows [t0, t0 + rows) of the prefix into shared memory
+  auto stage = [&](int t0, int rows) {
+    for (int c = tid; c < rows * nvec; c += kThreads) {
+      const int r = c / nvec, at = (c & (nvec - 1)) * kVec;
+      const int t = t0 + r;
+      const size_t src = cache + static_cast<size_t>(t) * Dh + at;
+      if (kAppend && t == pos) {  // the new row, not read back
+        cp_async16(ks + r * Dh + at, k_new + row + at);
+        cp_async16(vs + r * Dh + at, v_new + row + at);
+      } else {
+        cp_async16(ks + r * Dh + at, k_cache + src);
+        cp_async16(vs + r * Dh + at, v_cache + src);
+      }
     }
-    qs[d] = to_f32(q[row + d]) * scale;
-    kn[d] = to_f32(kv);
-    vn[d] = to_f32(vv);
-  }
-  __syncthreads();
+  };
+  stage(0, min(wave_rows, pos + 1));  // in flight before anything waits
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int t = warp; t <= pos; t += nwarps) {
-    const T* kt = k_cache + cache + static_cast<size_t>(t) * Dh;
-    float acc = 0.0f;
-    for (int d = lane; d < Dh; d += 32)
-      acc = fmaf(qs[d], t == pos ? kn[d] : to_f32(kt[d]), acc);
-    acc = warp_sum(acc);
-    if (lane == 0) p[t] = acc;
+  if (kAppend && tid < nvec) {
+    const size_t at = cache + static_cast<size_t>(pos) * Dh + col;
+    *reinterpret_cast<uint4*>(k_cache + at) =
+        *reinterpret_cast<const uint4*>(k_new + row + col);
+    *reinterpret_cast<uint4*>(v_cache + at) =
+        *reinterpret_cast<const uint4*>(v_new + row + col);
   }
-  __syncthreads();
+  float qv[kVec];
+  load_vec(q + row + col, qv);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) qv[i] *= scale;
 
-  float mx = -INFINITY;
-  for (int t = threadIdx.x; t <= pos; t += blockDim.x) mx = fmaxf(mx, p[t]);
-  mx = block_reduce(mx, red, true);
-  float sum = 0.0f;
-  for (int t = threadIdx.x; t <= pos; t += blockDim.x) {
-    const float e = expf(p[t] - mx);
-    p[t] = e;
-    sum += e;
-  }
-  sum = block_reduce(sum, red, false);
-  for (int t = threadIdx.x; t <= pos; t += blockDim.x) p[t] = p[t] / sum;
-  __syncthreads();
+  float m_run = -INFINITY, den = 0.0f, acc[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) acc[i] = 0.0f;
 
-  // threads form blockDim / Dh groups; group r sums rows r, r + groups, ...
-  const int groups = blockDim.x / Dh;
-  const int r = threadIdx.x / Dh, d = threadIdx.x - r * Dh;
-  if (r < groups) {
-    float acc = 0.0f;
-    for (int t = r; t <= pos; t += groups) {
-      const float vt =
-          t == pos ? vn[d]
-                   : to_f32(v_cache[cache + static_cast<size_t>(t) * Dh + d]);
-      acc = fmaf(p[t], vt, acc);
+  for (int t0 = 0; t0 <= pos; t0 += wave_rows) {
+    const int rows = min(wave_rows, pos + 1 - t0);
+    if (t0 > 0) stage(t0, rows);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // logits: the nvec threads of a row each take one vector, then a
+    // butterfly over them leaves the row's logit in all of them (every lane
+    // runs every pass: the shuffles take the whole warp)
+    float mx = -INFINITY;
+    for (int r0 = 0; r0 < rows; r0 += slots) {
+      const int r = r0 + slot;
+      float d = 0.0f;
+      if (r < rows) {
+        float kv[kVec];
+        load_vec(ks + r * Dh + col, kv);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) d = fmaf(qv[i], kv[i], d);
+      }
+      for (int o = 1; o < nvec; o <<= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (r < rows) {
+        if (vec == 0) p[r] = d;
+        mx = fmaxf(mx, d);
+      }
     }
-    part[threadIdx.x] = acc;
+    mx = warp_max(mx);
+    if (lane == 0) red[warp] = mx;
+    __syncthreads();
+    float m_new = m_run;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, red[w]);
+    const float corr = expf(m_run - m_new);  // 0 on the first wave
+    den *= corr;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[i] *= corr;
+    m_run = m_new;
+
+    // the weighted sum: the same (row slot, vector) split as the logits
+    for (int r = slot; r < rows; r += slots) {
+      const float e = expf(p[r] - m_new);
+      float vv[kVec];
+      load_vec(vs + r * Dh + col, vv);
+      den += e;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(e, vv[i], acc[i]);
+    }
+    if (t0 + wave_rows <= pos) __syncthreads();  // the next wave reuses smem
+  }
+
+  // add up the row slots: lanes of one vector in a warp by shuffles, then
+  // the warps through shared memory
+  for (int o = nvec; o < 32; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    den += __shfl_xor_sync(0xffffffffu, den, o);
+  }
+  float* mine = part + warp * (Dh + 1);
+  if (lane < nvec) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) mine[col + i] = acc[i];
+    if (lane == 0) mine[Dh] = den;
   }
   __syncthreads();
-  for (int dd = threadIdx.x; dd < Dh; dd += blockDim.x) {
-    float acc = 0.0f;
-    for (int rr = 0; rr < groups; ++rr) acc += part[rr * Dh + dd];
-    out[row + dd] = from_f32<T>(acc);
+  for (int d = tid; d < Dh; d += kThreads) {
+    float o = 0.0f, s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      o += part[w * (Dh + 1) + d];
+      s += part[w * (Dh + 1) + Dh];
+    }
+    out[row + d] = from_f32<T>(o / s);
   }
 }
 
@@ -126,8 +188,9 @@ template <typename T, bool kAppend>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
            void* v_cache, void* out, int G, int T_len, int Dh, int pos,
            void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(3 * Dh + T_len + 32 + kThreads)) * sizeof(float);
+  const int row_bytes = Dh * static_cast<int>(sizeof(T));
+  const int wave_rows = min(pos + 1, max(1, kWaveBytes / (2 * row_bytes)));
+  const size_t smem = smem_bytes(wave_rows, Dh, sizeof(T));
   cudaError_t err =
       allow_smem(cache_append_attention_kernel<T, kAppend>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -135,7 +198,8 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
   cache_append_attention_kernel<T, kAppend><<<G, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<T*>(out), T_len, Dh, pos);
+      static_cast<T*>(v_cache), static_cast<T*>(out), T_len, Dh, pos,
+      wave_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

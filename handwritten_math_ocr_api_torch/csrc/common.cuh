@@ -89,6 +89,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// One 16-byte asynchronous copy from device to shared memory (L2 only, not
+// L1). Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Wait for every copy this thread issued; a __syncthreads() after it makes
+// all threads' copies visible to the block.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.
 template <typename K>
 __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {

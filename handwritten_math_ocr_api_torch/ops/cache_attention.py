@@ -7,7 +7,10 @@ replace the Pallas TPU kernels ``cache_append_attention``, which per
 (batch, head) writes the new K/V row at ``pos`` and attends over slots
 ``0..pos`` in float32 in one pass, and ``decode_attention``, the same
 attention over the cache as it is, nothing written. Both are bound by
-device memory (about one flop per byte of cache read).
+device memory (about one flop per byte of cache read); the kernel stages
+the prefix in shared memory with 16-byte copies, so a cache row must be a
+power-of-two number of 16-byte vectors and every tensor must start on a
+16-byte boundary (the wrappers raise ``ValueError`` otherwise).
 
 Unlike the JAX function, which returns aliased caches, the port writes the
 new row into ``k_cache`` and ``v_cache`` in place and returns only the
@@ -27,7 +30,7 @@ _ENTRY = {torch.bfloat16: "cache_append_attention_bf16",
           torch.float32: "cache_append_attention_f32"}
 _DECODE_ENTRY = {torch.bfloat16: "decode_attention_bf16",
                  torch.float32: "decode_attention_f32"}
-_MAX_HEAD_DIM = 128  # the kernel's P.V split needs Dh <= its 128 threads
+_MAX_HEAD_DIM = 128  # float32 rows of 32 vectors: one warp's butterfly
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos: int):
@@ -50,12 +53,22 @@ def cache_append_attention_plain(q, k_new, v_new, k_cache, v_cache, pos: int):
     return decode_attention_plain(q, k_cache, v_cache, pos)
 
 
-def _check(q, k_cache, pos: int):
+def check_kernel_shape(q, k_cache, pos: int):
+    """Raise ``ValueError`` on what the kernel does not take: a dtype other
+    than bf16 or float32, a head dim above 128, a cache row that is not 1,
+    2, 4, ... or 32 16-byte vectors (the kernel's 16-byte copies, and the
+    butterfly over the vectors of a row), or ``pos`` outside the cache."""
     if q.dtype not in _ENTRY:
         raise ValueError(f"cache attention kernel takes bf16 or float32, "
                          f"not {q.dtype}")
-    if q.shape[-1] > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]} > {_MAX_HEAD_DIM}")
+    Dh = q.shape[-1]
+    if Dh > _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dh} > {_MAX_HEAD_DIM}")
+    row_bytes = Dh * q.element_size()
+    nvec = row_bytes // 16
+    if row_bytes % 16 or nvec & (nvec - 1):
+        raise ValueError(f"head dim {Dh} gives {row_bytes}-byte cache rows; "
+                         f"the kernel copies rows of 16 x 2^k bytes")
     if not 0 <= pos < k_cache.shape[2]:
         raise ValueError(f"pos {pos} outside the cache of "
                          f"{k_cache.shape[2]} slots")
@@ -69,13 +82,13 @@ def cache_append_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
                                             v_cache, pos)
     B, H, _, Dh = q.shape
     T = k_cache.shape[2]
-    _check(q, k_cache, pos)
+    check_kernel_shape(q, k_cache, pos)
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         _build.require(t, name, dtype=q.dtype, shape=(B, H, 1, Dh),
-                       device=q.device)
+                       device=q.device, aligned=True)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _build.require(t, name, dtype=q.dtype, shape=(B, H, T, Dh),
-                       device=q.device)
+                       device=q.device, aligned=True)
     out = torch.empty_like(q)
     lib = _build.library()
     code = getattr(lib, _ENTRY[q.dtype])(
@@ -98,11 +111,12 @@ def decode_attention(q, k_cache, v_cache, pos: int):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     B, H, _, Dh = q.shape
     T = k_cache.shape[2]
-    _check(q, k_cache, pos)
-    _build.require(q, "q", shape=(B, H, 1, Dh), device=q.device)
+    check_kernel_shape(q, k_cache, pos)
+    _build.require(q, "q", shape=(B, H, 1, Dh), device=q.device,
+                   aligned=True)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _build.require(t, name, dtype=q.dtype, shape=(B, H, T, Dh),
-                       device=q.device)
+                       device=q.device, aligned=True)
     out = torch.empty_like(q)
     code = getattr(_build.library(), _DECODE_ENTRY[q.dtype])(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),

@@ -88,19 +88,68 @@ def _launched(wrapper, fn, attr="launches"):
     return out
 
 
+# Swin-T at 96x320, window 7: per stage (padded H, padded W, heads); the
+# windows are (H / 7) * (W / 7): 48, 12, 3, 2
+STAGES = [(28, 84, 3), (14, 42, 6), (7, 21, 12), (7, 14, 24)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B", [1, 16])
-def test_window_attention(dev, np_params, dtype, B):
+@pytest.mark.parametrize("stage", range(len(STAGES)))
+def test_window_attention(dev, np_params, dtype, B, stage):
+    """Every stage shape of the served batch, with the unshifted block's
+    (1, nh, N, N) mask (read for every window), the same mask expanded to
+    (nW, nh, N, N), and the shifted block's mask."""
     params = convert.to_torch(np_params, CFG.replace(dtype=dtype), dev)
-    p = params["encoder"]["stages"][0]["blocks"][1]["attn"]
-    nW, nh, N, dh = 48, 3, 49, 32
-    mask = swin.attention_mask(p, 7, nh, 28, 84, 3, 3)
-    mask = mask.expand(nW, nh, N, N).contiguous()
+    p = params["encoder"]["stages"][stage]["blocks"][1]["attn"]
+    ph, pw, nh = STAGES[stage]
+    nW, N, dh = (ph // 7) * (pw // 7), 49, 32
+    plain = swin.attention_mask(p, 7, nh, ph, pw, 0, 0)
+    shifted = swin.attention_mask(p, 7, nh, ph, pw, 0 if ph <= 7 else 3,
+                                  0 if pw <= 7 else 3)
+    assert plain.shape[0] == 1 and shifted.shape[0] == nW
     q, k, v = (_randn(dev, dtype, B, nW, nh, N, dh, seed=i)
                for i in range(3))
-    got = _launched(wa.window_attention_core,
-                    lambda: wa.window_attention_core(q, k, v, mask))
-    _close(got, wa.window_attention_core_plain(q, k, v, mask), TOL[dtype])
+    for mask in (plain.contiguous(),
+                 plain.expand(nW, nh, N, N).contiguous(),
+                 shifted.contiguous()):
+        got = _launched(wa.window_attention_core,
+                        lambda: wa.window_attention_core(q, k, v, mask))
+        _close(got, wa.window_attention_core_plain(q, k, v, mask),
+               TOL[dtype])
+
+
+def test_kernels_refuse_shapes(dev):
+    """Shapes the bf16 window kernel and the cache attention kernel do not
+    take raise ValueError on the card, with no launch counted."""
+    bf16 = torch.bfloat16
+    q = torch.zeros(1, 3, 2, 49, 24, dtype=bf16, device=dev)  # dh 24
+    mask = torch.zeros(3, 2, 49, 49, device=dev)
+    before = wa.window_attention_core.launches
+    with pytest.raises(ValueError):
+        wa.window_attention_core(q, q, q, mask)
+    q = torch.zeros(1, 3, 2, 65, 32, dtype=bf16, device=dev)  # N 65
+    mask = torch.zeros(3, 2, 65, 65, device=dev)
+    with pytest.raises(ValueError):
+        wa.window_attention_core(q, q, q, mask)
+    assert wa.window_attention_core.launches == before
+
+    before = (ca.cache_append_attention.launches, ca.decode_attention.launches)
+    q = torch.zeros(2, 8, 1, 24, dtype=bf16, device=dev)  # 48-byte rows
+    cache = torch.zeros(2, 8, 150, 24, dtype=bf16, device=dev)
+    with pytest.raises(ValueError):
+        ca.cache_append_attention(q, q, q, cache, cache.clone(), 3)
+    with pytest.raises(ValueError):
+        ca.decode_attention(q, cache, cache, 3)
+    q = torch.zeros(2, 8, 1, 32, dtype=bf16, device=dev)
+    flat = torch.zeros(2 * 8 * 150 * 32 + 1, dtype=bf16, device=dev)
+    shifted = flat[1:].view(2, 8, 150, 32)  # 2 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ca.cache_append_attention(q, q, q, shifted, shifted, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        ca.decode_attention(q, shifted, shifted, 3)
+    assert (ca.cache_append_attention.launches,
+            ca.decode_attention.launches) == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -115,12 +164,18 @@ def test_patch_merging(dev, np_params, dtype, B):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [1, 16])
-def test_cache_append_and_decode_attention(dev, dtype, B):
-    H, T, Dh = 8, 150, 32
+@pytest.mark.parametrize("B", [1, 16, 50])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_cache_append_and_decode_attention(dev, dtype, B, Dh):
+    """Greedy (16 rows) and the default beam route (50 rows: G = 400) at
+    the served head dim 32 and at 64 and 128, at the first slots, around a
+    16-byte copy's tail and at the last slots. A wave of the kernel holds
+    40 KB of K and V: float32 at Dh 64 and 128 takes the prefix in several
+    waves (the online softmax)."""
+    H, T = 8, 150
     k_cache, v_cache = (_randn(dev, dtype, B, H, T, Dh, seed=i)
                         for i in range(2))
-    for pos in (0, 74, 149):
+    for pos in (0, 1, 7, 8, 74, 148, 149):
         q, kn, vn = (_randn(dev, dtype, B, H, 1, Dh, seed=pos + i)
                      for i in range(3))
         k2, v2 = k_cache.clone(), v_cache.clone()

@@ -84,6 +84,67 @@ def test_fused_window_attention_matches_jax(mask_windows):
                                atol=1e-5, rtol=1e-4)
 
 
+def test_window_attention_core_broadcast_mask_matches_pallas():
+    """A (1, nh, N, N) mask, as an unshifted block passes it, gives what the
+    TPU kernel gives on the mask repeated over the windows."""
+    rng = np.random.default_rng(2)
+    B, nW, nh, N, dh = 2, 3, 2, 49, 16
+    q, k, v = (rng.standard_normal((B, nW, nh, N, dh)).astype(np.float32)
+               for _ in range(3))
+    mask = rng.standard_normal((1, nh, N, N)).astype(np.float32)
+    want = j_window_attention_core(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v),
+                                   jnp.asarray(np.repeat(mask, nW, axis=0)),
+                                   nh, interpret=True)
+    got = wa.window_attention_core(_t(q), _t(k), _t(v), _t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype,N,dh,mask_windows,ok", [
+    (torch.bfloat16, 49, 32, 3, True),     # Swin-T, shifted
+    (torch.bfloat16, 49, 32, 1, True),     # Swin-T, unshifted
+    (torch.bfloat16, 64, 128, 3, True),
+    (torch.bfloat16, 65, 32, 3, False),    # more than 64 tokens
+    (torch.bfloat16, 49, 24, 3, False),    # dh not a multiple of 16
+    (torch.bfloat16, 49, 144, 3, False),   # dh above 128
+    (torch.float32, 81, 24, 3, True),      # the CUDA-core kernel
+    (torch.float32, 49, 32, 2, False),     # mask of 2 windows, not 3 or 1
+    (torch.float16, 49, 32, 3, False),
+])
+def test_window_attention_kernel_shapes(dtype, N, dh, mask_windows, ok):
+    """The shapes the kernels refuse raise ValueError before a launch."""
+    q = torch.zeros(1, 3, 2, N, dh, dtype=dtype)
+    mask = torch.zeros(mask_windows, 2, N, N)
+    if ok:
+        wa.check_kernel_shape(q, mask)
+    else:
+        with pytest.raises(ValueError):
+            wa.check_kernel_shape(q, mask)
+
+
+@pytest.mark.parametrize("dtype,Dh,pos,ok", [
+    (torch.bfloat16, 32, 149, True),       # the served shape
+    (torch.bfloat16, 64, 0, True),
+    (torch.float32, 128, 149, True),       # 512-byte rows
+    (torch.bfloat16, 4, 0, False),         # 8-byte rows
+    (torch.bfloat16, 24, 0, False),        # 48 bytes: 3 vectors
+    (torch.float32, 12, 0, False),
+    (torch.bfloat16, 256, 0, False),       # head dim above 128
+    (torch.bfloat16, 32, 150, False),      # pos outside the cache
+    (torch.float16, 32, 0, False),
+])
+def test_cache_attention_kernel_shapes(dtype, Dh, pos, ok):
+    """The shapes the kernel refuses raise ValueError before a launch."""
+    q = torch.zeros(2, 8, 1, Dh, dtype=dtype)
+    k_cache = torch.zeros(2, 8, 150, Dh, dtype=dtype)
+    if ok:
+        ca.check_kernel_shape(q, k_cache, pos)
+    else:
+        with pytest.raises(ValueError):
+            ca.check_kernel_shape(q, k_cache, pos)
+
+
 @pytest.mark.parametrize("B,H,W,C", [(2, 6, 10, 8), (1, 4, 4, 24)])
 def test_patch_merging_matches_pallas(B, H, W, C):
     rng = np.random.default_rng(5)
