@@ -19,7 +19,9 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    fused decoder step at pos 0, 74 and 149, with the float
    bundle and the int8 one; the "v1" step that writes its rows into the
    caches (x_out and the written slot within the step tolerance, every
-   other slot unchanged) and the whole step of "v3"/"v4" in both cache
+   other slot unchanged), these three also gated at one row and timed at
+   the bucket (at each gated slot) and at one row, with the cluster shape
+   of each launch; and the whole step of "v3"/"v4" in both cache
    layouts (its argmax equal wherever the plain logits' top-2 margin
    exceeds the step tolerance), each at pos 0, 74 and 149; the whole
    decode of 150 steps with the bf16 and the int8 resident bundle (its
@@ -140,7 +142,7 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5) -> float:
     """Mean device time of one call of ``fn``: the device time of the
     kernels and copies it launches (``torch.profiler``) over ``iters``
     back-to-back calls. Time the device spends waiting for the host is not
@@ -455,36 +457,112 @@ def check_fused_step(cfg, np_params, batch, quantize=False):
     sk, sv = randn(L, batch, T, D), randn(L, batch, T, D)
     ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
     x = randn(batch, D)
-    err = 0.0
-    for pos in (0, T // 2 - 1, T - 1):
-        got = fs.fused_decoder_layers_step_v2(stacked, cfg, x, sk, sv, ck,
-                                              cv, pos)
-        want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg, x, sk, sv,
-                                                     ck, cv, pos)
-        torch.cuda.synchronize()
-        for what, g, w in zip(("x_out", "k_new", "v_new"), got, want):
-            assert_close(f"{name} pos {pos} {what}", g, w, STEP_ATOL,
-                         STEP_RTOL)
-            err = max(err, max_err(g, w))
-        log(f"kernel {name} pos {pos}: max_abs_err "
-            f"{max(max_err(g, w) for g, w in zip(got, want)):.3g}")
+    one = first_row(x, sk, sv, ck, cv)
+
+    def gate(inputs):
+        """The kernel against its plain version at the first, a middle
+        and the last slot; the largest error."""
+        err = 0.0
+        for pos in step_positions(cfg):
+            got = fs.fused_decoder_layers_step_v2(stacked, cfg, *inputs, pos)
+            want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg,
+                                                         *inputs, pos)
+            torch.cuda.synchronize()
+            rows = inputs[0].shape[0]
+            for what, g, w in zip(("x_out", "k_new", "v_new"), got, want):
+                assert_close(f"{name} {rows} rows pos {pos} {what}", g, w,
+                             STEP_ATOL, STEP_RTOL)
+            e = max(max_err(g, w) for g, w in zip(got, want))
+            err = max(err, e)
+            log(f"kernel {name} {rows} rows pos {pos}: max_abs_err {e:.3g}")
+        return err
+
+    err = gate((x, sk, sv, ck, cv))
     pos = T - 1
     ms = cuda_ms(lambda: fs.fused_decoder_layers_step_v2(
         stacked, cfg, x, sk, sv, ck, cv, pos))
     plain = cuda_ms(lambda: fs.fused_decoder_layers_step_v2_plain(
         stacked, cfg, x, sk, sv, ck, cv, pos))
-    nbytes, weights = step_weight_bytes(cfg, quantize)
-    nbytes += (2 * L * batch * L_enc * D * 2
-               + 2 * L * batch * pos * D * 2 + batch * D * 2  # caches, x
-               + batch * D * 4 + 2 * L * batch * D * 2)       # outputs
-    flops = (2 * batch * weights
-             + 4 * L * batch * D * (pos + 1 + L_enc))         # attention
+    nbytes, flops = step_bound(cfg, batch, pos, quantize)
     entry.add(1, err, ms, plain, None, nbytes, flops)
     log(f"kernel {name}: caches {tuple(sk.shape)} pos {pos} "
         f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
         f"bound_ms {bound_ms(nbytes, flops):.4f} "
         f"({bound_by(nbytes, flops)}) library_ms null")
+    step_more(entry, name, cfg, batch, quantize, gate(one),
+              lambda rows_pos: fs.fused_decoder_layers_step_v2(
+                  stacked, cfg, *(one if rows_pos[0] == 1 else
+                                  (x, sk, sv, ck, cv)), rows_pos[1]))
     return entry
+
+
+def step_positions(cfg):
+    """The slots a decoder step is held at: the first, a middle, the
+    last."""
+    T = cfg.max_seq_len
+    return (0, T // 2 - 1, T - 1)
+
+
+def first_row(x, *caches):
+    """The first batch row of a step's x (B, D) and caches (L, B, ...), as
+    contiguous tensors of their own (made before any timing)."""
+    return (x[:1].contiguous(), *(c[:, :1].contiguous() for c in caches))
+
+
+def step_bound(cfg, rows, pos, quantize):
+    """(bytes, flops) of one decoder step (B1 or B11) for ``rows`` rows at
+    slot ``pos``: the weights once, each row's cross K/V and cache prefix,
+    x in, x_out and the fresh K/V rows out; two flops a weight a row and
+    the attention's four a cached element."""
+    L, D = cfg.num_decoder_layers, cfg.d_model
+    L_enc = cfg.encoder_len
+    nbytes, weights = step_weight_bytes(cfg, quantize)
+    nbytes += (2 * L * rows * L_enc * D * 2
+               + 2 * L * rows * pos * D * 2 + rows * D * 2    # caches, x
+               + rows * D * 4 + 2 * L * rows * D * 2)         # outputs
+    flops = (2 * rows * weights
+             + 4 * L * rows * D * (pos + 1 + L_enc))          # attention
+    return nbytes, flops
+
+
+def step_more(entry, name, cfg, batch, quantize, err1, call):
+    """The decoder step kernel at one row (``predict_single``), already
+    gated with largest error ``err1``, and at the earlier slots of the
+    batch, into ``entry``: the one row's time and bound at the last slot
+    (``ms_rows1``, ``bound_ms_rows1``, ``max_abs_err_rows1``), the batch's
+    time and bound at each gated slot (``ms_by_pos``, ``bound_ms_by_pos``),
+    and the cluster shape of both launches
+    (``ops/fused_step.cluster_geometry``). ``call((rows, pos))`` launches
+    the kernel on the first row or the batch."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    T, last = cfg.max_seq_len, cfg.max_seq_len - 1
+    cluster = {}
+    for rows in (batch, 1):
+        cluster[rows] = fs.cluster_geometry(cfg, rows, T, cfg.encoder_len,
+                                            torch.bfloat16, quantize)
+        log(f"kernel {name}: {rows} rows, cluster shape {cluster[rows]}")
+    ms1 = cuda_ms(lambda: call((1, last)))
+    nbytes, flops = step_bound(cfg, 1, last, quantize)
+    entry.d["ms_rows1"] = ms1
+    entry.d["bound_ms_rows1"] = bound_ms(nbytes, flops)
+    entry.d["max_abs_err_rows1"] = err1
+    entry.d["cluster"] = cluster[batch]
+    entry.d["cluster_rows1"] = cluster[1]
+    log(f"kernel {name}: 1 row pos {last} ms {ms1:.4f} bound_ms "
+        f"{bound_ms(nbytes, flops):.4f} max_abs_err {err1:.3g} "
+        f"({batch} rows: {entry.d['ms']:.4f})")
+    by_pos, bound_by_pos = {}, {}
+    for pos in step_positions(cfg):
+        by_pos[pos] = (entry.d["ms"] if pos == last
+                       else cuda_ms(lambda: call((batch, pos))))
+        bound_by_pos[pos] = bound_ms(*step_bound(cfg, batch, pos, quantize))
+        log(f"kernel {name}: {batch} rows pos {pos} ms {by_pos[pos]:.4f} "
+            f"bound_ms {bound_by_pos[pos]:.4f}")
+    entry.d["ms_by_pos"] = by_pos
+    entry.d["bound_ms_by_pos"] = bound_by_pos
 
 
 def step_weight_bytes(cfg, quantize):
@@ -810,46 +888,58 @@ def check_layers_step(cfg, np_params, batch):
     sk, sv = randn(L, batch, T, D), randn(L, batch, T, D)
     ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
     x = randn(batch, D)
-    err = 0.0
-    for pos in (0, T // 2 - 1, T - 1):
-        got_k, got_v = sk.clone(), sv.clone()
-        want_k, want_v = sk.clone(), sv.clone()
-        got = fs.fused_decoder_layers_step(stacked, cfg, x, got_k, got_v, ck,
-                                           cv, pos)
-        want = fs.fused_decoder_layers_step_plain(stacked, cfg, x, want_k,
-                                                  want_v, ck, cv, pos)
-        torch.cuda.synchronize()
-        other = torch.arange(T, device=dev) != pos
-        pairs = [("x_out", got[0], want[0])]
-        for what, g, w, old in (("k", got_k, want_k, sk),
-                                ("v", got_v, want_v, sv)):
-            pairs.append((f"cache {what} slot {pos}", g[:, :, pos],
-                          w[:, :, pos]))
-            if not torch.equal(g[:, :, other], old[:, :, other]):
-                raise AssertionError(f"layers_step_in_place pos {pos}: it "
-                                     f"wrote {what} outside slot {pos}")
-        for what, g, w in pairs:
-            assert_close(f"layers_step_in_place pos {pos} {what}", g, w,
-                         STEP_ATOL, STEP_RTOL)
-        e = max(max_err(g, w) for _, g, w in pairs)
-        err = max(err, e)
-        log(f"kernel layers_step_in_place pos {pos}: max_abs_err {e:.3g}, "
-            f"other slots unchanged")
+    one = first_row(x, sk, sv, ck, cv)
+
+    def gate(inputs):
+        """The kernel against its plain version at the first, a middle
+        and the last slot, every other slot unchanged; the largest
+        error."""
+        x, sk, sv, ck, cv = inputs
+        rows, err = x.shape[0], 0.0
+        for pos in step_positions(cfg):
+            got_k, got_v = sk.clone(), sv.clone()
+            want_k, want_v = sk.clone(), sv.clone()
+            got = fs.fused_decoder_layers_step(stacked, cfg, x, got_k, got_v,
+                                               ck, cv, pos)
+            want = fs.fused_decoder_layers_step_plain(stacked, cfg, x,
+                                                      want_k, want_v, ck, cv,
+                                                      pos)
+            torch.cuda.synchronize()
+            other = torch.arange(T, device=dev) != pos
+            pairs = [("x_out", got[0], want[0])]
+            for what, g, w, old in (("k", got_k, want_k, sk),
+                                    ("v", got_v, want_v, sv)):
+                pairs.append((f"cache {what} slot {pos}", g[:, :, pos],
+                              w[:, :, pos]))
+                if not torch.equal(g[:, :, other], old[:, :, other]):
+                    raise AssertionError(
+                        f"layers_step_in_place {rows} rows pos {pos}: it "
+                        f"wrote {what} outside slot {pos}")
+            for what, g, w in pairs:
+                assert_close(f"layers_step_in_place {rows} rows pos {pos} "
+                             f"{what}", g, w, STEP_ATOL, STEP_RTOL)
+            e = max(max_err(g, w) for _, g, w in pairs)
+            err = max(err, e)
+            log(f"kernel layers_step_in_place {rows} rows pos {pos}: "
+                f"max_abs_err {e:.3g}, other slots unchanged")
+        return err
+
+    err = gate((x, sk, sv, ck, cv))
     pos = T - 1
     ms = cuda_ms(lambda: fs.fused_decoder_layers_step(
         stacked, cfg, x, sk, sv, ck, cv, pos))
     plain = cuda_ms(lambda: fs.fused_decoder_layers_step_plain(
         stacked, cfg, x, sk, sv, ck, cv, pos))
-    nbytes, weights = step_weight_bytes(cfg, False)
-    nbytes += (2 * L * batch * L_enc * D * 2
-               + 2 * L * batch * pos * D * 2 + batch * D * 2  # caches, x
-               + batch * D * 4 + 2 * L * batch * D * 2)       # x_out, rows
-    flops = 2 * batch * weights + 4 * L * batch * D * (pos + 1 + L_enc)
+    nbytes, flops = step_bound(cfg, batch, pos, False)
     entry.add(1, err, ms, plain, None, nbytes, flops)
     log(f"kernel layers_step_in_place: caches {tuple(sk.shape)} pos {pos} "
         f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
         f"bound_ms {bound_ms(nbytes, flops):.4f} "
         f"({bound_by(nbytes, flops)}) library_ms null")
+    step_more(entry, "layers_step_in_place", cfg, batch, False, gate(one),
+              lambda rows_pos: fs.fused_decoder_layers_step(
+                  stacked, cfg, *(one if rows_pos[0] == 1 else
+                                  (x, sk, sv, ck, cv)), rows_pos[1]))
     return entry
 
 
@@ -1097,7 +1187,7 @@ def check_counts(counts, expected):
 PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "window_attention", "window_attention_mma", "patch_merging",
     "cache_append_attention",
-    "fused_step", "swin_block", "ragged_step", "beam_gather",
+    "fused_step_cluster", "swin_block", "ragged_step", "beam_gather",
     "dequant_matmul", "whole_step", "whole_decode"))
 
 

@@ -1,0 +1,1172 @@
+// The decoder layers of one step for a group of rows, spread over a
+// thread-block cluster: the layer code of fused_step.cu (B1 and B11),
+// written so that the other step kernels (B7, B10, B12) can move onto it.
+//
+// A cluster of Cs blocks takes a group of up to kGroupMax rows. Every block
+// keeps the group's activation rows (float32) in its own shared memory and
+// computes, for every row at once, its own columns of each of a layer's six
+// products, so each weight byte of a step is read by one block a group
+// (the qkv and cq columns of a head by the Cs / H blocks that share it):
+//   per layer l (post-norm, as decoder_layers.cuh):
+//     q, k, v = x W_qkv + b_qkv;  k, v -> the fresh rows, rounded to C
+//     x = LN1(x + (attn(q, self cache[:pos] + fresh row) W_out + b_out))
+//     x = LN2(x + (attn(x W_cq + b_cq, cross K/V) W_co + b_co))
+//     x = LN3(x + (relu(x W_ff1 + b_ff1) W_ff2 + b_ff2))
+// Heads: block b owns hpb = H / Cs heads from head b / bph * hpb (or
+// shares one head with the other bph = Cs / H blocks) and, of each, the
+// rows [b % bph * Mg / bph, + Mg / bph): its (row, head) attention items.
+// It computes the q, k and v columns (and the cross-attention q columns)
+// of its heads itself, so attention follows the qkv and cq products with
+// no exchange. The out, co, ff1 and ff2 products split their columns
+// evenly: block b computes columns [b n, (b + 1) n), n = N / Cs. After
+// those, and after attention, the blocks push what the others need into
+// their shared memory (distributed shared memory, 8- or 16-byte remote
+// stores) and meet at one cluster barrier: an attention item's output goes
+// to every block's out/co input (xo), ff1's activations to every block's
+// ff2 input (xh), out/co/ff2's columns to every block's residual buffer
+// (yfull); each block then adds the residual and takes LayerNorm over the
+// group's whole rows itself (Mg x D floats: cheaper than another
+// exchange), which gives its qkv/cq/ff1 input (xa). Six cluster barriers a
+// layer. No buffer is written remotely while its block may read it: xo,
+// xh and yfull are each read only between the barrier after their writes
+// and the next barrier, and the next writes to them come after that one.
+//
+// Copies: every sublayer's weight columns come by TMA tensor copies (one
+// box of up to 256 rows a column segment; tensor maps built by the host)
+// and its bias, scale and, after out, co and ff2, the LayerNorm pair that
+// follows by TMA bulk copies, into a ring of stages, each completing on
+// its own mbarrier; the qkv stage also brings the block's items'
+// self-cache slots before pos (as many as shared memory holds, one box an
+// item's K or V; the host's self-cache maps end at slot pos, so the part
+// of a box at or past pos is filled with zeros, never read, and a step at
+// pos 0 copies none) and the cq stage their cross K/V, so attention reads
+// shared memory.
+// The copies of the next stages - 1 sublayers are in flight while one
+// computes. Thread 0 declares a stage's bytes (mbarrier.arrive.expect_tx),
+// then one thread an op issues its few copies. Weight segments whose rows
+// are 32, 64 or 128 bytes land swizzled (the TMA's 32B/64B/128B patterns)
+// and are read with the same XOR, so ldmatrix meets no bank conflict.
+//
+// Attention: an item's slots split over up to kWarps / items warps; a
+// warp's lanes split its slots (dh / 16-byte vectors a slot) in one pass
+// with an online softmax, and the warps' partial states meet in shared
+// memory. The numerics are decoder_layers.cuh's: float32 logits and
+// softmax, the fresh K/V row rounded to the cache type C before it joins
+// at slot pos, no slot after pos read.
+//
+// Products: for bf16 inputs (the bf16 bundle, and the int8 bundle, whose
+// inputs round to bf16) on the tensor cores, mma.sync.m16n8k16 with
+// float32 accumulation: A (the group's rows, rounded to X) by ldmatrix,
+// rows past the group's end clamped to its last row (computed, never
+// stored); B from the weight stage, by ldmatrix.trans in bf16, or int8
+// bytes converted to bf16 in registers (exact: |w| <= 127). The reduction
+// is split in up to kWarps parts and a warp runs up to kTilesPerWarp
+// output tiles of one part interleaved (short dependent mma chains, the A
+// fragment loaded once a k-step); the partial tiles meet in shared
+// memory. The int8 column scale multiplies the float32 sum before the
+// bias. The float32 bundle: FMA on the CUDA cores in the same column
+// split (no TF32).
+//
+// What bounds it: each phase is a short chain of dependent instructions on
+// one block's 8 warps (one block an SM), so its latency, not the bytes,
+// sets a step's time. The kernel keeps that chain short: a block's shape
+// constants, each product's split and each warp's tiles are computed once
+// into small tables in shared memory (start()), the few divisions left
+// use precomputed reciprocals (Div), and no Step member lives in local
+// memory (with 227 KB of shared memory an SM keeps little L1 for it).
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (the type only)
+
+#include "decoder_layers.cuh"
+
+namespace cluster_step {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroupMax = 16;   // rows of one mma M tile
+constexpr int kMaxStages = 3;   // the ring's stages (the refills need <= 6)
+constexpr int kSublayers = 6;   // products a layer
+constexpr int kU = 4;           // slots a lane loads together in attention
+constexpr int kTilesPerWarp = 4;  // output tiles a warp of a product runs
+constexpr size_t kSmemMax = 232448;  // a block's shared memory on Hopper
+constexpr int kBox = 256;       // a tensor copy's largest box dimension
+
+// The tensor maps of a launch: the six stacked weights (L, K, N), boxes of
+// (min(K, kBox) rows, a block's column segment); the self caches
+// (L, B, pos, D: the slots before pos of (L, B, T, D) caches) and the
+// cross K/V (L, B, L_enc, D), boxes of (the staged slots, a head's dh
+// values).
+struct Maps {
+  CUtensorMap w[6];
+  CUtensorMap self_k, self_v, cross_k, cross_v;
+};
+
+template <typename W>
+using InputOf = decoder::InputOf<W>;
+
+// Sizes of one launch: the model, the step, and the cluster's shape.
+struct Shape {
+  int L, B, D, H, F, L_enc, pos;
+  int Mg;         // rows of a group (<= kGroupMax)
+  int Cs;         // blocks of a cluster
+  int stages;     // stages of the ring
+  int cap_self;   // self-cache slots an item stages in shared memory
+  int cap_cross;  // cross K/V slots an item stages
+};
+
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) & ~static_cast<size_t>(15);
+}
+
+// Tensor copies land on 128-byte boundaries, swizzled ones on 1024-byte
+// boundaries (the span of their pattern).
+__host__ __device__ inline size_t align128(size_t b) {
+  return (b + 127) & ~static_cast<size_t>(127);
+}
+__host__ __device__ inline size_t align1024(size_t b) {
+  return (b + 1023) & ~static_cast<size_t>(1023);
+}
+
+// The TMA swizzle of a weight segment with rows of `row_bytes`: log2 of
+// its 16-byte chunks a row for rows of 32, 64 or 128 bytes (the
+// CU_TENSOR_MAP_SWIZZLE_32B/64B/128B patterns), else 0 (none). Rows read
+// by ldmatrix at a stride of 32-128 bytes would otherwise meet in 2-8 way
+// bank conflicts.
+__host__ __device__ inline int swizzle_bits(int row_bytes) {
+  return row_bytes == 32 ? 1 : row_bytes == 64 ? 2 : row_bytes == 128 ? 3 : 0;
+}
+
+// Byte offset `off` (from a 1024-byte aligned base) under a swizzle of
+// `bits`: the 16-byte chunk index XOR the 128-byte line index, both taken
+// mod 2^bits.
+__host__ __device__ inline int swz(int off, int bits) {
+  return off ^ (((off >> 7) & ((1 << bits) - 1)) << 4);
+}
+
+// Padding of a weight or matmul-input row, in elements: 16 bytes for the
+// mma path (ldmatrix), none for float32.
+template <typename T>
+__host__ __device__ constexpr int pad_of() {
+  return std::is_same_v<T, float> ? 0 : static_cast<int>(16 / sizeof(T));
+}
+
+// The work split of a Shape: heads a block (hpb) and blocks a head (bph),
+// rows of a block's items (rpb), items a block (ipb), and per product p
+// (qkv, out, cq, co, ff1, ff2) its K, its column segments (3 for qkv: the
+// q, k and v columns of the block's heads) and a segment's columns.
+struct Split {
+  int hpb, bph, rpb, ipb, dh;
+  __host__ __device__ explicit Split(const Shape& s) {
+    hpb = s.H >= s.Cs ? s.H / s.Cs : 1;
+    bph = s.Cs >= s.H ? s.Cs / s.H : 1;
+    rpb = s.Mg / bph;
+    ipb = hpb * rpb;
+    dh = s.D / s.H;
+  }
+  __host__ __device__ int k(const Shape& s, int p) const {
+    return p == 5 ? s.F : s.D;
+  }
+  __host__ __device__ int segs(int p) const { return p == 0 ? 3 : 1; }
+  __host__ __device__ int seg_cols(const Shape& s, int p) const {
+    return p == 0 || p == 2 ? hpb * dh : (p == 4 ? s.F : s.D) / s.Cs;
+  }
+  __host__ __device__ int cols(const Shape& s, int p) const {
+    return segs(p) * seg_cols(s, p);
+  }
+  // all columns of product p (its weight's row length)
+  __host__ __device__ int n_all(const Shape& s, int p) const {
+    return p == 0 ? 3 * s.D : p == 4 ? s.F : s.D;
+  }
+  // first column of segment i of block `rank`
+  __host__ __device__ int col0(const Shape& s, int p, int i, int rank) const {
+    if (p == 0 || p == 2) return i * s.D + rank / bph * hpb * dh;
+    return rank * seg_cols(s, p);
+  }
+};
+
+// Exact a / d for 0 <= a < 2^16 and 1 <= d < 2^16: the high word of
+// a * ceil(2^32 / d) (d = 1 kept apart). The kernel's indices are small,
+// and a division by a value known only at run time otherwise costs a
+// chain of some twenty dependent instructions.
+struct Div {
+  unsigned m;
+  int d;
+  __device__ void set(int d_) {
+    d = d_;
+    m = d_ > 1 ? static_cast<unsigned>((0x100000000ull + d_ - 1) / d_) : 0u;
+  }
+  __device__ int q(int a) const {
+    return d > 1 ? static_cast<int>(__umulhi(static_cast<unsigned>(a), m))
+                 : a;
+  }
+};
+
+// Product p's constants for this block (Step::start() fills them): K, its
+// columns n in segs segments of sc, a segment's elements in the stage and
+// its row bytes and swizzle, the weight boxes (boxes of kb rows), the
+// copy ops and bytes of its stage, the mma split (tiles, reduction parts
+// of kchunk k-steps, items), and each segment's first column.
+struct ProdTab {
+  int K, n, sc, segs, seg_e, row_b, bits, boxes, kb, ops;
+  int tiles, kparts, kchunk, items;
+  int col0[3];
+  unsigned bytes;
+  Div dn, dsc;
+};
+
+// A warp's mma items of a product: k-steps [k0, k1) and, of its `my`
+// tiles, each one's segment offset (elements), first column there and
+// partial-sum slot.
+struct WarpTab {
+  int k0, k1, my;
+  int off[kTilesPerWarp];
+  int ct[kTilesPerWarp];
+  int red[kTilesPerWarp];  // each tile's partial in red
+};
+
+// A local attention item: its row in the group (-1 past the group's end)
+// and its head.
+struct ItemTab {
+  int r, h;
+};
+constexpr int kMaxItems = 32;
+
+__host__ __device__ inline size_t table_bytes() {
+  return sizeof(ProdTab) * kSublayers + sizeof(WarpTab) * kSublayers * kWarps +
+         sizeof(ItemTab) * kMaxItems;
+}
+
+// Byte offsets of a block's shared-memory regions. A stage of the ring
+// holds a weight slice (wbytes: its column segments one after another,
+// each K dense rows), then its bias and scale (nmax floats each) and a
+// LayerNorm pair (2 D floats); after the ring, the items' staged
+// self-cache and cross K/V slots (K then V of each item, kv_self and
+// kv_cross bytes each).
+template <typename W, typename C>
+struct Layout {
+  size_t x, xa, xo, xh, yfull, ys, red, iq, part, stats, tabs, bars, ring,
+      stage, wbytes, kvs, kvc, kv_self, kv_cross, end;
+  int nmax;
+  __host__ __device__ explicit Layout(const Shape& s) {
+    using X = InputOf<W>;
+    const Split sp(s);
+    const int tiles = kWarps * kTilesPerWarp;  // partial tiles at most
+    int stage_bytes = 0;
+    nmax = 0;
+    for (int p = 0; p < kSublayers; ++p) {
+      const int n = sp.cols(s, p);
+      nmax = n > nmax ? n : nmax;
+      const int b = sp.segs(p) * static_cast<int>(align1024(
+                        sp.k(s, p) * sp.seg_cols(s, p) * sizeof(W)));
+      stage_bytes = b > stage_bytes ? b : stage_bytes;
+    }
+    const size_t lda = s.D + pad_of<X>(), ldh = s.F + pad_of<X>();
+    size_t at = 0;
+    x = at;      at = align16(at + sizeof(float) * s.Mg * s.D);
+    xa = at;     at = align16(at + sizeof(X) * s.Mg * lda);
+    xo = at;     at = align16(at + sizeof(X) * s.Mg * lda);
+    xh = at;     at = align16(at + sizeof(X) * s.Mg * ldh);
+    yfull = at;  at = align16(at + sizeof(float) * s.Mg * s.D);
+    ys = at;     at = align16(at + sizeof(float) * s.Mg * nmax);
+    red = at;    at = align16(at + sizeof(float) * 128 * tiles);
+    iq = at;     at = align16(at + sizeof(float) * sp.ipb * 3 * sp.dh);
+    part = at;   at = align16(at + sizeof(float) * kWarps * (sp.dh + 2));
+    stats = at;  at = align16(at + sizeof(float) * 2 * kWarps);
+    tabs = at;   at = align16(at + table_bytes());
+    bars = at;   at = align1024(at + 8 * kMaxStages);
+    ring = at;
+    wbytes = align1024(stage_bytes);
+    stage = align1024(wbytes + sizeof(float) * (2 * nmax + 2 * s.D));
+    kv_self = align128(sizeof(C) * sp.dh * s.cap_self);
+    kv_cross = align128(sizeof(C) * sp.dh * s.cap_cross);
+    kvs = ring + s.stages * stage;
+    kvc = kvs + 2 * sp.ipb * kv_self;
+    end = kvc + 2 * sp.ipb * kv_cross;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on the barrier, declaring `bytes` of bulk copies this thread is
+// about to issue for the phase.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of the given parity to complete. A phase that never
+// completes (a copy count gone wrong) traps after some seconds instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  for (long long i = 0;; ++i) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1ll << 26)) __trap();
+  }
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to this block's shared memory, completing
+// on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// TMA tensor copies of one box at the given coordinates (innermost
+// first) into this block's shared memory, completing on bar.
+__device__ __forceinline__ void tensor_copy3(void* dst, const CUtensorMap* map,
+                                             int c0, int c1, int c2,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tensor_copy4(void* dst, const CUtensorMap* map,
+                                             int c0, int c1, int c2, int c3,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, float32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The B fragment of k-step k0 (16 rows) and n-tile c0 (8 columns) of a
+// weight segment (1024-byte aligned, rows of row_b bytes, swizzled by
+// `bits`) (lane = 4 gq + tq: b0 rows k0 + 2 tq, + 1, b1 rows k0 + 2 tq + 8,
+// + 9, column c0 + gq).
+__device__ __forceinline__ void load_b(const __nv_bfloat16* seg, int row_b,
+                                       int bits, int k0, int c0, int lane,
+                                       uint32_t& b0, uint32_t& b1) {
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(seg);
+  ldmatrix_x2_trans(b0, b1,
+                    base + swz((k0 + (lane & 15)) * row_b + c0 * 2, bits));
+}
+
+__device__ __forceinline__ void load_b(const int8_t* seg, int row_b, int bits,
+                                       int k0, int c0, int lane, uint32_t& b0,
+                                       uint32_t& b1) {
+  const int at = (k0 + 2 * (lane & 3)) * row_b + c0 + (lane >> 2);
+  const auto w = [&](int dk) {
+    return static_cast<float>(seg[swz(at + dk * row_b, bits)]);
+  };
+  b0 = pack_bf16(w(0), w(1));
+  b1 = pack_bf16(w(8), w(9));
+}
+
+// Four float32 values to four X values at dst (8 or 16 bytes, aligned).
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// Four X values from src to dst (8 or 16 bytes, aligned).
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void copy4(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src) {
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+}
+
+// Sixteen bytes of C as floats (Vec<C>::N values).
+template <typename C>
+__device__ __forceinline__ void raw_to_f32(const uint4& r, float* out) {
+  if constexpr (std::is_same_v<C, float>) {
+    out[0] = __uint_as_float(r.x);
+    out[1] = __uint_as_float(r.y);
+    out[2] = __uint_as_float(r.z);
+    out[3] = __uint_as_float(r.w);
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// One step's layers for the group of rows [row0, row0 + rows) of one
+// cluster. The kernel calls start(), fills x (float32) and xa (x rounded
+// to X) for the group's rows and meets the cluster once before run(); on
+// return x holds the last layer's output. Sublayer g = kSublayers l + p
+// uses stage g % stages; its copies are issued as sublayer
+// g - (stages - 1) starts (start() issues those of 0 .. stages - 2).
+template <typename W, typename C>
+struct Step {
+  using X = InputOf<W>;
+  static constexpr int kVec = Vec<C>::N;
+
+  decoder::Weights<W> w;
+  const C* self_k;
+  const C* self_v;
+  decoder::CacheLayout self;
+  const C* cross_k;
+  const C* cross_v;
+  decoder::FreshRows<C> fresh;
+  const Maps* maps;
+  Shape s;
+  Split sp;
+  cg::cluster_group cluster;
+  int rank, row0, rows, log_cs, i0, i1;
+  int lw_self, lw_cross;  // log2 of the warps an attention item takes
+  Div ddh, dg4;
+  float *x, *yfull, *ys, *red, *iq, *part, *stats;
+  X *xa, *xo, *xh;
+  uint64_t* bars;
+  ProdTab* pt;
+  WarpTab* wtab;
+  ItemTab* items;
+  unsigned char* ring;
+  C *kvs, *kvc;  // the items' staged self-cache prefix and cross K/V
+  size_t stage, wbytes, kv_self, kv_cross;
+  int nmax;
+
+  __device__ Step(const decoder::Weights<W>& w_, const C* sk, const C* sv,
+                  decoder::CacheLayout self_, const C* ck, const C* cv,
+                  decoder::FreshRows<C> fresh_, const Maps* maps_,
+                  const Shape& s_, unsigned char* smem, int row0_)
+      : w(w_), self_k(sk), self_v(sv), self(self_), cross_k(ck), cross_v(cv),
+        fresh(fresh_), maps(maps_), s(s_), sp(s_),
+        cluster(cg::this_cluster()) {
+    const Layout<W, C> lay(s);
+    rank = static_cast<int>(cluster.block_rank());
+    row0 = row0_;
+    rows = min(s.Mg, s.B - row0);
+    log_cs = __ffs(s.Cs) - 1;  // Cs is a power of two
+    i0 = rank % sp.bph * sp.rpb;
+    i1 = min(rows, i0 + sp.rpb);
+    ddh.set(sp.dh);
+    dg4.set(sp.dh / 4);
+    lw_self = item_warps_log(s.pos + 1);
+    lw_cross = item_warps_log(s.L_enc);
+    x = reinterpret_cast<float*>(smem + lay.x);
+    xa = reinterpret_cast<X*>(smem + lay.xa);
+    xo = reinterpret_cast<X*>(smem + lay.xo);
+    xh = reinterpret_cast<X*>(smem + lay.xh);
+    yfull = reinterpret_cast<float*>(smem + lay.yfull);
+    ys = reinterpret_cast<float*>(smem + lay.ys);
+    red = reinterpret_cast<float*>(smem + lay.red);
+    iq = reinterpret_cast<float*>(smem + lay.iq);
+    part = reinterpret_cast<float*>(smem + lay.part);
+    stats = reinterpret_cast<float*>(smem + lay.stats);
+    bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+    pt = reinterpret_cast<ProdTab*>(smem + lay.tabs);
+    wtab = reinterpret_cast<WarpTab*>(pt + kSublayers);
+    items = reinterpret_cast<ItemTab*>(wtab + kSublayers * kWarps);
+    ring = smem + lay.ring;
+    kvs = reinterpret_cast<C*>(smem + lay.kvs);
+    kvc = reinterpret_cast<C*>(smem + lay.kvc);
+    stage = lay.stage;
+    wbytes = lay.wbytes;
+    kv_self = lay.kv_self;
+    kv_cross = lay.kv_cross;
+    nmax = lay.nmax;
+  }
+
+  // log2 of the warps an attention item over `slots` slots takes: the
+  // spare warps, at most one a 16 slots, a power of two (so that a round's
+  // items tile the warps)
+  __device__ int item_warps_log(int slots) const {
+    int wpi = min(sp.ipb < kWarps ? kWarps / sp.ipb : 1, (slots + 15) / 16);
+    while (wpi & (wpi - 1)) wpi &= wpi - 1;
+    return __ffs(max(wpi, 1)) - 1;
+  }
+
+  __device__ decoder::Linear<W> linear(int p) const {
+    switch (p) {
+      case 0: return w.qkv;
+      case 1: return w.out;
+      case 2: return w.cq;
+      case 3: return w.co;
+      case 4: return w.ff1;
+      default: return w.ff2;
+    }
+  }
+
+  __device__ unsigned char* stage_at(int st) const { return ring + st * stage; }
+  __device__ float* extras_at(int st) const {  // bias, scale, LN pair
+    return reinterpret_cast<float*>(stage_at(st) + wbytes);
+  }
+
+  // The tables, the barriers, each product's stage bytes (the same in
+  // every layer), and the first stages - 1 stages' copies.
+  __device__ void start() {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid < kSublayers) {
+      const int p = tid;
+      ProdTab& t = pt[p];
+      t.K = sp.k(s, p);
+      t.segs = sp.segs(p);
+      t.sc = sp.seg_cols(s, p);
+      t.n = t.segs * t.sc;
+      t.row_b = t.sc * sizeof(W);
+      t.bits = swizzle_bits(t.row_b);
+      t.seg_e = static_cast<int>(
+          align1024(static_cast<size_t>(t.K) * t.row_b) / sizeof(W));
+      t.kb = t.K < kBox ? t.K : kBox;
+      t.boxes = t.K / t.kb;
+      // each item's K and V boxes: the self cache's only from pos 1
+      const bool kv = p == 0 ? s.pos > 0 && s.cap_self > 0
+                             : p == 2 && s.cap_cross > 0;
+      t.ops = t.segs * t.boxes + t.segs * (linear(p).s != nullptr ? 2 : 1) +
+              (p & 1) + (kv ? 2 * sp.ipb : 0);
+      // the reduction split in the most parts (a power of two up to
+      // kWarps) that keeps a warp's tiles at most kTilesPerWarp and two
+      // k-steps a part: shorter dependent mma chains a warp
+      t.tiles = t.n / 8;
+      t.kparts = 1;
+      while (t.kparts < kWarps &&
+             t.tiles * 2 * t.kparts <= kWarps * kTilesPerWarp &&
+             t.K / 16 >= 4 * t.kparts)
+        t.kparts *= 2;
+      t.kchunk = (t.K / 16 + t.kparts - 1) / t.kparts;
+      t.items = t.tiles * t.kparts;
+      for (int i = 0; i < 3; ++i)
+        t.col0[i] = i < t.segs ? sp.col0(s, p, i, rank) : 0;
+      t.dn.set(t.n);
+      t.dsc.set(t.sc);
+    }
+    if (tid < kMaxItems) {
+      const int li = tid;
+      const int r = i0 + li % sp.rpb;
+      items[li].r = li < sp.ipb && r < rows ? r : -1;
+      items[li].h = rank / sp.bph * sp.hpb + li / sp.rpb;
+    }
+    if (tid == 0) {
+      for (int i = 0; i < s.stages; ++i) mbar_init(bars + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if (tid < sizeof(Maps) / sizeof(CUtensorMap)) {
+      const CUtensorMap* m = &maps->w[0] + tid;
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(m))
+                   : "memory");
+    }
+    __syncthreads();
+    for (int e = tid; e < kSublayers * kWarps; e += kThreads) {
+      // warp wi: reduction part wi % kparts, tiles wi / kparts + i
+      // (kWarps / kparts); partial tile kp tiles + tile in red
+      const ProdTab& t = pt[e / kWarps];
+      const int wi = e % kWarps, tps = t.sc / 8;
+      const int kp = wi % t.kparts, step = kWarps / t.kparts;
+      WarpTab& wt = wtab[e];
+      wt.k0 = kp * t.kchunk;
+      wt.k1 = min(t.K / 16, wt.k0 + t.kchunk);
+      wt.my = 0;
+      for (int tile = wi / t.kparts; tile < t.tiles; tile += step) {
+        const int i = wt.my++;
+        wt.off[i] = tile / tps * t.seg_e;
+        wt.ct[i] = tile % tps * 8;
+        wt.red[i] = kp * t.tiles + tile;
+      }
+    }
+    for (int p = warp; p < kSublayers; p += kWarps) {
+      unsigned bytes = 0;
+      for (int i = lane; i < pt[p].ops; i += 32) bytes += op(p, 0, 0, i, false);
+      for (int o = 16; o > 0; o >>= 1)
+        bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+      if (lane == 0) pt[p].bytes = bytes;
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int g = 0; g < s.stages - 1; ++g) expect(g, g);
+    __syncthreads();
+    for (int g = 0; g < s.stages - 1; ++g) issue(g, g);
+  }
+
+  // Copy op i of product p of layer l into stage st (if `go`); returns its
+  // bytes. Ops: the weight boxes (segment, box of kb rows), then the bias
+  // and scale segments, the LayerNorm pair after out / co / ff2, and for
+  // qkv (cq) each item's self-cache (cross K/V) box, K then V. A tensor
+  // copy completes its whole box's bytes, the zeros past the map's end
+  // included.
+  __device__ unsigned op(int p, int l, int st, int i, bool go) const {
+    const ProdTab& t = pt[p];
+    uint64_t* bar = bars + st;
+    const int nw = t.segs * t.boxes;
+    if (i < nw) {
+      int seg = 0, box = i;
+      while (box >= t.boxes) {
+        box -= t.boxes;
+        ++seg;
+      }
+      if (go)
+        tensor_copy3(stage_at(st) + static_cast<size_t>(seg) * t.seg_e *
+                                        sizeof(W) +
+                         static_cast<size_t>(box) * t.kb * t.row_b,
+                     &maps->w[p], t.col0[seg], box * t.kb, l, bar);
+      return t.kb * t.row_b;
+    }
+    i -= nw;
+    const decoder::Linear<W> lin = linear(p);
+    const int n_s = lin.s != nullptr ? t.segs : 0;
+    if (i < t.segs + n_s) {
+      const bool sc_op = i >= t.segs;
+      const int seg = sc_op ? i - t.segs : i;
+      const float* src = (sc_op ? lin.s : lin.b) +
+                         static_cast<size_t>(l) * sp.n_all(s, p) +
+                         t.col0[seg];
+      if (go)
+        bulk_copy(extras_at(st) + (sc_op ? nmax : 0) + seg * t.sc, src,
+                  t.sc * sizeof(float), bar);
+      return t.sc * sizeof(float);
+    }
+    i -= t.segs + n_s;
+    if (p & 1) {
+      if (go)
+        bulk_copy(extras_at(st) + 2 * nmax,
+                  w.ln + (static_cast<size_t>(l) * 6 + p - 1) * s.D,
+                  2 * s.D * sizeof(float), bar);
+      return 2 * s.D * sizeof(float);
+    }
+    const int cap = p == 0 ? s.cap_self : s.cap_cross;
+    const int kv = i & 1, li = i >> 1;
+    if (items[li].r < 0) return 0;
+    const int r = items[li].r, h = items[li].h;
+    if (go) {
+      if (p == 0)
+        tensor_copy4(reinterpret_cast<unsigned char*>(kvs) +
+                         (2 * li + kv) * kv_self,
+                     kv ? &maps->self_v : &maps->self_k, h * sp.dh, 0,
+                     row0 + r, l, bar);
+      else
+        tensor_copy4(reinterpret_cast<unsigned char*>(kvc) +
+                         (2 * li + kv) * kv_cross,
+                     kv ? &maps->cross_v : &maps->cross_k, h * sp.dh, 0,
+                     row0 + r, l, bar);
+    }
+    return cap * sp.dh * sizeof(C);
+  }
+
+  // Declare sublayer g's copy bytes to stage st's barrier (one thread,
+  // before any of them is issued), and issue them (one op a thread). The
+  // cache buffers are free when they are refilled: layer l's self-cache
+  // copies go out with its qkv stage, as sublayer 6 l - (stages - 1) >=
+  // 6 (l - 1) + 1 starts, after layer l - 1's self-attention; its cross
+  // copies with its cq stage, after layer l - 1's cross-attention
+  // (stages <= 6).
+  __device__ void expect(int g, int st) {
+    if (g < kSublayers * s.L)
+      mbar_arrive_expect(bars + st, pt[g % kSublayers].bytes);
+  }
+  __device__ void issue(int g, int st) {
+    if (g >= kSublayers * s.L) return;
+    const int p = g % kSublayers;
+    if (static_cast<int>(threadIdx.x) < pt[p].ops)
+      op(p, g / kSublayers, st, threadIdx.x, true);
+  }
+
+  // ys[r][c] = (sum_k a[r][k] W[k][c]) * scale + bias over the block's n
+  // columns of sublayer g (stage st, its barrier's phase parity ph), for
+  // the group's rows [r0, r1); a has row stride lda elements.
+  __device__ void product(int g, int st, int ph, const X* a, int lda, int r0,
+                          int r1) {
+    const int p = g % kSublayers;
+    const ProdTab& t = pt[p];
+    const int K = t.K, n = t.n, sc = t.sc, row_b = t.row_b, bits = t.bits;
+    // the stage refilled next was last read by sublayer g - 1: every thread
+    // is past it (and past its barrier's wait) at this barrier
+    const int st_next = st == 0 ? s.stages - 1 : st - 1;
+    if (threadIdx.x == 0) expect(g + s.stages - 1, st_next);
+    __syncthreads();
+    issue(g + s.stages - 1, st_next);
+    mbar_wait(bars + st, ph);
+    const W* ws = reinterpret_cast<const W*>(stage_at(st));
+    const float* bias = extras_at(st);
+    const float* scale = linear(p).s != nullptr ? bias + nmax : nullptr;
+    const int tid = threadIdx.x, nr = r1 - r0;
+    if (nr > 0) {
+      if constexpr (std::is_same_v<X, float>) {
+        // float32: FMA, the reduction split where outputs are few
+        const int outs = nr * n;
+        const int kparts = outs >= kThreads ? 1 : kThreads / outs;
+        const int kchunk = (K + kparts - 1) / kparts;
+        for (int item = tid; item < outs * kparts; item += kThreads) {
+          const int o = item % outs, kp = item / outs;
+          const int r = r0 + o / n, c = o % n;
+          const unsigned char* wc =
+              reinterpret_cast<const unsigned char*>(ws + c / sc * t.seg_e);
+          const int cb = c % sc * static_cast<int>(sizeof(W));
+          const int k1 = min(K, (kp + 1) * kchunk);
+          float acc = 0.0f;
+          for (int k = kp * kchunk; k < k1; ++k)
+            acc = fmaf(a[r * lda + k],
+                       *reinterpret_cast<const W*>(
+                           wc + swz(k * row_b + cb, bits)),
+                       acc);
+          red[item] = acc;
+        }
+        __syncthreads();
+        for (int o = tid; o < outs; o += kThreads) {
+          float acc = 0.0f;
+          for (int kp = 0; kp < kparts; ++kp) acc += red[kp * outs + o];
+          const int c = o % n;
+          ys[(r0 + o / n) * n + c] =
+              (scale != nullptr ? __fmul_rn(acc, scale[c]) : acc) + bias[c];
+        }
+      } else {
+        // a warp takes up to kTilesPerWarp tiles of one reduction part
+        // (wtab) and runs their k-steps interleaved, the A fragment loaded
+        // once a step
+        const int lane = tid & 31, warp = tid >> 5;
+        const WarpTab& wt = wtab[p * kWarps + warp];
+        const int my = wt.my, k0 = wt.k0, k1 = wt.k1;
+        const int ar = min(lane & 15, rows - 1);  // clamped past the group
+        const X* arow = a + ar * lda + (lane >> 4) * 8;
+        const W* wp[kTilesPerWarp];
+        int ct[kTilesPerWarp], slot[kTilesPerWarp];
+        float acc[kTilesPerWarp][4];
+#pragma unroll
+        for (int i = 0; i < kTilesPerWarp; ++i) {
+          wp[i] = ws + (i < my ? wt.off[i] : 0);
+          ct[i] = i < my ? wt.ct[i] : 0;
+          slot[i] = i < my ? wt.red[i] : 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+        }
+        for (int kk = k0; kk < k1 && my > 0; ++kk) {
+          uint32_t af[4];
+          ldmatrix_x4(af, arow + kk * 16);
+#pragma unroll
+          for (int i = 0; i < kTilesPerWarp; ++i) {
+            if (i < my) {
+              uint32_t b0, b1;
+              load_b(wp[i], row_b, bits, kk * 16, ct[i], lane, b0, b1);
+              mma_bf16(acc[i], af, b0, b1);
+            }
+          }
+        }
+        const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+        for (int i = 0; i < kTilesPerWarp; ++i) {
+          if (i < my) {
+            float* rt = red + slot[i] * 128;  // the 16 x 8 tile
+            rt[gq * 8 + 2 * tq] = acc[i][0];
+            rt[gq * 8 + 2 * tq + 1] = acc[i][1];
+            rt[(gq + 8) * 8 + 2 * tq] = acc[i][2];
+            rt[(gq + 8) * 8 + 2 * tq + 1] = acc[i][3];
+          }
+        }
+        __syncthreads();
+        const int tiles = t.tiles, kparts = t.kparts;
+        for (int o = tid; o < nr * n; o += kThreads) {
+          const int rr = t.dn.q(o), c = o - rr * n, r = r0 + rr;
+          float sum = 0.0f;
+          for (int kp = 0; kp < kparts; ++kp)
+            sum += red[(kp * tiles + (c >> 3)) * 128 + r * 8 + (c & 7)];
+          ys[r * n + c] =
+              (scale != nullptr ? __fmul_rn(sum, scale[c]) : sum) + bias[c];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // The qkv (parts 0-2) or cq (part 0) columns of ys into this block's
+  // items: q scaled; k and v rounded to C and written to the fresh rows of
+  // layer l.
+  __device__ void take_items(int l, int p, float scale) {
+    const ProdTab& t = pt[p];
+    const int dh = sp.dh, sc = t.sc, n = t.n;
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      const int part = t.dsc.q(c), e = c - part * sc;
+      const int hh = ddh.q(e), d = e - hh * dh;
+      for (int r = i0; r < i1; ++r) {
+        const int li = hh * sp.rpb + (r - i0);
+        float v = ys[r * n + c];
+        if (part == 0) {
+          v *= scale;
+        } else {
+          C* dst = (part == 1 ? fresh.k : fresh.v) + l * fresh.layer +
+                   (row0 + r) * fresh.row + items[li].h * dh + d;
+          const C cv = from_f32<C>(v);
+          *dst = cv;
+          v = to_f32(cv);
+        }
+        iq[(li * 3 + part) * dh + d] = v;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ys's n columns of product p to every block's yfull (the residual's
+  // summand): a thread a (block, 4-column chunk), over the rows.
+  __device__ void push_rows(int p) {
+    const ProdTab& t = pt[p];
+    const int n = t.n, c0 = t.col0[0], nq = n >> 2;
+    for (int i = threadIdx.x; i < (nq << log_cs); i += kThreads) {
+      const int dst = i & (s.Cs - 1), cc = (i >> log_cs) * 4;
+      float* to = cluster.map_shared_rank(yfull, dst) + c0 + cc;
+      for (int r = 0; r < rows; ++r) store4(to + r * s.D, ys + r * n + cc);
+    }
+  }
+
+  // relu(ys) of ff1 rounded to X into every block's xh (ff2's input).
+  __device__ void push_hidden() {
+    const ProdTab& t = pt[4];
+    const int n = t.n, c0 = t.col0[0], nq = n >> 2;
+    const int ldh = s.F + pad_of<X>();
+    for (int i = threadIdx.x; i < (nq << log_cs); i += kThreads) {
+      const int dst = i & (s.Cs - 1), cc = (i >> log_cs) * 4;
+      X* to = cluster.map_shared_rank(xh, dst) + c0 + cc;
+      for (int r = 0; r < rows; ++r) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = fmaxf(ys[r * n + cc + j], 0.0f);
+        store4(to + r * ldh, v);
+      }
+    }
+  }
+
+  // x = LayerNorm(x + yfull) * g + b for the group's rows, and xa = x
+  // rounded to X; g and b (D floats each) in shared memory. A row is split
+  // over kWarps / rows warps where the rows are fewer than the warps, their
+  // sums (of x and of x^2: var = E[x^2] - mean^2) meeting in shared memory.
+  __device__ void add_norm(const float* g, const float* b) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int D = s.D, lda = D + pad_of<X>();
+    // warps a row: a power of two (kWarps / rows for fewer rows)
+    const int wpr = rows < kWarps ? kWarps / rows : 1;
+    const int lw = __ffs(wpr) - 1, j = warp & (wpr - 1);
+    for (int r = warp >> lw; r < rows; r += kWarps >> lw) {
+      float* xr = x + r * D;
+      const float* yr = yfull + r * D;
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int d = j * 32 + lane; d < D; d += 32 * wpr) {
+        const float v = xr[d] + yr[d];
+        xr[d] = v;
+        s1 += v;
+        s2 = fmaf(v, v, s2);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (wpr > 1) {  // rows <= kWarps / wpr: one pass of the loop
+        if (lane == 0) {
+          stats[2 * warp] = s1;
+          stats[2 * warp + 1] = s2;
+        }
+        __syncthreads();
+        s1 = 0.0f;
+        s2 = 0.0f;
+        for (int i = 0; i < wpr; ++i) {
+          s1 += stats[2 * (warp - j + i)];
+          s2 += stats[2 * (warp - j + i) + 1];
+        }
+      }
+      const float mean = s1 / D;
+      const float inv = rsqrtf(fmaxf(s2 / D - mean * mean, 0.0f) + 1e-5f);
+      for (int d = j * 32 + lane; d < D; d += 32 * wpr) {
+        const float v = (xr[d] - mean) * inv * g[d] + b[d];
+        xr[d] = v;
+        xa[r * lda + d] = from_f32<X>(v);
+      }
+    }
+    if (wpr > 1 && (warp >> lw) >= rows) __syncthreads();  // idle warps
+  }
+
+  // This block's attention items of layer l: self-attention over slots
+  // [0, pos) of the self cache and the fresh row at pos, or
+  // cross-attention over the L_enc slots of the cross K/V; slots staged in
+  // shared memory are read there, the rest from device memory. An item
+  // takes kWarps / ipb warps where the items are fewer than the warps (at
+  // most one a 16 slots),
+  // each a contiguous share of its slots: a warp's lanes split its slots
+  // (dh / 16-byte vectors a slot) in one pass with an online softmax, the
+  // warps' partial states (max, denominator, weighted sum) meet in shared
+  // memory, and the item's first warp writes its output, rounded to X,
+  // into this block's xo; then all threads copy the block's outputs to
+  // the other blocks' xo.
+  __device__ void attend(int l, bool self_attn) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int dh = sp.dh;
+    const int nvec = dh / kVec, spi = 32 / nvec;
+    const int v = lane & (nvec - 1), sub = lane / nvec;
+    const int lda = s.D + pad_of<X>();
+    const int lw = self_attn ? lw_self : lw_cross, wpi = 1 << lw;
+    const int j = warp & (wpi - 1);
+    float* mine = part + warp * (dh + 2);  // acc[dh], m, den
+    for (int base = 0; base < sp.ipb; base += kWarps >> lw) {
+      const int li = base + (warp >> lw);
+      const int r = li < sp.ipb ? items[li].r : -1;
+      const int h = li < sp.ipb ? items[li].h : 0;
+      const bool real = r >= 0;
+      if (real) {
+        const float* qv = iq + li * 3 * dh;
+        const float* fk = qv + dh;
+        const float* fv = qv + 2 * dh;
+        const C *K, *V, *Ks;
+        size_t stride, kv_stride;
+        int n_cache, n, cap;
+        if (self_attn) {
+          const size_t at = l * self.layer + (row0 + r) * self.row + h * dh;
+          K = self_k + at;
+          V = self_v + at;
+          stride = self.slot;
+          n_cache = s.pos;
+          n = s.pos + 1;
+          cap = s.cap_self;
+          Ks = kvs + 2 * li * kv_self / sizeof(C);
+          kv_stride = kv_self / sizeof(C);
+        } else {
+          const size_t at = (static_cast<size_t>(l) * s.B + row0 + r) *
+                                s.L_enc * s.D + h * dh;
+          K = cross_k + at;
+          V = cross_v + at;
+          stride = s.D;
+          n_cache = s.L_enc;
+          n = s.L_enc;
+          cap = s.cap_cross;
+          Ks = kvc + 2 * li * kv_cross / sizeof(C);
+          kv_stride = kv_cross / sizeof(C);
+        }
+        const C* Vs = Ks + kv_stride;
+        const int per = (n + wpi - 1) >> lw;
+        const int t0 = min(n, j * per), t1 = min(n, t0 + per);
+        float q[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) q[e] = qv[v * kVec + e];
+
+        // kU slots a lane at a time; the nvec lanes of a slot each take one
+        // 16-byte vector, a butterfly gives them the slot's logit; each
+        // lane keeps the running max m, the denominator and its vector's
+        // weighted sum of its slots
+        float m = -INFINITY, den = 0.0f, acc[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[e] = 0.0f;
+        for (int s0 = t0; s0 < t1; s0 += spi * kU) {
+          uint4 rk[kU], rv[kU];
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            const int t = s0 + u * spi + sub;
+            if (t < t1 && t < n_cache) {
+              if (t < cap) {
+                const size_t at = static_cast<size_t>(t) * dh + v * kVec;
+                rk[u] = *reinterpret_cast<const uint4*>(Ks + at);
+                rv[u] = *reinterpret_cast<const uint4*>(Vs + at);
+              } else {
+                const size_t at = t * stride + v * kVec;
+                rk[u] = *reinterpret_cast<const uint4*>(K + at);
+                rv[u] = *reinterpret_cast<const uint4*>(V + at);
+              }
+            }
+          }
+          float lgt[kU];
+          float cm = -INFINITY;
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            const int t = s0 + u * spi + sub;
+            float kv[kVec];
+            if (t < n_cache) {
+              raw_to_f32<C>(rk[u], kv);
+            } else {
+#pragma unroll
+              for (int e = 0; e < kVec; ++e)
+                kv[e] = t < n ? fk[v * kVec + e] : 0.0f;
+            }
+            float d = 0.0f;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) d = fmaf(q[e], kv[e], d);
+            for (int o = 1; o < nvec; o <<= 1)
+              d += __shfl_xor_sync(0xffffffffu, d, o);
+            lgt[u] = t < t1 ? d : -INFINITY;
+            cm = fmaxf(cm, lgt[u]);
+          }
+          if (cm == -INFINITY) continue;  // none of this lane's slots
+          const float mn = fmaxf(m, cm);
+          const float corr = expf(m - mn);  // 0 while m is -inf
+          den *= corr;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[e] *= corr;
+          m = mn;
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            const int t = s0 + u * spi + sub;
+            if (t < t1) {
+              float vv[kVec];
+              if (t < n_cache) {
+                raw_to_f32<C>(rv[u], vv);
+              } else {
+#pragma unroll
+                for (int e = 0; e < kVec; ++e) vv[e] = fv[v * kVec + e];
+              }
+              const float ex = expf(lgt[u] - m);
+              den += ex;
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) acc[e] = fmaf(ex, vv[e], acc[e]);
+            }
+          }
+        }
+        // merge the slot lanes of each vector (an empty lane has m = -inf)
+        for (int o = nvec; o < 32; o <<= 1) {
+          const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+          const float d2 = __shfl_xor_sync(0xffffffffu, den, o);
+          const float mn = fmaxf(m, m2);
+          const float c1 = m == -INFINITY ? 0.0f : expf(m - mn);
+          const float c2 = m2 == -INFINITY ? 0.0f : expf(m2 - mn);
+          den = den * c1 + d2 * c2;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            const float a2 = __shfl_xor_sync(0xffffffffu, acc[e], o);
+            acc[e] = acc[e] * c1 + a2 * c2;
+          }
+          m = mn;
+        }
+        if (sub == 0) {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) mine[v * kVec + e] = acc[e];
+        }
+        if (lane == 0) {
+          mine[dh] = m;
+          mine[dh + 1] = den;
+        }
+      }
+      if (wpi > 1) __syncthreads(); else __syncwarp();
+      if (real && j == 0) {
+        // the item's wpi partial states -> its output, staged in mine
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i)
+          if (i < wpi) mx = fmaxf(mx, mine[i * (dh + 2) + dh]);
+        float wgt[kWarps];  // wpi <= kWarps
+        float total = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i) {
+          const float mi = i < wpi ? mine[i * (dh + 2) + dh] : -INFINITY;
+          wgt[i] = mi == -INFINITY ? 0.0f : expf(mi - mx);
+          if (i < wpi) total += mine[i * (dh + 2) + dh + 1] * wgt[i];
+        }
+        const float inv = 1.0f / total;
+        for (int d = lane; d < dh; d += 32) {
+          float o = 0.0f;
+#pragma unroll
+          for (int i = 0; i < kWarps; ++i)
+            if (i < wpi) o += mine[i * (dh + 2) + d] * wgt[i];
+          xo[r * lda + h * dh + d] = from_f32<X>(o * inv);
+        }
+      }
+      // `part` is the next round's (no barrier after the last round: the
+      // one below covers it)
+      if (base + (kWarps >> lw) < sp.ipb) {
+        if (wpi > 1) __syncthreads(); else __syncwarp();
+      }
+    }
+    // this block's item outputs (in its own xo) to the other blocks: a
+    // thread a (block, item, 4 values)
+    __syncthreads();
+    const int g4 = dh / 4, n4 = sp.ipb * g4;
+    for (int i = threadIdx.x; i < (n4 << log_cs); i += kThreads) {
+      const int dst = i & (s.Cs - 1), e = i >> log_cs;
+      const int li = dg4.q(e), at = (e - li * g4) * 4;
+      const int r = items[li].r;
+      if (dst == rank || r < 0) continue;
+      const int o = r * lda + items[li].h * dh + at;
+      copy4(cluster.map_shared_rank(xo, dst) + o, xo + o);
+    }
+  }
+
+  // Every layer; see the file's head. One loop over the sublayers, so
+  // that each phase's code appears once in the kernel.
+  __device__ void run() {
+    const float scale = 1.0f / sqrtf(static_cast<float>(sp.dh));
+    const int lda = s.D + pad_of<X>(), ldh = s.F + pad_of<X>();
+    int st = 0, ph = 0;  // sublayer g's stage and its barrier's parity
+    for (int g = 0; g < kSublayers * s.L; ++g) {
+      const int l = g / kSublayers, p = g - l * kSublayers;
+      const bool heads = p == 0 || p == 2;  // qkv, cq: this block's heads
+      product(g, st, ph, p == 5 ? xh : (p & 1) ? xo : xa,
+              p == 5 ? ldh : lda, heads ? i0 : 0, heads ? i1 : rows);
+      if (heads) {
+        take_items(l, p, scale);
+        attend(l, p == 0);
+      } else if (p == 4) {
+        push_hidden();
+      } else {
+        push_rows(p);
+      }
+      cluster.sync();
+      if (p & 1) {  // out, co, ff2: residual and LayerNorm
+        const float* ln = extras_at(st) + 2 * nmax;
+        add_norm(ln, ln + s.D);
+      }
+      if (++st == s.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    __syncthreads();
+  }
+};
+
+}  // namespace cluster_step

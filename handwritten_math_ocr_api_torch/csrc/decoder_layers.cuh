@@ -1,7 +1,9 @@
 // The decoder layers of one step for one row, and the float32 output head,
-// shared by the decode-step kernels: fused_step.cu (B1 and B11, one
-// position for the batch), ragged_step.cu (B7, a position per row),
-// whole_step.cu (B10) and whole_decode.cu (B12, every step of a decode).
+// shared by the one-block-a-row decode-step kernels: ragged_step.cu (B7, a
+// position per row), whole_step.cu (B10) and whole_decode.cu (B12, every
+// step of a decode). B1 and B11 (fused_step.cu, one position for the
+// batch) run the cluster layer code of decoder_cluster.cuh instead, which
+// takes its Weights, CacheLayout, FreshRows and InputOf from here.
 //
 // One block of kThreads threads runs every post-norm layer of one
 // row, the row in shared memory in float32:

@@ -59,6 +59,8 @@ SIGNATURES = {
     # cross_k, cross_v, x_out, L, B, T, D, H, F, L_enc, pos, stream
     "layers_step_in_place_bf16": (P,) * 19 + (I,) * 8 + (P,),
     "layers_step_in_place_f32": (P,) * 19 + (I,) * 8 + (P,),
+    # int8, float32 cache, B, T, D, H, F, L_enc, out (8 ints)
+    "fused_step_geometry": (I,) * 8 + (P,),
     # B10: prev, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, nxt, logp, [k_new, v_new,]
     # L, B, T, D, H, F, L_enc, V, pos, stream; time-major caches written at

@@ -10,7 +10,9 @@ steps and their weight bundles:
   self-attention over the read-only cache plus the fresh row, output
   projection, residual and LayerNorm; cross-attention over the encoder
   K/V, residual and LayerNorm; ReLU FFN, residual and LayerNorm) and
-  returns the last layer's activations and each layer's fresh K/V row;
+  returns the last layer's activations and each layer's fresh K/V row.
+  It runs the rows in groups, one thread-block cluster a group, each
+  block a slice of every product's columns (``csrc/decoder_cluster.cuh``);
 - the "v1" step (``fused_decoder_layers_step``, body ``_make_kernel``,
   B11), kernel ``csrc/fused_step.cu``: the same layers, the fresh rows
   written into the caches at ``pos`` in place (the TPU kernel's aliased
@@ -27,8 +29,9 @@ steps and their weight bundles:
   each row at its own position, returning the head's logits (beam search)
   or each row's argmax and its log-probability.
 
-The kernels share their layer code and their head
-(``csrc/decoder_layers.cuh``).
+B7, B10 and B12 share the one-block-a-row layer code and the head of
+``csrc/decoder_layers.cuh``; B1 and B11 run the cluster layer code of
+``csrc/decoder_cluster.cuh``.
 
 B1 and B7 take the bf16/float32 bundles and the int8 one
 (``quantize_stacked``, the JAX "v2q" bundle of ``DecodeEngine(use_fused=
@@ -57,6 +60,7 @@ cross ``(L, B, L_enc, D)``, heads interleaved along D in torch's order.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict
 
@@ -239,13 +243,13 @@ def _weight_ptrs(stacked, cfg: ModelConfig, L: int, dt, dev):
         ptrs.append(stacked[name].data_ptr())
         if quantized:
             _build.require(stacked[f"{name}_s"], f"{name}_s", dtype=f32,
-                           shape=(L, 1, shape[-1]), device=dev)
+                           shape=(L, 1, shape[-1]), device=dev, aligned=True)
             ptrs.append(stacked[f"{name}_s"].data_ptr())
         _build.require(stacked[bias], bias, dtype=f32,
-                       shape=(L, 1, shape[-1]), device=dev)
+                       shape=(L, 1, shape[-1]), device=dev, aligned=True)
         ptrs.append(stacked[bias].data_ptr())
     _build.require(stacked["ln"], "ln", dtype=f32, shape=(L, 6, D),
-                   device=dev)
+                   device=dev, aligned=True)
     return quantized, ptrs + [stacked["ln"].data_ptr()]
 
 
@@ -276,6 +280,39 @@ def fused_decoder_layers_step_v2_plain(stacked, cfg: ModelConfig, x_emb,
     rows = torch.full((B,), pos, dtype=torch.long, device=x_emb.device)
     return _layers_plain(stacked, cfg, x_emb.float(), self_k, self_v,
                          cross_k, cross_v, rows)
+
+
+# What B1/B11's C entries return for a model or batch the cluster kernel
+# does not take (``csrc/fused_step.cu``: kRefused; its make_shape is the
+# one statement of the shapes the kernel takes).
+REFUSED = -1
+
+
+def _check_code(code: int, entry: str, cfg: ModelConfig, B: int) -> None:
+    """Raise ``ValueError`` where the kernel refused the shape, else what
+    ``_build.check`` raises on a failed launch."""
+    if code == REFUSED:
+        raise ValueError(
+            f"the decoder step kernel ({entry}) does not take d_model "
+            f"{cfg.d_model}, {cfg.nhead} heads, FFN {cfg.dim_feedforward} "
+            f"at {B} rows (csrc/fused_step.cu make_shape)")
+    _build.check(code, entry)
+
+
+def cluster_geometry(cfg: ModelConfig, B: int, T: int, L_enc: int, dtype,
+                     quantized: bool) -> Dict[str, int]:
+    """The launch geometry of B1/B11 for B rows at the last slot on the
+    card: blocks a cluster, clusters, rows a group, shared memory bytes a
+    block, stages of its copy ring, clusters the card holds at once, and
+    the self-cache and cross K/V slots an item stages in shared memory."""
+    out = (ctypes.c_int * 8)()
+    code = _build.library().fused_step_geometry(
+        int(quantized), int(dtype == torch.float32), B, T, cfg.d_model,
+        cfg.nhead, cfg.dim_feedforward, L_enc, ctypes.addressof(out))
+    _check_code(code, "fused_step_geometry", cfg, B)
+    return dict(zip(("blocks", "clusters", "rows", "smem_bytes", "stages",
+                     "active_clusters", "staged_self_slots",
+                     "staged_cross_slots"), out))
 
 
 def _check_step(cfg: ModelConfig, what: str, x_emb, self_k, self_v,
@@ -320,7 +357,7 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     code = getattr(_build.library(), entry)(
         *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, int(pos),
         _build.stream_handle(dev))
-    _build.check(code, entry)
+    _check_code(code, entry, cfg, B)
     if quantized:
         fused_decoder_layers_step_v2.int8_launches += 1
     else:
@@ -368,7 +405,7 @@ def fused_decoder_layers_step(stacked, cfg: ModelConfig, x_emb, self_k,
     code = getattr(_build.library(), entry)(
         *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, int(pos),
         _build.stream_handle(dev))
-    _build.check(code, entry)
+    _check_code(code, entry, cfg, B)
     fused_decoder_layers_step.launches += 1
     return x_out, self_k, self_v
 

@@ -193,8 +193,16 @@ def test_cache_append_and_decode_attention(dev, dtype, B, Dh):
         assert torch.equal(k_cache, k2) and torch.equal(v_cache, v2)
 
 
+# B1/B11's batch sizes: one row, a partial row group, one group, more than
+# one (the last partial) and the largest served bucket; its slots: the
+# first, either side of a self-cache copy box's end (16 slots), a middle
+# and the last
+STEP_BATCHES = [1, 5, 16, 40, 64]
+STEP_POSITIONS = (0, 1, 16, 17, 74, 149)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("B", STEP_BATCHES)
 def test_fused_decoder_step(dev, np_params, dtype, B):
     cfg = CFG.replace(dtype=dtype)
     stacked = fs.build_stacked(np_params["decoder"], cfg, dev)
@@ -203,7 +211,7 @@ def test_fused_decoder_step(dev, np_params, dtype, B):
     ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=2 + i)
               for i in range(2))
     x = _randn(dev, dtype, B, D, seed=4)
-    for pos in (0, 149):
+    for pos in STEP_POSITIONS:
         got = _launched(fs.fused_decoder_layers_step_v2,
                         lambda: fs.fused_decoder_layers_step_v2(
                             stacked, cfg, x, sk, sv, ck, cv, pos))
@@ -213,7 +221,7 @@ def test_fused_decoder_step(dev, np_params, dtype, B):
             _close(g, w, STEP_TOL[dtype])
 
 
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("B", STEP_BATCHES)
 def test_fused_decoder_step_int8(dev, np_params, B):
     cfg = CFG.replace(dtype="bfloat16")
     stacked = fs.quantize_stacked(fs.build_stacked(np_params["decoder"], cfg,
@@ -223,7 +231,7 @@ def test_fused_decoder_step_int8(dev, np_params, B):
     ck, cv = (_randn(dev, "bfloat16", L, B, L_enc, D, seed=2 + i)
               for i in range(2))
     x = _randn(dev, "bfloat16", B, D, seed=4)
-    for pos in (0, 74, 149):
+    for pos in STEP_POSITIONS:
         got = _launched(fs.fused_decoder_layers_step_v2,
                         lambda: fs.fused_decoder_layers_step_v2(
                             stacked, cfg, x, sk, sv, ck, cv, pos),
@@ -235,7 +243,7 @@ def test_fused_decoder_step_int8(dev, np_params, B):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("B", STEP_BATCHES)
 def test_layers_step_in_place(dev, np_params, dtype, B):
     """B11: x_out and the written slot within the step tolerance of the
     plain step's; every other slot of the caches bit for bit unchanged."""
@@ -246,7 +254,7 @@ def test_layers_step_in_place(dev, np_params, dtype, B):
     ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=2 + i)
               for i in range(2))
     x = _randn(dev, dtype, B, D, seed=4)
-    for pos in (0, 74, 149):
+    for pos in STEP_POSITIONS:
         got_k, got_v = sk.clone(), sv.clone()
         want_k, want_v = sk.clone(), sv.clone()
         got = _launched(fs.fused_decoder_layers_step,
@@ -259,6 +267,39 @@ def test_layers_step_in_place(dev, np_params, dtype, B):
         for g, w, old in ((got_k, want_k, sk), (got_v, want_v, sv)):
             _close(g[:, :, pos], w[:, :, pos], STEP_TOL[dtype])
             assert torch.equal(g[:, :, other], old[:, :, other])
+
+
+@pytest.mark.parametrize("change,quantized", [
+    ({"dim_feedforward": 200}, False),  # 25 FFN columns a block
+    ({"dim_feedforward": 192}, True),   # 24 int8 columns a block, not 16k
+    ({"d_model": 320}, False),          # a head's row of 5 16-byte vectors
+])
+def test_fused_decoder_step_refuses_shapes(dev, change, quantized):
+    """A model the cluster kernel does not split raises ValueError on the
+    card (its C entry's refusal), with no launch counted."""
+    cfg = CFG.replace(dtype="bfloat16", num_decoder_layers=1, **change)
+    stacked = fs.build_stacked(convert.random_params(cfg, seed=1)["decoder"],
+                               cfg, dev)
+    if quantized:
+        stacked = fs.quantize_stacked(stacked)
+    bf16 = torch.bfloat16
+    L, B, T, D, L_enc = 1, 2, 8, cfg.d_model, 4
+    zeros = torch.zeros
+    sk = zeros(L, B, T, D, dtype=bf16, device=dev)
+    ck = zeros(L, B, L_enc, D, dtype=bf16, device=dev)
+    x = zeros(B, D, dtype=bf16, device=dev)
+    before = (fs.fused_decoder_layers_step_v2.launches,
+              fs.fused_decoder_layers_step_v2.int8_launches,
+              fs.fused_decoder_layers_step.launches)
+    with pytest.raises(ValueError, match="does not take"):
+        fs.fused_decoder_layers_step_v2(stacked, cfg, x, sk, sk, ck, ck, 3)
+    if not quantized:
+        with pytest.raises(ValueError, match="does not take"):
+            fs.fused_decoder_layers_step(stacked, cfg, x, sk, sk.clone(), ck,
+                                         ck, 3)
+    assert (fs.fused_decoder_layers_step_v2.launches,
+            fs.fused_decoder_layers_step_v2.int8_launches,
+            fs.fused_decoder_layers_step.launches) == before
 
 
 def _hold_picks(nxt, want_nxt, logits, atol):

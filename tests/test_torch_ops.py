@@ -239,4 +239,5 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
                               "layers_step_in_place",
                               "whole_step_time_major", "whole_step_rows",
                               "whole_decode", "whole_decode_i8")
-         for t in ("bf16", "f32")] + ["beam_cache_gather"])
+         for t in ("bf16", "f32")]
+        + ["beam_cache_gather", "fused_step_geometry"])
