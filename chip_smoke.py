@@ -28,20 +28,23 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    tokens equal to the plain version's up to a first difference at such a
    near-tie in a row); the whole Swin block at stages 1-3, unshifted and
    shifted;
-   the ragged step at pos 0, 74, 149 and a ragged position vector, in both
-   head modes, with both bundles (and in float32, where its argmax must be
-   equal, for the int8 bundle wherever the plain logits are no near-tie);
-   the beam cache reorder over the whole cache and a prefix (exactly
-   equal); the int8 dequant matmul at each projection of a decoder layer
-   and the float32 head at 16 and 50 rows, and the cross K/V projection at
-   480 and 1500. Each with its device time (``torch.profiler``: the
-   kernels' own time, not the host's launch rate), the plain version's
-   time (for the whole decode, whose plain version launches some 40,000
-   small kernels, the synchronized wall of its one reference run), the
-   time of one PyTorch library call computing the same function
-   where there is one
-   (else null; for the dequant matmul the nearest call, a matmul with the
-   weight dequantized beforehand), and the least time the card could take
+   the ragged step at the beam's 50 rows at pos 0, 74, 149 and a ragged
+   position vector and at the bucket's 16 rows at pos 149 and a ragged
+   vector, in both head modes, with both bundles (and in float32, where its
+   argmax must be equal, for the int8 bundle wherever the plain logits are
+   no near-tie), one launch with two rows out of range (NaN and nxt -1
+   there only), its cluster shape at both row counts and its times at pos
+   0, 74 and 149; the beam cache reorder over the whole cache and a prefix
+   (exactly equal); the int8 dequant matmul at each projection of a
+   decoder layer and the float32 head at 16 and 50 rows, and the cross K/V
+   projection at 480 and 1500, each shape's time beside cuBLAS's on the
+   weight dequantized beforehand. Each with its device time
+   (``torch.profiler``: the kernels' own time, not the host's launch
+   rate), the plain version's time (for the whole decode, whose plain
+   version launches some 40,000 small kernels, the synchronized wall of
+   its one reference run), the time of one PyTorch library call computing
+   the same function where there is one (else null; for the dequant matmul
+   ``torch._weight_int8pack_mm``), and the least time the card could take
    (its bound, and whether bytes or operations set it);
 4. served decoding at full width and depth on four routes of the engine:
    the ``serving_model_r4`` configuration (Swin-T, d_model 256, 8 decoder
@@ -633,15 +636,38 @@ def check_swin_block(cfg, np_params, params, batch):
     return entry
 
 
-def check_ragged_step(cfg, np_params, rows, quantize=False):
-    """Phase 3: the ragged step against its plain version at the beam's
-    rows (10 images x beam 5), at uniform pos 0, 74 and 149 and at a
-    ragged position vector, in both head modes: bf16 within the decoder
+def ragged_bound(cfg, rows, pos, quantize):
+    """(bytes, bf16 flops, float32 flops) of one ragged step for ``rows``
+    rows at slot ``pos``: the weights and the float32 head once, each row's
+    cross K/V and cache prefix, prev and pos, the embedding rows, the
+    logits and fresh K/V rows out."""
+    L, D = cfg.num_decoder_layers, cfg.d_model
+    L_enc, V = cfg.encoder_len, cfg.vocab_size
+    nbytes, weights = step_weight_bytes(cfg, quantize)
+    nbytes += ((D * V + V) * 4                             # head (f32)
+               + 2 * rows * 4 + 2 * rows * D * 4           # prev, pos, rows
+               + 2 * L * rows * L_enc * D * 2              # cross K/V
+               + 2 * L * rows * pos * D * 2                # cache prefix
+               + rows * V * 4 + 2 * L * rows * D * 2)      # outputs
+    flops = 2 * rows * weights + 4 * L * rows * D * (pos + 1 + L_enc)
+    return nbytes, flops, 2 * rows * D * V                 # the head
+
+
+def check_ragged_step(cfg, np_params, rows, batch, quantize=False):
+    """Phase 3: the ragged step (B7, on the cluster layer code) against its
+    plain version at the beam's rows (10 images x beam 5) at uniform pos
+    0, 74 and 149 and at a ragged position vector, and at the greedy
+    bucket's rows at pos 149 and a ragged vector, in both head modes, on
+    both entries of the bundle (bf16 and float32): bf16 within the decoder
     step's tolerance, and in float32 its argmax equal to the plain
-    version's. With ``quantize``, the int8 bundle (its int8 entry): float32
-    within the bf16 tolerance too, and the argmax equal wherever the plain
-    logits' top two lie further apart than twice the largest logits
-    error."""
+    version's. With ``quantize``, the int8 bundle (its int8 entries):
+    float32 within the bf16 tolerance too, and the argmax equal wherever
+    the plain logits' top two lie further apart than twice the largest
+    logits error. Then one launch at the beam's rows with a row whose
+    position lies past the cache and one whose token lies past the
+    vocabulary: NaN outputs and nxt -1 in those two, every other row as
+    the plain step gives it. The cluster shape at both row counts; times
+    at the beam's rows at pos 0, 74 and 149 and at the bucket at 149."""
     import torch
 
     from handwritten_math_ocr_api_torch.ops import fused_step as fs
@@ -655,7 +681,7 @@ def check_ragged_step(cfg, np_params, rows, quantize=False):
                   f"for {rows} rows at the last slot (pos = T - 1)")
     L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
     L_enc, V = cfg.encoder_len, cfg.vocab_size
-    err = 0.0
+    err, timed = 0.0, {}
     for dtype in ("bfloat16", "float32"):
         c = cfg.replace(dtype=dtype)
         dt = getattr(torch, dtype)
@@ -667,69 +693,132 @@ def check_ragged_step(cfg, np_params, rows, quantize=False):
         stacked = fs.build_stacked_full(np_params["decoder"], c, dev)
         if quantize:
             stacked = fs.quantize_stacked(stacked)
-        sk, sv = randn(L, rows, T, D), randn(L, rows, T, D)
-        ck, cv = randn(L, rows, L_enc, D), randn(L, rows, L_enc, D)
-        prev = torch.randint(0, V, (rows,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        cases = {f"pos {p}": torch.full((rows,), p, dtype=torch.int32,
-                                        device=dev)
-                 for p in (0, T // 2 - 1, T - 1)}
-        cases["ragged"] = torch.randint(0, T, (rows,), generator=gen,
-                                        device=dev, dtype=torch.int32)
         tol = ((STEP_ATOL, STEP_RTOL) if dtype == "bfloat16" or quantize
                else (F32_STEP_ATOL, F32_STEP_ATOL))
-        for case, pos in cases.items():
-            for logits in (True, False):
-                got = fs.fused_ragged_step(stacked, c, prev, pos, sk, sv, ck,
-                                           cv, return_logits=logits)
-                want = fs.fused_ragged_step_plain(stacked, c, prev, pos, sk,
-                                                  sv, ck, cv,
-                                                  return_logits=logits)
-                torch.cuda.synchronize()
-                what = f"{name} {dtype} {case} logits {logits}"
-                if logits:
-                    plain_logits, logit_err = want[0], max_err(got[0],
-                                                               want[0])
-                else:
-                    agree = (got[0] == want[0]).float().mean().item()
-                    log(f"kernel {what}: argmax agrees {agree:.4f}")
-                    differ = got[0] != want[0]
-                    if dtype == "float32" and quantize and agree < 1.0:
-                        top2 = plain_logits.topk(2, dim=-1).values
-                        margin = top2[:, 0] - top2[:, 1]
-                        log(f"kernel {what}: plain top-2 margin where the "
-                            f"argmax differs {margin[differ].max():.3g}, "
-                            f"logits max_abs_err {logit_err:.3g}")
-                        differ &= margin > 2 * logit_err   # no near-tie
-                    if dtype == "float32" and bool(differ.any()):
-                        raise AssertionError(f"{what}: argmax differs")
-                    got, want = got[1:], want[1:]
-                for g, w in zip(got, want):
-                    assert_close(what, g, w, *tol)
-                e = max(max_err(g, w) for g, w in zip(got, want))
-                if dtype == "bfloat16":
-                    err = max(err, e)
-                log(f"kernel {what}: max_abs_err {e:.3g}")
-        if dtype == "bfloat16":
-            timed = (stacked, c, prev, cases[f"pos {T - 1}"], sk, sv, ck, cv)
+        for n, slots in ((rows, (0, T // 2 - 1, T - 1)), (batch, (T - 1,))):
+            sk, sv = randn(L, n, T, D), randn(L, n, T, D)
+            ck, cv = randn(L, n, L_enc, D), randn(L, n, L_enc, D)
+            prev = torch.randint(0, V, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            cases = {f"pos {p}": torch.full((n,), p, dtype=torch.int32,
+                                            device=dev) for p in slots}
+            cases["ragged"] = torch.randint(0, T, (n,), generator=gen,
+                                            device=dev, dtype=torch.int32)
+            for case, pos in cases.items():
+                for logits in (True, False):
+                    got = fs.fused_ragged_step(stacked, c, prev, pos, sk, sv,
+                                               ck, cv, return_logits=logits)
+                    want = fs.fused_ragged_step_plain(
+                        stacked, c, prev, pos, sk, sv, ck, cv,
+                        return_logits=logits)
+                    torch.cuda.synchronize()
+                    what = f"{name} {dtype} {n} rows {case} logits {logits}"
+                    if logits:
+                        plain_logits = want[0]
+                        logit_err = max_err(got[0], want[0])
+                    else:
+                        agree = (got[0] == want[0]).float().mean().item()
+                        log(f"kernel {what}: argmax agrees {agree:.4f}")
+                        differ = got[0] != want[0]
+                        if dtype == "float32" and quantize and agree < 1.0:
+                            top2 = plain_logits.topk(2, dim=-1).values
+                            margin = top2[:, 0] - top2[:, 1]
+                            log(f"kernel {what}: plain top-2 margin where "
+                                f"the argmax differs "
+                                f"{margin[differ].max():.3g}, logits "
+                                f"max_abs_err {logit_err:.3g}")
+                            differ &= margin > 2 * logit_err  # no near-tie
+                        if dtype == "float32" and bool(differ.any()):
+                            raise AssertionError(f"{what}: argmax differs")
+                        got, want = got[1:], want[1:]
+                    for g, w in zip(got, want):
+                        assert_close(what, g, w, *tol)
+                    e = max(max_err(g, w) for g, w in zip(got, want))
+                    if dtype == "bfloat16":
+                        err = max(err, e)
+                    log(f"kernel {what}: max_abs_err {e:.3g}")
+            if dtype == "bfloat16":
+                timed[n] = (stacked, c, prev, cases, sk, sv, ck, cv)
+            if n == rows:
+                check_ragged_dead_rows(name, fs, stacked, c, prev,
+                                       cases[f"pos {T - 1}"],
+                                       (sk, sv, ck, cv), tol,
+                                       dtype == "float32" and not quantize)
+    for n in (rows, batch):
+        entry.d["cluster" if n == rows else f"cluster_rows{n}"] = geo = (
+            fs.ragged_geometry(cfg, n, T, L_enc, V, torch.bfloat16,
+                               quantize))
+        log(f"kernel {name}: {n} rows, cluster shape {geo}")
+
+    def call(n, p):
+        st, c, prev, cases, *caches = timed[n]
+        return fs.fused_ragged_step(st, c, prev, cases[f"pos {p}"], *caches,
+                                    return_logits=True)
+
+    by_pos, bound_by_pos = {}, {}
+    for p in (0, T // 2 - 1, T - 1):
+        by_pos[p] = cuda_ms(lambda: call(rows, p))
+        bound_by_pos[p] = bound_ms(*ragged_bound(cfg, rows, p, quantize))
+        log(f"kernel {name}: {rows} rows pos {p} ms {by_pos[p]:.4f} "
+            f"bound_ms {bound_by_pos[p]:.4f}")
     pos = T - 1
-    ms = cuda_ms(lambda: fs.fused_ragged_step(*timed, return_logits=True))
-    plain = cuda_ms(lambda: fs.fused_ragged_step_plain(*timed,
-                                                       return_logits=True))
-    nbytes, weights = step_weight_bytes(cfg, quantize)
-    nbytes += ((D * V + V) * 4                             # head (f32)
-               + 2 * rows * 4 + 2 * rows * D * 4           # prev, pos, rows
-               + 2 * L * rows * L_enc * D * 2              # cross K/V
-               + 2 * L * rows * pos * D * 2                # cache prefix
-               + rows * V * 4 + 2 * L * rows * D * 2)      # outputs
-    flops = 2 * rows * weights + 4 * L * rows * D * (pos + 1 + L_enc)
-    f32_flops = 2 * rows * D * V                           # the head
+    ms = by_pos[pos]
+    st, c, prev, cases, *caches = timed[rows]
+    plain = cuda_ms(lambda: fs.fused_ragged_step_plain(
+        st, c, prev, cases[f"pos {pos}"], *caches, return_logits=True))
+    nbytes, flops, f32_flops = ragged_bound(cfg, rows, pos, quantize)
     entry.add(1, err, ms, plain, None, nbytes, flops, f32_flops)
-    log(f"kernel {name}: caches {tuple(timed[4].shape)} pos {pos} "
+    entry.d["ms_by_pos"] = by_pos
+    entry.d["bound_ms_by_pos"] = bound_by_pos
+    ms_b = cuda_ms(lambda: call(batch, pos))
+    entry.d[f"ms_rows{batch}"] = ms_b
+    entry.d[f"bound_ms_rows{batch}"] = bound_ms(
+        *ragged_bound(cfg, batch, pos, quantize))
+    log(f"kernel {name}: caches {tuple(caches[0].shape)} pos {pos} "
         f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
         f"bound_ms {bound_ms(nbytes, flops, f32_flops):.4f} "
-        f"({bound_by(nbytes, flops, f32_flops)}) library_ms null")
+        f"({bound_by(nbytes, flops, f32_flops)}) library_ms null; "
+        f"{batch} rows ms {ms_b:.4f} bound_ms "
+        f"{entry.d[f'bound_ms_rows{batch}']:.4f}")
     return entry
+
+
+def check_ragged_dead_rows(name, fs, stacked, cfg, prev, pos, caches, tol,
+                           exact_argmax):
+    """One ragged step with row 1's position past the cache and row 3's
+    token past the vocabulary, in both head modes: NaN logits, log-prob
+    and fresh rows and nxt -1 in those rows, every other row within
+    ``tol`` of the plain step on the rows as they were (its argmax equal
+    where ``exact_argmax``)."""
+    import torch
+
+    T, V = cfg.max_seq_len, cfg.vocab_size
+    bad_pos, bad_prev = pos.clone(), prev.clone()
+    bad_pos[1], bad_prev[3] = T, V
+    dead = torch.zeros_like(pos, dtype=torch.bool)
+    dead[1] = dead[3] = True
+    for logits in (True, False):
+        got = fs.fused_ragged_step(stacked, cfg, bad_prev, bad_pos, *caches,
+                                   return_logits=logits)
+        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          return_logits=logits)
+        torch.cuda.synchronize()
+        what = f"{name} {cfg.dtype} rows out of range logits {logits}"
+        if not logits:
+            if got[0][dead].tolist() != [-1, -1] or (
+                    exact_argmax and not torch.equal(got[0][~dead],
+                                                     want[0][~dead])):
+                raise AssertionError(f"{what}: nxt {got[0].tolist()}")
+            got, want = got[1:], want[1:]
+        for g, w in zip(got, want):
+            at = dead if g.dim() < 3 else (slice(None), dead)
+            live = ~dead if g.dim() < 3 else (slice(None), ~dead)
+            if not torch.isnan(g[at].float()).all():
+                raise AssertionError(f"{what}: a dead row's output is not "
+                                     f"NaN")
+            assert_close(what, g[live], w[live], *tol)
+        log(f"kernel {what}: NaN and nxt -1 in the two rows, the other "
+            f"rows within the step tolerance")
 
 
 def check_dequant_matmul(cfg, np_params, batch, rows):
@@ -766,9 +855,13 @@ def check_dequant_matmul(cfg, np_params, batch, rows):
                   f"one greedy decode step at the {batch}-row bucket: "
                   f"{L} layers x {len(layer)} projections and the float32 "
                   f"head")
-    entry.d["library"] = ("torch.matmul of x with the weight dequantized to "
-                          "x's dtype beforehand: the nearest single cuBLAS "
-                          "call, not the same function (no int8 load)")
+    entry.d["library"] = ("torch._weight_int8pack_mm on an (N, K) int8 "
+                          "copy of the weight made before the timing; "
+                          "cublas_ms beside it: torch.matmul of x with the "
+                          "weight dequantized to x's dtype beforehand, not "
+                          "the same function (no int8 load)")
+    entry.d["cublas_ms"] = 0.0
+    entry.d["by_shape"] = []
     cases = [(*w, M, torch.bfloat16) for M in (batch, rows) for w in layer]
     cases += [(*head, M, torch.float32) for M in (batch, rows)]
     cases += [(*cross_k, M * L_enc, torch.bfloat16) for M in (batch, rows)]
@@ -786,21 +879,52 @@ def check_dequant_matmul(cfg, np_params, batch, rows):
         w_deq = (w_q.float() * scale).to(dt)
         ms = cuda_ms(lambda: quant.dequant_matmul(x, w_q, scale))
         plain = cuda_ms(lambda: quant.dequant_matmul_plain(x, w_q, scale))
-        lib = cuda_ms(lambda: torch.matmul(x, w_deq))
+        cublas = cuda_ms(lambda: torch.matmul(x, w_deq))
+        lib, lib_note = int8pack_ms(x, w_q, scale, want)
         esz = x.element_size()
         nbytes = M * K * esz + K * N + N * 4 + M * N * esz
         flops = 2 * M * K * N
         ops = (0.0, flops) if f32 else (flops, 0.0)
         if M == batch:
-            entry.add(1 if name == "head" else L, err, ms, plain, lib,
-                      nbytes, *ops)
+            times = 1 if name == "head" else L
+            entry.add(times, err, ms, plain, lib, nbytes, *ops)
+            entry.d["cublas_ms"] += times * cublas
+        entry.d["by_shape"].append({
+            "shape": name, "M": M, "K": K, "N": N, "ldw": w_q.stride(0),
+            "dtype": str(dt)[6:], "ms": ms, "matmul_ms": cublas,
+            "int8pack_ms": lib, "bound_ms": bound_ms(nbytes, *ops),
+            "max_abs_err": err})
         log(f"kernel dequant_matmul {name}: x {tuple(x.shape)} "
             f"{str(dt)[6:]} w {tuple(w_q.shape)} (row stride "
             f"{w_q.stride(0)}) max_abs_err {err:.3g} ms {ms:.4f} "
-            f"plain_ms {plain:.4f} matmul_ms {lib:.4f} "
+            f"plain_ms {plain:.4f} matmul_ms {cublas:.4f} "
+            f"int8pack_ms {lib_note} "
             f"bound_ms {bound_ms(nbytes, *ops):.5f} "
             f"({bound_by(nbytes, *ops)})")
+    log(f"kernel dequant_matmul: a {batch}-row step ({L} layers x "
+        f"{len(layer)} and the head) ms {entry.d['ms']:.4f}, matmul_ms "
+        f"{entry.d['cublas_ms']:.4f}, int8pack_ms {entry.d['library_ms']}")
     return entry
+
+
+def int8pack_ms(x, w_q, scale, want):
+    """(ms, note) of ``torch._weight_int8pack_mm``, PyTorch's weight-only
+    int8 matmul, on x and an (N, K) copy of the int8 weight made before the
+    timing, with the float32 scales (or, if it refuses those, the scales
+    in x's dtype, noted); (None, why) where it raises."""
+    import torch
+
+    w_t = w_q.t().contiguous()
+    for sc in (scale, scale.to(x.dtype)):
+        try:
+            err = max_err(torch._weight_int8pack_mm(x, w_t, sc), want)
+        except (RuntimeError, NotImplementedError) as e:
+            why = f"{type(e).__name__}: {str(e).splitlines()[0][:80]}"
+            continue
+        ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_t, sc))
+        return ms, (f"{ms:.4f} (scales {str(sc.dtype)[6:]}, max_abs_err "
+                    f"{err:.3g})")
+    return None, f"null (raised {why})"
 
 
 def check_beam_reorder(cfg, rows):
@@ -1187,8 +1311,8 @@ def check_counts(counts, expected):
 PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "window_attention", "window_attention_mma", "patch_merging",
     "cache_append_attention",
-    "fused_step_cluster", "swin_block", "ragged_step", "beam_gather",
-    "dequant_matmul", "whole_step", "whole_decode"))
+    "fused_step_cluster", "swin_block", "ragged_step_cluster", "beam_gather",
+    "dequant_mma", "dequant_f32", "whole_step", "whole_decode"))
 
 
 def profile_call(fn, what, unprofiled_s, tries=3):
@@ -1821,11 +1945,12 @@ def main() -> int:
     entries = check_kernels(cfg, params, bucket, rows)
     entries.append(check_fused_step(cfg, np_params, bucket))
     entries.append(check_swin_block(cfg, np_params, params, bucket))
-    entries.append(check_ragged_step(cfg, np_params, rows))
+    entries.append(check_ragged_step(cfg, np_params, rows, bucket))
     entries.append(check_beam_reorder(cfg, rows))
     entries.append(check_dequant_matmul(cfg, np_params, bucket, rows))
     entries.append(check_fused_step(cfg, np_params, bucket, quantize=True))
-    entries.append(check_ragged_step(cfg, np_params, rows, quantize=True))
+    entries.append(check_ragged_step(cfg, np_params, rows, bucket,
+                                     quantize=True))
     entries.append(check_layers_step(cfg, np_params, bucket))
     entries.append(check_whole_step(cfg, np_params, bucket))
     entries.append(check_whole_decode(cfg, np_params, bucket, False))

@@ -103,6 +103,83 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// One 16-byte asynchronous copy of the first `bytes` (0-16) of gmem, the
+// rest of the 16 bytes zero-filled (none read if 0; gmem must still be a
+// valid address). Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+// One 4-byte asynchronous copy (zero-filled if `bytes` is 0), both
+// addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+// Tensor-core helpers (mma.sync on bf16 with float32 sums), shared by the
+// cluster decoder step (decoder_cluster.cuh) and the dequant matmul.
+namespace tc {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, float32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Four signed int8 values (bytes 0-3 of w) to two bf16 pairs, exactly
+// (|w| <= 128): lo = (byte 0, byte 1), hi = (byte 2, byte 3), the first of
+// each in the low half. Each byte, biased to unsigned, becomes the low
+// mantissa byte of 2^23 (one byte permute), 2^23 + 128 is subtracted in
+// float32 (exact), and the bf16 is the float's high half (exact for an
+// integer of at most 8 significant bits): 11 instructions for 4 values.
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t base = 0x4B000000u;  // 2^23 as float32
+  const float f0 = __uint_as_float(__byte_perm(u, base, 0x7650)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(u, base, 0x7651)) - 8388736.0f;
+  const float f2 = __uint_as_float(__byte_perm(u, base, 0x7652)) - 8388736.0f;
+  const float f3 = __uint_as_float(__byte_perm(u, base, 0x7653)) - 8388736.0f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+}  // namespace tc
+
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.
 template <typename K>
 __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {

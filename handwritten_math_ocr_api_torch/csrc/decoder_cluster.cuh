@@ -1,6 +1,14 @@
 // The decoder layers of one step for a group of rows, spread over a
-// thread-block cluster: the layer code of fused_step.cu (B1 and B11),
-// written so that the other step kernels (B7, B10, B12) can move onto it.
+// thread-block cluster: the layer code of fused_step.cu (B1 and B11) and
+// ragged_step.cu (B7), with B7's embedding prologue and float32 head
+// epilogue (Step::embed, Step::head), which B10 and B12 can take when they
+// move onto it; and the host's plan of a launch (make_shape, the tensor
+// maps, the launch configuration) at the end of the file.
+//
+// Each row of a group has its own slot (Step::positions): B7's come from
+// device memory, B1's and B11's are the launch's one pos. The host plans a
+// launch for the Shape's pos (B7: the last slot, Tc - 1, the worst case);
+// a row attends its slots [0, pos[r]) and its fresh row at pos[r].
 //
 // A cluster of Cs blocks takes a group of up to kGroupMax rows. Every block
 // keeps the group's activation rows (float32) in its own shared memory and
@@ -36,11 +44,12 @@
 // and its bias, scale and, after out, co and ff2, the LayerNorm pair that
 // follows by TMA bulk copies, into a ring of stages, each completing on
 // its own mbarrier; the qkv stage also brings the block's items'
-// self-cache slots before pos (as many as shared memory holds, one box an
-// item's K or V; the host's self-cache maps end at slot pos, so the part
-// of a box at or past pos is filled with zeros, never read, and a step at
-// pos 0 copies none) and the cq stage their cross K/V, so attention reads
-// shared memory.
+// self-cache slots before their row's slot (as many as shared memory
+// holds, one box an item's K or V; B1's and B11's self-cache maps end at
+// slot pos, so the part of a box at or past pos is filled with zeros; B7's
+// span all Tc slots, so it holds later slots; neither is read, and a row
+// at slot 0 copies none) and the cq stage their cross K/V, so attention
+// reads shared memory.
 // The copies of the next stages - 1 sublayers are in flight while one
 // computes. Thread 0 declares a stage's bytes (mbarrier.arrive.expect_tx),
 // then one thread an op issues its few copies. Weight segments whose rows
@@ -76,10 +85,13 @@
 // memory (with 227 KB of shared memory an SM keeps little L1 for it).
 #pragma once
 
+#include <algorithm>
+#include <cstring>
+
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap (the type only)
 
-#include "decoder_layers.cuh"
+#include "decoder_types.cuh"
 
 namespace cluster_step {
 
@@ -248,8 +260,8 @@ __host__ __device__ inline size_t table_bytes() {
 // kv_cross bytes each).
 template <typename W, typename C>
 struct Layout {
-  size_t x, xa, xo, xh, yfull, ys, red, iq, part, stats, tabs, bars, ring,
-      stage, wbytes, kvs, kvc, kv_self, kv_cross, end;
+  size_t x, xa, xo, xh, yfull, ys, red, iq, part, stats, rpos, hstat, tabs,
+      bars, ring, stage, wbytes, kvs, kvc, kv_self, kv_cross, end;
   int nmax;
   __host__ __device__ explicit Layout(const Shape& s) {
     using X = InputOf<W>;
@@ -266,6 +278,7 @@ struct Layout {
     }
     const size_t lda = s.D + pad_of<X>(), ldh = s.F + pad_of<X>();
     size_t at = 0;
+    rpos = at;   at = align16(at + sizeof(int) * kGroupMax);  // before x
     x = at;      at = align16(at + sizeof(float) * s.Mg * s.D);
     xa = at;     at = align16(at + sizeof(X) * s.Mg * lda);
     xo = at;     at = align16(at + sizeof(X) * s.Mg * lda);
@@ -276,6 +289,7 @@ struct Layout {
     iq = at;     at = align16(at + sizeof(float) * sp.ipb * 3 * sp.dh);
     part = at;   at = align16(at + sizeof(float) * kWarps * (sp.dh + 2));
     stats = at;  at = align16(at + sizeof(float) * 2 * kWarps);
+    hstat = at;  at = align16(at + sizeof(float) * 3 * s.Cs * s.Mg);
     tabs = at;   at = align16(at + table_bytes());
     bars = at;   at = align1024(at + 8 * kMaxStages);
     ring = at;
@@ -289,9 +303,11 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+using tc::smem_u32;
+using tc::ldmatrix_x4;
+using tc::ldmatrix_x2_trans;
+using tc::mma_bf16;
+using tc::pack_bf16;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -367,36 +383,6 @@ __device__ __forceinline__ void tensor_copy4(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, float32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The B fragment of k-step k0 (16 rows) and n-tile c0 (8 columns) of a
 // weight segment (1024-byte aligned, rows of row_b bytes, swizzled by
 // `bits`) (lane = 4 gq + tq: b0 rows k0 + 2 tq, + 1, b1 rows k0 + 2 tq + 8,
@@ -458,9 +444,10 @@ __device__ __forceinline__ void raw_to_f32(const uint4& r, float* out) {
 }
 
 // One step's layers for the group of rows [row0, row0 + rows) of one
-// cluster. The kernel calls start(), fills x (float32) and xa (x rounded
-// to X) for the group's rows and meets the cluster once before run(); on
-// return x holds the last layer's output. Sublayer g = kSublayers l + p
+// cluster. The kernel calls positions() and start(), fills x (float32) and
+// xa (x rounded to X) for the group's rows (B7: embed()) and meets the
+// cluster once before run(); on return x holds the last layer's output
+// (B7: head() then computes the logits). Sublayer g = kSublayers l + p
 // uses stage g % stages; its copies are issued as sublayer
 // g - (stages - 1) starts (start() issues those of 0 .. stages - 2).
 template <typename W, typename C>
@@ -482,7 +469,7 @@ struct Step {
   int rank, row0, rows, log_cs, i0, i1;
   int lw_self, lw_cross;  // log2 of the warps an attention item takes
   Div ddh, dg4;
-  float *x, *yfull, *ys, *red, *iq, *part, *stats;
+  float *x, *yfull, *ys, *red, *iq, *part, *stats, *hstat;
   X *xa, *xo, *xh;
   uint64_t* bars;
   ProdTab* pt;
@@ -492,6 +479,11 @@ struct Step {
   C *kvs, *kvc;  // the items' staged self-cache prefix and cross K/V
   size_t stage, wbytes, kv_self, kv_cross;
   int nmax;
+  // the float32 head (B7; hw null for B1 and B11): w_head (D, hV) and
+  // b_head, this block's hn columns from hc0, staged at a row stride of hc
+  const float* hw = nullptr;
+  const float* hb = nullptr;
+  int hV = 0, hc = 0, hc0 = 0, hn = 0;
 
   __device__ Step(const decoder::Weights<W>& w_, const C* sk, const C* sv,
                   decoder::CacheLayout self_, const C* ck, const C* cv,
@@ -521,6 +513,7 @@ struct Step {
     iq = reinterpret_cast<float*>(smem + lay.iq);
     part = reinterpret_cast<float*>(smem + lay.part);
     stats = reinterpret_cast<float*>(smem + lay.stats);
+    hstat = reinterpret_cast<float*>(smem + lay.hstat);
     bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
     pt = reinterpret_cast<ProdTab*>(smem + lay.tabs);
     wtab = reinterpret_cast<WarpTab*>(pt + kSublayers);
@@ -553,6 +546,12 @@ struct Step {
       case 4: return w.ff1;
       default: return w.ff2;
     }
+  }
+
+  // each row's slot, -1 for a dead row (positions()): the kGroupMax ints
+  // just before x, so that no pointer of its own stays live
+  __device__ int* rpos() const {
+    return reinterpret_cast<int*>(x) - kGroupMax;
   }
 
   __device__ unsigned char* stage_at(int st) const { return ring + st * stage; }
@@ -601,7 +600,7 @@ struct Step {
     if (tid < kMaxItems) {
       const int li = tid;
       const int r = i0 + li % sp.rpb;
-      items[li].r = li < sp.ipb && r < rows ? r : -1;
+      items[li].r = li < sp.ipb && r < rows && rpos()[r] >= 0 ? r : -1;
       items[li].h = rank / sp.bph * sp.hpb + li / sp.rpb;
     }
     if (tid == 0) {
@@ -695,6 +694,7 @@ struct Step {
     const int kv = i & 1, li = i >> 1;
     if (items[li].r < 0) return 0;
     const int r = items[li].r, h = items[li].h;
+    if (p == 0 && rpos()[r] == 0) return 0;  // a row at slot 0: none
     if (go) {
       if (p == 0)
         tensor_copy4(reinterpret_cast<unsigned char*>(kvs) +
@@ -722,6 +722,7 @@ struct Step {
       mbar_arrive_expect(bars + st, pt[g % kSublayers].bytes);
   }
   __device__ void issue(int g, int st) {
+    if (g == kSublayers * s.L && hw != nullptr) issue_head(st);
     if (g >= kSublayers * s.L) return;
     const int p = g % kSublayers;
     if (static_cast<int>(threadIdx.x) < pt[p].ops)
@@ -851,7 +852,9 @@ struct Step {
         } else {
           C* dst = (part == 1 ? fresh.k : fresh.v) + l * fresh.layer +
                    (row0 + r) * fresh.row + items[li].h * dh + d;
-          const C cv = from_f32<C>(v);
+          // a dead row's fresh rows are NaN
+          const C cv = from_f32<C>(
+              rpos()[r] < 0 ? __int_as_float(0x7fffffff) : v);
           *dst = cv;
           v = to_f32(cv);
         }
@@ -974,8 +977,8 @@ struct Step {
           K = self_k + at;
           V = self_v + at;
           stride = self.slot;
-          n_cache = s.pos;
-          n = s.pos + 1;
+          n_cache = rpos()[r];
+          n = n_cache + 1;
           cap = s.cap_self;
           Ks = kvs + 2 * li * kv_self / sizeof(C);
           kv_stride = kv_self / sizeof(C);
@@ -1136,6 +1139,177 @@ struct Step {
     }
   }
 
+  // Each row's slot, before start(): pos[row0 + r] from device memory (B7),
+  // or the launch's s.pos for every row (B1, B11: pos null). A row of B7
+  // whose slot lies outside [0, min(Tc, Tpos)) or whose prev token outside
+  // [0, V) is dead (-1): it reads no table or cache, its attention items
+  // are skipped, and its outputs are NaN (nxt -1); its products compute on
+  // whatever its rows hold, which reaches no other row.
+  __device__ void positions(const int* pos, const int* prev, int Tc,
+                            int Tpos, int V) {
+    const int r = threadIdx.x;
+    if (r < s.Mg) {
+      int p = s.pos;
+      if (pos != nullptr) {
+        p = -1;
+        if (r < rows) {
+          const int q = pos[row0 + r], tok = prev[row0 + r];
+          if (q >= 0 && q < Tc && q < Tpos && tok >= 0 && tok < V) p = q;
+        }
+      }
+      rpos()[r] = p;
+    }
+    __syncthreads();
+  }
+
+  // B7's prologue, after start(): x = round_to<C>(emb[prev[r]] +
+  // pos_emb[pos[r]]) from the float32 tables for the group's live rows
+  // (zero for a dead one), and xa = x rounded to X.
+  __device__ void embed(const int* prev, const float* emb,
+                        const float* pos_emb) {
+    const int D = s.D, lda = D + pad_of<X>();
+    for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+      const int r = i / D, d = i - r * D, p = rpos()[r];
+      const float v =
+          p < 0 ? 0.0f
+                : round_to<C>(
+                      emb[static_cast<size_t>(prev[row0 + r]) * D + d] +
+                      pos_emb[static_cast<size_t>(p) * D + d]);
+      x[i] = v;
+      xa[r * lda + d] = from_f32<X>(v);
+    }
+  }
+
+  // The float32 head of B7 (before start()): w_head (D, V) and b_head (V),
+  // split over the cluster's blocks in segments of ceil(V / Cs) columns.
+  __device__ void with_head(const float* w_head, const float* b_head, int V) {
+    hw = w_head;
+    hb = b_head;
+    hV = V;
+    hc = (V + s.Cs - 1) / s.Cs;
+    hc0 = min(V, rank * hc);
+    hn = min(V, hc0 + hc) - hc0;
+  }
+
+  // This block's head segment (its hn columns of w_head, rows at a stride
+  // of hc floats, then its b_head values) into stage st by 4-byte cp.async
+  // (w_head's 4 V-byte rows need not be 16-byte aligned, which a tensor
+  // copy would), issued by every thread as the last sublayer starts (or
+  // after it with a one-stage ring), waited for in head().
+  __device__ void issue_head(int st) {
+    float* wh = reinterpret_cast<float*>(stage_at(st));
+    float* bh = wh + s.D * hc;
+    for (int e = threadIdx.x; e < s.D * hn; e += kThreads) {
+      const int k = e / hn, j = e - k * hn;
+      cp_async4_zfill(wh + k * hc + j,
+                      hw + static_cast<size_t>(k) * hV + hc0 + j, 4);
+    }
+    for (int j = threadIdx.x; j < hn; j += kThreads)
+      cp_async4_zfill(bh + j, hb + hc0 + j, 4);
+  }
+
+  // B7's epilogue, after run(): each block computes its columns of the
+  // group's logits, x W_head + b_head in float32 FMA, the reduction split
+  // where outputs are few. With `logits`, each block writes its columns
+  // (NaN in a dead row). Else each block reduces its columns of a row to
+  // (max, its first index, sum exp(l - max)); rank 0 merges the blocks'
+  // triples after one more cluster barrier as an online softmax (the lower
+  // index on a tie: the first index of the max) and writes nxt and
+  // log(p_max + 1e-10) with _argmax_head's expressions (nxt -1 and NaN in a
+  // dead row).
+  __device__ void head(float* logits, int* nxt, float* logp) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (s.stages == 1) issue_head(0);
+    cp_async_wait_all();
+    __syncthreads();
+    const float* wh = reinterpret_cast<const float*>(
+        stage_at((kSublayers * s.L) % s.stages));
+    const float* bh = wh + s.D * hc;
+    const int D = s.D, outs = rows * hn;
+    float* hl = ys;  // the block's logits, rows x hn
+    if (outs > 0) {
+      const int kparts = outs >= kThreads ? 1 : kThreads / outs;
+      const int kchunk = (D + kparts - 1) / kparts;
+      for (int item = tid; item < outs * kparts; item += kThreads) {
+        const int o = item % outs, kp = item / outs;
+        const int r = o / hn, c = o - r * hn;
+        const int k1 = min(D, (kp + 1) * kchunk);
+        float acc = 0.0f;
+        for (int k = kp * kchunk; k < k1; ++k)
+          acc = fmaf(x[r * D + k], wh[k * hc + c], acc);
+        red[item] = acc;
+      }
+      __syncthreads();
+      for (int o = tid; o < outs; o += kThreads) {
+        float sum = 0.0f;
+        for (int kp = 0; kp < kparts; ++kp) sum += red[kp * outs + o];
+        hl[o] = sum + bh[o % hn];
+      }
+    }
+    __syncthreads();
+    const float nan = __int_as_float(0x7fffffff);
+    if (logits != nullptr) {
+      for (int o = tid; o < outs; o += kThreads) {
+        const int r = o / hn, c = o - r * hn;
+        logits[static_cast<size_t>(row0 + r) * hV + hc0 + c] =
+            rpos()[r] < 0 ? nan : hl[o];
+      }
+      return;
+    }
+    for (int r = warp; r < rows; r += kWarps) {
+      float m = -INFINITY;
+      int mi = hV;
+      for (int c = lane; c < hn; c += 32) {
+        const float v = hl[r * hn + c];
+        if (v > m) {
+          m = v;
+          mi = hc0 + c;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, m, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, mi, o);
+        if (om > m || (om == m && oi < mi)) {
+          m = om;
+          mi = oi;
+        }
+      }
+      float se = 0.0f;
+      if (m > -INFINITY)
+        for (int c = lane; c < hn; c += 32) se += expf(hl[r * hn + c] - m);
+      se = warp_sum(se);
+      if (lane == 0) {
+        float* to = cluster.map_shared_rank(hstat, 0) + (rank * s.Mg + r) * 3;
+        to[0] = m;
+        to[1] = se;
+        to[2] = __int_as_float(mi);
+      }
+    }
+    cluster.sync();
+    if (rank == 0 && tid < rows) {
+      const int r = tid;
+      float mv = -INFINITY;
+      int mi = hV;
+      for (int b = 0; b < s.Cs; ++b) {
+        const float* t = hstat + (b * s.Mg + r) * 3;
+        const int i = __float_as_int(t[2]);
+        if (t[0] > mv || (t[0] == mv && i < mi)) {
+          mv = t[0];
+          mi = i;
+        }
+      }
+      float se = 0.0f;
+      for (int b = 0; b < s.Cs; ++b) {
+        const float* t = hstat + (b * s.Mg + r) * 3;
+        if (t[0] > -INFINITY) se += t[1] * expf(t[0] - mv);
+      }
+      const bool dead = rpos()[r] < 0;
+      nxt[row0 + r] = dead ? -1 : mi;
+      logp[row0 + r] =
+          dead ? nan : logf(expf(mv - (mv + logf(se))) + 1e-10f);
+    }
+  }
+
   // Every layer; see the file's head. One loop over the sublayers, so
   // that each phase's code appears once in the kernel.
   __device__ void run() {
@@ -1168,5 +1342,357 @@ struct Step {
     __syncthreads();
   }
 };
+
+// ---------------------------------------------------------------------
+// The host's plan of a launch, shared by the cluster kernels (B1 and B11
+// in fused_step.cu, B7 in ragged_step.cu): the Shape a kernel takes, its
+// tensor maps, and its launch configuration.
+
+// Blocks of a cluster: the portable size, the fastest of 4, 8 and 16 on an
+// H100 at 1 and 16 rows (PERF.md, the decoder step's cluster shapes).
+constexpr int kClusterBlocks = 8;
+// What an entry returns for a model or batch the kernel does not take.
+constexpr int kRefused = -1;
+
+// The largest count of an item's slots (rows of `row` bytes, K and V) that
+// `bytes` of shared memory hold for `items` items, at most `most`.
+inline int slots_in(size_t bytes, int items, int row, int most) {
+  const size_t each = bytes / (2 * static_cast<size_t>(items));
+  int n = static_cast<int>(std::min<size_t>(most, each / row));
+  while (n > 0 && align128(static_cast<size_t>(n) * row) > each) --n;
+  return n;
+}
+
+// The Shape of a launch with Mg rows a group and kClusterBlocks blocks a
+// cluster (stages 0 if the kernel does not take it: the heads an even
+// split over the blocks or the blocks over the heads, each block's
+// columns of every product a multiple of 8, or 16 for int8, and at most
+// kBox, a block's columns of a product at most 8 kTilesPerWarp a warp, K
+// of every product at most kBox or a multiple of it, a head's row 2^k
+// 16-byte vectors, shared memory for the activations and one stage). The
+// ring takes as many stages as fit up to kMaxStages, at least two if one
+// stage would leave the cache unstaged; what is left stages the items'
+// cross K/V slots, then their self-cache slots (up to Tc - 1, and kBox,
+// slots). This is the one statement of the shapes the kernel takes.
+template <typename W, typename C>
+Shape make_shape(int L, int B, int Tc, int D, int H, int F, int L_enc,
+                 int pos, int Mg) {
+  const int Cs = kClusterBlocks;
+  Shape s{L, B, D, H, F, L_enc, pos, Mg, Cs, 0, 0, 0};
+  const int cols = std::max(8, 16 / static_cast<int>(sizeof(W)));
+  const int dh = H > 0 ? D / H : 0;
+  const int nvec = dh * static_cast<int>(sizeof(C)) / 16;
+  const int bph = Cs >= H ? Cs / std::max(H, 1) : 1;
+  const bool ok =
+      B >= 1 && L >= 1 && H >= 1 && D % H == 0 && L_enc >= 1 && pos >= 0 &&
+      pos < Tc && Mg >= 1 && Mg <= kGroupMax &&
+      (Cs % H == 0 || H % Cs == 0) && Mg % bph == 0 &&
+      (dh * sizeof(C)) % 16 == 0 && nvec <= 32 && (nvec & (nvec - 1)) == 0 &&
+      dh % cols == 0 && D % (Cs * cols) == 0 && F % (Cs * cols) == 0 &&
+      D % 16 == 0 && F % 16 == 0 && F / Cs <= kBox && D / Cs <= kBox &&
+      dh <= kBox && (D <= kBox || D % kBox == 0) &&
+      (F <= kBox || F % kBox == 0);
+  if (!ok) return s;
+  const Split split(s);
+  if (split.ipb > kMaxItems) return s;
+  for (int p = 0; p < kSublayers; ++p)
+    if (split.cols(s, p) > 8 * kTilesPerWarp * kThreads / 32) return s;
+  const int items = Split(s).ipb;
+  const int row = dh * static_cast<int>(sizeof(C));
+  const int most_self = std::min(std::max(Tc - 1, 0), kBox);
+  const int most_cross = std::min(L_enc, kBox);
+  const size_t want =
+      2 * items * (align128(static_cast<size_t>(row) * most_self) +
+                   align128(static_cast<size_t>(row) * most_cross));
+  int fit = 0;
+  for (int n = 1; n <= kMaxStages; ++n) {
+    s.stages = n;
+    if (Layout<W, C>(s).end + 1024 <= kSmemMax) fit = n;
+  }
+  if (fit == 0) {
+    s.stages = 0;
+    return s;
+  }
+  s.stages = fit;
+  for (int n = fit; n >= std::min(2, fit); --n) {  // the most stages that
+    s.stages = n;                                  // stage every slot
+    if (Layout<W, C>(s).end + 1024 + want <= kSmemMax) break;
+  }
+  const size_t room = kSmemMax - 1024 - Layout<W, C>(s).end;
+  s.cap_cross = slots_in(room, items, row, most_cross);
+  s.cap_self = slots_in(
+      room - 2 * items * align128(static_cast<size_t>(row) * s.cap_cross),
+      items, row, most_self);
+  return s;
+}
+
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                            void*, const cuuint64_t*, const cuuint64_t*,
+                            const cuuint32_t*, const cuuint32_t*,
+                            CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// the driver library).
+inline cudaError_t encoder(Encode* out) {
+  static Encode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    fn = reinterpret_cast<Encode>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+template <typename T>
+CUtensorMapDataType tma_type() {
+  if constexpr (std::is_same_v<T, float>) return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if constexpr (std::is_same_v<T, int8_t>) return CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// The tensor map of a tensor of T at ptr (dims innermost first; byte
+// strides of dims 1.. in `strides`, or dense if null) copied in boxes of
+// `box`. A map with `keep` is encoded once and kept (a decode's steps use
+// the same weights and cross K/V); the self-cache maps end at pos, which
+// every step moves, and are encoded for each launch.
+template <typename T>
+cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
+                       const uint64_t* dims, const uint32_t* box,
+                       int swizzle_bits, const uint64_t* strides = nullptr,
+                       bool keep = true) {
+  struct Key {
+    const void* ptr;
+    uint64_t dims[4];
+    uint32_t box[4];
+    int rank, swizzle;
+  };
+  static Key keys[64];
+  static CUtensorMap maps[64];
+  static int used = 0, next = 0;
+  Key key;
+  std::memset(&key, 0, sizeof(key));  // padding too: keys compare as bytes
+  key.ptr = ptr;
+  key.rank = rank;
+  key.swizzle = swizzle_bits;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+  }
+  for (int i = 0; keep && i < used; ++i) {
+    if (std::memcmp(&keys[i], &key, sizeof(Key)) == 0) {
+      *out = maps[i];
+      return cudaSuccess;
+    }
+  }
+  Encode fn;
+  const cudaError_t err = encoder(&fn);
+  if (err != cudaSuccess) return err;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t bdim[4], estride[4];
+  cuuint64_t stride = sizeof(T);
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = dims[i];
+    bdim[i] = box[i];
+    estride[i] = 1;
+    if (i > 0) gstride[i - 1] = strides != nullptr ? strides[i - 1] : stride;
+    stride *= dims[i];
+  }
+  if (fn(out, tma_type<T>(), rank, const_cast<void*>(ptr), gdim, gstride,
+         bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle_bits == 1   ? CU_TENSOR_MAP_SWIZZLE_32B
+         : swizzle_bits == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : swizzle_bits == 3 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_NONE,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  if (!keep) return cudaSuccess;
+  keys[next] = key;
+  maps[next] = *out;
+  next = (next + 1) % 64;
+  used = std::max(used, next == 0 ? 64 : next);
+  return cudaSuccess;
+}
+
+// The launch's tensor maps: the six weights, the self caches' first
+// self_slots slots of their Tc (B1 and B11: the slots before pos, at least
+// one, which a step at pos 0 never copies; encoded for each launch; B7:
+// all Tc, kept with keep_self), and the cross K/V.
+template <typename W, typename C>
+cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
+                      const void* const* wp, const void* self_k,
+                      const void* self_v, const void* cross_k,
+                      const void* cross_v, Maps* maps) {
+  const Split sp(s);
+  for (int p = 0; p < kSublayers; ++p) {
+    const int K = sp.k(s, p);
+    const uint64_t dims[3] = {static_cast<uint64_t>(sp.n_all(s, p)),
+                              static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(s.L)};
+    const uint32_t box[3] = {static_cast<uint32_t>(sp.seg_cols(s, p)),
+                             static_cast<uint32_t>(
+                                 std::min(K, kBox)),
+                             1};
+    const cudaError_t err = tensor_map<W>(
+        &maps->w[p], wp[3 * p], 3, dims, box,
+        swizzle_bits(sp.seg_cols(s, p) * sizeof(W)));
+    if (err != cudaSuccess) return err;
+  }
+  const uint64_t self_dims[4] = {static_cast<uint64_t>(s.D),
+                                 static_cast<uint64_t>(self_slots),
+                                 static_cast<uint64_t>(s.B),
+                                 static_cast<uint64_t>(s.L)};
+  const uint64_t row = s.D * sizeof(C);
+  const uint64_t self_strides[3] = {row, row * Tc, row * Tc * s.B};
+  const uint64_t cross_dims[4] = {static_cast<uint64_t>(s.D),
+                                  static_cast<uint64_t>(s.L_enc),
+                                  static_cast<uint64_t>(s.B),
+                                  static_cast<uint64_t>(s.L)};
+  const uint32_t self_box[4] = {static_cast<uint32_t>(sp.dh),
+                                static_cast<uint32_t>(std::max(s.cap_self, 1)),
+                                1, 1};
+  const uint32_t cross_box[4] = {
+      static_cast<uint32_t>(sp.dh),
+      static_cast<uint32_t>(std::max(s.cap_cross, 1)), 1, 1};
+  cudaError_t err = tensor_map<C>(&maps->self_k, self_k, 4, self_dims,
+                                  self_box, 0, self_strides, keep_self);
+  if (err == cudaSuccess)
+    err = tensor_map<C>(&maps->self_v, self_v, 4, self_dims, self_box, 0,
+                        self_strides, keep_self);
+  if (err == cudaSuccess)
+    err = tensor_map<C>(&maps->cross_k, cross_k, 4, cross_dims, cross_box, 0);
+  if (err == cudaSuccess)
+    err = tensor_map<C>(&maps->cross_v, cross_v, 4, cross_dims, cross_box, 0);
+  return err;
+}
+
+// The clusters of a kernel's shape and shared memory that fit on the card
+// at once (0: none), queried once for each.
+inline cudaError_t active_clusters(const void* kernel,
+                                   const cudaLaunchConfig_t& cfg,
+                                   int* active) {
+  struct Key {
+    const void* kernel;
+    int cs, smem;
+  };
+  static Key keys[32];
+  static int values[32], used = 0;
+  const int cs = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
+  const int smem = static_cast<int>(cfg.dynamicSmemBytes);
+  for (int i = 0; i < used; ++i) {
+    if (keys[i].kernel == kernel && keys[i].cs == cs &&
+        keys[i].smem == smem) {
+      *active = values[i];
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
+  if (err == cudaSuccess && used < 32) {
+    keys[used] = {kernel, cs, smem};
+    values[used++] = *active;
+  }
+  return err;
+}
+
+// The launch configuration of a Shape, and in *active the clusters of its
+// shape that fit on the card at once.
+template <typename W, typename C>
+cudaError_t configure(const void* kernel, const Shape& s,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                      cudaStream_t st, int* active) {
+  static const void* opted_in[16];
+  static int n_opted = 0;
+  if (std::find(opted_in, opted_in + n_opted, kernel) == opted_in + n_opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemMax));
+    if (err != cudaSuccess) return err;
+    if (n_opted < 16) opted_in[n_opted++] = kernel;
+  }
+  const int groups = (s.B + s.Mg - 1) / s.Mg;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned>(s.Cs * groups));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Layout<W, C>(s).end + 1024;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(s.Cs);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return active_clusters(kernel, cfg, active);
+}
+
+// The Shape of a step for B rows: the fewest rows a group (so the most
+// clusters) whose groups all fit on the card at once, 16 if none does.
+// stages 0: no shape the kernel takes.
+template <typename W, typename C>
+cudaError_t choose_shape(const void* kernel, int L, int B, int Tc, int D,
+                         int H, int F, int L_enc, int pos, Shape* out) {
+  Shape last{};
+  for (int Mg = 1; Mg <= kGroupMax; Mg *= 2) {
+    const Shape s = make_shape<W, C>(L, B, Tc, D, H, F, L_enc, pos, Mg);
+    if (s.stages < 1) continue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int active = 0;
+    const cudaError_t err =
+        configure<W, C>(kernel, s, cfg, attr, nullptr, &active);
+    if (err != cudaSuccess) return err;
+    last = s;
+    if ((B + Mg - 1) / Mg <= active) break;
+  }
+  *out = last;
+  return cudaSuccess;
+}
+
+// Whether the float32 head of V columns fits a Shape (Step::head): a
+// block's segment of ceil(V / Cs) columns of w_head and b_head in one
+// stage, its logits in ys and their partial sums in red.
+template <typename W, typename C>
+bool head_fits(const Shape& s, int V) {
+  const Layout<W, C> lay(s);
+  const int hc = (V + s.Cs - 1) / s.Cs;
+  return V >= 1 && hc <= lay.nmax &&
+         sizeof(float) * (static_cast<size_t>(s.D) + 1) * hc <= lay.stage &&
+         s.Mg * hc + kThreads <= 128 * kWarps * kTilesPerWarp;
+}
+
+// The launch geometry of a step for B rows at the last slot (with the
+// float32 head of V columns, or none if V is 0): out[0..7] =
+// blocks a cluster, clusters, rows a group, shared memory bytes a block,
+// stages of the ring, clusters the card holds at once, self-cache and
+// cross K/V slots an item stages. Returns the error a launch would
+// (kRefused for a shape the kernel does not take).
+template <typename W, typename C>
+int geometry(const void* kernel, int B, int Tc, int D, int H, int F,
+             int L_enc, int V, int* out) {
+  Shape s;
+  cudaError_t err =
+      choose_shape<W, C>(kernel, 1, B, Tc, D, H, F, L_enc, Tc - 1, &s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.stages < 1 || (V > 0 && !head_fits<W, C>(s, V))) return kRefused;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  err = configure<W, C>(kernel, s, cfg, attr, nullptr, &active);
+  out[0] = s.Cs;
+  out[1] = (s.B + s.Mg - 1) / s.Mg;
+  out[2] = s.Mg;
+  out[3] = static_cast<int>(cfg.dynamicSmemBytes);
+  out[4] = s.stages;
+  out[5] = active;
+  out[6] = s.cap_self;
+  out[7] = s.cap_cross;
+  return static_cast<int>(err);
+}
 
 }  // namespace cluster_step

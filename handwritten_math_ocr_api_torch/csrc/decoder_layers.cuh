@@ -1,9 +1,9 @@
 // The decoder layers of one step for one row, and the float32 output head,
-// shared by the one-block-a-row decode-step kernels: ragged_step.cu (B7, a
-// position per row), whole_step.cu (B10) and whole_decode.cu (B12, every
-// step of a decode). B1 and B11 (fused_step.cu, one position for the
-// batch) run the cluster layer code of decoder_cluster.cuh instead, which
-// takes its Weights, CacheLayout, FreshRows and InputOf from here.
+// shared by the one-block-a-row decode-step kernels, which now serve B10
+// and B12 only: whole_step.cu (B10) and whole_decode.cu (B12, every step
+// of a decode). B1, B11 (fused_step.cu) and B7 (ragged_step.cu, a position
+// per row) run the cluster layer code of decoder_cluster.cuh instead; both
+// take their operand types from decoder_types.cuh.
 //
 // One block of kThreads threads runs every post-norm layer of one
 // row, the row in shared memory in float32:
@@ -18,8 +18,8 @@
 // attention at slot pos (B12 attends it unrounded, in float32, as its TPU
 // kernel does), and no slot after pos read (the TPU kernels' -inf mask).
 // The fresh rows go where FreshRows says: to (L, B, D) outputs that the
-// caller appends (B1, B7, B10 "v3"), or into the self cache at slot pos,
-// in place (B11, B10 "v4", B12). The self cache is batch-major
+// caller appends (B10 "v3"), or into the self cache at slot pos, in place
+// (B10 "v4", B12). The self cache is batch-major
 // (L, B, T, D) or time-major (L, T, B, D) (CacheLayout). Its pointers carry
 // no __restrict__: B12 reads in one step the slot it wrote in the step
 // before, which the read-only data path may not serve.
@@ -41,21 +41,16 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "decoder_types.cuh"
 
 namespace decoder {
 
 // The kernels launch kThreads threads a block, declared as
 // __launch_bounds__(kThreads, 1): with no minimum of blocks an SM, ptxas
-// capped some entries at 64 registers and spilled (B1's bf16 entry among
+// capped some entries at 64 registers and spilled (a bf16 entry among
 // them); with one block an SM each entry fits in at most 128, unspilled.
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-
-// The type a matmul input is rounded to for weights of type W.
-template <typename W>
-using InputOf =
-    std::conditional_t<std::is_same_v<W, int8_t>, __nv_bfloat16, W>;
 
 // Sum over the block; every thread gets the total. scratch: kWarps floats.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
@@ -200,16 +195,6 @@ __device__ void attend(const float* q, const C* K, const C* Vv,
   __syncthreads();
 }
 
-// One stacked weight of every layer: (L, K, N) of type W, its scales
-// (L, 1, N) float32 (null unless W is int8) and its bias (L, 1, N)
-// float32.
-template <typename W>
-struct Linear {
-  const W* w;
-  const float* s;
-  const float* b;
-};
-
 // Layer l's matvec of a stacked weight: y = x W_l (* s_l) + b_l, K x N.
 // The Linear comes by value, so no address of a kernel parameter is taken.
 template <typename W>
@@ -219,28 +204,6 @@ __device__ __forceinline__ void layer_matvec(Linear<W> lin, int l,
   const size_t n = static_cast<size_t>(l) * N;
   matvec<W>(x, lin.w + n * K, lin.s != nullptr ? lin.s + n : nullptr,
             lin.b + n, y, K, N, red);
-}
-
-// The stacked weights of every layer (build_stacked's bundle, or
-// quantize_stacked's), and LayerNorm (L, 6, D) in float32.
-template <typename W>
-struct Weights {
-  Linear<W> qkv, out, cq, co, ff1, ff2;
-  const float* ln;
-};
-
-// The Weights of a C entry's pointers: six (weight, scale, bias) triples
-// (scale null for a float bundle) and the LayerNorm table.
-template <typename W>
-__host__ inline Weights<W> make_weights(const void* const* p,
-                                        const void* ln) {
-  Linear<W> lin[6];
-  for (int i = 0; i < 6; ++i)
-    lin[i] = {static_cast<const W*>(p[3 * i]),
-              static_cast<const float*>(p[3 * i + 1]),
-              static_cast<const float*>(p[3 * i + 2])};
-  return {lin[0], lin[1], lin[2], lin[3], lin[4], lin[5],
-          static_cast<const float*>(ln)};
 }
 
 // Floats of the partial-sum region: matvec's kparts x N and attend's
@@ -277,49 +240,6 @@ struct Smem {
     red = logits + H * lstride;
   }
 };
-
-// Where a self cache lies: element d of slot t of row r in layer l is at
-// base + l * layer + r * row + t * slot + d.
-struct CacheLayout {
-  size_t layer, row, slot;
-};
-
-// (L, B, T, D): a row's slots are contiguous (B1, B7, B10 "v3", B11, B12).
-__host__ __device__ inline CacheLayout batch_major(int B, int T, int D) {
-  return {static_cast<size_t>(B) * T * D, static_cast<size_t>(T) * D,
-          static_cast<size_t>(D)};
-}
-
-// (L, T, B, D): a slot's rows are contiguous (B10 "v4").
-__host__ __device__ inline CacheLayout time_major(int B, int T, int D) {
-  return {static_cast<size_t>(T) * B * D, static_cast<size_t>(D),
-          static_cast<size_t>(B) * D};
-}
-
-// Where a step's fresh K/V rows go: row r of layer l at k + l * layer +
-// r * row (and v alike).
-template <typename C>
-struct FreshRows {
-  C* k;
-  C* v;
-  size_t layer, row;
-};
-
-// (L, B, D) outputs that the caller appends.
-template <typename C>
-__host__ inline FreshRows<C> rows_out(void* k, void* v, int B, int D) {
-  return {static_cast<C*>(k), static_cast<C*>(v),
-          static_cast<size_t>(B) * D, static_cast<size_t>(D)};
-}
-
-// The self cache itself at slot pos, written in place: the step reads only
-// slots before pos, so no block reads what another writes.
-template <typename C>
-__host__ __device__ inline FreshRows<C> rows_in_place(C* k, C* v,
-                                                      CacheLayout c,
-                                                      int pos) {
-  return {k + pos * c.slot, v + pos * c.slot, c.layer, c.row};
-}
 
 // Every layer of one row: s.x holds the layer-0 input (float32) on entry
 // and the last layer's output on return. The row attends slots [0, pos) of

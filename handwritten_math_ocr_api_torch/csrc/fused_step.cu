@@ -43,23 +43,18 @@
 //
 // No fallback: a cluster shape the card cannot place (no active cluster,
 // or cudaLaunchKernelEx refusing it) is returned as an error, which the
-// wrapper raises; a model the kernel does not split (make_shape) returns
-// kRefused, which the wrapper raises as a ValueError.
+// wrapper raises; a model the kernel does not split
+// (decoder_cluster.cuh's make_shape) returns kRefused, which the wrapper
+// raises as a ValueError.
 #include <algorithm>
-#include <cstring>
 
 #include "decoder_cluster.cuh"
 
 namespace {
 
+using cluster_step::kRefused;
 using cluster_step::kThreads;
 using cluster_step::Shape;
-
-// Blocks of a cluster: the portable size, the fastest of 4, 8 and 16 on an
-// H100 at 1 and 16 rows (PERF.md, the decoder step's cluster shapes).
-constexpr int kClusterBlocks = 8;
-// What an entry returns for a model or batch the kernel does not take.
-constexpr int kRefused = -1;
 
 template <typename W, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -81,6 +76,7 @@ fused_step_cluster_kernel(const C* __restrict__ x_emb,
   const int row0 = static_cast<int>(blockIdx.x) / s.Cs * s.Mg;
   Step step(w, self_k, self_v, self, cross_k, cross_v, fresh, &maps, s,
             smem, row0);
+  step.positions(nullptr, nullptr, 0, 0, 0);  // every row at s.pos
   step.start();
   const int D = s.D, lda = D + cluster_step::pad_of<X>();
   for (int i = threadIdx.x; i < step.rows * D; i += kThreads) {
@@ -97,307 +93,6 @@ fused_step_cluster_kernel(const C* __restrict__ x_emb,
   }
 }
 
-// The largest count of an item's slots (rows of `row` bytes, K and V) that
-// `bytes` of shared memory hold for `items` items, at most `most`.
-int slots_in(size_t bytes, int items, int row, int most) {
-  const size_t each = bytes / (2 * static_cast<size_t>(items));
-  int n = static_cast<int>(std::min<size_t>(most, each / row));
-  while (n > 0 && cluster_step::align128(static_cast<size_t>(n) * row) > each)
-    --n;
-  return n;
-}
-
-// The Shape of a launch with Mg rows a group and kClusterBlocks blocks a
-// cluster (stages 0 if the kernel does not take it: the heads an even
-// split over the blocks or the blocks over the heads, each block's
-// columns of every product a multiple of 8, or 16 for int8, and at most
-// kBox, a block's columns of a product at most 8 kTilesPerWarp a warp, K
-// of every product at most kBox or a multiple of it, a head's row 2^k
-// 16-byte vectors, shared memory for the activations and one stage). The
-// ring takes as many stages as fit up to kMaxStages, at least two if one
-// stage would leave the cache unstaged; what is left stages the items'
-// cross K/V slots, then their self-cache slots (up to Tc - 1, and kBox,
-// slots). This is the one statement of the shapes the kernel takes.
-template <typename W, typename C>
-Shape make_shape(int L, int B, int Tc, int D, int H, int F, int L_enc,
-                 int pos, int Mg) {
-  const int Cs = kClusterBlocks;
-  Shape s{L, B, D, H, F, L_enc, pos, Mg, Cs, 0, 0, 0};
-  const int cols = std::max(8, 16 / static_cast<int>(sizeof(W)));
-  const int dh = H > 0 ? D / H : 0;
-  const int nvec = dh * static_cast<int>(sizeof(C)) / 16;
-  const int bph = Cs >= H ? Cs / std::max(H, 1) : 1;
-  const bool ok =
-      B >= 1 && L >= 1 && H >= 1 && D % H == 0 && L_enc >= 1 && pos >= 0 &&
-      pos < Tc && Mg >= 1 && Mg <= cluster_step::kGroupMax &&
-      (Cs % H == 0 || H % Cs == 0) && Mg % bph == 0 &&
-      (dh * sizeof(C)) % 16 == 0 && nvec <= 32 && (nvec & (nvec - 1)) == 0 &&
-      dh % cols == 0 && D % (Cs * cols) == 0 && F % (Cs * cols) == 0 &&
-      D % 16 == 0 && F % 16 == 0 && F / Cs <= cluster_step::kBox &&
-      D / Cs <= cluster_step::kBox && dh <= cluster_step::kBox &&
-      (D <= cluster_step::kBox || D % cluster_step::kBox == 0) &&
-      (F <= cluster_step::kBox || F % cluster_step::kBox == 0);
-  if (!ok) return s;
-  const cluster_step::Split split(s);
-  if (split.ipb > cluster_step::kMaxItems) return s;
-  for (int p = 0; p < cluster_step::kSublayers; ++p)
-    if (split.cols(s, p) > 8 * cluster_step::kTilesPerWarp * kThreads / 32)
-      return s;
-  const int items = cluster_step::Split(s).ipb;
-  const int row = dh * static_cast<int>(sizeof(C));
-  const int most_self = std::min(std::max(Tc - 1, 0), cluster_step::kBox);
-  const int most_cross = std::min(L_enc, cluster_step::kBox);
-  const size_t want =
-      2 * items * (cluster_step::align128(static_cast<size_t>(row) * most_self) +
-                   cluster_step::align128(static_cast<size_t>(row) * most_cross));
-  int fit = 0;
-  for (int n = 1; n <= cluster_step::kMaxStages; ++n) {
-    s.stages = n;
-    if (cluster_step::Layout<W, C>(s).end + 1024 <= cluster_step::kSmemMax)
-      fit = n;
-  }
-  if (fit == 0) {
-    s.stages = 0;
-    return s;
-  }
-  s.stages = fit;
-  for (int n = fit; n >= std::min(2, fit); --n) {  // the most stages that
-    s.stages = n;                                  // stage every slot
-    if (cluster_step::Layout<W, C>(s).end + 1024 + want <=
-        cluster_step::kSmemMax)
-      break;
-  }
-  const size_t room =
-      cluster_step::kSmemMax - 1024 - cluster_step::Layout<W, C>(s).end;
-  s.cap_cross = slots_in(room, items, row, most_cross);
-  s.cap_self = slots_in(
-      room - 2 * items * cluster_step::align128(
-                             static_cast<size_t>(row) * s.cap_cross),
-      items, row, most_self);
-  return s;
-}
-
-using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                            void*, const cuuint64_t*, const cuuint64_t*,
-                            const cuuint32_t*, const cuuint32_t*,
-                            CUtensorMapInterleave, CUtensorMapSwizzle,
-                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
-// the driver library).
-cudaError_t encoder(Encode* out) {
-  static Encode fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorNotSupported;
-    fn = reinterpret_cast<Encode>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
-template <typename T>
-CUtensorMapDataType tma_type() {
-  if constexpr (std::is_same_v<T, float>) return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  if constexpr (std::is_same_v<T, int8_t>) return CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-
-// The tensor map of a tensor of T at ptr (dims innermost first; byte
-// strides of dims 1.. in `strides`, or dense if null) copied in boxes of
-// `box`. A map with `keep` is encoded once and kept (a decode's steps use
-// the same weights and cross K/V); the self-cache maps end at pos, which
-// every step moves, and are encoded for each launch.
-template <typename T>
-cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
-                       const uint64_t* dims, const uint32_t* box,
-                       int swizzle_bits, const uint64_t* strides = nullptr,
-                       bool keep = true) {
-  struct Key {
-    const void* ptr;
-    uint64_t dims[4];
-    uint32_t box[4];
-    int rank, swizzle;
-  };
-  static Key keys[64];
-  static CUtensorMap maps[64];
-  static int used = 0, next = 0;
-  Key key;
-  std::memset(&key, 0, sizeof(key));  // padding too: keys compare as bytes
-  key.ptr = ptr;
-  key.rank = rank;
-  key.swizzle = swizzle_bits;
-  for (int i = 0; i < rank; ++i) {
-    key.dims[i] = dims[i];
-    key.box[i] = box[i];
-  }
-  for (int i = 0; keep && i < used; ++i) {
-    if (std::memcmp(&keys[i], &key, sizeof(Key)) == 0) {
-      *out = maps[i];
-      return cudaSuccess;
-    }
-  }
-  Encode fn;
-  const cudaError_t err = encoder(&fn);
-  if (err != cudaSuccess) return err;
-  cuuint64_t gdim[4], gstride[3];
-  cuuint32_t bdim[4], estride[4];
-  cuuint64_t stride = sizeof(T);
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = dims[i];
-    bdim[i] = box[i];
-    estride[i] = 1;
-    if (i > 0) gstride[i - 1] = strides != nullptr ? strides[i - 1] : stride;
-    stride *= dims[i];
-  }
-  if (fn(out, tma_type<T>(), rank, const_cast<void*>(ptr), gdim, gstride,
-         bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         swizzle_bits == 1   ? CU_TENSOR_MAP_SWIZZLE_32B
-         : swizzle_bits == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
-         : swizzle_bits == 3 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_NONE,
-         CU_TENSOR_MAP_L2_PROMOTION_NONE,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  if (!keep) return cudaSuccess;
-  keys[next] = key;
-  maps[next] = *out;
-  next = (next + 1) % 64;
-  used = std::max(used, next == 0 ? 64 : next);
-  return cudaSuccess;
-}
-
-// The launch's tensor maps: the six weights, the self caches' slots before
-// pos (at least one, which a step at pos 0 never copies) of their Tc, and
-// the cross K/V.
-template <typename W, typename C>
-cudaError_t make_maps(const Shape& s, int Tc, const void* const* wp,
-                      const void* self_k, const void* self_v,
-                      const void* cross_k, const void* cross_v,
-                      cluster_step::Maps* maps) {
-  const cluster_step::Split sp(s);
-  for (int p = 0; p < cluster_step::kSublayers; ++p) {
-    const int K = sp.k(s, p);
-    const uint64_t dims[3] = {static_cast<uint64_t>(sp.n_all(s, p)),
-                              static_cast<uint64_t>(K),
-                              static_cast<uint64_t>(s.L)};
-    const uint32_t box[3] = {static_cast<uint32_t>(sp.seg_cols(s, p)),
-                             static_cast<uint32_t>(
-                                 std::min(K, cluster_step::kBox)),
-                             1};
-    const cudaError_t err = tensor_map<W>(
-        &maps->w[p], wp[3 * p], 3, dims, box,
-        cluster_step::swizzle_bits(sp.seg_cols(s, p) * sizeof(W)));
-    if (err != cudaSuccess) return err;
-  }
-  const uint64_t self_dims[4] = {static_cast<uint64_t>(s.D),
-                                 static_cast<uint64_t>(std::max(s.pos, 1)),
-                                 static_cast<uint64_t>(s.B),
-                                 static_cast<uint64_t>(s.L)};
-  const uint64_t row = s.D * sizeof(C);
-  const uint64_t self_strides[3] = {row, row * Tc, row * Tc * s.B};
-  const uint64_t cross_dims[4] = {static_cast<uint64_t>(s.D),
-                                  static_cast<uint64_t>(s.L_enc),
-                                  static_cast<uint64_t>(s.B),
-                                  static_cast<uint64_t>(s.L)};
-  const uint32_t self_box[4] = {static_cast<uint32_t>(sp.dh),
-                                static_cast<uint32_t>(std::max(s.cap_self, 1)),
-                                1, 1};
-  const uint32_t cross_box[4] = {
-      static_cast<uint32_t>(sp.dh),
-      static_cast<uint32_t>(std::max(s.cap_cross, 1)), 1, 1};
-  cudaError_t err = tensor_map<C>(&maps->self_k, self_k, 4, self_dims,
-                                  self_box, 0, self_strides, false);
-  if (err == cudaSuccess)
-    err = tensor_map<C>(&maps->self_v, self_v, 4, self_dims, self_box, 0,
-                        self_strides, false);
-  if (err == cudaSuccess)
-    err = tensor_map<C>(&maps->cross_k, cross_k, 4, cross_dims, cross_box, 0);
-  if (err == cudaSuccess)
-    err = tensor_map<C>(&maps->cross_v, cross_v, 4, cross_dims, cross_box, 0);
-  return err;
-}
-
-// The clusters of a kernel's shape and shared memory that fit on the card
-// at once (0: none), queried once for each.
-template <typename W, typename C>
-cudaError_t active_clusters(const cudaLaunchConfig_t& cfg, int* active) {
-  static int keys[16][2], values[16], used = 0;
-  const int cs = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
-  const int smem = static_cast<int>(cfg.dynamicSmemBytes);
-  for (int i = 0; i < used; ++i) {
-    if (keys[i][0] == cs && keys[i][1] == smem) {
-      *active = values[i];
-      return cudaSuccess;
-    }
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(
-      active, fused_step_cluster_kernel<W, C>, &cfg);
-  if (err == cudaSuccess && used < 16) {
-    keys[used][0] = cs;
-    keys[used][1] = smem;
-    values[used++] = *active;
-  }
-  return err;
-}
-
-// The launch configuration of a Shape, and in *active the clusters of its
-// shape that fit on the card at once.
-template <typename W, typename C>
-cudaError_t configure(const Shape& s, cudaLaunchConfig_t& cfg,
-                      cudaLaunchAttribute& attr, cudaStream_t st,
-                      int* active) {
-  static bool attributes_set = false;
-  if (!attributes_set) {
-    auto kernel = fused_step_cluster_kernel<W, C>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(cluster_step::kSmemMax));
-    if (err != cudaSuccess) return err;
-    attributes_set = true;
-  }
-  const int groups = (s.B + s.Mg - 1) / s.Mg;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(static_cast<unsigned>(s.Cs * groups));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = cluster_step::Layout<W, C>(s).end + 1024;
-  cfg.stream = st;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(s.Cs);
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return active_clusters<W, C>(cfg, active);
-}
-
-// The Shape of a step for B rows: the fewest rows a group (so the most
-// clusters) whose groups all fit on the card at once, 16 if none does.
-// stages 0: no shape the kernel takes.
-template <typename W, typename C>
-cudaError_t choose_shape(int L, int B, int Tc, int D, int H, int F,
-                         int L_enc, int pos, Shape* out) {
-  Shape last{};
-  for (int Mg = 1; Mg <= cluster_step::kGroupMax; Mg *= 2) {
-    const Shape s = make_shape<W, C>(L, B, Tc, D, H, F, L_enc, pos, Mg);
-    if (s.stages < 1) continue;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    int active = 0;
-    const cudaError_t err = configure<W, C>(s, cfg, attr, nullptr, &active);
-    if (err != cudaSuccess) return err;
-    last = s;
-    if ((B + Mg - 1) / Mg <= active) break;
-  }
-  *out = last;
-  return cudaSuccess;
-}
-
 // wp: six (weight, scale, bias) triples, scale null for a float bundle.
 // k_new and v_new null: B11, the fresh rows written into the caches.
 template <typename W, typename C>
@@ -406,20 +101,25 @@ int launch(const void* x_emb, const void* const* wp, const void* ln,
            const void* cross_v, void* x_out, void* k_new, void* v_new, int L,
            int B, int Tc, int D, int H, int F, int L_enc, int pos,
            void* stream) {
+  const void* kernel =
+      reinterpret_cast<const void*>(fused_step_cluster_kernel<W, C>);
   Shape s;
-  cudaError_t err =
-      choose_shape<W, C>(L, B, Tc, D, H, F, L_enc, pos, &s);
+  cudaError_t err = cluster_step::choose_shape<W, C>(kernel, L, B, Tc, D, H,
+                                                     F, L_enc, pos, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s.stages < 1) return kRefused;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int active = 0;
-  err = configure<W, C>(s, cfg, attr, static_cast<cudaStream_t>(stream),
-                        &active);
+  err = cluster_step::configure<W, C>(
+      kernel, s, cfg, attr, static_cast<cudaStream_t>(stream), &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  // the self caches' map ends at slot pos (encoded for this launch)
   cluster_step::Maps maps;
-  err = make_maps<W, C>(s, Tc, wp, self_k, self_v, cross_k, cross_v, &maps);
+  err = cluster_step::make_maps<W, C>(s, Tc, std::max(pos, 1), false, wp,
+                                      self_k, self_v, cross_k, cross_v,
+                                      &maps);
   if (err != cudaSuccess) return static_cast<int>(err);
   using CC = const C*;
   const decoder::CacheLayout self = decoder::batch_major(B, Tc, D);
@@ -439,23 +139,9 @@ int launch(const void* x_emb, const void* const* wp, const void* ln,
 
 template <typename W, typename C>
 int geometry(int B, int Tc, int D, int H, int F, int L_enc, int* out) {
-  Shape s;
-  cudaError_t err = choose_shape<W, C>(1, B, Tc, D, H, F, L_enc, Tc - 1, &s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (s.stages < 1) return kRefused;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int active = 0;
-  err = configure<W, C>(s, cfg, attr, nullptr, &active);
-  out[0] = s.Cs;
-  out[1] = (s.B + s.Mg - 1) / s.Mg;
-  out[2] = s.Mg;
-  out[3] = static_cast<int>(cfg.dynamicSmemBytes);
-  out[4] = s.stages;
-  out[5] = active;
-  out[6] = s.cap_self;
-  out[7] = s.cap_cross;
-  return static_cast<int>(err);
+  return cluster_step::geometry<W, C>(
+      reinterpret_cast<const void*>(fused_step_cluster_kernel<W, C>), B, Tc,
+      D, H, F, L_enc, 0, out);
 }
 
 }  // namespace

@@ -3,92 +3,90 @@
 // Replaces the Pallas TPU kernel
 // handwritten_math_ocr_api_tpu/ops/fused_step.py::fused_ragged_step
 // (_make_kernel_ragged; MHA, no ring; the bf16/float32 bundle, or the
-// int8 one with bf16 matmul inputs, see decoder_layers.cuh). For row r:
+// int8 one with bf16 matmul inputs). For row r:
 //   x = round(emb[prev[r]] + pos_emb[pos[r]])     (float32 tables, the sum
 //                                                  rounded to the compute
 //                                                  type C and back)
-//   every layer at slot pos[r] (decoder_layers.cuh::run_layers)
+//   every layer at slot pos[r]                    (decoder_cluster.cuh)
 //   logits = x W_head + b_head                    (float32)
 // and then either the (V,) float32 logits of the row (return_logits, what
 // beam search ranks) or its argmax (the first index of the max) and
 // log(p_max + 1e-10), the reference's confidence numerics. prev and pos are
-// int32 tensors in device memory, so a step needs no host value.
+// int32 tensors in device memory, so a step needs no host value. A row
+// whose prev or pos is out of range gets NaN outputs (nxt -1), reads
+// nothing, and leaves the other rows of its group as they are.
 //
 // Bound on the H100: bytes. A step reads every decoder weight once (about
 // 10.5 MB of bf16 at 8 layers, d_model 256, FFN 512; half in int8) plus
 // the float32 head (141 KB at vocab 138), each row's cross K/V and its
-// cache prefix, and does about two flops per weight byte per row. Design: B1's, one block per
-// row, with the row's own horizon pos[r]: the block reads no slot after it,
-// so a slot past it may hold anything. Known weakness, as B1's: each block
-// reads all weights through its own SM (50 rows of beam 5 at batch 10:
-// 50 x 10.5 MB through L2 per step).
-#include "decoder_layers.cuh"
+// cache prefix, and does about two flops per weight byte per row, far
+// below the card's ~295 bf16 flops per byte. Design: B1's cluster layer
+// code (decoder_cluster.cuh): the rows go in groups, one thread-block
+// cluster of kClusterBlocks blocks a group (at beam 5 x batch 10, 50 rows:
+// 13 clusters of 4 rows), each block computing its columns of every
+// product for all the group's rows on the tensor cores, so each weight
+// byte is read once a group, its next weight columns and its attention
+// items' cache slots arriving by TMA while it computes. What B7 adds:
+// - a position per row: each row attends its own slots [0, pos[r]) and
+//   its fresh row at pos[r] (Step::positions); the host plans the launch
+//   for the last slot (Tc - 1) and its self-cache maps span all Tc slots,
+//   so an item's staged box may hold slots past the row's horizon, which
+//   are never read (they may hold anything, NaN included);
+// - the embedding in the prologue (Step::embed): each block forms its
+//   group's rows from the float32 tables;
+// - the float32 head in the epilogue (Step::head): each block computes
+//   its ceil(V / Cs) columns from a segment of w_head that lands in a ring
+//   stage while the last sublayer computes, and either writes them or
+//   reduces them to a (max, first index, sum exp) triple a row that block
+//   0 merges after one more cluster barrier.
+// No fallback: a cluster shape the card cannot place is returned as an
+// error, which the wrapper raises; a model the kernel does not split
+// returns kRefused, which the wrapper raises as a ValueError.
+#include "decoder_cluster.cuh"
 
 namespace {
 
-using decoder::kThreads;
+using cluster_step::kRefused;
+using cluster_step::kThreads;
+using cluster_step::Shape;
 
 template <typename W, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
-ragged_step_kernel(const int* __restrict__ prev, const int* __restrict__ pos,
-                   const float* __restrict__ emb,
-                   const float* __restrict__ pos_emb, decoder::Weights<W> w,
-                   const C* self_k, const C* self_v,
-                   const C* __restrict__ cross_k,
-                   const C* __restrict__ cross_v,
-                   const float* __restrict__ w_head,
-                   const float* __restrict__ b_head,
-                   float* __restrict__ logits, int* __restrict__ nxt,
-                   float* __restrict__ logp, C* __restrict__ k_new,
-                   C* __restrict__ v_new, int L, int R, int Tc, int D, int H,
-                   int F, int L_enc, int V, int Tpos) {
-  extern __shared__ float smem[];
-  const int r = blockIdx.x;
-  const int lstride = max(Tc, L_enc);
-  const decoder::Smem s(smem, D, F, H, lstride);
-  float* hy = s.red + decoder::red_floats<W>(D, F);  // V head outputs
-  float* hred = hy + V;                               // max(kThreads, V)
-  const int p = pos[r], tok = prev[r];
+ragged_step_cluster_kernel(const int* __restrict__ prev,
+                           const int* __restrict__ pos,
+                           const float* __restrict__ emb,
+                           const float* __restrict__ pos_emb,
+                           decoder::Weights<W> w, const C* self_k,
+                           const C* self_v, decoder::CacheLayout self,
+                           const C* __restrict__ cross_k,
+                           const C* __restrict__ cross_v,
+                           const float* __restrict__ w_head,
+                           const float* __restrict__ b_head,
+                           float* __restrict__ logits, int* __restrict__ nxt,
+                           float* __restrict__ logp,
+                           decoder::FreshRows<C> fresh,
+                           const __grid_constant__ cluster_step::Maps maps,
+                           Shape s, int Tc, int V, int Tpos) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using Step = cluster_step::Step<W, C>;
+  // the swizzled weight stages need a 1024-byte aligned base
+  unsigned char* smem =
+      smem_raw + ((1024 - (cluster_step::smem_u32(smem_raw) & 1023)) & 1023);
+  const int row0 = static_cast<int>(blockIdx.x) / s.Cs * s.Mg;
+  Step step(w, self_k, self_v, self, cross_k, cross_v, fresh, &maps, s,
+            smem, row0);
+  step.positions(pos, prev, Tc, Tpos, V);
+  step.with_head(w_head, b_head, V);
+  step.start();
+  step.embed(prev, emb, pos_emb);
+  step.cluster.sync();  // every block runs before any remote store
+  step.run();
+  step.head(logits, nxt, logp);
+}
 
-  if (p < 0 || p >= Tc || p >= Tpos || tok < 0 || tok >= V) {
-    // out of range: NaN in every output of the row, nothing read
-    const float nan = __int_as_float(0x7fffffff);
-    for (int i = threadIdx.x; i < L * D; i += kThreads) {
-      const size_t at = (static_cast<size_t>(i / D) * R + r) * D + i % D;
-      k_new[at] = from_f32<C>(nan);
-      v_new[at] = from_f32<C>(nan);
-    }
-    if (logits != nullptr) {
-      for (int n = threadIdx.x; n < V; n += kThreads)
-        logits[static_cast<size_t>(r) * V + n] = nan;
-    } else if (threadIdx.x == 0) {
-      nxt[r] = -1;
-      logp[r] = nan;
-    }
-    return;
-  }
-
-  for (int d = threadIdx.x; d < D; d += kThreads)
-    s.x[d] = round_to<C>(emb[static_cast<size_t>(tok) * D + d] +
-                         pos_emb[static_cast<size_t>(p) * D + d]);
-  __syncthreads();
-  decoder::run_layers<W, C>(w, self_k, self_v,
-                            decoder::batch_major(R, Tc, D), cross_k, cross_v,
-                            {k_new, v_new, static_cast<size_t>(R) * D,
-                             static_cast<size_t>(D)},
-                            L, R, r, D, H, F, L_enc, p, true, lstride, s);
-  decoder::head(s.x, w_head, b_head, hy, D, V, hred);
-
-  if (logits != nullptr) {
-    for (int n = threadIdx.x; n < V; n += kThreads)
-      logits[static_cast<size_t>(r) * V + n] = hy[n];
-    return;
-  }
-  const decoder::Pick pick = decoder::argmax_logp(hy, V, s.scratch);
-  if (threadIdx.x == 0) {
-    nxt[r] = pick.index;
-    logp[r] = pick.logp;
-  }
+template <typename W, typename C>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(ragged_step_cluster_kernel<W, C>);
 }
 
 // wp: six (weight, scale, bias) triples, scale null for a float bundle.
@@ -100,32 +98,48 @@ int launch(const void* prev, const void* pos, const void* emb,
            void* logits, void* nxt, void* logp, void* k_new, void* v_new,
            int L, int R, int Tc, int D, int H, int F, int L_enc, int V,
            int Tpos, void* stream) {
-  const size_t lstride = static_cast<size_t>(std::max(Tc, L_enc));
-  const size_t floats =
-      decoder::smem_floats<W>(D, F, H, lstride) + decoder::head_floats(V);
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = allow_smem(ragged_step_kernel<W, C>, smem);
+  const void* kernel = kernel_of<W, C>();
+  // planned for the last slot: any row may be there
+  Shape s;
+  cudaError_t err = cluster_step::choose_shape<W, C>(kernel, L, R, Tc, D, H,
+                                                     F, L_enc, Tc - 1, &s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.stages < 1 || !cluster_step::head_fits<W, C>(s, V)) return kRefused;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  err = cluster_step::configure<W, C>(
+      kernel, s, cfg, attr, static_cast<cudaStream_t>(stream), &active);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  // the self caches' maps span all Tc slots (the same for every step)
+  cluster_step::Maps maps;
+  err = cluster_step::make_maps<W, C>(s, Tc, Tc, true, wp, self_k, self_v,
+                                      cross_k, cross_v, &maps);
   if (err != cudaSuccess) return static_cast<int>(err);
   using CC = const C*;
   using CF = const float*;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ragged_step_kernel<W, C><<<R, kThreads, smem, st>>>(
-      static_cast<const int*>(prev), static_cast<const int*>(pos),
-      static_cast<CF>(emb), static_cast<CF>(pos_emb),
+  using CI = const int*;
+  err = cudaLaunchKernelEx(
+      &cfg, ragged_step_cluster_kernel<W, C>, static_cast<CI>(prev),
+      static_cast<CI>(pos), static_cast<CF>(emb), static_cast<CF>(pos_emb),
       decoder::make_weights<W>(wp, ln), static_cast<CC>(self_k),
-      static_cast<CC>(self_v), static_cast<CC>(cross_k),
-      static_cast<CC>(cross_v), static_cast<CF>(w_head),
-      static_cast<CF>(b_head), static_cast<float*>(logits),
-      static_cast<int*>(nxt), static_cast<float*>(logp),
-      static_cast<C*>(k_new), static_cast<C*>(v_new), L, R, Tc, D, H, F,
-      L_enc, V, Tpos);
+      static_cast<CC>(self_v), decoder::batch_major(R, Tc, D),
+      static_cast<CC>(cross_k), static_cast<CC>(cross_v),
+      static_cast<CF>(w_head), static_cast<CF>(b_head),
+      static_cast<float*>(logits), static_cast<int*>(nxt),
+      static_cast<float*>(logp), decoder::rows_out<C>(k_new, v_new, R, D),
+      maps, s, Tc, V, Tpos);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// logits is null for the argmax head (nxt, logp given), else nxt and logp
-// are null. The bf16 and float32 bundles: six (weight, bias) pairs.
+// Every entry returns 0, a cudaError, or kRefused (-1) for a model or batch
+// the kernel does not take. logits is null for the argmax head (nxt, logp
+// given), else nxt and logp are null. The bf16 and float32 bundles: six
+// (weight, bias) pairs.
 #define RAGGED_STEP_ENTRY(NAME, TYPE)                                       \
   extern "C" int NAME(                                                      \
       const void* prev, const void* pos, const void* emb,                   \
@@ -176,3 +190,22 @@ RAGGED_STEP_ENTRY(ragged_step_bf16, __nv_bfloat16)
 RAGGED_STEP_ENTRY(ragged_step_f32, float)
 RAGGED_STEP_I8_ENTRY(ragged_step_i8_bf16, __nv_bfloat16)
 RAGGED_STEP_I8_ENTRY(ragged_step_i8_f32, float)
+
+// The launch geometry of a ragged step for R rows (fused_step_geometry's
+// out[0..7], with the float32 head of V columns), or kRefused.
+extern "C" int ragged_step_geometry(int int8, int f32, int R, int Tc, int D,
+                                    int H, int F, int L_enc, int V,
+                                    int* out) {
+  if (int8)
+    return f32 ? cluster_step::geometry<int8_t, float>(
+                     kernel_of<int8_t, float>(), R, Tc, D, H, F, L_enc, V,
+                     out)
+               : cluster_step::geometry<int8_t, __nv_bfloat16>(
+                     kernel_of<int8_t, __nv_bfloat16>(), R, Tc, D, H, F,
+                     L_enc, V, out);
+  return f32 ? cluster_step::geometry<float, float>(
+                   kernel_of<float, float>(), R, Tc, D, H, F, L_enc, V, out)
+             : cluster_step::geometry<__nv_bfloat16, __nv_bfloat16>(
+                   kernel_of<__nv_bfloat16, __nv_bfloat16>(), R, Tc, D, H,
+                   F, L_enc, V, out);
+}

@@ -37,9 +37,9 @@
 // is that the weights are read from device memory once a decode and stay
 // resident on chip; counted so, the decode's bytes are the weights and
 // the cross K/V once plus every self-cache slot read over the steps.
-// Design: B7's step, one block per row, looped in the block; each block
-// reads the weights through its own SM every step (from L2 after the
-// first block), so the kernel stays far above that bound, as B1 does.
+// Design: the one-block-a-row step of decoder_layers.cuh, looped in the
+// block; each block reads the weights through its own SM every step (from
+// L2 after the first block), so the kernel stays far above that bound.
 #include "decoder_layers.cuh"
 
 namespace {

@@ -23,11 +23,11 @@
 // Bound on the H100: bytes. A step reads every decoder weight once (about
 // 10.5 MB of bf16 at 8 layers, d_model 256, FFN 512) plus the float32
 // head (141 KB at vocab 138), the cross K/V and the cache prefix, and does
-// about two flops per weight byte per row. Design: B7's, one block per
-// row; the TPU kernel's one-hot matmuls for the embedding and the
-// position row become two loads, and its vocabulary padding to 128 lanes
-// (a -1e9 bias) is dropped: the head computes exactly V columns. Known
-// weakness, as B1's: each block reads all weights through its own SM.
+// about two flops per weight byte per row. Design: one block per row
+// (decoder_layers.cuh); the TPU kernel's one-hot matmuls for the embedding
+// and the position row become two loads, and its vocabulary padding to
+// 128 lanes (a -1e9 bias) is dropped: the head computes exactly V columns.
+// Known weakness: each block reads all weights through its own SM.
 #include "decoder_layers.cuh"
 
 namespace {

@@ -85,9 +85,11 @@ SIGNATURES = {
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
     "ragged_step_i8_bf16": (P,) * 34 + (I,) * 9 + (P,),
     "ragged_step_i8_f32": (P,) * 34 + (I,) * 9 + (P,),
-    # x, w_q, scale, y, M, K, N, row stride of w_q, 16-byte loads, stream
-    "dequant_matmul_bf16": (P,) * 4 + (I,) * 5 + (P,),
-    "dequant_matmul_f32": (P,) * 4 + (I,) * 5 + (P,),
+    # int8, float32 cache, R, T, D, H, F, L_enc, V, out (8 ints)
+    "ragged_step_geometry": (I,) * 9 + (P,),
+    # x, w_q, scale, y, M, K, N, row stride of w_q, stream
+    "dequant_matmul_bf16": (P,) * 4 + (I,) * 4 + (P,),
+    "dequant_matmul_f32": (P,) * 4 + (I,) * 4 + (P,),
     # k_in, v_in, src, k_out, v_out, L, R, T_in, T_out, t_ext, row bytes,
     # stream (one entry for every type: the kernel copies bytes)
     "beam_cache_gather": (P,) * 5 + (I,) * 6 + (P,),

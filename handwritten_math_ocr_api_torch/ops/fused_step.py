@@ -29,9 +29,10 @@ steps and their weight bundles:
   each row at its own position, returning the head's logits (beam search)
   or each row's argmax and its log-probability.
 
-B7, B10 and B12 share the one-block-a-row layer code and the head of
-``csrc/decoder_layers.cuh``; B1 and B11 run the cluster layer code of
-``csrc/decoder_cluster.cuh``.
+B1, B11 and B7 run the cluster layer code of ``csrc/decoder_cluster.cuh``
+(B7 with its embedding prologue and float32 head epilogue there); B10 and
+B12 share the one-block-a-row layer code and the head of
+``csrc/decoder_layers.cuh``.
 
 B1 and B7 take the bf16/float32 bundles and the int8 one
 (``quantize_stacked``, the JAX "v2q" bundle of ``DecodeEngine(use_fused=
@@ -282,10 +283,14 @@ def fused_decoder_layers_step_v2_plain(stacked, cfg: ModelConfig, x_emb,
                          cross_k, cross_v, rows)
 
 
-# What B1/B11's C entries return for a model or batch the cluster kernel
-# does not take (``csrc/fused_step.cu``: kRefused; its make_shape is the
-# one statement of the shapes the kernel takes).
+# What the C entries of the cluster kernels (B1, B11, B7) return for a
+# model or batch they do not take (``csrc/decoder_cluster.cuh``: kRefused;
+# its make_shape is the one statement of the shapes they take, and
+# head_fits B7's head's).
 REFUSED = -1
+_GEOMETRY_KEYS = ("blocks", "clusters", "rows", "smem_bytes", "stages",
+                  "active_clusters", "staged_self_slots",
+                  "staged_cross_slots")
 
 
 def _check_code(code: int, entry: str, cfg: ModelConfig, B: int) -> None:
@@ -295,7 +300,7 @@ def _check_code(code: int, entry: str, cfg: ModelConfig, B: int) -> None:
         raise ValueError(
             f"the decoder step kernel ({entry}) does not take d_model "
             f"{cfg.d_model}, {cfg.nhead} heads, FFN {cfg.dim_feedforward} "
-            f"at {B} rows (csrc/fused_step.cu make_shape)")
+            f"at {B} rows (csrc/decoder_cluster.cuh make_shape)")
     _build.check(code, entry)
 
 
@@ -310,9 +315,20 @@ def cluster_geometry(cfg: ModelConfig, B: int, T: int, L_enc: int, dtype,
         int(quantized), int(dtype == torch.float32), B, T, cfg.d_model,
         cfg.nhead, cfg.dim_feedforward, L_enc, ctypes.addressof(out))
     _check_code(code, "fused_step_geometry", cfg, B)
-    return dict(zip(("blocks", "clusters", "rows", "smem_bytes", "stages",
-                     "active_clusters", "staged_self_slots",
-                     "staged_cross_slots"), out))
+    return dict(zip(_GEOMETRY_KEYS, out))
+
+
+def ragged_geometry(cfg: ModelConfig, R: int, T: int, L_enc: int, V: int,
+                    dtype, quantized: bool) -> Dict[str, int]:
+    """``cluster_geometry``'s fields for B7 at R rows with a head of V
+    columns: the launch is planned for the last slot whatever the rows'
+    positions."""
+    out = (ctypes.c_int * 8)()
+    code = _build.library().ragged_step_geometry(
+        int(quantized), int(dtype == torch.float32), R, T, cfg.d_model,
+        cfg.nhead, cfg.dim_feedforward, L_enc, V, ctypes.addressof(out))
+    _check_code(code, "ragged_step_geometry", cfg, R)
+    return dict(zip(_GEOMETRY_KEYS, out))
 
 
 def _check_step(cfg: ModelConfig, what: str, x_emb, self_k, self_v,
@@ -515,15 +531,19 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     kernel (one launch for the embedding, every layer and the head,
     counted), CPU tensors to the plain version.
 
-    ``prev`` and ``pos`` stay in device memory: the wrapper reads no value
-    of them, so a step makes no host round trip. A row whose ``prev`` or
-    ``pos`` is out of range gets NaN outputs (nxt -1) and reads nothing.
-    Three options of the TPU kernel are TPU tiling and are dropped: the
-    ``block_b`` row chunk and its multiple-of-8 rule (CUDA has no sublane
-    tile: one block per row), the ``t_active`` prefix bucket (the kernel
-    reads no slot after a row's position anyway) and the zeroing of V past
-    the horizon (NaN protection that becomes not reading those slots).
-    Ring mode, ``n_chunks`` and MQA are not ported."""
+    The kernel runs the rows in groups, one thread-block cluster a group
+    (``csrc/decoder_cluster.cuh``, B1's layer code; ``ragged_geometry``
+    gives the shape), each row at its own position. ``prev`` and ``pos``
+    stay in device memory: the wrapper reads no value of them, so a step
+    makes no host round trip. A row whose ``prev`` or ``pos`` is out of
+    range gets NaN outputs (nxt -1), reads nothing and leaves the other
+    rows of its group as they are. A model the kernel does not split
+    raises ``ValueError``. Three options of the TPU kernel are TPU tiling
+    and are dropped: the ``block_b`` row chunk and its multiple-of-8 rule
+    (the kernel picks its own row groups), the ``t_active`` prefix bucket
+    (the kernel reads no slot after a row's position anyway) and the
+    zeroing of V past the horizon (NaN protection that becomes not reading
+    those slots). Ring mode, ``n_chunks`` and MQA are not ported."""
     if not self_k.is_cuda:
         return fused_ragged_step_plain(stacked, cfg, prev, pos, self_k,
                                        self_v, cross_k, cross_v,
@@ -564,7 +584,7 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     code = getattr(_build.library(), entry)(
         *ptrs, L, R, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V, Tpos,
         _build.stream_handle(dev))
-    _build.check(code, entry)
+    _check_code(code, entry, cfg, R)
     if quantized:
         fused_ragged_step.int8_launches += 1
     else:

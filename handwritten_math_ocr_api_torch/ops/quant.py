@@ -11,8 +11,10 @@ the int8 weight is converted after its (half-sized) load and the scale
 applies to the float32 sum.
 
 ``dequant_matmul`` is the kernel ``csrc/dequant_matmul.cu`` (B9, which
-replaces the Pallas TPU kernel ``_dequant_matmul_pallas``) for CUDA
-tensors, counted in ``dequant_matmul.launches``, and
+replaces the Pallas TPU kernel ``_dequant_matmul_pallas``; a bf16 x on the
+tensor cores, the int8 weight converted to bf16 in registers, a float32 x
+on the CUDA cores) for CUDA tensors, counted in
+``dequant_matmul.launches``, and
 ``dequant_matmul_plain`` for CPU tensors. Both give
 ``round_to_x_dtype((x @ w_q) * scale)`` accumulated in float32, with no
 bias: the caller adds it after the rounding, as the JAX ``linear`` does.
@@ -33,6 +35,9 @@ from . import _build
 QUANT_KEYS = ("w", "w_qkv", "w_out")  # linear-like weights to quantize
 _ENTRY = {torch.bfloat16: "dequant_matmul_bf16",
           torch.float32: "dequant_matmul_f32"}
+# What the C entries return for a K whose operands exceed a block's shared
+# memory (``csrc/dequant_matmul.cu``: kRefused).
+REFUSED = -1
 
 
 def _tensor(a) -> torch.Tensor:
@@ -135,13 +140,14 @@ def dequant_matmul(x, w_q, scale):
     y = torch.empty((M, N), dtype=dt, device=dev)
     if M == 0:
         return y.reshape(*x.shape[:-1], N)
-    ldw = w_q.stride(0)
-    # 16-byte weight loads need aligned rows and whole 16-column groups;
-    # an odd head (138 columns, 138-byte rows) takes byte loads
-    vec = int(ldw % 16 == 0 and N % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    # the kernel picks its tiles by M and stages rows that are not 16-byte
+    # aligned (the 138-column head's 138-byte rows) element by element
     code = getattr(_build.library(), _ENTRY[dt])(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K,
-        N, ldw, vec, _build.stream_handle(dev))
+        N, w_q.stride(0), _build.stream_handle(dev))
+    if code == REFUSED:
+        raise ValueError(f"the dequant matmul kernel does not stage K {K} "
+                         f"in shared memory ({M} rows, {dt})")
     _build.check(code, _ENTRY[dt])
     dequant_matmul.launches += 1
     return y.reshape(*x.shape[:-1], N)

@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Time variants of the port's CUDA kernels against each other on one GPU.
+
+    python3 kernel_ab.py steps PARENT_DIR   # B1 and B11: the tree against
+                                            # another copy of the package
+    python3 kernel_ab.py dequant            # B9's tile shapes and phases
+
+``steps`` times the decoder step kernels B1 (bf16) and B11 at the greedy
+bucket (16 rows) and the last slot (pos 149) from the package of this
+checkout and from the one under PARENT_DIR (a directory holding a
+``handwritten_math_ocr_api_torch/``, such as a ``git archive`` of an
+earlier commit), in turns parent, tree, tree, parent, each in a process of
+its own (the two packages share a name), on the same seeded inputs.
+
+``dequant`` builds ``csrc/dequant_matmul.cu`` with an extra entry that
+launches any of its bf16 tile shapes (template arguments: warps splitting
+K, m16 tiles a block, n8 tiles a warp) and times each at the default
+int8 route's shapes beside ``torch.matmul`` on the weight dequantized
+beforehand; then, at the cross K/V projection's shape, builds it again
+with one phase taken out at a time (the math, the B fragments' loads and
+conversion, the global stores) to show where its time goes.
+
+Device time from ``chip_smoke.cuda_ms`` (the profiler); the card's name and
+power limit are printed first. Numbers compare only within one run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TILES = [(8, 1, 2), (8, 1, 4), (8, 1, 8), (4, 2, 4), (4, 2, 8), (2, 4, 4),
+         (2, 4, 8), (1, 8, 4), (1, 8, 8)]
+# the phases taken out of the bf16 kernel (its source text, replaced)
+PHASES = {
+    "all": [],
+    "no math": [("s1 = min(steps, s0 + per_part);", "s1 = s0;")],
+    "no B loads": [("    load_b_i8<NT>(ws + s * 16 * BN, BN, lane, b);",
+                    "    for (int j = 0; j < NT; ++j)\n"
+                    "      b[j][0] = b[j][1] = 0x3F803F80u + s;")],
+    "no y stores": [("    if (m < M && n < N) {\n      float sum",
+                     "    if (m < M && n < N && m < 0) {\n      float sum")],
+}
+
+
+def steps_in_process(root: str, label: str) -> None:
+    """One side of ``steps``: the package under ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    import handwritten_math_ocr_api_torch as pkg
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    if not pkg.__file__.startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {pkg.__file__}, not {root}'s package")
+    cfg = load_model_config(cs.MODEL_DIR).replace(dtype="bfloat16")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    B, L_enc, pos = 16, cfg.encoder_len, cfg.max_seq_len - 1
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    st = fs.build_stacked(convert.random_params(cfg, cs.SEED)["decoder"],
+                          cfg, dev)
+    sk, sv, ck, cv = (randn(L, B, T, D), randn(L, B, T, D),
+                      randn(L, B, L_enc, D), randn(L, B, L_enc, D))
+    x = randn(B, D)
+    sk2, sv2 = sk.clone(), sv.clone()
+    b1 = cs.cuda_ms(lambda: fs.fused_decoder_layers_step_v2(
+        st, cfg, x, sk, sv, ck, cv, pos), iters=50)
+    b11 = cs.cuda_ms(lambda: fs.fused_decoder_layers_step(
+        st, cfg, x, sk2, sv2, ck, cv, pos), iters=50)
+    print(f"steps {label}: B1 bf16 {b1:.4f} ms, B11 {b11:.4f} ms "
+          f"({B} rows, pos {pos})", flush=True)
+
+
+def steps(parent: str) -> None:
+    for root, label in ((parent, "parent"), (ROOT, "tree"), (ROOT, "tree"),
+                        (parent, "parent")):
+        subprocess.run([sys.executable, __file__, "_steps", root, label],
+                       check=True, cwd=ROOT)
+
+
+def build_variant(edits, out: str) -> ctypes.CDLL:
+    """dequant_matmul.cu with the (old, new) text `edits` and an entry
+    ``tile_launch(x, w, scale, y, M, K, N, ldw, tile, stream)`` launching
+    TILES[tile]."""
+    from handwritten_math_ocr_api_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "dequant_matmul.cu")) as f:
+        src = f.read()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"dequant_matmul.cu has no {old!r}")
+        src = src.replace(old, new)
+    cases = "\n".join(
+        f"    case {i}: return launch_mma<{kw}, {mw}, {nt}>(x, w, s, y, M, "
+        f"K, N, ldw, st);" for i, (kw, mw, nt) in enumerate(TILES))
+    entry = (
+        'extern "C" int tile_launch(const void* x, const void* w, '
+        "const void* s, void* y, int M, int K, int N, int ldw, int tile, "
+        "void* stream) {\n"
+        "  cudaStream_t st = static_cast<cudaStream_t>(stream);\n"
+        f"  switch (tile) {{\n{cases}\n  }}\n  return -2;\n}}\n")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".cu", "w") as f:
+        f.write(src + "\n" + entry)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
+                    "-shared", "-o", out + ".so", out + ".cu"], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(out + ".so")
+    lib.tile_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def dequant() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.ops import _build, quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build = os.path.join(_build.BUILD_ROOT, "kernel_ab")
+    libs = {name: build_variant(edits,
+                                os.path.join(build, name.replace(" ", "_")))
+            for name, edits in PHASES.items()}
+    cfg = load_model_config(cs.MODEL_DIR)
+    dec = convert.to_torch({"decoder": quant.quantize_decoder_params(
+        convert.random_params(cfg, cs.SEED)["decoder"])}, cfg, "cuda")[
+        "decoder"]
+    D = cfg.d_model
+    sa, ca = dec["layers"][0]["self_attn"], dec["layers"][0]["cross_attn"]
+    ffn = dec["layers"][0]["ffn"]
+    shapes = [("qkv", sa["w_qkv_q"], sa["w_qkv_scale"]),
+              ("out", sa["w_out_q"], sa["w_out_scale"]),
+              ("fc1", ffn["fc1"]["w_q"], ffn["fc1"]["w_scale"]),
+              ("fc2", ffn["fc2"]["w_q"], ffn["fc2"]["w_scale"])]
+    cross_k = ("cross k", ca["w_qkv_q"][:, D:2 * D],
+               ca["w_qkv_scale"][D:2 * D])
+    cases = [(*w, M) for M in (16, 50) for w in shapes]
+    cases += [(*cross_k, M) for M in (480, 1500)]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+    stream = _build.stream_handle(torch.device("cuda"))
+    for name, w_q, scale, M in cases:
+        K, N = w_q.shape
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        w_deq = (w_q.float() * scale).bfloat16()
+        want = quant.dequant_matmul_plain(x, w_q, scale)
+        y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        phases = PHASES if name == "cross k" and M == 1500 else ["all"]
+        row = [f"matmul {cs.cuda_ms(lambda: torch.matmul(x, w_deq)):.4f}"]
+        for phase in phases:
+            for i, tile in enumerate(TILES):
+                def run():
+                    code = libs[phase].tile_launch(
+                        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                        y.data_ptr(), M, K, N, w_q.stride(0), i, stream)
+                    if code:
+                        raise RuntimeError(f"tile {tile}: code {code}")
+                try:
+                    run()
+                except RuntimeError:
+                    row.append(f"{phase} {tile} refused")
+                    continue
+                torch.cuda.synchronize()
+                if phase == "all":
+                    cs.assert_close(f"{name} {tile}", y, want)
+                row.append(f"{phase} {tile} {cs.cuda_ms(run):.4f}")
+        print(f"dequant {name} M {M} K {K} N {N} ms: " + ", ".join(row),
+              flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["_steps"]:
+        steps_in_process(sys.argv[2], sys.argv[3])
+        return 0
+    import chip_smoke as cs
+
+    print(cs.nvidia_smi_line(), flush=True)
+    if sys.argv[1:2] == ["steps"] and len(sys.argv) == 3:
+        steps(os.path.abspath(sys.argv[2]))
+    elif sys.argv[1:] == ["dequant"]:
+        dequant()
+    else:
+        print(__doc__, file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

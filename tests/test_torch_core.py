@@ -45,7 +45,7 @@ def jax_config(cfg):
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "kernel_ab.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -275,11 +275,12 @@ def test_layers_step_in_place(dev, np_params, dtype, B):
     ({"d_model": 320}, False),          # a head's row of 5 16-byte vectors
 ])
 def test_fused_decoder_step_refuses_shapes(dev, change, quantized):
-    """A model the cluster kernel does not split raises ValueError on the
-    card (its C entry's refusal), with no launch counted."""
+    """A model the cluster kernels do not split raises ValueError on the
+    card (their C entries' refusal), with no launch counted: B1, B11 and
+    the ragged step (B7)."""
     cfg = CFG.replace(dtype="bfloat16", num_decoder_layers=1, **change)
-    stacked = fs.build_stacked(convert.random_params(cfg, seed=1)["decoder"],
-                               cfg, dev)
+    stacked = fs.build_stacked_full(
+        convert.random_params(cfg, seed=1)["decoder"], cfg, dev)
     if quantized:
         stacked = fs.quantize_stacked(stacked)
     bf16 = torch.bfloat16
@@ -291,15 +292,22 @@ def test_fused_decoder_step_refuses_shapes(dev, change, quantized):
     before = (fs.fused_decoder_layers_step_v2.launches,
               fs.fused_decoder_layers_step_v2.int8_launches,
               fs.fused_decoder_layers_step.launches)
+    ragged_before = (fs.fused_ragged_step.launches,
+                     fs.fused_ragged_step.int8_launches)
     with pytest.raises(ValueError, match="does not take"):
         fs.fused_decoder_layers_step_v2(stacked, cfg, x, sk, sk, ck, ck, 3)
     if not quantized:
         with pytest.raises(ValueError, match="does not take"):
             fs.fused_decoder_layers_step(stacked, cfg, x, sk, sk.clone(), ck,
                                          ck, 3)
+    rows = torch.zeros(B, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="does not take"):
+        fs.fused_ragged_step(stacked, cfg, rows, rows + 3, sk, sk, ck, ck)
     assert (fs.fused_decoder_layers_step_v2.launches,
             fs.fused_decoder_layers_step_v2.int8_launches,
             fs.fused_decoder_layers_step.launches) == before
+    assert (fs.fused_ragged_step.launches,
+            fs.fused_ragged_step.int8_launches) == ragged_before
 
 
 def _hold_picks(nxt, want_nxt, logits, atol):
@@ -423,6 +431,8 @@ def _dequant_cases(dec, batch):
             ("fc1", ffn["fc1"]["w_q"], ffn["fc1"]["w_scale"], batch),
             ("fc2", ffn["fc2"]["w_q"], ffn["fc2"]["w_scale"], batch),
             ("head", dec["fc_out"]["w_q"], dec["fc_out"]["w_scale"], batch),
+            ("cross k", ca["w_qkv_q"][:, D:2 * D], ca["w_qkv_scale"][D:2 * D],
+             batch * L_enc),
             ("cross v", ca["w_qkv_q"][:, 2 * D:], ca["w_qkv_scale"][2 * D:],
              batch * L_enc)]
 
@@ -445,6 +455,28 @@ def test_dequant_matmul(dev, np_params, dtype, batch):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N", [
+    (1, 200, 48),     # K a multiple of 8, not of the 16-row k-step
+    (50, 100, 20),    # K not a multiple of 8 (x staged by element), N < 32
+    (300, 72, 138),   # many row blocks, the unaligned head width
+    (64, 512, 768),   # the most rows of one block
+    (65, 256, 256),   # one row past it: the tall tiles
+])
+def test_dequant_matmul_ragged_edges(dev, dtype, M, K, N):
+    """Shapes past the served ones: K not a multiple of the kernel's
+    k-step (and of 8), columns and rows past a tile's edge, a weight with
+    unaligned rows; and a column slice of a wider matrix."""
+    w, scale = quant.quantize_weight(
+        0.05 * _randn(dev, "float32", K, 3 * N, seed=M + K + N))
+    x = _randn(dev, dtype, M, K, seed=K)
+    for w_q, s in ((w[:, :N].contiguous(), scale[:N].contiguous()),
+                   (w[:, N:2 * N], scale[N:2 * N])):
+        got = _launched(quant.dequant_matmul,
+                        lambda: quant.dequant_matmul(x, w_q, s))
+        _close(got, quant.dequant_matmul_plain(x, w_q, s), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_swin_block(dev, np_params, dtype, stage):
     """Batch 1 and 2, unshifted and shifted, with the engine's bundle
@@ -463,29 +495,54 @@ def test_swin_block(dev, np_params, dtype, stage):
                    TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("R", [1, 50])
-def test_ragged_step(dev, np_params, dtype, R):
-    cfg = CFG.replace(dtype=dtype)
-    stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
+# B7's row counts: one row, a partial group, the greedy bucket, the beam's
+# 50 rows (13 groups of 4), the largest served bucket and more rows than
+# one group a cluster of the card holds at once
+RAGGED_ROWS = [1, 5, 16, 50, 64, 130]
+
+
+def _ragged_inputs(dev, cfg, R, seed):
+    """Caches, cross K/V and prev for R rows; positions: all at the first
+    slot, all at the last, a random vector, and 0 and T - 1 alternating in
+    one launch."""
     L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
-    sk, sv = (_randn(dev, dtype, L, R, T, D, seed=i) for i in range(2))
-    ck, cv = (_randn(dev, dtype, L, R, L_enc, D, seed=2 + i)
+    sk, sv = (_randn(dev, cfg.dtype, L, R, T, D, seed=seed + i)
               for i in range(2))
-    gen = torch.Generator(device=dev).manual_seed(5)
+    ck, cv = (_randn(dev, cfg.dtype, L, R, L_enc, D, seed=seed + 2 + i)
+              for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(seed)
     prev = torch.randint(0, cfg.vocab_size, (R,), generator=gen,
                          device=dev, dtype=torch.int32)
-    for pos in (torch.full((R,), 0, dtype=torch.int32, device=dev),
-                torch.full((R,), 149, dtype=torch.int32, device=dev),
-                torch.randint(0, T, (R,), generator=gen, device=dev,
-                              dtype=torch.int32)):
+    i32 = torch.int32
+    positions = (torch.full((R,), 0, dtype=i32, device=dev),
+                 torch.full((R,), T - 1, dtype=i32, device=dev),
+                 torch.randint(0, T, (R,), generator=gen, device=dev,
+                               dtype=i32),
+                 torch.arange(R, device=dev, dtype=i32) % 2 * (T - 1))
+    return prev, positions, (sk, sv, ck, cv)
+
+
+def _ragged_bundle(np_params, cfg, dev, bundle):
+    stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
+    return fs.quantize_stacked(stacked) if bundle == "int8" else stacked
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", RAGGED_ROWS)
+def test_ragged_step(dev, np_params, dtype, R):
+    """Both head modes against the plain step: logits, logp and the fresh
+    rows within the step tolerance, the argmax equal in float32."""
+    cfg = CFG.replace(dtype=dtype)
+    stacked = _ragged_bundle(np_params, cfg, dev, "float")
+    prev, positions, caches = _ragged_inputs(dev, cfg, R, seed=R)
+    for pos in positions:
         for logits in (True, False):
             got = _launched(fs.fused_ragged_step,
                             lambda: fs.fused_ragged_step(
-                                stacked, cfg, prev, pos, sk, sv, ck, cv,
+                                stacked, cfg, prev, pos, *caches,
                                 return_logits=logits))
-            want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, sk, sv,
-                                              ck, cv, return_logits=logits)
+            want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos,
+                                              *caches, return_logits=logits)
             if not logits:
                 if dtype == "float32":
                     assert torch.equal(got[0], want[0])
@@ -495,28 +552,21 @@ def test_ragged_step(dev, np_params, dtype, R):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("R", [1, 50])
+@pytest.mark.parametrize("R", RAGGED_ROWS)
 def test_ragged_step_int8(dev, np_params, dtype, R):
+    """The int8 bundle (bf16 matmul inputs in both dtypes): the bf16 step
+    tolerance, the argmax equal wherever the plain logits' top two lie
+    further apart than twice the largest logits error."""
     cfg = CFG.replace(dtype=dtype)
-    stacked = fs.quantize_stacked(fs.build_stacked_full(np_params["decoder"],
-                                                        cfg, dev))
-    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
-    sk, sv = (_randn(dev, dtype, L, R, T, D, seed=i) for i in range(2))
-    ck, cv = (_randn(dev, dtype, L, R, L_enc, D, seed=2 + i)
-              for i in range(2))
-    gen = torch.Generator(device=dev).manual_seed(7)
-    prev = torch.randint(0, cfg.vocab_size, (R,), generator=gen,
-                         device=dev, dtype=torch.int32)
-    for pos in (torch.full((R,), 0, dtype=torch.int32, device=dev),
-                torch.full((R,), 149, dtype=torch.int32, device=dev),
-                torch.randint(0, T, (R,), generator=gen, device=dev,
-                              dtype=torch.int32)):
+    stacked = _ragged_bundle(np_params, cfg, dev, "int8")
+    prev, positions, caches = _ragged_inputs(dev, cfg, R, seed=R + 7)
+    for pos in positions:
         got = _launched(fs.fused_ragged_step,
                         lambda: fs.fused_ragged_step(
-                            stacked, cfg, prev, pos, sk, sv, ck, cv,
+                            stacked, cfg, prev, pos, *caches,
                             return_logits=True), "int8_launches")
-        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, sk, sv,
-                                          ck, cv, return_logits=True)
+        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          return_logits=True)
         for g, w in zip(got, want):
             _close(g, w, STEP_TOL["bfloat16"])
         logits_err = (got[0] - want[0]).abs().max()
@@ -524,13 +574,68 @@ def test_ragged_step_int8(dev, np_params, dtype, R):
         clear = top2[:, 0] - top2[:, 1] > 2 * logits_err
         nxt = _launched(fs.fused_ragged_step,
                         lambda: fs.fused_ragged_step(
-                            stacked, cfg, prev, pos, sk, sv, ck, cv),
+                            stacked, cfg, prev, pos, *caches),
                         "int8_launches")
-        want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, sk,
-                                              sv, ck, cv)
+        want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos,
+                                              *caches)
         assert torch.equal(nxt[0][clear], want_nxt[0][clear])
         for g, w in zip(nxt[1:], want_nxt[1:]):
             _close(g, w, STEP_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("bundle", ["float", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_step_dead_row(dev, np_params, dtype, bundle):
+    """Rows whose pos or prev is out of range among good ones of the same
+    group (5 rows: one group): NaN outputs and nxt -1 in those rows only,
+    the group's other rows as the plain step gives them; and a tie in the
+    logits (two equal head columns with the largest bias) resolved to the
+    lower index."""
+    cfg = CFG.replace(dtype=dtype)
+    stacked = dict(_ragged_bundle(np_params, cfg, dev, bundle))
+    R, T, V = 5, 150, cfg.vocab_size
+    prev, positions, caches = _ragged_inputs(dev, cfg, R, seed=11)
+    w_head, b_head = stacked["w_head"].clone(), stacked["b_head"].clone()
+    w_head[:, 7] = w_head[:, 3]
+    b_head[0, 3] = b_head[0, 7] = 50.0
+    stacked["w_head"], stacked["b_head"] = w_head, b_head
+    tol = STEP_TOL["bfloat16" if bundle == "int8" else dtype]
+    attr = "int8_launches" if bundle == "int8" else "launches"
+    pos = positions[3].clone()
+    bad_pos, bad_prev = pos.clone(), prev.clone()
+    bad_pos[1] = T        # past the cache
+    bad_prev[3] = V       # past the vocabulary
+    dead = torch.tensor([False, True, False, True, False], device=dev)
+    for logits in (True, False):
+        got = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, bad_prev, bad_pos, *caches,
+                            return_logits=logits), attr)
+        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          return_logits=logits)
+        torch.cuda.synchronize()
+        outs = got
+        if not logits:
+            assert got[0][dead].tolist() == [-1, -1]
+            assert got[0][~dead].tolist() == [3, 3, 3]   # the lower index
+            outs, want = got[1:], want[1:]
+        for g, w in zip(outs, want):
+            rows = dead if g.dim() < 3 else (slice(None), dead)
+            live = ~dead if g.dim() < 3 else (slice(None), ~dead)
+            assert torch.isnan(g[rows].float()).all()
+            _close(g[live], w[live], tol)
+
+
+def test_ragged_step_geometry(dev):
+    """B7's launch shape at the beam's 50 rows: groups of at most 16 rows
+    on 8-block clusters, every group's rows counted once."""
+    for dtype, quantized in ((torch.bfloat16, False), (torch.bfloat16, True),
+                             (torch.float32, False)):
+        geo = fs.ragged_geometry(CFG, 50, 150, CFG.encoder_len,
+                                 CFG.vocab_size, dtype, quantized)
+        assert geo["blocks"] == 8 and 1 <= geo["rows"] <= 16
+        assert geo["clusters"] == -(-50 // geo["rows"])
+        assert geo["active_clusters"] >= 1 and geo["stages"] >= 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

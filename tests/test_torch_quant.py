@@ -160,13 +160,16 @@ def test_to_torch_keeps_int8_weights_and_float32_scales(decoder):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M", [1, 16, 50])
+@pytest.mark.parametrize("M", [1, 16, 50, 300])
 @pytest.mark.parametrize("N", [20, 48, 138])
 def test_dequant_matmul_plain_matches_pallas(dtype, M, N):
-    """Against the TPU kernel B9 itself, in interpret mode; N 138 is the
-    head's odd width."""
+    """Against the TPU kernel B9 itself, in interpret mode, at the shapes
+    the CUDA kernel tiles differently: one row, one m16 tile, a partial
+    fourth (50) and several 128-row blocks (300); N 20 (a partial 16-column
+    tile), 48 and 138 (the head's odd width); K 36 (not a multiple of 8: x
+    staged by element), 64 and 72 (not a multiple of the 16-row k-step)."""
     rng = np.random.default_rng(M * N)
-    K = 32 if N != 48 else 64
+    K = {20: 36, 48: 64, 138: 72}[N]
     w_q, scale = jquant.quantize_weight(jnp.asarray(_weight(N, (K, N))))
     x = jnp.asarray(rng.standard_normal((M, K)).astype(np.float32)).astype(
         dtype)
@@ -185,19 +188,21 @@ def test_dequant_matmul_plain_matches_pallas(dtype, M, N):
 def test_dequant_matmul_plain_matches_pallas_on_a_column_slice(dtype):
     """The cross projection's k columns of a packed (32, 96) int8 matrix: a
     strided view, as the decoder passes it, against JAX's B9 on the same
-    slice."""
+    slice; for a decode step's rows (2 x 6) and the encoder memory's
+    (25 x 12: the CUDA kernel's tall tiles)."""
     w_q, scale = jquant.quantize_weight(jnp.asarray(_weight(3, (32, 96))))
-    x = jnp.asarray(np.random.default_rng(4).standard_normal(
-        (2, 6, 32)).astype(np.float32)).astype(dtype)
-    want = jquant.dequant_matmul(x, w_q[:, 32:64], scale[32:64],
-                                 use_pallas=True)
     tw = _t(w_q)[:, 32:64]
     assert not tw.is_contiguous()
-    got = tquant.dequant_matmul(_t(_np(x)).to(getattr(torch, dtype)), tw,
-                                _t(scale)[32:64])
     atol, rtol = MM_TOL[dtype]
-    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=atol,
-                               rtol=rtol)
+    for seed, shape in ((4, (2, 6, 32)), (5, (25, 12, 32))):
+        x = jnp.asarray(np.random.default_rng(seed).standard_normal(
+            shape).astype(np.float32)).astype(dtype)
+        want = jquant.dequant_matmul(x, w_q[:, 32:64], scale[32:64],
+                                     use_pallas=True)
+        got = tquant.dequant_matmul(_t(_np(x)).to(getattr(torch, dtype)), tw,
+                                    _t(scale)[32:64])
+        np.testing.assert_allclose(got.float().numpy(), _np(want),
+                                   atol=atol, rtol=rtol)
 
 
 def test_int8_linear_rounds_before_the_bias():

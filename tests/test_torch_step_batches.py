@@ -1,14 +1,19 @@
-"""The decoder step (B1, its int8 bundle, and B11) of the port against the
-JAX package's at the batch sizes its CUDA kernel groups differently.
+"""The decoder step (B1, its int8 bundle, and B11) and the ragged step
+(B7, float and int8 bundles) of the port against the JAX package's at the
+batch sizes their CUDA kernels group differently.
 
-``csrc/fused_step.cu`` runs the rows in groups of up to 16, one
-thread-block cluster a group: one row, a partial group, one group, more
-than one with the last partial, and the largest served bucket (64) take
-different launch shapes on the card (``tests/test_torch_kernels_cuda.py``
-holds the kernel against its plain version there at the same sizes). On
-the CPU the wrappers run their plain versions, held here against the JAX
-Pallas kernels in interpret mode at each of those sizes, at the first, a
-middle and the last slot. The decoder is ``tests/test_fused.py``'s (d_model 32, 4
+``csrc/fused_step.cu`` and ``csrc/ragged_step.cu`` run the rows in groups
+of up to 16, one thread-block cluster a group (``csrc/decoder_cluster.cuh``):
+one row, a partial group, one group, more than one with the last partial,
+the beam's 50 rows and the largest served bucket (64) take different
+launch shapes on the card (``tests/test_torch_kernels_cuda.py`` holds the
+kernels against their plain versions there). On the CPU the wrappers run
+their plain versions, held here against the JAX Pallas kernels in
+interpret mode at each of those sizes: B1 and B11 at the first, a middle
+and the last slot; B7 at a position vector that mixes the last slot, the
+first, a middle one and random ones, in both head modes (JAX's pool
+padded with zero rows to its ``block_b`` multiple; the port's real rows
+compared). The decoder is ``tests/test_fused.py``'s (d_model 32, 4
 heads, 2 layers, FFN 64, T 12, float32) with every bias and LayerNorm
 parameter nonzero; inputs are made with numpy from a seed, the encoder
 memory 6 slots long (JAX's cross K/V padded to 16 slots that its kernels
@@ -30,8 +35,10 @@ from handwritten_math_ocr_api_tpu.decode.fused import (
 )
 from handwritten_math_ocr_api_tpu.ops.fused_step import (
     build_stacked as j_build_stacked,
+    build_stacked_full as j_build_stacked_full,
     fused_decoder_layers_step as j_layers_step,
     fused_decoder_layers_step_v2 as j_step_v2,
+    fused_ragged_step as j_ragged_step,
     quantize_stacked as j_quantize_stacked,
 )
 
@@ -119,3 +126,71 @@ def test_layers_step_matches_pallas(decoder, B, pos):
                                       old[:, :, other])
         np.testing.assert_allclose(g.numpy()[:, :, pos], w[:, :, pos],
                                    atol=STEP_TOL, rtol=STEP_TOL)
+
+
+RAGGED_ROWS = [1, 5, 16, 50, 64]
+JAX_BLOCK_B = 16   # the JAX ragged step's row chunk (its pool a multiple)
+
+
+def _ragged_positions(rows, rng):
+    """The last slot, the first, a middle one, then a random one, in turn."""
+    pos = rng.integers(0, T, rows).astype(np.int32)
+    pos[0::4], pos[1::4], pos[2::4] = T - 1, 0, T // 2 - 1
+    return pos
+
+
+def _pad_rows(a, axis, rows):
+    """``a`` with zero rows appended along ``axis`` up to ``rows``."""
+    width = [(0, 0)] * a.ndim
+    width[axis] = (0, rows - a.shape[axis])
+    return np.pad(np.asarray(a), width)
+
+
+@pytest.mark.parametrize("return_logits", [True, False])
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("R", RAGGED_ROWS)
+def test_ragged_step_matches_pallas(decoder, R, quantize, return_logits):
+    """B7: the logits (or the argmax and its log-probability) and each
+    layer's fresh K/V rows of every real row; no launch counted on the
+    CPU. The int8 bundle's argmax is held where the port's own logits'
+    top two lie further apart than twice the int8 tolerance (a near-tie
+    may turn on a bf16 rounding)."""
+    rng = np.random.default_rng(300 + R)
+    _, sk, sv, ck, cv = _inputs(decoder, R, 400 + R)
+    prev = rng.integers(0, DEC_CFG.vocab_size, R).astype(np.int32)
+    pos = _ragged_positions(R, rng)
+    jst = j_build_stacked_full(_j(decoder), DEC_JCFG)
+    tst = tstep.build_stacked_full(decoder, DEC_CFG)
+    if quantize:
+        jst, tst = j_quantize_stacked(jst), tstep.quantize_stacked(tst)
+    pool = -(-R // JAX_BLOCK_B) * JAX_BLOCK_B
+    want = j_ragged_step(
+        jst, DEC_JCFG, jnp.asarray(_pad_rows(prev, 0, pool)),
+        jnp.asarray(_pad_rows(pos, 0, pool)),
+        *(jnp.asarray(_pad_rows(a, 1, pool)) for a in (sk, sv, ck, cv)),
+        l_enc_actual=L_ENC, block_b=JAX_BLOCK_B,
+        return_logits=return_logits, interpret=True)
+    counter = "int8_launches" if quantize else "launches"
+    before = getattr(tstep.fused_ragged_step, counter)
+    args = (tst, DEC_CFG, _t(prev), _t(pos), _t(sk), _t(sv),
+            _t(ck[:, :, :L_ENC]), _t(cv[:, :, :L_ENC]))
+    got = tstep.fused_ragged_step(*args, return_logits=return_logits)
+    assert getattr(tstep.fused_ragged_step, counter) == before
+    atol = INT8_STEP_ATOL if quantize else STEP_TOL
+    if return_logits:
+        np.testing.assert_allclose(
+            got[0].numpy(), np.asarray(want[0])[:R, :DEC_CFG.vocab_size],
+            atol=atol, rtol=STEP_TOL)
+    else:
+        nxt = np.asarray(want[0])[:R]
+        held = np.ones(R, dtype=bool)
+        if quantize:
+            top2 = tstep.fused_ragged_step(
+                *args, return_logits=True)[0].topk(2, dim=-1).values
+            held = (top2[:, 0] - top2[:, 1]).numpy() > 2 * INT8_STEP_ATOL
+        np.testing.assert_array_equal(got[0].numpy()[held], nxt[held])
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1])[:R],
+                                   atol=atol, rtol=STEP_TOL)
+    for name, g, w in zip(("k_new", "v_new"), got[-2:], want[-2:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:, :R],
+                                   atol=atol, rtol=STEP_TOL, err_msg=name)
