@@ -27,7 +27,10 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    decode of 150 steps with the bf16 and the int8 resident bundle (its
    tokens equal to the plain version's up to a first difference at such a
    near-tie in a row); the whole Swin block at stages 1-3, unshifted and
-   shifted;
+   shifted, at one image and at the bucket, with its cluster geometry and
+   beside the unfused block of the default route (``unfused_ms``); patch
+   merging at its three merges at one image and at the bucket, beside
+   layer norm and one matmul on the gathered rows (``unfused_ms``);
    the ragged step at the beam's 50 rows at pos 0, 74, 149 and a ragged
    position vector and at the bucket's 16 rows at pos 149 and a ragged
    vector, in both head modes, with both bundles (and in float32, where its
@@ -266,6 +269,7 @@ def check_kernels(cfg, params, batch, rows):
     import torch.nn.functional as F
 
     from handwritten_math_ocr_api_torch.models import swin
+    from handwritten_math_ocr_api_torch.ops import _build
     from handwritten_math_ocr_api_torch.ops import cache_attention as ca
     from handwritten_math_ocr_api_torch.ops import patch_merging as pm
     from handwritten_math_ocr_api_torch.ops import window_attention as wa
@@ -339,21 +343,35 @@ def check_kernels(cfg, params, batch, rows):
         if i == len(cfg.swin.depths) - 1:
             continue
         p_merge = params["encoder"]["merges"][i]
-        x = randn(batch, h, w, c)
-        got = pm.fused_patch_merging(p_merge, x)
-        want = pm.patch_merging_plain(p_merge, x)
-        torch.cuda.synchronize()
-        assert_close(f"patch_merging {i + 1}", got, want)
+        err = 0.0
+        for n in (1, batch):  # predict_single and the bucket
+            x = randn(n, h, w, c)
+            got = pm.fused_patch_merging(p_merge, x)
+            want = pm.patch_merging_plain(p_merge, x)
+            torch.cuda.synchronize()
+            assert_close(f"patch_merging {i + 1} batch {n}", got, want)
+            err = max(err, max_err(got, want))
         ms = cuda_ms(lambda: pm.fused_patch_merging(p_merge, x))
         plain = cuda_ms(lambda: pm.patch_merging_plain(p_merge, x))
+        # unfused: layer norm (bf16 in and out) and one matmul on the rows
+        # gathered beforehand; several calls, not a yardstick of one
+        cat = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                         x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        g, b = (p_merge["norm"][k].to(bf16) for k in ("scale", "bias"))
+        w_red = p_merge["reduction"]["w"].to(bf16)
+        unfused = cuda_ms(lambda: F.layer_norm(cat, cat.shape[-1:], g, b,
+                                               1e-5) @ w_red)
+        merge.d["unfused_ms"] = merge.d.get("unfused_ms", 0.0) + unfused
         M = batch * (h // 2) * (w // 2)
         nbytes = (x.numel() * 2 + 8 * c * c * 2 + 2 * 4 * c * 4
                   + M * 2 * c * 2)
         flops = 2 * M * 4 * c * 2 * c
-        merge.add(1, max_err(got, want), ms, plain, None, nbytes, flops)
+        merge.add(1, err, ms, plain, None, nbytes, flops)
         log(f"kernel patch_merging {i + 1}: x {tuple(x.shape)} "
-            f"max_abs_err {max_err(got, want):.3g} ms {ms:.4f} "
-            f"plain_ms {plain:.4f} bound_ms {bound_ms(nbytes, flops):.4f}")
+            f"max_abs_err {err:.3g} (batch 1 and {batch}) ms {ms:.4f} "
+            f"plain_ms {plain:.4f} unfused_ms {unfused:.4f} bound_ms "
+            f"{bound_ms(nbytes, flops):.4f} tile 32x"
+            f"{pm.tile_plan(M, c, _build.sm_count(dev))[0]}")
 
     d = win.d
     log(f"kernel window_attention: one encode ms {d['ms']:.4f} sdpa_ms "
@@ -583,9 +601,13 @@ def step_weight_bytes(cfg, quantize):
 
 def check_swin_block(cfg, np_params, params, batch):
     """Phase 3: the whole-block kernel against its plain version at every
-    stage the route fuses, unshifted and shifted."""
+    stage the route fuses, unshifted and shifted, at one image
+    (``predict_single``) and at the bucket, with its launch geometry; timed
+    at both, beside the plain version and the unfused block of the default
+    route (layer norm, cuBLAS, window attention and GELU)."""
     import torch
 
+    from handwritten_math_ocr_api_torch.models import swin
     from handwritten_math_ocr_api_torch.ops import swin_block as sb
 
     dev = torch.device(DEVICE)
@@ -598,6 +620,8 @@ def check_swin_block(cfg, np_params, params, batch):
                   "handwritten_math_ocr_api_tpu/ops/swin_block.py:129",
                   f"one encode: {fused_blocks(cfg)} launches at the stage "
                   f"shapes that fuse")
+    entry.d["unfused_ms"] = 0.0
+    entry.d["ms_batch1"] = 0.0
     # the engine's bundle: the blocks' four biases in float32
     encoder = sb.with_float32_biases(np_params["encoder"], params["encoder"])
     for i, (h, w, c, nh, depth, ph, pw) in enumerate(stage_shapes(cfg,
@@ -606,18 +630,31 @@ def check_swin_block(cfg, np_params, params, batch):
         if not sb.fits_vmem(c, ws, pw, hid):
             continue
         p = encoder["stages"][i]["blocks"][-1]
-        x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(
-            torch.bfloat16)
-        err = 0.0
-        for shift in (0, ws // 2):
-            got = sb.fused_swin_block(p, x, ws, shift, nh)
-            want = sb.fused_swin_block_plain(p, x, ws, shift, nh)
-            torch.cuda.synchronize()
-            assert_close(f"swin_block stage {i + 1} shift {shift}", got, want)
-            err = max(err, max_err(got, want))
-        ms = cuda_ms(lambda: sb.fused_swin_block(p, x, ws, ws // 2, nh))
+        err, times = 0.0, {}
+        for n in (1, batch):
+            geo = sb.block_geometry(n, h, w, c, nh, hid, ws, dev)
+            log(f"kernel swin_block stage {i + 1} batch {n} geometry: "
+                + " ".join(f"{k} {v}" for k, v in geo.items()))
+            x = torch.randn(n, h, w, c, generator=gen, device=dev).to(
+                torch.bfloat16)
+            for shift in (0, ws // 2):
+                got = sb.fused_swin_block(p, x, ws, shift, nh)
+                want = sb.fused_swin_block_plain(p, x, ws, shift, nh)
+                torch.cuda.synchronize()
+                assert_close(f"swin_block stage {i + 1} batch {n} shift "
+                             f"{shift}", got, want)
+                err = max(err, max_err(got, want))
+            times[n] = cuda_ms(lambda: sb.fused_swin_block(p, x, ws, ws // 2,
+                                                           nh))
+        ms = times[batch]
         plain = cuda_ms(lambda: sb.fused_swin_block_plain(p, x, ws, ws // 2,
                                                           nh))
+        # the default route's block: several calls, one of them B2
+        blk = params["encoder"]["stages"][i]["blocks"][-1]
+        unfused = cuda_ms(lambda: swin.swin_block(
+            blk, x, ws, ws // 2, nh, kernels=True, use_pallas_block=False))
+        entry.d["unfused_ms"] += depth * unfused
+        entry.d["ms_batch1"] += depth * times[1]
         real = batch * h * w
         weights = c * 3 * c + c * c + 2 * c * hid
         nbytes = (2 * real * c * 2 + weights * 2 + (5 * c + hid) * 4
@@ -630,9 +667,14 @@ def check_swin_block(cfg, np_params, params, batch):
                  + 2 * real * (c * c + 2 * c * hid))   # proj, MLP
         entry.add(depth, err, ms, plain, None, nbytes, flops)
         log(f"kernel swin_block stage {i + 1}: x {tuple(x.shape)} "
-            f"max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain:.4f} "
-            f"bound_ms {bound_ms(nbytes, flops):.4f} "
+            f"max_abs_err {err:.3g} (batch 1 and {batch}) ms {ms:.4f} "
+            f"ms_batch1 {times[1]:.4f} plain_ms {plain:.4f} unfused_ms "
+            f"{unfused:.4f} bound_ms {bound_ms(nbytes, flops):.4f} "
             f"({bound_by(nbytes, flops)}) library_ms null x{depth}")
+    d = entry.d
+    log(f"kernel swin_block: one encode ms {d['ms']:.4f} (batch 1 "
+        f"{d['ms_batch1']:.4f}) unfused_ms {d['unfused_ms']:.4f} plain_ms "
+        f"{d['plain_ms']:.4f} bound_ms {d['bound_ms']:.4f}")
     return entry
 
 
@@ -1310,8 +1352,9 @@ def check_counts(counts, expected):
 # the port's kernels as the profiler names them
 PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "window_attention", "window_attention_mma", "patch_merging",
-    "cache_append_attention",
-    "fused_step_cluster", "swin_block", "ragged_step_cluster", "beam_gather",
+    "patch_merging_mma", "cache_append_attention",
+    "fused_step_cluster", "swin_block", "swin_block_mma",
+    "ragged_step_cluster", "beam_gather",
     "dequant_mma", "dequant_f32", "whole_step", "whole_decode"))
 
 

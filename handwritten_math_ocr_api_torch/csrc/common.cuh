@@ -103,6 +103,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Close this thread's group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` of this thread's committed groups are still
+// in flight (the newest ones).
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
 // One 16-byte asynchronous copy of the first `bytes` (0-16) of gmem, the
 // rest of the 16 bytes zero-filled (none read if 0; gmem must still be a
 // valid address). Both addresses 16-byte aligned.
@@ -123,7 +135,8 @@ __device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
 }
 
 // Tensor-core helpers (mma.sync on bf16 with float32 sums), shared by the
-// cluster decoder step (decoder_cluster.cuh) and the dequant matmul.
+// cluster decoder step (decoder_cluster.cuh), the dequant matmul, window
+// attention (window_attend.cuh) and the products of mma_pass.cuh.
 namespace tc {
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -133,6 +146,14 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
@@ -187,4 +208,32 @@ __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The clusters of a kernel's shape and shared memory that fit on the card
+// at once (0: none), queried once for each.
+__host__ inline cudaError_t active_clusters(const void* kernel,
+                                           const cudaLaunchConfig_t& cfg,
+                                           int* active) {
+  struct Key {
+    const void* kernel;
+    int cs, smem;
+  };
+  static Key keys[32];
+  static int values[32], used = 0;
+  const int cs = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
+  const int smem = static_cast<int>(cfg.dynamicSmemBytes);
+  for (int i = 0; i < used; ++i) {
+    if (keys[i].kernel == kernel && keys[i].cs == cs &&
+        keys[i].smem == smem) {
+      *active = values[i];
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
+  if (err == cudaSuccess && used < 32) {
+    keys[used] = {kernel, cs, smem};
+    values[used++] = *active;
+  }
+  return err;
 }

@@ -1573,34 +1573,6 @@ cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
   return err;
 }
 
-// The clusters of a kernel's shape and shared memory that fit on the card
-// at once (0: none), queried once for each.
-inline cudaError_t active_clusters(const void* kernel,
-                                   const cudaLaunchConfig_t& cfg,
-                                   int* active) {
-  struct Key {
-    const void* kernel;
-    int cs, smem;
-  };
-  static Key keys[32];
-  static int values[32], used = 0;
-  const int cs = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
-  const int smem = static_cast<int>(cfg.dynamicSmemBytes);
-  for (int i = 0; i < used; ++i) {
-    if (keys[i].kernel == kernel && keys[i].cs == cs &&
-        keys[i].smem == smem) {
-      *active = values[i];
-      return cudaSuccess;
-    }
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
-  if (err == cudaSuccess && used < 32) {
-    keys[used] = {kernel, cs, smem};
-    values[used++] = *active;
-  }
-  return err;
-}
-
 // The launch configuration of a Shape, and in *active the clusters of its
 // shape that fit on the card at once.
 template <typename W, typename C>

@@ -21,27 +21,20 @@
 // memory with 16-byte cp.async copies, rows padded by 16 bytes so that
 // ldmatrix reads them without bank conflicts, and loads the warp's part of
 // the float32 mask from L2 into registers while the copies fly. Each warp
-// owns 16 query rows against all keys, N padded to 64: S = Q K^T on the
-// tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate, operands
-// through ldmatrix), the scale and mask added to the accumulator, key
-// columns >= N set to -inf, row max and sum in registers with quad
-// shuffles. P goes from the accumulator straight into the A operand (the
-// m16n8 accumulator layout is the m16k16 A layout), rounded to bf16, and
-// O = P V runs on the tensor cores with V through ldmatrix.trans. O is
+// owns 16 query rows against all keys: window_attend.cuh's attend_rows
+// (S = Q K^T, the scale and mask, softmax and O = P V on the tensor cores;
+// rows N..63 are never copied, their addresses clamped to row N - 1). O is
 // divided by the float32 row sum, staged in the warp's own q rows and
-// written out as 16-byte stores, rows < N only. Padded rows (N..63) are
-// never copied: their ldmatrix addresses are clamped to row N - 1, so a
-// padded query row computes a discarded copy of a real one and a padded
-// key meets a probability of exactly 0 against finite data; no stale
-// shared memory reaches a product. Shared memory is 3 * N * (dh + 8) * 2
-// bytes (11.8 KB at Swin-T's shapes), so several groups are in flight on
-// each SM.
+// written out as 16-byte stores, rows < N only. Shared memory is
+// 3 * N * (dh + 8) * 2 bytes (11.8 KB at Swin-T's shapes), so several
+// groups are in flight on each SM.
 //
 // float32 (window_attention_kernel): the CUDA-core version, one block per
 // group; q (pre-scaled), k (rows padded by one float against bank
 // conflicts) and v staged in shared memory as float32, the (N, N) logits
 // kept in the block, one warp normalising each row.
 #include "common.cuh"
+#include "window_attend.cuh"
 
 namespace {
 
@@ -113,45 +106,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int kMmaWarps = 4;  // 16 query rows each: N <= 64
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kKeyTiles = 8;  // 64 keys in tiles of 8
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, float32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment layouts of mma.m16n8k16 (lane = 4 * gq + tq): the accumulator's
-// d[0], d[1] are row gq, columns 2 tq and 2 tq + 1 of the 16x8 tile, d[2],
-// d[3] the same columns of row gq + 8; a[0..3] hold rows gq / gq + 8 at
-// columns 2 tq (+1) and 2 tq + 8 (+1), in the order (gq, lo), (gq + 8, lo),
-// (gq, hi), (gq + 8, hi).
 template <int DH>
 __global__ void __launch_bounds__(kMmaThreads, 4)
 window_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -162,8 +117,8 @@ window_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             int mask_groups) {
   constexpr int kStride = DH + 8;  // bf16 a shared row: 16 bytes of padding
   constexpr int kChunks = DH / 8;  // 16-byte copies a row
-  constexpr int kSteps = DH / 16;  // k-steps of S = Q K^T
   constexpr int kOutTiles = DH / 8;
+  constexpr int kKeyTiles = wattn::kKeyTiles;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + N * kStride;
@@ -183,7 +138,7 @@ window_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int gq = lane >> 2, tq = lane & 3;
   const int row0 = warp * 16 + gq, row1 = row0 + 8;
   // the warp's mask entries, read while the copies fly (0 on padded rows,
-  // whose outputs are discarded; padded columns are set to -inf below)
+  // whose outputs are discarded; padded columns are set to -inf)
   const float* m = mask + static_cast<size_t>(g % mask_groups) * N * N;
   float mk[kKeyTiles][4];
 #pragma unroll
@@ -198,103 +153,22 @@ window_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   if (warp * 16 >= N) return;  // no query row of this warp is real
 
-  // S = Q K^T: A = this warp's 16 q rows, B = k rows (keys) as columns
-  uint32_t a[kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int r = min(warp * 16 + (lane & 15), N - 1);
-    ldmatrix_x4(a[kk], qs + r * kStride + kk * 16 + (lane >> 4) * 8);
-  }
-  float s[kKeyTiles][4];
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-  for (int jp = 0; jp < kKeyTiles / 2; ++jp) {
-    // two key tiles: matrices (keys 16 jp + 0..7, cols +0 / +8) and
-    // (keys 16 jp + 8..15, cols +0 / +8)
-    const int key = min(16 * jp + (lane >> 4) * 8 + (lane & 7), N - 1);
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4(b, ks + key * kStride + kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * jp], a[kk], b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], a[kk], b[2], b[3]);
-    }
-  }
-
-  // scale, mask, softmax numerators in float32; rows gq and gq + 8 are
-  // spread over the 4 lanes of a quad
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 8 * j + 2 * tq + (e & 1);
-      s[j][e] = c < N ? fmaf(s[j][e], scale, mk[j][e]) : -INFINITY;
-    }
-    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    s[j][0] = expf(s[j][0] - mx0);
-    s[j][1] = expf(s[j][1] - mx0);
-    s[j][2] = expf(s[j][2] - mx1);
-    s[j][3] = expf(s[j][3] - mx1);
-    sum0 += s[j][0] + s[j][1];
-    sum1 += s[j][2] + s[j][3];
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-
-  // O = P V: P's k-step kk is key tiles 2 kk and 2 kk + 1 of S
-  float o[kOutTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOutTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-    // matrices (keys +0..7 / +8..15) x (dh cols of tile 2 dp / 2 dp + 1),
-    // transposed into B fragments
-    const int key = min(16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8, N - 1);
-#pragma unroll
-    for (int dp = 0; dp < kOutTiles / 2; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vs + key * kStride + (2 * dp + (lane >> 4)) * 8);
-      mma_bf16(o[2 * dp], pa, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
-    }
-  }
+  float o[kOutTiles][4], inv0, inv1;
+  wattn::attend_rows<DH>(
+      qs, ks, vs, kStride, N, warp,
+      [&](int j, int e, int, int) { return mk[j][e]; }, o, inv0, inv1);
 
   // normalise, stage in this warp's own q rows (no other warp reads them),
   // then 16-byte stores of the real rows
-  const float inv0 = 1.0f / sum0, inv1 = 1.0f / sum1;
 #pragma unroll
   for (int n = 0; n < kOutTiles; ++n) {
     const int c = 8 * n + 2 * tq;
     if (row0 < N)
       *reinterpret_cast<uint32_t*>(qs + row0 * kStride + c) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+          tc::pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
     if (row1 < N)
       *reinterpret_cast<uint32_t*>(qs + row1 * kStride + c) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+          tc::pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
   __syncwarp();
   const int rows = min(16, N - warp * 16);

@@ -39,8 +39,9 @@ SIGNATURES = {
     # q, k, v, mask, out, G, N, dh, mask_groups, stream
     "window_attention_bf16": (P, P, P, P, P, I, I, I, I, P),
     "window_attention_f32": (P, P, P, P, P, I, I, I, I, P),
-    # x, scale, bias, w, out, B, H, W, C, stream
-    "patch_merging_bf16": (P, P, P, P, P, I, I, I, I, P),
+    # x, scale, bias, w, out, B, H, W, C, [tile columns, smem bytes,]
+    # stream
+    "patch_merging_bf16": (P,) * 5 + (I,) * 6 + (P,),
     "patch_merging_f32": (P, P, P, P, P, I, I, I, I, P),
     # q, k_new, v_new, k_cache, v_cache, out, G, T, Dh, pos, stream
     "cache_append_attention_bf16": (P, P, P, P, P, P, I, I, I, I, P),
@@ -94,10 +95,14 @@ SIGNATURES = {
     # stream (one entry for every type: the kernel copies bytes)
     "beam_cache_gather": (P,) * 5 + (I,) * 6 + (P,),
     # x, norm1 (2), w_qkv, b_qkv, table, w_out, b_out, norm2 (2), fc1 (2),
-    # fc2 (2), out, B, H, W, C, heads, hidden, ws, shift_h, shift_w, G, hc,
-    # smem bytes, stream
-    "swin_block_bf16": (P,) * 15 + (I,) * 12 + (P,),
+    # fc2 (2), out, B, H, W, C, heads, hidden, ws, shift_h, shift_w, the
+    # plan (bf16: blocks a cluster, n8 tiles a warp, warp rows, heads a qkv
+    # product, hidden columns a chunk; float32: heads a qkv group, hidden
+    # columns a chunk), smem bytes, stream
+    "swin_block_bf16": (P,) * 15 + (I,) * 15 + (P,),
     "swin_block_f32": (P,) * 15 + (I,) * 12 + (P,),
+    # C, heads, hidden, ws, the bf16 plan (5 ints), smem bytes, out
+    "swin_block_active_clusters": (I,) * 10 + (P,),
 }
 
 _lib = None
@@ -189,6 +194,12 @@ def check(code: int, name: str) -> None:
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device``: the kernels whose
+    grid depends on the batch choose their tiles to cover them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require(t, name: str, *, dtype=None, shape=None, device=None,

@@ -4,7 +4,7 @@ Port of ``handwritten_math_ocr_api_tpu/ops/swin_block.py``. The kernel
 (``csrc/swin_block.cu``) replaces the Pallas TPU kernel
 ``fused_swin_block``: LN1 -> qkv -> windowed multi-head attention
 (relative-position bias, shift mask filled with -100) -> proj -> residual
--> LN2 -> tanh-GELU MLP -> residual, one block per (image, window).
+-> LN2 -> tanh-GELU MLP -> residual, in one launch.
 
 It computes ``models/swin.py::swin_block``'s function, which is what the
 TPU kernel's docstring promises: the map is zero-padded to window
@@ -20,13 +20,25 @@ kernel adds them. ``convert.to_torch`` gives those biases the compute
 dtype, as the jnp ``swin_block`` uses them; ``with_float32_biases`` makes
 the kernel's bundle from the float32 parameter tree.
 
+The block is bound by the tensor cores' rate (about 24 C^2 flops a token
+against 4 C bytes). The bf16 entry runs every product and the attention
+on them (``mma.sync``), a window on a thread-block cluster of 1, 2 or 4
+blocks that split its heads and output columns and exchange rows through
+distributed shared memory; ``launch_plan`` picks the cluster so that the
+grid covers half the card's SMs, and ``smem_plan`` the warps a block (8
+or 16) and the tiles that fit a block's shared memory (``SMEM_LIMIT``);
+``block_geometry`` reports a launch's shape. The float32 entry keeps the
+CUDA-core kernel (no TF32; ``f32_plan``).
+
 ``fits_vmem`` is the JAX route rule, kept so that the same stages take
-the kernel as in the reference (stages 1-3 of Swin-T). The CUDA wrapper
-has its own limit: a block's shared memory (``SMEM_LIMIT``), which the
-activations of one window must fit; it raises beyond it.
+the kernel as in the reference (stages 1-3 of Swin-T). The wrapper raises
+where a window does not fit the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +50,8 @@ _ENTRY = {torch.bfloat16: "swin_block_bf16", torch.float32: "swin_block_f32"}
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 _SUBLANE = 16
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+# the most a block may use for two to fit an SM (228 KB, less 1 KB each)
+SMEM_TWO_BLOCKS = 233472 // 2 - 1024
 
 
 BIAS_PATHS = (("attn", "b_qkv"), ("attn", "b_out"), ("mlp", "fc1", "b"),
@@ -84,11 +98,135 @@ def fits_vmem(C: int, ws: int, W_pad: int, hid: int) -> bool:
     return weights + acts < VMEM_BUDGET_BYTES
 
 
-def smem_plan(C: int, num_heads: int, hid: int, ws: int):
+ROWS = 64           # a window's tokens, padded to m16 tiles
+KT, STAGES = 32, 3  # csrc/mma_pass.cuh: rows a staged weight tile, ring tiles
+HEAD_DIMS = (16, 32, 64)  # head dims of the bf16 kernel
+CLUSTERS = (1, 2, 4, 8)
+
+
+class Plan(NamedTuple):
+    """The bf16 kernel's plan for one window."""
+
+    cluster: int         # blocks of the window's thread-block cluster
+    n_tiles: int         # n8 tiles a warp: a product's widest pass / 32
+    warp_rows: int       # the block's warps: 4 columns by 2 or 4 rows
+    heads_per_pass: int  # heads whose q, k, v one product computes
+    hidden_chunk: int    # MLP hidden columns a chunk, over the cluster
+    smem: int            # shared memory bytes a block
+
+
+def cluster_sizes(C: int, num_heads: int):
+    """Cluster sizes the bf16 kernel takes at width C: each block owns
+    whole heads and a multiple of 32 of at most 256 output columns."""
+    return tuple(cs for cs in CLUSTERS
+                 if num_heads % cs == 0 and (C // cs) % 32 == 0
+                 and C // cs <= 256)
+
+
+def _smem_bytes(C, dh, hg, hcc, cluster, ws):
+    """csrc/swin_block.cu's ``Layout``: LN1/x1 and attention/LN2 (64, C + 8)
+    bf16 buffers, the larger of the block's heads' qkv and two hidden
+    chunks, the weight ring (rows of the widest pass), the token tables and
+    the heads' bias table columns."""
+    hpb = C // dh // cluster
+    c_buf = 2 * ROWS * (C + 8)
+    qkv = 2 * ROWS * (3 * hpb * dh + 8)
+    hidden = 2 * 2 * ROWS * (hcc + 8)
+    widest = max(3 * hg * dh, C // cluster, hcc // cluster)
+    ring = 2 * STAGES * KT * (widest + 8)
+    return (2 * c_buf + max(qkv, hidden) + ring + 3 * 4 * ROWS
+            + 4 * (2 * ws - 1) ** 2 * hpb)
+
+
+def smem_plan(C: int, num_heads: int, hid: int, ws: int,
+              cluster: int) -> Plan:
+    """The bf16 kernel's plan for a window of ws x ws tokens at width C over
+    a cluster of ``cluster`` blocks: the narrower warp tiles (4 n8 tiles)
+    where every pass fits them, the most heads a qkv product that fit it,
+    and the widest hidden chunk (at most 128 columns a block, whose fc1
+    sums then take 4 n8 tiles a warp beside fc2's) that leaves room for two
+    blocks of 8 warps an SM (``SMEM_TWO_BLOCKS``, with the narrower tiles'
+    128 registers a thread), else the widest that fits a block's shared
+    memory with 16 warps (more warps to hide a block's serial phases where
+    no second block shares the SM; ``kernel_ab.py encoder`` times both).
+    Raises ValueError where the kernel does not take the shape or no plan
+    fits."""
+    dh = C // num_heads if C % num_heads == 0 else 0
+    if (dh not in HEAD_DIMS or ws * ws > ROWS
+            or cluster not in cluster_sizes(C, num_heads)):
+        raise ValueError(
+            f"bf16 Swin block kernel: C = {C} with {num_heads} heads (head "
+            f"dim one of {HEAD_DIMS}), a {ws}x{ws} window (at most {ROWS} "
+            f"tokens), over a cluster of {cluster} blocks (one of "
+            f"{cluster_sizes(C, num_heads)}) is not a shape it takes")
+    hpb, cb = num_heads // cluster, C // cluster
+    for nt in (4, 8):
+        width = 32 * nt
+        hg = next((g for g in range(hpb, 0, -1)
+                   if hpb % g == 0 and 3 * g * dh <= width), None)
+        if cb > width or hg is None:
+            continue
+        chunks = [cluster * hcb for hcb in range(128, 0, -32)
+                  if hid % (cluster * hcb) == 0]
+        limits = ((SMEM_TWO_BLOCKS, 2), (SMEM_LIMIT, 4)) if nt == 4 else (
+            (SMEM_LIMIT, 4),)
+        for limit, warp_rows in limits:
+            for hcc in chunks:
+                smem = _smem_bytes(C, dh, hg, hcc, cluster, ws)
+                if smem <= limit:
+                    return Plan(cluster, nt, warp_rows, hg, hcc, smem)
+    raise ValueError(
+        f"Swin block kernel: one {ws}x{ws} window at C = {C} over a cluster "
+        f"of {cluster} needs more than the {SMEM_LIMIT} bytes of shared "
+        f"memory a block may use")
+
+
+def launch_plan(B: int, H: int, W: int, C: int, num_heads: int, hid: int,
+                ws: int, sms: int) -> Plan:
+    """The plan of a bf16 launch on (B, H, W, C): the smallest cluster whose
+    blocks (windows x cluster) cover half the card's ``sms`` SMs, else the
+    largest that fits. A larger cluster splits a window's products into
+    narrower passes whose cost a weight tile is mostly fixed (waiting for
+    the tile, the block's barrier), so it pays only where the grid would
+    leave most SMs idle (``kernel_ab.py encoder`` times every cluster size
+    at each stage)."""
+    windows = B * -(-H // ws) * -(-W // ws)
+    plans, err = [], None
+    for cs in cluster_sizes(C, num_heads) or (1,):
+        try:
+            plans.append(smem_plan(C, num_heads, hid, ws, cs))
+        except ValueError as e:
+            err = e
+    if not plans:
+        raise err
+    return next((p for p in plans if 2 * windows * p.cluster >= sms),
+                plans[-1])
+
+
+def block_geometry(B: int, H: int, W: int, C: int, num_heads: int, hid: int,
+                   ws: int, device) -> dict:
+    """The shape of a bf16 launch on the card ``device``: the plan's fields,
+    the windows, the blocks of the grid and the clusters of the plan that
+    fit on the card at once."""
+    plan = launch_plan(B, H, W, C, num_heads, hid, ws,
+                       _build.sm_count(device))
+    out = ctypes.c_int(0)
+    code = _build.library().swin_block_active_clusters(
+        C, num_heads, hid, ws, plan.cluster, plan.n_tiles, plan.warp_rows,
+        plan.heads_per_pass, plan.hidden_chunk, plan.smem,
+        ctypes.byref(out))
+    _build.check(code, "swin_block_active_clusters")
+    windows = B * -(-H // ws) * -(-W // ws)
+    return {**plan._asdict(), "windows": windows,
+            "blocks": windows * plan.cluster, "active_clusters": out.value}
+
+
+def f32_plan(C: int, num_heads: int, hid: int, ws: int):
     """(G heads per qkv group, hc hidden columns per MLP chunk, shared
-    memory bytes) of the kernel for one window. Everything is float32 in
-    shared memory: two (N, C) buffers, and a scratch that holds either the
-    qkv of G heads with the (N, N) logits or an (N, hc) MLP chunk."""
+    memory bytes) of the float32 kernel for one window. Everything is
+    float32 in shared memory: two (N, C) buffers, and a scratch that holds
+    either the qkv of G heads with the (N, N) logits or an (N, hc) MLP
+    chunk."""
     N = ws * ws
     dh = C // num_heads
     fixed = (2 * N + 3) // 4 * 4 + 2 * N * C
@@ -172,7 +310,12 @@ def fused_swin_block(p, x, ws: int, shift: int, num_heads: int):
         raise ValueError(f"Swin block kernel needs a head dim and an MLP "
                          f"width that are multiples of 8 (C {C}, "
                          f"{num_heads} heads, hidden {hid})")
-    G, hc, smem = smem_plan(C, num_heads, hid, ws)
+    if dt == torch.bfloat16:
+        plan = launch_plan(B, H, W, C, num_heads, hid, ws,
+                           _build.sm_count(dev))
+        tiles = tuple(plan)
+    else:
+        tiles = f32_plan(C, num_heads, hid, ws)
     Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
     shift_h = 0 if ws >= Hp else shift
     shift_w = 0 if ws >= Wp else shift
@@ -201,8 +344,12 @@ def fused_swin_block(p, x, ws: int, shift: int, num_heads: int):
     lib = _build.library()
     code = getattr(lib, _ENTRY[dt])(
         *[t.data_ptr() for _, t, _, _ in operands], out.data_ptr(),
-        B, H, W, C, num_heads, hid, ws, shift_h, shift_w, G, hc, smem,
+        B, H, W, C, num_heads, hid, ws, shift_h, shift_w, *tiles,
         _build.stream_handle(dev))
+    if code == -1:
+        raise RuntimeError(
+            f"Swin block kernel: no cluster of {tiles[0]} blocks with "
+            f"{tiles[-1]} bytes of shared memory fits on the card")
     _build.check(code, _ENTRY[dt])
     fused_swin_block.launches += 1
     return out

@@ -4,6 +4,8 @@
     python3 kernel_ab.py steps PARENT_DIR   # B1 and B11: the tree against
                                             # another copy of the package
     python3 kernel_ab.py dequant            # B9's tile shapes and phases
+    python3 kernel_ab.py encoder            # B4's clusters, B3's tiles and
+                                            # both kernels' phases
 
 ``steps`` times the decoder step kernels B1 (bf16) and B11 at the greedy
 bucket (16 rows) and the last slot (pos 149) from the package of this
@@ -20,12 +22,23 @@ beforehand; then, at the cross K/V projection's shape, builds it again
 with one phase taken out at a time (the math, the B fragments' loads and
 conversion, the global stores) to show where its time goes.
 
+``encoder`` times the bf16 whole Swin block kernel (B4) at the 16-image
+bucket on each fused stage of Swin-T (shift 3) with every cluster size the
+stage's width takes (with 4 n8 tiles a warp, at 8 and at 16 warps a
+block), and patch merging (B3) at each merge with each tile
+width, beside the unfused block (``swin_block(..., use_pallas_block=
+False)``: LayerNorm, cuBLAS, B2 and GELU) and layer norm + one matmul on
+the gathered rows; then builds each kernel again with one phase taken out
+at a time (``ENCODER_PHASES``: text edits of ``csrc/``; the outputs are
+then wrong, only the times count) to show where the time goes.
+
 Device time from ``chip_smoke.cuda_ms`` (the profiler); the card's name and
 power limit are printed first. Numbers compare only within one run.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import os
 import subprocess
@@ -43,6 +56,25 @@ PHASES = {
                     "      b[j][0] = b[j][1] = 0x3F803F80u + s;")],
     "no y stores": [("    if (m < M && n < N) {\n      float sum",
                      "    if (m < M && n < N && m < 0) {\n      float sum")],
+}
+
+# the phases taken out of B4 and B3: (kernel, [(file in csrc/, old text,
+# new text)]); "all" takes none out
+ENCODER_PHASES = {
+    "all": [],
+    "no products": [("mma_pass.cuh", "for (int kk = 0; kk < kKt / 16; ++kk)",
+                     "for (int kk = 0; kk < 0; ++kk)")],
+    "no weight copies": [("mma_pass.cuh", "if (i < st.copies) cp_async16(",
+                          "if (i < 0) cp_async16(")],
+    "no attention": [("swin_block.cu", "item < 4 * hpb;", "item < 0;")],
+    "no exchange": [("swin_block.cu", "if (cs == 1) return;",
+                     "if (cs > 0) return;")],
+    "no MLP": [("swin_block.cu", "const int chunks = a.hid / a.hcc;",
+                "const int chunks = 0;")],
+    "no gather": [("patch_merging.cu",
+                   "cp_async16(to, x + ((static_cast<size_t>(b) * H",
+                   "if (b < 0) cp_async16(to, x + ((static_cast<size_t>(b)"
+                   " * H")],
 }
 
 
@@ -122,6 +154,148 @@ def build_variant(edits, out: str) -> ctypes.CDLL:
     return lib
 
 
+def build_encoder_variant(edits, out: str) -> ctypes.CDLL:
+    """swin_block.cu and patch_merging.cu, with the (file, old, new) text
+    `edits` applied to them and the headers they include, as one library
+    with the entries of ``_build.SIGNATURES`` that they define."""
+    import glob
+    import shutil
+
+    from handwritten_math_ocr_api_torch.ops import _build
+
+    os.makedirs(out, exist_ok=True)
+    names = ["swin_block.cu", "patch_merging.cu"] + [
+        os.path.basename(h) for h in glob.glob(os.path.join(_build.CSRC,
+                                                            "*.cuh"))]
+    for name in names:
+        shutil.copy(os.path.join(_build.CSRC, name), os.path.join(out, name))
+    for name, old, new in edits:
+        with open(os.path.join(out, name)) as f:
+            src = f.read()
+        if old not in src:
+            raise RuntimeError(f"{name} has no {old!r}")
+        with open(os.path.join(out, name), "w") as f:
+            f.write(src.replace(old, new))
+    lib_path = os.path.join(out, "lib.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", out, "-shared",
+                    "-o", lib_path, os.path.join(out, "swin_block.cu"),
+                    os.path.join(out, "patch_merging.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.startswith(("swin_block", "patch_merging")):
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def encoder() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.models import swin
+    from handwritten_math_ocr_api_torch.ops import _build
+    from handwritten_math_ocr_api_torch.ops import patch_merging as pm
+    from handwritten_math_ocr_api_torch.ops import swin_block as sb
+
+    build = os.path.join(_build.BUILD_ROOT, "kernel_ab")
+    with concurrent.futures.ThreadPoolExecutor(len(ENCODER_PHASES)) as pool:
+        futures = {name: pool.submit(
+            build_encoder_variant, edits,
+            os.path.join(build, name.replace(" ", "_")))
+            for name, edits in ENCODER_PHASES.items()}
+        libs = {name: f.result() for name, f in futures.items()}
+    cfg = load_model_config(cs.MODEL_DIR)
+    np_params = convert.random_params(cfg, cs.SEED)
+    params = convert.to_torch(np_params, cfg, "cuda")
+    enc = sb.with_float32_biases(np_params["encoder"], params["encoder"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 6)
+    B, ws = 16, cfg.swin.window_size
+    launch_plan, tile_plan = sb.launch_plan, pm.tile_plan
+    try:
+        for i, (h, w, c, nh, _, _, _) in enumerate(cs.stage_shapes(cfg, B)):
+            hid = int(c * cfg.swin.mlp_ratio)
+            x = torch.randn(B, h, w, c, generator=gen, device=dev).bfloat16()
+            if sb.fits_vmem(c, ws, -(-w // ws) * ws, hid):
+                p = enc["stages"][i]["blocks"][1]
+                chosen = launch_plan(B, h, w, c, nh, hid, ws,
+                                     _build.sm_count(dev))
+                want = sb.fused_swin_block_plain(p, x, ws, ws // 2, nh)
+                row = []
+                for phase, lib in libs.items():
+                    _build._lib = lib
+                    if "gather" in phase:
+                        continue
+                    plans = [sb.smem_plan(c, nh, hid, ws, cluster)
+                             for cluster in sb.cluster_sizes(c, nh)]
+                    # the narrower warp tiles also with the other number of
+                    # warps a block (8 or 16)
+                    plans += [pl._replace(warp_rows=6 - pl.warp_rows)
+                              for pl in plans if pl.n_tiles == 4]
+                    for plan in plans:
+                        if phase != "all" and plan != chosen:
+                            continue
+                        sb.launch_plan = lambda *a, plan=plan: plan
+                        got = sb.fused_swin_block(p, x, ws, ws // 2, nh)
+                        if phase == "all":
+                            cs.assert_close(f"swin_block {plan}", got, want)
+                        ms = cs.cuda_ms(lambda: sb.fused_swin_block(
+                            p, x, ws, ws // 2, nh))
+                        row.append(f"{phase} cluster {plan.cluster} warps "
+                                   f"{4 * plan.warp_rows} {ms:.4f}")
+                    sb.launch_plan = launch_plan
+                _build._lib = None
+                blk = params["encoder"]["stages"][i]["blocks"][1]
+                unfused = cs.cuda_ms(lambda: swin.swin_block(
+                    blk, x, ws, ws // 2, nh, kernels=True,
+                    use_pallas_block=False))
+                print(f"encoder swin_block stage {i + 1} x {tuple(x.shape)} "
+                      f"chosen cluster {chosen.cluster} unfused "
+                      f"{unfused:.4f} ms: " + ", ".join(row), flush=True)
+            if i == len(cfg.swin.depths) - 1:
+                continue
+            p = params["encoder"]["merges"][i]
+            M = B * (h // 2) * (w // 2)
+            chosen = tile_plan(M, c, _build.sm_count(dev))
+            want = pm.patch_merging_plain(p, x)
+            row = []
+            for phase, lib in libs.items():
+                if phase not in ("all", "no products", "no weight copies",
+                                 "no gather"):
+                    continue
+                _build._lib = lib
+                for cols in (32, 64, 128, 192, 256):
+                    smem = 2 * (pm.ROWS * (4 * c + 8) + pm.STAGES * pm.KT
+                                * (cols + 8))
+                    tiles = (cols, smem)
+                    if smem > pm.SMEM_LIMIT or (2 * c) % cols or (
+                            phase != "all" and tiles != chosen):
+                        continue
+                    pm.tile_plan = lambda *a, t=tiles: t
+                    got = pm.fused_patch_merging(p, x)
+                    if phase == "all":
+                        cs.assert_close(f"patch_merging {cols}", got, want)
+                    ms = cs.cuda_ms(lambda: pm.fused_patch_merging(p, x))
+                    row.append(f"{phase} 32x{cols} {ms:.4f}")
+                pm.tile_plan = tile_plan
+            _build._lib = None
+            cat = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                             x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+            g, b = p["norm"]["scale"].bfloat16(), p["norm"]["bias"].bfloat16()
+            wr = p["reduction"]["w"].bfloat16()
+            unfused = cs.cuda_ms(lambda: torch.nn.functional.layer_norm(
+                cat, cat.shape[-1:], g, b, 1e-5) @ wr)
+            print(f"encoder patch_merging {i + 1} x {tuple(x.shape)} chosen "
+                  f"32x{chosen[0]} unfused {unfused:.4f} ms: "
+                  + ", ".join(row), flush=True)
+    finally:
+        sb.launch_plan, pm.tile_plan = launch_plan, tile_plan
+        _build._lib = None
+
+
 def dequant() -> None:
     import torch
 
@@ -198,6 +372,8 @@ def main() -> int:
         steps(os.path.abspath(sys.argv[2]))
     elif sys.argv[1:] == ["dequant"]:
         dequant()
+    elif sys.argv[1:] == ["encoder"]:
+        encoder()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -257,17 +257,47 @@ def test_reference_block_kernel_pads_before_ln1():
 def test_route_rule_and_shared_memory_limit():
     """The port routes the same Swin-T stages to the block kernel as the
     reference (stages 1-3 at 96x320), and the CUDA wrapper's own limit
-    holds stages 1-3 and refuses stage 4."""
+    holds stages 1-3 (at every cluster size the bf16 kernel takes there,
+    and in float32) and refuses stage 4."""
     for C, w_pad in ((96, 84), (192, 42), (384, 21), (768, 14)):
         assert tblock.fits_vmem(C, 7, w_pad, 4 * C) == j_fits_vmem(C, 7,
                                                                    w_pad)
     assert not tblock.fits_vmem(768, 7, 14, 4 * 768)
     for C, heads in ((96, 3), (192, 6), (384, 12)):
-        G, hc, smem = tblock.smem_plan(C, heads, 4 * C, 7)
+        assert tblock.cluster_sizes(C, heads)
+        for cluster in tblock.cluster_sizes(C, heads):
+            plan = tblock.smem_plan(C, heads, 4 * C, 7, cluster)
+            hpb = heads // cluster
+            assert hpb % plan.heads_per_pass == 0
+            assert (4 * C) % plan.hidden_chunk == 0
+            assert (plan.hidden_chunk // cluster) % 32 == 0
+            assert plan.smem <= tblock.SMEM_LIMIT
+        G, hc, smem = tblock.f32_plan(C, heads, 4 * C, 7)
         assert heads % G == 0 and (4 * C) % hc == 0 and hc % 8 == 0
         assert smem <= tblock.SMEM_LIMIT
+    assert tblock.cluster_sizes(768, 24)
+    for cluster in tblock.cluster_sizes(768, 24):
+        with pytest.raises(ValueError, match="shared memory"):
+            tblock.smem_plan(768, 24, 3072, 7, cluster)
     with pytest.raises(ValueError, match="shared memory"):
-        tblock.smem_plan(768, 24, 3072, 7)
+        tblock.f32_plan(768, 24, 3072, 7)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_swin_block_launch_plan_covers_the_card(B):
+    """The bf16 block kernel's cluster at each fused stage of Swin-T on a
+    132-SM card: one block a window where the windows cover half the SMs,
+    else the smallest cluster that does or the largest the width takes;
+    stage 3 at the 16-image bucket runs 96 blocks, not 48."""
+    want = {16: (1, 1, 2), 1: (1, 2, 4)}[B]
+    for (C, heads, h, w), cluster in zip(
+            ((96, 3, 24, 80), (192, 6, 12, 40), (384, 12, 6, 20)), want):
+        plan = tblock.launch_plan(B, h, w, C, heads, 4 * C, 7, 132)
+        assert plan == tblock.smem_plan(C, heads, 4 * C, 7, cluster)
+    plan = tblock.launch_plan(16, 6, 20, 384, 12, 1536, 7, 132)
+    assert 16 * 3 * plan.cluster == 96
+    with pytest.raises(ValueError, match="head dim"):
+        tblock.launch_plan(1, 7, 7, 60, 3, 240, 7, 132)
 
 
 def test_greedy_decode_fused_matches_jax_and_unfused(decoder):

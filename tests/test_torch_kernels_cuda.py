@@ -119,9 +119,11 @@ def test_window_attention(dev, np_params, dtype, B, stage):
                TOL[dtype])
 
 
-def test_kernels_refuse_shapes(dev):
-    """Shapes the bf16 window kernel and the cache attention kernel do not
-    take raise ValueError on the card, with no launch counted."""
+def test_kernels_refuse_shapes(dev, np_params):
+    """Shapes the bf16 window kernel, the cache attention kernel, the Swin
+    block kernel (a head dim that is not a multiple of 8) and the patch
+    merging kernel (a C that is not a multiple of 16) do not take raise
+    ValueError on the card, with no launch counted."""
     bf16 = torch.bfloat16
     q = torch.zeros(1, 3, 2, 49, 24, dtype=bf16, device=dev)  # dh 24
     mask = torch.zeros(3, 2, 49, 49, device=dev)
@@ -151,13 +153,38 @@ def test_kernels_refuse_shapes(dev):
     assert (ca.cache_append_attention.launches,
             ca.decode_attention.launches) == before
 
+    # Swin block: C 60 with 3 heads (head dim 20)
+    params = convert.to_torch(np_params, CFG.replace(dtype="bfloat16"), dev)
+    blk = sb.with_float32_biases(np_params["encoder"], params["encoder"])
+    x = torch.zeros(1, 7, 7, 60, dtype=bf16, device=dev)
+    before = sb.fused_swin_block.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        sb.fused_swin_block(blk["stages"][0]["blocks"][0], x, 7, 0, 3)
+    assert sb.fused_swin_block.launches == before
+
+    # patch merging: C 12
+    before = pm.fused_patch_merging.launches
+    merge = {"norm": {"scale": torch.ones(48, device=dev),
+                      "bias": torch.zeros(48, device=dev)},
+             "reduction": {"w": torch.zeros(48, 24, dtype=bf16, device=dev)}}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pm.fused_patch_merging(merge, torch.zeros(1, 4, 4, 12, dtype=bf16,
+                                                  device=dev))
+    assert pm.fused_patch_merging.launches == before
+
+
+# the three merges of Swin-T at 96x320 at batch 1 and 16: (merge, H, W, B);
+# and one whose M (15 tokens) is not a multiple of any row tile
+MERGES = [(i, 24 >> i, 80 >> i, B) for i in range(3) for B in (1, 16)]
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [1, 16])
-def test_patch_merging(dev, np_params, dtype, B):
+@pytest.mark.parametrize("merge", [*MERGES, (0, 6, 10, 1)])
+def test_patch_merging(dev, np_params, dtype, merge):
+    i, h, w, B = merge
     params = convert.to_torch(np_params, CFG.replace(dtype=dtype), dev)
-    p = params["encoder"]["merges"][0]
-    x = _randn(dev, dtype, B, 24, 80, 96)
+    p = params["encoder"]["merges"][i]
+    x = _randn(dev, dtype, B, h, w, 96 << i, seed=B + i)
     got = _launched(pm.fused_patch_merging,
                     lambda: pm.fused_patch_merging(p, x))
     _close(got, pm.patch_merging_plain(p, x), TOL[dtype])
@@ -476,23 +503,48 @@ def test_dequant_matmul_ragged_edges(dev, dtype, M, K, N):
         _close(got, quant.dequant_matmul_plain(x, w_q, s), TOL[dtype])
 
 
+# the fused stages of Swin-T at 96x320: (stage, H, W); and a stage-1 map
+# padded in both dimensions (9 x 11 to 14 x 14), whose padded tokens are
+# real keys beside the product's 49 -> 64 padding rows
+SWIN_MAPS = [(0, 24, 80), (1, 12, 40), (2, 6, 20), (0, 9, 11)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("stage", [0, 1, 2])
-def test_swin_block(dev, np_params, dtype, stage):
-    """Batch 1 and 2, unshifted and shifted, with the engine's bundle
-    (float32 biases)."""
+@pytest.mark.parametrize("B", [1, 2, 3, 16])
+@pytest.mark.parametrize("stage", range(len(SWIN_MAPS)))
+def test_swin_block(dev, np_params, dtype, B, stage):
+    """Batch 1, 2, 3 (a cluster partly filled) and the 16-image bucket,
+    unshifted and shifted, with the engine's bundle (float32 biases)."""
     params = convert.to_torch(np_params, CFG.replace(dtype=dtype), dev)
     encoder = sb.with_float32_biases(np_params["encoder"], params["encoder"])
-    p = encoder["stages"][stage]["blocks"][1]
-    h, w, c = 24 >> stage, 80 >> stage, 96 << stage
-    nh = CFG.swin.num_heads[stage]
-    for B in (1, 2):
-        x = _randn(dev, dtype, B, h, w, c, seed=B)
-        for shift in (0, 3):
-            got = _launched(sb.fused_swin_block,
-                            lambda: sb.fused_swin_block(p, x, 7, shift, nh))
-            _close(got, sb.fused_swin_block_plain(p, x, 7, shift, nh),
-                   TOL[dtype])
+    i, h, w = SWIN_MAPS[stage]
+    p = encoder["stages"][i]["blocks"][1]
+    c, nh = 96 << i, CFG.swin.num_heads[i]
+    x = _randn(dev, dtype, B, h, w, c, seed=B)
+    for shift in (0, 3):
+        got = _launched(sb.fused_swin_block,
+                        lambda: sb.fused_swin_block(p, x, 7, shift, nh))
+        _close(got, sb.fused_swin_block_plain(p, x, 7, shift, nh),
+               TOL[dtype])
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_swin_block_geometry(dev, B):
+    """The bf16 block kernel's launch shape at each fused stage: the
+    cluster the plan picks for the card's SMs, a grid of windows x cluster
+    blocks, and at least one such cluster fitting on the card; stage 3 at
+    the bucket runs on more than its 48 windows."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, h, w in SWIN_MAPS[:3]:
+        c, nh = 96 << i, CFG.swin.num_heads[i]
+        geo = sb.block_geometry(B, h, w, c, nh, 4 * c, 7, dev)
+        plan = sb.launch_plan(B, h, w, c, nh, 4 * c, 7, sms)
+        assert geo["cluster"] == plan.cluster and geo["smem"] == plan.smem
+        assert geo["windows"] == B * -(-h // 7) * -(-w // 7)
+        assert geo["blocks"] == geo["windows"] * geo["cluster"]
+        assert geo["active_clusters"] >= 1
+        if i == 2 and B == 16:
+            assert geo["blocks"] > 48
 
 
 # B7's row counts: one row, a partial group, the greedy bucket, the beam's

@@ -166,6 +166,24 @@ def test_patch_merging_matches_pallas(B, H, W, C):
                                atol=2e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("B", [1, 16])
+def test_patch_merging_tile_plan(B):
+    """The bf16 kernel's tiles at Swin-T's three merges on a 132-SM card:
+    32 tokens by the widest of 192 and 128 columns whose grid fills 7/8 of
+    the SMs, else 64; the shared memory within a block's limit. A C that is
+    not a multiple of 16 is refused."""
+    want = {16: (192, 192, 64), 1: (64, 64, 64)}[B]
+    for (C, H, W), cols in zip(((96, 24, 80), (192, 12, 40), (384, 6, 20)),
+                               want):
+        M = B * (H // 2) * (W // 2)
+        assert pm.tile_plan(M, C, 132) == (
+            cols, 2 * (32 * (4 * C + 8) + 3 * 32 * (cols + 8)))
+        assert pm.tile_plan(M, C, 132)[1] <= pm.SMEM_LIMIT
+    assert pm.tile_plan(15, 48, 132)[0] == 32  # 2C = 96: 64 does not divide
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pm.tile_plan(15, 12, 132)
+
+
 def test_patch_merging_rejects_odd_sizes():
     p = {"norm": {"scale": torch.ones(8), "bias": torch.zeros(8)},
          "reduction": {"w": torch.ones(8, 4)}}
@@ -241,4 +259,4 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
                               "whole_decode", "whole_decode_i8")
          for t in ("bf16", "f32")]
         + ["beam_cache_gather", "fused_step_geometry",
-           "ragged_step_geometry"])
+           "ragged_step_geometry", "swin_block_active_clusters"])
