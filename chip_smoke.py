@@ -23,10 +23,14 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    the bucket (at each gated slot) and at one row, with the cluster shape
    of each launch; and the whole step of "v3"/"v4" in both cache
    layouts (its argmax equal wherever the plain logits' top-2 margin
-   exceeds the step tolerance), each at pos 0, 74 and 149; the whole
-   decode of 150 steps with the bf16 and the int8 resident bundle (its
-   tokens equal to the plain version's up to a first difference at such a
-   near-tie in a row); the whole Swin block at stages 1-3, unshifted and
+   exceeds the step tolerance), each at pos 0, 74 and 149 at the bucket
+   and at one row, with its cluster shape; the whole decode of 150 steps
+   with the bf16 and the int8 resident bundle at the bucket, at one row
+   and on an EOS-boosted bundle whose rows, at the bucket, end at
+   different steps and some never, with a row that finished beside a
+   live one in a cluster's group (its tokens equal to the plain version's
+   up to a first difference at such a near-tie in a row, PAD after EOS),
+   with its cluster shape; the whole Swin block at stages 1-3, unshifted and
    shifted, at one image and at the bucket, with its cluster geometry and
    beside the unfused block of the default route (``unfused_ms``); patch
    merging at its three merges at one image and at the bucket, beside
@@ -562,8 +566,9 @@ def step_more(entry, name, cfg, batch, quantize, err1, call):
     T, last = cfg.max_seq_len, cfg.max_seq_len - 1
     cluster = {}
     for rows in (batch, 1):
-        cluster[rows] = fs.cluster_geometry(cfg, rows, T, cfg.encoder_len,
-                                            torch.bfloat16, quantize)
+        cluster[rows] = fs.cluster_geometry("fused_step", cfg, rows, T,
+                                            cfg.encoder_len, torch.bfloat16,
+                                            quantize)
         log(f"kernel {name}: {rows} rows, cluster shape {cluster[rows]}")
     ms1 = cuda_ms(lambda: call((1, last)))
     nbytes, flops = step_bound(cfg, 1, last, quantize)
@@ -788,8 +793,8 @@ def check_ragged_step(cfg, np_params, rows, batch, quantize=False):
                                        dtype == "float32" and not quantize)
     for n in (rows, batch):
         entry.d["cluster" if n == rows else f"cluster_rows{n}"] = geo = (
-            fs.ragged_geometry(cfg, n, T, L_enc, V, torch.bfloat16,
-                               quantize))
+            fs.cluster_geometry("ragged_step", cfg, n, T, L_enc,
+                                torch.bfloat16, quantize, V))
         log(f"kernel {name}: {n} rows, cluster shape {geo}")
 
     def call(n, p):
@@ -1117,12 +1122,13 @@ def margin_of(logits):
 
 def check_whole_step(cfg, np_params, batch):
     """Phase 3: the whole step of "v3"/"v4" (B10) against its plain version
-    at the greedy bucket, bf16, in both cache layouts, at the first, a
-    middle and the last slot: logp and the fresh rows within the decoder
-    step's tolerance, nxt equal wherever the plain logits' top-2 margin
-    exceeds it, and in the time-major layout every other slot bit for bit
-    unchanged. The time is the time-major entry's ("v4", JAX's default);
-    the batch-major one's is printed beside it."""
+    at the greedy bucket and at one row, bf16, in both cache layouts, at
+    the first, a middle and the last slot: logp and the fresh rows within
+    the decoder step's tolerance, nxt equal wherever the plain logits'
+    top-2 margin exceeds it, and in the time-major layout every other slot
+    bit for bit unchanged; the cluster shape of both row counts. The time
+    is the time-major entry's ("v4", JAX's default) at the bucket; the
+    batch-major one's and both at one row are printed beside it."""
     import torch
 
     from handwritten_math_ocr_api_torch.ops import fused_step as fs
@@ -1144,15 +1150,22 @@ def check_whole_step(cfg, np_params, batch):
         return torch.randn(*shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
+    cluster = {}
+    for rows in (batch, 1):
+        cluster[rows] = fs.cluster_geometry("whole_step", cfg, rows, T,
+                                            L_enc, torch.bfloat16, V=V)
+        log(f"kernel whole_step: {rows} rows, cluster shape "
+            f"{cluster[rows]}")
     ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
     prev = torch.randint(0, V, (batch,), generator=gen, device=dev,
                          dtype=torch.int32)
-    err, timed = 0.0, {}
-    for time_major in (True, False):
-        shape = (L, T, batch, D) if time_major else (L, batch, T, D)
-        sk, sv = randn(*shape), randn(*shape)
+
+    def gate(time_major, prev, sk, sv, ck, cv):
+        """Both entries against the plain step at the first, a middle and
+        the last slot; the largest error."""
+        rows, err = prev.shape[0], 0.0
         layout = "time-major" if time_major else "batch-major"
-        for pos in (0, T // 2 - 1, T - 1):
+        for pos in step_positions(cfg):
             got_k, got_v = sk.clone(), sv.clone()
             want_k, want_v = sk.clone(), sv.clone()
             got = fs.fused_whole_step(stacked, cfg, prev, got_k, got_v, ck,
@@ -1164,10 +1177,10 @@ def check_whole_step(cfg, np_params, batch):
                     if time_major else (want_k, want_v))
             logits = fs.fused_ragged_step_plain(
                 stacked, cfg, prev,
-                torch.full((batch,), pos, dtype=torch.int32, device=dev),
+                torch.full((rows,), pos, dtype=torch.int32, device=dev),
                 *view, ck, cv, return_logits=True)[0]
             torch.cuda.synchronize()
-            what = f"whole_step {layout} pos {pos}"
+            what = f"whole_step {layout} {rows} rows pos {pos}"
             clear = margin_of(logits) > STEP_ATOL
             agree = (got[0] == want[0]).float().mean().item()
             if not torch.equal(got[0][clear], want[0][clear]):
@@ -1195,9 +1208,23 @@ def check_whole_step(cfg, np_params, batch):
             err = max(err, e)
             log(f"kernel {what}: nxt agrees {agree:.4f} (equal where the "
                 f"margin exceeds {STEP_ATOL}), max_abs_err {e:.3g}")
-        pos = T - 1
+        return err
+
+    err, err1, timed, timed1 = 0.0, 0.0, {}, {}
+    pos = T - 1
+    for time_major in (True, False):
+        shape = (L, T, batch, D) if time_major else (L, batch, T, D)
+        sk, sv = randn(*shape), randn(*shape)
+        one = (prev[:1].contiguous(),
+               *((c[:, :, :1] if time_major else c[:, :1]).contiguous()
+                 for c in (sk, sv)),
+               ck[:, :1].contiguous(), cv[:, :1].contiguous())
+        err = max(err, gate(time_major, prev, sk, sv, ck, cv))
+        err1 = max(err1, gate(time_major, *one))
         timed[time_major] = cuda_ms(lambda: fs.fused_whole_step(
             stacked, cfg, prev, sk, sv, ck, cv, pos, time_major=time_major))
+        timed1[time_major] = cuda_ms(lambda: fs.fused_whole_step(
+            stacked, cfg, *one, pos, time_major=time_major))
         if time_major:
             plain = cuda_ms(lambda: fs.fused_whole_step_plain(
                 stacked, cfg, prev, sk, sv, ck, cv, pos, time_major=True))
@@ -1210,9 +1237,16 @@ def check_whole_step(cfg, np_params, batch):
     flops = 2 * batch * weights + 4 * L * batch * D * (pos + 1 + L_enc)
     f32_flops = 2 * batch * D * V
     entry.add(1, err, timed[True], plain, None, nbytes, flops, f32_flops)
+    entry.d["ms_batch_major"] = timed[False]
+    entry.d["ms_rows1"] = timed1[True]
+    entry.d["ms_rows1_batch_major"] = timed1[False]
+    entry.d["max_abs_err_rows1"] = err1
+    entry.d["cluster"] = cluster[batch]
+    entry.d["cluster_rows1"] = cluster[1]
     log(f"kernel whole_step: time-major caches ({L}, {T}, {batch}, {D}) pos "
         f"{pos} max_abs_err {err:.3g} ms {timed[True]:.4f} (batch-major "
-        f"{timed[False]:.4f}) plain_ms {plain:.4f} "
+        f"{timed[False]:.4f}; 1 row {timed1[True]:.4f}, batch-major "
+        f"{timed1[False]:.4f}) plain_ms {plain:.4f} "
         f"bound_ms {bound_ms(nbytes, flops, f32_flops):.4f} "
         f"({bound_by(nbytes, flops, f32_flops)}) library_ms null")
     return entry
@@ -1258,15 +1292,60 @@ def steps_per_row(tokens, eos_id):
             for row in tokens.tolist()]
 
 
+# the head bias of EOS raised for phase 3's EOS-boosted whole decodes: on
+# the seeded weights and the numpy-seeded 16-row memory of
+# check_whole_decode, rows end at different steps and some never (the
+# float32 plain decode: EOS at steps 15, -, 0, 50, -, 139, 0, 7, 0, -, 70,
+# 1, -, 7, 0, 123), so that each group of 2 rows holds a row that
+# finishes while the other runs on
+EOS_BOOST = 3.1
+
+
+def mixed_groups(values, rows):
+    """The groups of ``rows`` consecutive rows (a cluster kernel's row
+    groups: ``cluster_geometry``'s "rows") whose ``values`` are not all
+    equal; for the steps each row of a decode ran, the groups in which a
+    row finished while another ran on."""
+    return [g // rows for g in range(0, len(values), rows)
+            if len(set(values[g:g + rows])) > 1]
+
+
+def finishing(got, eos_id, pad_id):
+    """Each row's EOS step (None for a row that never emits it), after
+    checking that only PAD follows it, that its count is its non-EOS
+    tokens (its EOS step, or T) and its length its non-PAD ones."""
+    T, ends = got.tokens.shape[1], []
+    for row, count, length in zip(got.tokens.tolist(),
+                                  got.token_count.tolist(),
+                                  got.lengths.tolist()):
+        e = row.index(eos_id) if eos_id in row else None
+        tail = row[e + 1:] if e is not None else []
+        if (count != (T if e is None else e)
+                or length != sum(t != pad_id for t in row)
+                or tail != [pad_id] * len(tail)):
+            raise AssertionError(f"whole decode row {row[:8]}...: EOS at "
+                                 f"{e}, count {count}, length {length}")
+        ends.append(e)
+    return ends
+
+
 def check_whole_decode(cfg, np_params, batch, quantize):
-    """Phase 3: the whole decode (B12) against its plain version at the
-    greedy bucket, bf16, over T steps from random encoder memory, with the
-    resident bundle float or, with ``quantize``, int8: tokens held by
-    ``hold_decode``. Times are one whole decode's."""
+    """Phase 3: the whole decode (B12) against its plain version, bf16,
+    over T steps from random encoder memory, with the resident bundle float
+    or, with ``quantize``, int8, at the greedy bucket and at one row, and
+    on an EOS-boosted bundle at the bucket whose rows end at different
+    steps and some never, with a group (2 rows at the bucket) holding a
+    row that finished beside one that ran on (PAD after EOS, counts and
+    lengths checked): the tokens held by ``hold_decode``, the log-prob
+    sums of the rows that agree within WHOLE_DECODE_LP_ATOL; the cluster
+    shape of both row counts. Times are one whole decode's at the bucket
+    (and at one row)."""
+    import numpy as np
     import torch
 
     from handwritten_math_ocr_api_torch import convert
-    from handwritten_math_ocr_api_torch.core.config import EOS_ID
+    from handwritten_math_ocr_api_torch.core.config import EOS_ID, PAD_ID
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
     from handwritten_math_ocr_api_torch.ops import whole_decode as wd
 
     dev = torch.device(DEVICE)
@@ -1286,25 +1365,67 @@ def check_whole_decode(cfg, np_params, batch, quantize):
     dec = convert.to_torch({"decoder": np_params["decoder"]}, cfg,
                            dev)["decoder"]
     resident = wd.build_resident(dec, cfg, quantize)
+    cluster = {}
+    for rows in (batch, 1):
+        cluster[rows] = fs.cluster_geometry("whole_decode", cfg, rows, T,
+                                            L_enc, torch.bfloat16, quantize,
+                                            V)
+        log(f"kernel {name}: {rows} rows, cluster shape {cluster[rows]}")
+
+    def gate(what, resident, memory):
+        """The kernel's decode against the plain one's; (the kernel's
+        output, the log-prob sum error, the plain decode's wall ms). The
+        plain decode launches some 40,000 small kernels, and a profiled run
+        of it costs tens of seconds of the host's time: its one reference
+        run is timed by the synchronized wall clock instead."""
+        got = wd.fused_whole_decode(resident, cfg, memory)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
+                                                   return_logits=True)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        if tuple(got.tokens.shape) != (memory.shape[0], T):
+            raise AssertionError(f"{what}: tokens "
+                                 f"{tuple(got.tokens.shape)}")
+        finishing(got, EOS_ID, PAD_ID)
+        err = hold_decode(f"kernel {what}", got, want, logits)
+        if err > WHOLE_DECODE_LP_ATOL:
+            raise AssertionError(f"{what}: log-prob sums differ by {err}")
+        return got, err, plain
+
     memory = torch.randn(batch, L_enc, D, generator=gen, device=dev).to(
         torch.bfloat16)
-    got = wd.fused_whole_decode(resident, cfg, memory)
-    # the plain decode launches some 40,000 small kernels, and a profiled
-    # run of it costs tens of seconds of the host's time: its one
-    # reference run is timed by the synchronized wall clock instead
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
-                                               return_logits=True)
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) * 1e3
-    if tuple(got.tokens.shape) != (batch, T):
-        raise AssertionError(f"{name}: tokens {tuple(got.tokens.shape)}")
-    err = hold_decode(f"kernel {name}", got, want, logits)
-    if err > WHOLE_DECODE_LP_ATOL:
-        raise AssertionError(f"{name}: log-prob sums differ by {err}")
+    got, err, plain = gate(f"{name} {batch} rows", resident, memory)
+    one = memory[:1].contiguous()
+    _, err1, _ = gate(f"{name} 1 row", resident, one)
+    boosted = dict(np_params["decoder"])
+    bias = np.array(boosted["fc_out"]["b"], np.float32)
+    bias[EOS_ID] += EOS_BOOST
+    boosted["fc_out"] = {**boosted["fc_out"], "b": bias}
+    eos_resident = wd.build_resident(convert.to_torch(
+        {"decoder": boosted}, cfg, dev)["decoder"], cfg, quantize)
+    eos_memory = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (batch, L_enc, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    eos_got, eos_err, _ = gate(f"{name} EOS-boosted {batch} rows",
+                               eos_resident, eos_memory)
+    ends = finishing(eos_got, EOS_ID, PAD_ID)
+    group = cluster[batch]["rows"]
+    mixed = mixed_groups(steps_per_row(eos_got.tokens, EOS_ID), group)
+    log(f"kernel {name} EOS-boosted {batch} rows: EOS steps {ends}; "
+        f"groups of {group} rows where a row finished beside a live one: "
+        f"{mixed}")
+    if None not in ends or len({e for e in ends if e is not None}) < 2:
+        raise AssertionError(f"{name}: the EOS-boosted rows do not end at "
+                             f"different steps with one live ({ends})")
+    if group < 2 or not mixed:
+        raise AssertionError(f"{name}: no group of the EOS-boosted decode "
+                             f"holds a finished row beside a live one "
+                             f"({group} rows a group, EOS steps {ends})")
     ms = cuda_ms(lambda: wd.fused_whole_decode(resident, cfg, memory),
                  iters=3, warmup=1)
+    ms1 = cuda_ms(lambda: wd.fused_whole_decode(resident, cfg, one),
+                  iters=3, warmup=1)
     nbytes, weights = step_weight_bytes(cfg, quantize)
     runs = steps_per_row(got.tokens, EOS_ID)
     steps = sum(runs)                                      # (row, step) pairs
@@ -1322,10 +1443,15 @@ def check_whole_decode(cfg, np_params, batch, quantize):
     attended = slots + steps * L * (1 + L_enc)
     flops = 2 * steps * weights + 4 * D * attended
     f32_flops = 2 * steps * D * V
-    entry.add(1, err, ms, plain, None, nbytes, flops, f32_flops)
+    entry.add(1, max(err, err1, eos_err), ms, plain, None, nbytes, flops,
+              f32_flops)
+    entry.d["ms_rows1"] = ms1
+    entry.d["cluster"] = cluster[batch]
+    entry.d["cluster_rows1"] = cluster[1]
     log(f"kernel {name}: memory {tuple(memory.shape)} {steps} (row, step) "
-        f"pairs, log-prob sums max_abs_err {err:.3g} (rows that agree); "
-        f"ms {ms:.4f} plain_ms "
+        f"pairs, log-prob sums max_abs_err {err:.3g} (rows that agree; 1 "
+        f"row {err1:.3g}, EOS-boosted {eos_err:.3g}); ms {ms:.4f} (1 row "
+        f"{ms1:.4f}) plain_ms "
         f"{plain:.4f} bound_ms {bound_ms(nbytes, flops, f32_flops):.4f} "
         f"({bound_by(nbytes, flops, f32_flops)}; {nbytes / 1e6:.2f} MB "
         f"moved, each input read once, each cache slot written once; the "
@@ -1355,7 +1481,8 @@ PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "patch_merging_mma", "cache_append_attention",
     "fused_step_cluster", "swin_block", "swin_block_mma",
     "ragged_step_cluster", "beam_gather",
-    "dequant_mma", "dequant_f32", "whole_step", "whole_decode"))
+    "dequant_mma", "dequant_f32", "whole_step_cluster",
+    "whole_decode_cluster"))
 
 
 def profile_call(fn, what, unprofiled_s, tries=3):

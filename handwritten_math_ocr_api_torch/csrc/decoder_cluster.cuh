@@ -1,21 +1,38 @@
 // The decoder layers of one step for a group of rows, spread over a
-// thread-block cluster: the layer code of fused_step.cu (B1 and B11) and
-// ragged_step.cu (B7), with B7's embedding prologue and float32 head
-// epilogue (Step::embed, Step::head), which B10 and B12 can take when they
-// move onto it; and the host's plan of a launch (make_shape, the tensor
-// maps, the launch configuration) at the end of the file.
+// thread-block cluster: the layer code of every decoder-step kernel,
+// fused_step.cu (B1 and B11), ragged_step.cu (B7), whole_step.cu (B10) and
+// whole_decode.cu (B12), with the embedding prologue and the float32 head
+// epilogue (Step::embed, Step::head) of B7, B10 and B12, and B12's loop of
+// steps (Step<W, C, true>: Step::pick and the ring carried over steps); and
+// the host's plan of a launch (make_shape, the tensor maps, the launch
+// configuration) at the end of the file.
+//
+// Numerics (the TPU kernels'). Three types: W the weights, C the caches
+// (and the step's activation dtype), X = InputOf<W> the matmul inputs. The
+// bf16 and float32 bundles have W = C = X. The int8 bundle
+// (quantize_stacked, the TPU kernels' "quantized" mode) has W = int8 with
+// a float32 scale per output column, X = bf16 whatever C is (the TPU
+// kernels' x.astype(bfloat16) @ w.astype(bfloat16)), and the scale
+// multiplies the float32 sum before the bias is added. The activation rows
+// stay float32 across the sublayers; every matmul input is rounded to X and
+// accumulated in float32; biases, LayerNorm (eps 1e-5) and the attention
+// logits and softmax are float32; the fresh K/V row is rounded to C before
+// it joins attention at slot pos (B12 attends it unrounded, in float32, as
+// its TPU kernel's lnew = q * k_new does; only the stored row is rounded),
+// and no slot after pos is read (the TPU kernels' -inf mask).
 //
 // Each row of a group has its own slot (Step::positions): B7's come from
-// device memory, B1's and B11's are the launch's one pos. The host plans a
-// launch for the Shape's pos (B7: the last slot, Tc - 1, the worst case);
-// a row attends its slots [0, pos[r]) and its fresh row at pos[r].
+// device memory, B1's, B10's and B11's are the launch's one pos, B12's the
+// step it has reached. The host plans a launch for the Shape's pos (B7 and
+// B12: the last slot, the worst case); a row attends its slots [0, pos[r])
+// and its fresh row at pos[r].
 //
 // A cluster of Cs blocks takes a group of up to kGroupMax rows. Every block
 // keeps the group's activation rows (float32) in its own shared memory and
 // computes, for every row at once, its own columns of each of a layer's six
 // products, so each weight byte of a step is read by one block a group
 // (the qkv and cq columns of a head by the Cs / H blocks that share it):
-//   per layer l (post-norm, as decoder_layers.cuh):
+//   per layer l (post-norm):
 //     q, k, v = x W_qkv + b_qkv;  k, v -> the fresh rows, rounded to C
 //     x = LN1(x + (attn(q, self cache[:pos] + fresh row) W_out + b_out))
 //     x = LN2(x + (attn(x W_cq + b_cq, cross K/V) W_co + b_co))
@@ -45,11 +62,14 @@
 // follows by TMA bulk copies, into a ring of stages, each completing on
 // its own mbarrier; the qkv stage also brings the block's items'
 // self-cache slots before their row's slot (as many as shared memory
-// holds, one box an item's K or V; B1's and B11's self-cache maps end at
-// slot pos, so the part of a box at or past pos is filled with zeros; B7's
-// span all Tc slots, so it holds later slots; neither is read, and a row
-// at slot 0 copies none) and the cq stage their cross K/V, so attention
-// reads shared memory.
+// holds, one box an item's K or V; B1's, B10's and B11's self-cache maps
+// end at slot pos, so the part of a box at or past pos is filled with
+// zeros; B7's and B12's span all the cache's slots, so it holds later
+// slots; neither is read, and in a single step a row at slot 0 copies
+// none) and the cq stage their cross K/V, so attention reads shared
+// memory. The self caches are batch-major (L, B, T, D), or time-major
+// (L, T, B, D) for B10's "v4" (Shape::time_major: a 4-D map over
+// (D, B, T, L), an item's box (dh, 1, slots, 1)).
 // The copies of the next stages - 1 sublayers are in flight while one
 // computes. Thread 0 declares a stage's bytes (mbarrier.arrive.expect_tx),
 // then one thread an op issues its few copies. Weight segments whose rows
@@ -59,9 +79,7 @@
 // Attention: an item's slots split over up to kWarps / items warps; a
 // warp's lanes split its slots (dh / 16-byte vectors a slot) in one pass
 // with an online softmax, and the warps' partial states meet in shared
-// memory. The numerics are decoder_layers.cuh's: float32 logits and
-// softmax, the fresh K/V row rounded to the cache type C before it joins
-// at slot pos, no slot after pos read.
+// memory; see Numerics above.
 //
 // Products: for bf16 inputs (the bf16 bundle, and the int8 bundle, whose
 // inputs round to bf16) on the tensor cores, mma.sync.m16n8k16 with
@@ -109,9 +127,9 @@ constexpr int kBox = 256;       // a tensor copy's largest box dimension
 
 // The tensor maps of a launch: the six stacked weights (L, K, N), boxes of
 // (min(K, kBox) rows, a block's column segment); the self caches
-// (L, B, pos, D: the slots before pos of (L, B, T, D) caches) and the
-// cross K/V (L, B, L_enc, D), boxes of (the staged slots, a head's dh
-// values).
+// (L, B, pos, D: the slots before pos of (L, B, T, D) caches, or
+// (L, pos, B, D) of time-major ones) and the cross K/V (L, B, L_enc, D),
+// boxes of (the staged slots, a head's dh values).
 struct Maps {
   CUtensorMap w[6];
   CUtensorMap self_k, self_v, cross_k, cross_v;
@@ -128,6 +146,8 @@ struct Shape {
   int stages;     // stages of the ring
   int cap_self;   // self-cache slots an item stages in shared memory
   int cap_cross;  // cross K/V slots an item stages
+  int hres;        // B12: columns of the head a block keeps resident, else 0
+  int time_major;  // the self caches are (L, T, B, D) (B10 "v4")
 };
 
 __host__ __device__ inline size_t align16(size_t b) {
@@ -261,7 +281,7 @@ __host__ __device__ inline size_t table_bytes() {
 template <typename W, typename C>
 struct Layout {
   size_t x, xa, xo, xh, yfull, ys, red, iq, part, stats, rpos, hstat, tabs,
-      bars, ring, stage, wbytes, kvs, kvc, kv_self, kv_cross, end;
+      head, dec, bars, ring, stage, wbytes, kvs, kvc, kv_self, kv_cross, end;
   int nmax;
   __host__ __device__ explicit Layout(const Shape& s) {
     using X = InputOf<W>;
@@ -291,6 +311,10 @@ struct Layout {
     stats = at;  at = align16(at + sizeof(float) * 2 * kWarps);
     hstat = at;  at = align16(at + sizeof(float) * 3 * s.Cs * s.Mg);
     tabs = at;   at = align16(at + table_bytes());
+    // B12 only: the resident head segment (D rows of hres columns, then
+    // its biases) and each row's decode state (prev token, lp, cnt)
+    head = at;   at = align16(at + sizeof(float) * s.hres * (s.D + 1));
+    dec = at;    at = align16(at + (s.hres > 0 ? 12 * kGroupMax : 0));
     bars = at;   at = align1024(at + 8 * kMaxStages);
     ring = at;
     wbytes = align1024(stage_bytes);
@@ -445,12 +469,24 @@ __device__ __forceinline__ void raw_to_f32(const uint4& r, float* out) {
 
 // One step's layers for the group of rows [row0, row0 + rows) of one
 // cluster. The kernel calls positions() and start(), fills x (float32) and
-// xa (x rounded to X) for the group's rows (B7: embed()) and meets the
-// cluster once before run(); on return x holds the last layer's output
-// (B7: head() then computes the logits). Sublayer g = kSublayers l + p
+// xa (x rounded to X) for the group's rows (B7, B10: embed()) and meets
+// the cluster once before run(); on return x holds the last layer's output
+// (B7, B10: head() then computes the logits). Sublayer g = kSublayers l + p
 // uses stage g % stages; its copies are issued as sublayer
 // g - (stages - 1) starts (start() issues those of 0 .. stages - 2).
-template <typename W, typename C>
+//
+// kDecode: B12's loop of steps in one launch (whole_decode.cu). The ring
+// runs on over the steps (run() carries its stage and parity), so the next
+// step's first stages - 1 sublayers are in flight during this step's last
+// sublayers and its head; the head's weights stay resident in shared
+// memory (Shape::hres) for the whole decode. A row that has finished is
+// dead (rpos -1) from its next step on: its items read nothing (items[].r
+// -1, the stage bytes counted again, count_bytes()), and it writes no
+// cache slot. The fresh K/V row joins attention in float32 (B12's rule),
+// and its stores are fenced against the async proxy: the next step's TMA
+// copies read them. No slot-0 rule: a stage issued during step t for step
+// t + 1 copies every live item's box (at step 0 a box of slots never read).
+template <typename W, typename C, bool kDecode = false>
 struct Step {
   using X = InputOf<W>;
   static constexpr int kVec = Vec<C>::N;
@@ -479,11 +515,14 @@ struct Step {
   C *kvs, *kvc;  // the items' staged self-cache prefix and cross K/V
   size_t stage, wbytes, kv_self, kv_cross;
   int nmax;
-  // the float32 head (B7; hw null for B1 and B11): w_head (D, hV) and
-  // b_head, this block's hn columns from hc0, staged at a row stride of hc
+  // the float32 head (B7, B10, B12; hw null for B1 and B11): w_head
+  // (D, hV) and b_head, this block's hn columns from hc0, staged at a row
+  // stride of hc
   const float* hw = nullptr;
   const float* hb = nullptr;
   int hV = 0, hc = 0, hc0 = 0, hn = 0;
+  float* hres;  // B12: the resident head segment (Layout::head)
+  int* dec;     // B12: the decode state (Layout::dec)
 
   __device__ Step(const decoder::Weights<W>& w_, const C* sk, const C* sv,
                   decoder::CacheLayout self_, const C* ck, const C* cv,
@@ -514,6 +553,8 @@ struct Step {
     part = reinterpret_cast<float*>(smem + lay.part);
     stats = reinterpret_cast<float*>(smem + lay.stats);
     hstat = reinterpret_cast<float*>(smem + lay.hstat);
+    hres = reinterpret_cast<float*>(smem + lay.head);
+    dec = reinterpret_cast<int*>(smem + lay.dec);
     bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
     pt = reinterpret_cast<ProdTab*>(smem + lay.tabs);
     wtab = reinterpret_cast<WarpTab*>(pt + kSublayers);
@@ -562,7 +603,7 @@ struct Step {
   // The tables, the barriers, each product's stage bytes (the same in
   // every layer), and the first stages - 1 stages' copies.
   __device__ void start() {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int tid = threadIdx.x;
     if (tid < kSublayers) {
       const int p = tid;
       ProdTab& t = pt[p];
@@ -631,6 +672,19 @@ struct Step {
         wt.red[i] = kp * t.tiles + tile;
       }
     }
+    count_bytes();
+    if constexpr (kDecode) copy_head(hres);
+    __syncthreads();
+    if (tid == 0)
+      for (int g = 0; g < s.stages - 1; ++g) expect(g, g);
+    __syncthreads();
+    for (int g = 0; g < s.stages - 1; ++g) issue(g, g);
+  }
+
+  // Each product's stage bytes (the same in every layer) from the items'
+  // rows: a warp a product.
+  __device__ void count_bytes() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int p = warp; p < kSublayers; p += kWarps) {
       unsigned bytes = 0;
       for (int i = lane; i < pt[p].ops; i += 32) bytes += op(p, 0, 0, i, false);
@@ -638,11 +692,6 @@ struct Step {
         bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
       if (lane == 0) pt[p].bytes = bytes;
     }
-    __syncthreads();
-    if (tid == 0)
-      for (int g = 0; g < s.stages - 1; ++g) expect(g, g);
-    __syncthreads();
-    for (int g = 0; g < s.stages - 1; ++g) issue(g, g);
   }
 
   // Copy op i of product p of layer l into stage st (if `go`); returns its
@@ -694,13 +743,15 @@ struct Step {
     const int kv = i & 1, li = i >> 1;
     if (items[li].r < 0) return 0;
     const int r = items[li].r, h = items[li].h;
-    if (p == 0 && rpos()[r] == 0) return 0;  // a row at slot 0: none
+    // a row at slot 0: none (a decode's stage may be for the next step)
+    if (!kDecode && p == 0 && rpos()[r] == 0) return 0;
     if (go) {
       if (p == 0)
         tensor_copy4(reinterpret_cast<unsigned char*>(kvs) +
                          (2 * li + kv) * kv_self,
-                     kv ? &maps->self_v : &maps->self_k, h * sp.dh, 0,
-                     row0 + r, l, bar);
+                     kv ? &maps->self_v : &maps->self_k, h * sp.dh,
+                     s.time_major ? row0 + r : 0,
+                     s.time_major ? 0 : row0 + r, l, bar);
       else
         tensor_copy4(reinterpret_cast<unsigned char*>(kvc) +
                          (2 * li + kv) * kv_cross,
@@ -717,12 +768,16 @@ struct Step {
   // 6 (l - 1) + 1 starts, after layer l - 1's self-attention; its cross
   // copies with its cq stage, after layer l - 1's cross-attention
   // (stages <= 6).
+  // A decode's sublayers past the step's last are the next step's first.
   __device__ void expect(int g, int st) {
+    if (kDecode && g >= kSublayers * s.L) g -= kSublayers * s.L;
     if (g < kSublayers * s.L)
       mbar_arrive_expect(bars + st, pt[g % kSublayers].bytes);
   }
   __device__ void issue(int g, int st) {
-    if (g == kSublayers * s.L && hw != nullptr) issue_head(st);
+    if (kDecode && g >= kSublayers * s.L) g -= kSublayers * s.L;
+    if (!kDecode && g == kSublayers * s.L && hw != nullptr)
+      copy_head(reinterpret_cast<float*>(stage_at(st)));
     if (g >= kSublayers * s.L) return;
     const int p = g % kSublayers;
     if (static_cast<int>(threadIdx.x) < pt[p].ops)
@@ -852,15 +907,24 @@ struct Step {
         } else {
           C* dst = (part == 1 ? fresh.k : fresh.v) + l * fresh.layer +
                    (row0 + r) * fresh.row + items[li].h * dh + d;
-          // a dead row's fresh rows are NaN
-          const C cv = from_f32<C>(
-              rpos()[r] < 0 ? __int_as_float(0x7fffffff) : v);
-          *dst = cv;
-          v = to_f32(cv);
+          if constexpr (kDecode) {
+            // a finished row writes nothing; the fresh row joins
+            // attention unrounded
+            if (rpos()[r] >= 0) *dst = from_f32<C>(v);
+          } else {
+            // a dead row's fresh rows are NaN
+            const C cv = from_f32<C>(
+                rpos()[r] < 0 ? __int_as_float(0x7fffffff) : v);
+            *dst = cv;
+            v = to_f32(cv);
+          }
         }
         iq[(li * 3 + part) * dh + d] = v;
       }
     }
+    // the next step's tensor copies (the async proxy) read these slots
+    if (kDecode && p == 0)
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
     __syncthreads();
   }
 
@@ -1140,20 +1204,22 @@ struct Step {
   }
 
   // Each row's slot, before start(): pos[row0 + r] from device memory (B7),
-  // or the launch's s.pos for every row (B1, B11: pos null). A row of B7
-  // whose slot lies outside [0, min(Tc, Tpos)) or whose prev token outside
-  // [0, V) is dead (-1): it reads no table or cache, its attention items
-  // are skipped, and its outputs are NaN (nxt -1); its products compute on
-  // whatever its rows hold, which reaches no other row.
+  // or the launch's s.pos for every row (B1, B10, B11: pos null). A row of
+  // B7 or B10 (prev given) whose slot lies outside [0, min(Tc, Tpos)) or
+  // whose prev token outside [0, V) is dead (-1): it reads no table or
+  // cache, its attention items are skipped, and its outputs are NaN (nxt
+  // -1); its products compute on whatever its rows hold, which reaches no
+  // other row.
   __device__ void positions(const int* pos, const int* prev, int Tc,
                             int Tpos, int V) {
     const int r = threadIdx.x;
     if (r < s.Mg) {
       int p = s.pos;
-      if (pos != nullptr) {
+      if (prev != nullptr) {
         p = -1;
         if (r < rows) {
-          const int q = pos[row0 + r], tok = prev[row0 + r];
+          const int q = pos != nullptr ? pos[row0 + r] : s.pos;
+          const int tok = prev[row0 + r];
           if (q >= 0 && q < Tc && q < Tpos && tok >= 0 && tok < V) p = q;
         }
       }
@@ -1162,26 +1228,27 @@ struct Step {
     __syncthreads();
   }
 
-  // B7's prologue, after start(): x = round_to<C>(emb[prev[r]] +
-  // pos_emb[pos[r]]) from the float32 tables for the group's live rows
-  // (zero for a dead one), and xa = x rounded to X.
-  __device__ void embed(const int* prev, const float* emb,
+  // The prologue of B7, B10 and B12, after start(): x =
+  // round_to<C>(emb[tok[r]] + pos_emb[pos[r]]) from the float32 tables for
+  // the group's live rows (zero for a dead one), and xa = x rounded to X.
+  // tok: the group's previous tokens (device or shared memory).
+  __device__ void embed(const int* tok, const float* emb,
                         const float* pos_emb) {
     const int D = s.D, lda = D + pad_of<X>();
     for (int i = threadIdx.x; i < rows * D; i += kThreads) {
       const int r = i / D, d = i - r * D, p = rpos()[r];
       const float v =
           p < 0 ? 0.0f
-                : round_to<C>(
-                      emb[static_cast<size_t>(prev[row0 + r]) * D + d] +
-                      pos_emb[static_cast<size_t>(p) * D + d]);
+                : round_to<C>(emb[static_cast<size_t>(tok[r]) * D + d] +
+                              pos_emb[static_cast<size_t>(p) * D + d]);
       x[i] = v;
       xa[r * lda + d] = from_f32<X>(v);
     }
   }
 
-  // The float32 head of B7 (before start()): w_head (D, V) and b_head (V),
-  // split over the cluster's blocks in segments of ceil(V / Cs) columns.
+  // The float32 head of B7, B10 and B12 (before start()): w_head (D, V) and
+  // b_head (V), split over the cluster's blocks in segments of
+  // ceil(V / Cs) columns (B12: Shape::hres).
   __device__ void with_head(const float* w_head, const float* b_head, int V) {
     hw = w_head;
     hb = b_head;
@@ -1192,38 +1259,33 @@ struct Step {
   }
 
   // This block's head segment (its hn columns of w_head, rows at a stride
-  // of hc floats, then its b_head values) into stage st by 4-byte cp.async
+  // of hc floats, then its b_head values) to wh by 4-byte cp.async
   // (w_head's 4 V-byte rows need not be 16-byte aligned, which a tensor
-  // copy would), issued by every thread as the last sublayer starts (or
-  // after it with a one-stage ring), waited for in head().
-  __device__ void issue_head(int st) {
-    float* wh = reinterpret_cast<float*>(stage_at(st));
-    float* bh = wh + s.D * hc;
+  // copy would), waited for in head_logits(): into a ring stage, issued by
+  // every thread as the last sublayer starts (or after it with a one-stage
+  // ring), or for B12 once into its resident segment (start()).
+  __device__ void copy_head(float* wh) {
     for (int e = threadIdx.x; e < s.D * hn; e += kThreads) {
       const int k = e / hn, j = e - k * hn;
       cp_async4_zfill(wh + k * hc + j,
                       hw + static_cast<size_t>(k) * hV + hc0 + j, 4);
     }
     for (int j = threadIdx.x; j < hn; j += kThreads)
-      cp_async4_zfill(bh + j, hb + hc0 + j, 4);
+      cp_async4_zfill(wh + s.D * hc + j, hb + hc0 + j, 4);
   }
 
-  // B7's epilogue, after run(): each block computes its columns of the
-  // group's logits, x W_head + b_head in float32 FMA, the reduction split
-  // where outputs are few. With `logits`, each block writes its columns
-  // (NaN in a dead row). Else each block reduces its columns of a row to
-  // (max, its first index, sum exp(l - max)); rank 0 merges the blocks'
-  // triples after one more cluster barrier as an online softmax (the lower
-  // index on a tie: the first index of the max) and writes nxt and
-  // log(p_max + 1e-10) with _argmax_head's expressions (nxt -1 and NaN in a
-  // dead row).
-  __device__ void head(float* logits, int* nxt, float* logp) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    if (s.stages == 1) issue_head(0);
+  // The head's first part, after run(): each block computes its columns of
+  // the group's logits, x W_head + b_head in float32 FMA, the reduction
+  // split where outputs are few, into ys (rows x hn).
+  __device__ void head_logits() {
+    const int tid = threadIdx.x;
+    if (!kDecode && s.stages == 1)
+      copy_head(reinterpret_cast<float*>(stage_at(0)));
     cp_async_wait_all();
     __syncthreads();
-    const float* wh = reinterpret_cast<const float*>(
-        stage_at((kSublayers * s.L) % s.stages));
+    const float* wh = kDecode ? hres
+                              : reinterpret_cast<const float*>(stage_at(
+                                    (kSublayers * s.L) % s.stages));
     const float* bh = wh + s.D * hc;
     const int D = s.D, outs = rows * hn;
     float* hl = ys;  // the block's logits, rows x hn
@@ -1247,15 +1309,13 @@ struct Step {
       }
     }
     __syncthreads();
-    const float nan = __int_as_float(0x7fffffff);
-    if (logits != nullptr) {
-      for (int o = tid; o < outs; o += kThreads) {
-        const int r = o / hn, c = o - r * hn;
-        logits[static_cast<size_t>(row0 + r) * hV + hc0 + c] =
-            rpos()[r] < 0 ? nan : hl[o];
-      }
-      return;
-    }
+  }
+
+  // Each row's (max, its first index, sum exp(l - max)) over this block's
+  // columns (ys) to the hstat of block 0, or of every block (`all`).
+  __device__ void head_triples(bool all) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const float* hl = ys;
     for (int r = warp; r < rows; r += kWarps) {
       float m = -INFINITY;
       int mi = hV;
@@ -1278,44 +1338,146 @@ struct Step {
       if (m > -INFINITY)
         for (int c = lane; c < hn; c += 32) se += expf(hl[r * hn + c] - m);
       se = warp_sum(se);
-      if (lane == 0) {
-        float* to = cluster.map_shared_rank(hstat, 0) + (rank * s.Mg + r) * 3;
+      if (lane < (all ? s.Cs : 1)) {
+        float* to =
+            cluster.map_shared_rank(hstat, lane) + (rank * s.Mg + r) * 3;
         to[0] = m;
         to[1] = se;
         to[2] = __int_as_float(mi);
       }
     }
+  }
+
+  // Row r's pick from the blocks' triples in this block's hstat, merged as
+  // an online softmax (the lower index on a tie: the first index of the
+  // max): its index and log(p_max + 1e-10) with _argmax_head's
+  // expressions.
+  __device__ void merge(int r, int& index, float& lp) const {
+    float mv = -INFINITY;
+    int mi = hV;
+    for (int b = 0; b < s.Cs; ++b) {
+      const float* t = hstat + (b * s.Mg + r) * 3;
+      const int i = __float_as_int(t[2]);
+      if (t[0] > mv || (t[0] == mv && i < mi)) {
+        mv = t[0];
+        mi = i;
+      }
+    }
+    float se = 0.0f;
+    for (int b = 0; b < s.Cs; ++b) {
+      const float* t = hstat + (b * s.Mg + r) * 3;
+      if (t[0] > -INFINITY) se += t[1] * expf(t[0] - mv);
+    }
+    index = mi;
+    lp = logf(expf(mv - (mv + logf(se))) + 1e-10f);
+  }
+
+  // The epilogue of B7 and B10, after run(): the group's logits
+  // (head_logits). With `logits`, each block writes its columns (NaN in a
+  // dead row). Else each block reduces its columns of a row to a triple,
+  // and block 0 merges the blocks' triples after one more cluster barrier
+  // and writes nxt and the log-probability (nxt -1 and NaN in a dead row).
+  __device__ void head(float* logits, int* nxt, float* logp) {
+    head_logits();
+    const float nan = __int_as_float(0x7fffffff);
+    if (logits != nullptr) {
+      for (int o = threadIdx.x; o < rows * hn; o += kThreads) {
+        const int r = o / hn, c = o - r * hn;
+        logits[static_cast<size_t>(row0 + r) * hV + hc0 + c] =
+            rpos()[r] < 0 ? nan : ys[o];
+      }
+      return;
+    }
+    head_triples(false);
     cluster.sync();
-    if (rank == 0 && tid < rows) {
-      const int r = tid;
-      float mv = -INFINITY;
-      int mi = hV;
-      for (int b = 0; b < s.Cs; ++b) {
-        const float* t = hstat + (b * s.Mg + r) * 3;
-        const int i = __float_as_int(t[2]);
-        if (t[0] > mv || (t[0] == mv && i < mi)) {
-          mv = t[0];
-          mi = i;
-        }
-      }
-      float se = 0.0f;
-      for (int b = 0; b < s.Cs; ++b) {
-        const float* t = hstat + (b * s.Mg + r) * 3;
-        if (t[0] > -INFINITY) se += t[1] * expf(t[0] - mv);
-      }
+    if (rank == 0 && static_cast<int>(threadIdx.x) < rows) {
+      const int r = threadIdx.x;
+      int mi;
+      float lp;
+      merge(r, mi, lp);
       const bool dead = rpos()[r] < 0;
       nxt[row0 + r] = dead ? -1 : mi;
-      logp[row0 + r] =
-          dead ? nan : logf(expf(mv - (mv + logf(se))) + 1e-10f);
+      logp[row0 + r] = dead ? nan : lp;
     }
+  }
+
+  // B12's decode state in shared memory (Layout::dec): each row's
+  // previous token, log-prob sum and count.
+  __device__ int* prev_tok() const { return dec; }
+  __device__ float* lp_sum() const {
+    return reinterpret_cast<float*>(dec + kGroupMax);
+  }
+  __device__ int* count() const { return dec + 2 * kGroupMax; }
+
+  // B12, before start(): every row of the group at slot 0, fed sos_id.
+  __device__ void begin_decode(int sos_id) {
+    const int r = threadIdx.x;
+    if (r < kGroupMax) {
+      rpos()[r] = r < rows ? 0 : -1;
+      prev_tok()[r] = sos_id;
+      lp_sum()[r] = 0.0f;
+      count()[r] = 0;
+    }
+    __syncthreads();
+  }
+
+  // B12's epilogue of step t, after run(): the head's triples go to every
+  // block, so that after one cluster barrier each block merges them alike
+  // and keeps the same decode state. Each live row takes its pick (block 0
+  // writes it to tokens, row stride T_out) and adds its log-probability;
+  // one that picks eos_id finishes (its count stays), the others count it
+  // and move to slot t + 1. A finished row gets pad_id. Then the items of
+  // the rows that finished are dropped and the stage bytes counted again.
+  // Returns whether a row of the group is still live (the same in every
+  // block).
+  __device__ bool pick(int t, int T_out, int eos_id, int pad_id,
+                       int* tokens) {
+    head_logits();
+    head_triples(true);
+    cluster.sync();
+    const int tid = threadIdx.x;
+    if (tid < rows) {
+      const int r = tid;
+      int tok = pad_id;
+      if (rpos()[r] >= 0) {
+        float lp;
+        merge(r, tok, lp);
+        lp_sum()[r] += lp;
+        if (tok == eos_id) {
+          rpos()[r] = -1;
+        } else {
+          count()[r] += 1;
+          prev_tok()[r] = tok;
+          rpos()[r] = t + 1;
+        }
+      }
+      if (rank == 0) tokens[static_cast<size_t>(row0 + r) * T_out + t] = tok;
+    }
+    __syncthreads();
+    bool live = false;
+    for (int r = 0; r < rows; ++r) live = live || rpos()[r] >= 0;
+    if (live && t + 1 < T_out) {
+      if (tid < sp.ipb && items[tid].r >= 0 && rpos()[items[tid].r] < 0)
+        items[tid].r = -1;
+      __syncthreads();
+      count_bytes();
+      __syncthreads();
+    }
+    return live;
   }
 
   // Every layer; see the file's head. One loop over the sublayers, so
   // that each phase's code appears once in the kernel.
   __device__ void run() {
+    int st = 0, ph = 0;
+    run(st, ph);
+  }
+
+  // run() from the ring's stage st and its barrier's parity ph, which it
+  // leaves at the next step's first sublayer (B12 carries them over steps).
+  __device__ void run(int& st, int& ph) {
     const float scale = 1.0f / sqrtf(static_cast<float>(sp.dh));
     const int lda = s.D + pad_of<X>(), ldh = s.F + pad_of<X>();
-    int st = 0, ph = 0;  // sublayer g's stage and its barrier's parity
     for (int g = 0; g < kSublayers * s.L; ++g) {
       const int l = g / kSublayers, p = g - l * kSublayers;
       const bool heads = p == 0 || p == 2;  // qkv, cq: this block's heads
@@ -1341,12 +1503,26 @@ struct Step {
     }
     __syncthreads();
   }
+
+  // B12, before the block exits: wait for the stages the ring issued for
+  // a step that does not come (the next stages - 1 sublayers), so that no
+  // copy lands in shared memory after it.
+  __device__ void drain(int st, int ph) {
+    for (int i = 0; i < s.stages - 1; ++i) {
+      mbar_wait(bars + st, ph);
+      if (++st == s.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+  }
 };
 
 // ---------------------------------------------------------------------
 // The host's plan of a launch, shared by the cluster kernels (B1 and B11
-// in fused_step.cu, B7 in ragged_step.cu): the Shape a kernel takes, its
-// tensor maps, and its launch configuration.
+// in fused_step.cu, B7 in ragged_step.cu, B10 in whole_step.cu, B12 in
+// whole_decode.cu): the Shape a kernel takes, its tensor maps, and its
+// launch configuration.
 
 // Blocks of a cluster: the portable size, the fastest of 4, 8 and 16 on an
 // H100 at 1 and 16 rows (PERF.md, the decoder step's cluster shapes).
@@ -1373,12 +1549,14 @@ inline int slots_in(size_t bytes, int items, int row, int most) {
 // ring takes as many stages as fit up to kMaxStages, at least two if one
 // stage would leave the cache unstaged; what is left stages the items'
 // cross K/V slots, then their self-cache slots (up to Tc - 1, and kBox,
-// slots). This is the one statement of the shapes the kernel takes.
+// slots). hres: B12's resident head columns a block (before the staging);
+// time_major: the self caches are (L, T, B, D) (B10 "v4").
+// This is the one statement of the shapes the kernel takes.
 template <typename W, typename C>
 Shape make_shape(int L, int B, int Tc, int D, int H, int F, int L_enc,
-                 int pos, int Mg) {
+                 int pos, int Mg, int hres = 0, int time_major = 0) {
   const int Cs = kClusterBlocks;
-  Shape s{L, B, D, H, F, L_enc, pos, Mg, Cs, 0, 0, 0};
+  Shape s{L, B, D, H, F, L_enc, pos, Mg, Cs, 0, 0, 0, hres, time_major};
   const int cols = std::max(8, 16 / static_cast<int>(sizeof(W)));
   const int dh = H > 0 ? D / H : 0;
   const int nvec = dh * static_cast<int>(sizeof(C)) / 16;
@@ -1522,9 +1700,10 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
 }
 
 // The launch's tensor maps: the six weights, the self caches' first
-// self_slots slots of their Tc (B1 and B11: the slots before pos, at least
-// one, which a step at pos 0 never copies; encoded for each launch; B7:
-// all Tc, kept with keep_self), and the cross K/V.
+// self_slots slots of their Tc (B1, B10 and B11: the slots before pos, at
+// least one, which a step at pos 0 never copies; encoded for each launch;
+// B7 and B12: all Tc, kept with keep_self), batch-major or, with
+// s.time_major, over (D, B, slots, L), and the cross K/V.
 template <typename W, typename C>
 cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
                       const void* const* wp, const void* self_k,
@@ -1545,19 +1724,25 @@ cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
         swizzle_bits(sp.seg_cols(s, p) * sizeof(W)));
     if (err != cudaSuccess) return err;
   }
-  const uint64_t self_dims[4] = {static_cast<uint64_t>(s.D),
-                                 static_cast<uint64_t>(self_slots),
-                                 static_cast<uint64_t>(s.B),
-                                 static_cast<uint64_t>(s.L)};
   const uint64_t row = s.D * sizeof(C);
-  const uint64_t self_strides[3] = {row, row * Tc, row * Tc * s.B};
+  const uint64_t slots = static_cast<uint64_t>(self_slots);
+  const uint64_t B = static_cast<uint64_t>(s.B);
+  const uint64_t self_dims[4] = {static_cast<uint64_t>(s.D),
+                                 s.time_major ? B : slots,
+                                 s.time_major ? slots : B,
+                                 static_cast<uint64_t>(s.L)};
+  // batch-major (L, B, Tc, D): slot, row, layer; time-major (L, Tc, B, D):
+  // row, slot, layer
+  const uint64_t self_strides[3] = {row, s.time_major ? row * B : row * Tc,
+                                    row * Tc * B};
   const uint64_t cross_dims[4] = {static_cast<uint64_t>(s.D),
                                   static_cast<uint64_t>(s.L_enc),
                                   static_cast<uint64_t>(s.B),
                                   static_cast<uint64_t>(s.L)};
+  const uint32_t cap = static_cast<uint32_t>(std::max(s.cap_self, 1));
   const uint32_t self_box[4] = {static_cast<uint32_t>(sp.dh),
-                                static_cast<uint32_t>(std::max(s.cap_self, 1)),
-                                1, 1};
+                                s.time_major ? 1u : cap,
+                                s.time_major ? cap : 1u, 1};
   const uint32_t cross_box[4] = {
       static_cast<uint32_t>(sp.dh),
       static_cast<uint32_t>(std::max(s.cap_cross, 1)), 1, 1};
@@ -1608,10 +1793,12 @@ cudaError_t configure(const void* kernel, const Shape& s,
 // stages 0: no shape the kernel takes.
 template <typename W, typename C>
 cudaError_t choose_shape(const void* kernel, int L, int B, int Tc, int D,
-                         int H, int F, int L_enc, int pos, Shape* out) {
+                         int H, int F, int L_enc, int pos, Shape* out,
+                         int hres = 0, int time_major = 0) {
   Shape last{};
   for (int Mg = 1; Mg <= kGroupMax; Mg *= 2) {
-    const Shape s = make_shape<W, C>(L, B, Tc, D, H, F, L_enc, pos, Mg);
+    const Shape s = make_shape<W, C>(L, B, Tc, D, H, F, L_enc, pos, Mg,
+                                     hres, time_major);
     if (s.stages < 1) continue;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
@@ -1628,28 +1815,38 @@ cudaError_t choose_shape(const void* kernel, int L, int B, int Tc, int D,
 
 // Whether the float32 head of V columns fits a Shape (Step::head): a
 // block's segment of ceil(V / Cs) columns of w_head and b_head in one
-// stage, its logits in ys and their partial sums in red.
+// stage (B12 keeps it resident instead, in Layout::head), its logits in
+// ys and their partial sums in red.
 template <typename W, typename C>
 bool head_fits(const Shape& s, int V) {
   const Layout<W, C> lay(s);
   const int hc = (V + s.Cs - 1) / s.Cs;
-  return V >= 1 && hc <= lay.nmax &&
-         sizeof(float) * (static_cast<size_t>(s.D) + 1) * hc <= lay.stage &&
+  const bool staged =
+      s.hres > 0 ||
+      sizeof(float) * (static_cast<size_t>(s.D) + 1) * hc <= lay.stage;
+  return V >= 1 && hc <= lay.nmax && staged &&
          s.Mg * hc + kThreads <= 128 * kWarps * kTilesPerWarp;
 }
 
+// The columns of the head of V columns a block keeps (its segment).
+inline int head_cols(int V) {
+  return (V + kClusterBlocks - 1) / kClusterBlocks;
+}
+
 // The launch geometry of a step for B rows at the last slot (with the
-// float32 head of V columns, or none if V is 0): out[0..7] =
-// blocks a cluster, clusters, rows a group, shared memory bytes a block,
-// stages of the ring, clusters the card holds at once, self-cache and
-// cross K/V slots an item stages. Returns the error a launch would
-// (kRefused for a shape the kernel does not take).
+// float32 head of V columns, or none if V is 0; resident in shared memory
+// with `resident`, as B12 keeps it): out[0..7] = blocks a cluster,
+// clusters, rows a group, shared memory bytes a block, stages of the ring,
+// clusters the card holds at once, self-cache and cross K/V slots an item
+// stages. Returns the error a launch would (kRefused for a shape the
+// kernel does not take).
 template <typename W, typename C>
 int geometry(const void* kernel, int B, int Tc, int D, int H, int F,
-             int L_enc, int V, int* out) {
+             int L_enc, int V, int* out, bool resident = false) {
   Shape s;
-  cudaError_t err =
-      choose_shape<W, C>(kernel, 1, B, Tc, D, H, F, L_enc, Tc - 1, &s);
+  cudaError_t err = choose_shape<W, C>(kernel, 1, B, Tc, D, H, F, L_enc,
+                                       Tc - 1, &s,
+                                       resident ? head_cols(V) : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s.stages < 1 || (V > 0 && !head_fits<W, C>(s, V))) return kRefused;
   cudaLaunchConfig_t cfg;
@@ -1666,5 +1863,15 @@ int geometry(const void* kernel, int B, int Tc, int D, int H, int F,
   out[7] = s.cap_cross;
   return static_cast<int>(err);
 }
+
+// The cluster kernels, by their id in the one geometry entry
+// (cluster_geometry, fused_step.cu). Each source file defines its own
+// lookup: its kernel for an int8 or a float bundle over float32 or bf16
+// caches, or nullptr where it has no entry for that pair.
+enum Kernel { kFusedStep, kRaggedStep, kWholeStep, kWholeDecode };
+const void* fused_step_kernel(bool int8, bool f32);
+const void* ragged_step_kernel(bool int8, bool f32);
+const void* whole_step_kernel(bool int8, bool f32);
+const void* whole_decode_kernel(bool int8, bool f32);
 
 }  // namespace cluster_step

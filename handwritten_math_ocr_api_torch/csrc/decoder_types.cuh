@@ -1,9 +1,8 @@
 // The operand types of the decoder-step kernels: the stacked weights of a
 // bundle (Linear, Weights), the matmul input type of a weight type
 // (InputOf), where a self cache lies (CacheLayout) and where a step's fresh
-// K/V rows go (FreshRows). Shared by the cluster layer code
-// (decoder_cluster.cuh: B1, B7, B11) and the one-block-a-row layer code
-// (decoder_layers.cuh: B10, B12).
+// K/V rows go (FreshRows), for the cluster layer code of every decoder-step
+// kernel (decoder_cluster.cuh: B1, B7, B10, B11, B12).
 #pragma once
 
 #include <type_traits>

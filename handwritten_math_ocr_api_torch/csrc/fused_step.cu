@@ -12,7 +12,7 @@
 //   x = x_emb[b]                                  (float32 from here on)
 //   every layer at slot pos (decoder_cluster.cuh::Step::run)
 //   x_out[b] = x
-// with the TPU kernels' numerics (see decoder_layers.cuh). B1's entries:
+// with the TPU kernels' numerics (see decoder_cluster.cuh). B1's entries:
 // the bf16 and float32 bundles, and the int8 bundle ("v2q",
 // quantize_stacked: int8 weights with per-column float32 scales, bf16
 // matmul inputs) over bf16 or float32 caches. B11's: the bf16 and float32
@@ -138,10 +138,8 @@ int launch(const void* x_emb, const void* const* wp, const void* ln,
 }
 
 template <typename W, typename C>
-int geometry(int B, int Tc, int D, int H, int F, int L_enc, int* out) {
-  return cluster_step::geometry<W, C>(
-      reinterpret_cast<const void*>(fused_step_cluster_kernel<W, C>), B, Tc,
-      D, H, F, L_enc, 0, out);
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(fused_step_cluster_kernel<W, C>);
 }
 
 }  // namespace
@@ -216,18 +214,41 @@ LAYERS_STEP_IN_PLACE_ENTRY(layers_step_in_place_f32, float)
 FUSED_STEP_I8_ENTRY(fused_decoder_step_i8_bf16, __nv_bfloat16)
 FUSED_STEP_I8_ENTRY(fused_decoder_step_i8_f32, float)
 
-// The launch geometry of a step for B rows, with int8 weights if `int8`
-// and a float32 cache if `f32` (else bf16), at the last slot: out[0..7] =
+const void* cluster_step::fused_step_kernel(bool int8, bool f32) {
+  if (int8)
+    return f32 ? kernel_of<int8_t, float>()
+               : kernel_of<int8_t, __nv_bfloat16>();
+  return f32 ? kernel_of<float, float>()
+             : kernel_of<__nv_bfloat16, __nv_bfloat16>();
+}
+
+// The launch geometry of a cluster kernel (cluster_step::Kernel: B1/B11,
+// B7, B10 or B12) for B rows at the last slot, with int8 weights if `int8`
+// and a float32 cache if `f32` (else bf16), and the float32 head of V
+// columns (none if V is 0; resident in shared memory for B12): out[0..7] =
 // blocks a cluster, clusters, rows a group, shared memory bytes a block,
 // stages of the ring, clusters the card holds at once, self-cache and
 // cross K/V slots an item stages. Returns the error a launch would
-// (kRefused for a shape the kernel does not take).
-extern "C" int fused_step_geometry(int int8, int f32, int B, int Tc, int D,
-                                   int H, int F, int L_enc, int* out) {
+// (kRefused for a shape or a kernel the port does not have).
+extern "C" int cluster_geometry(int kernel, int int8, int f32, int B,
+                                int Tc, int D, int H, int F, int L_enc,
+                                int V, int* out) {
+  using namespace cluster_step;
+  const void* k = kernel == kFusedStep     ? fused_step_kernel(int8, f32)
+                  : kernel == kRaggedStep  ? ragged_step_kernel(int8, f32)
+                  : kernel == kWholeStep   ? whole_step_kernel(int8, f32)
+                  : kernel == kWholeDecode ? whole_decode_kernel(int8, f32)
+                                           : nullptr;
+  if (k == nullptr) return kRefused;
+  const bool resident = kernel == kWholeDecode;
   if (int8)
-    return f32 ? geometry<int8_t, float>(B, Tc, D, H, F, L_enc, out)
-               : geometry<int8_t, __nv_bfloat16>(B, Tc, D, H, F, L_enc, out);
-  return f32 ? geometry<float, float>(B, Tc, D, H, F, L_enc, out)
-             : geometry<__nv_bfloat16, __nv_bfloat16>(B, Tc, D, H, F, L_enc,
-                                                     out);
+    return f32 ? geometry<int8_t, float>(k, B, Tc, D, H, F, L_enc, V, out,
+                                         resident)
+               : geometry<int8_t, __nv_bfloat16>(k, B, Tc, D, H, F, L_enc,
+                                                 V, out, resident);
+  return f32 ? geometry<float, float>(k, B, Tc, D, H, F, L_enc, V, out,
+                                      resident)
+             : geometry<__nv_bfloat16, __nv_bfloat16>(k, B, Tc, D, H, F,
+                                                      L_enc, V, out,
+                                                      resident);
 }

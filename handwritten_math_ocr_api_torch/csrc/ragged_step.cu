@@ -78,7 +78,7 @@ ragged_step_cluster_kernel(const int* __restrict__ prev,
   step.positions(pos, prev, Tc, Tpos, V);
   step.with_head(w_head, b_head, V);
   step.start();
-  step.embed(prev, emb, pos_emb);
+  step.embed(prev + row0, emb, pos_emb);
   step.cluster.sync();  // every block runs before any remote store
   step.run();
   step.head(logits, nxt, logp);
@@ -191,21 +191,11 @@ RAGGED_STEP_ENTRY(ragged_step_f32, float)
 RAGGED_STEP_I8_ENTRY(ragged_step_i8_bf16, __nv_bfloat16)
 RAGGED_STEP_I8_ENTRY(ragged_step_i8_f32, float)
 
-// The launch geometry of a ragged step for R rows (fused_step_geometry's
-// out[0..7], with the float32 head of V columns), or kRefused.
-extern "C" int ragged_step_geometry(int int8, int f32, int R, int Tc, int D,
-                                    int H, int F, int L_enc, int V,
-                                    int* out) {
+// The kernel for the one geometry entry (cluster_geometry, fused_step.cu).
+const void* cluster_step::ragged_step_kernel(bool int8, bool f32) {
   if (int8)
-    return f32 ? cluster_step::geometry<int8_t, float>(
-                     kernel_of<int8_t, float>(), R, Tc, D, H, F, L_enc, V,
-                     out)
-               : cluster_step::geometry<int8_t, __nv_bfloat16>(
-                     kernel_of<int8_t, __nv_bfloat16>(), R, Tc, D, H, F,
-                     L_enc, V, out);
-  return f32 ? cluster_step::geometry<float, float>(
-                   kernel_of<float, float>(), R, Tc, D, H, F, L_enc, V, out)
-             : cluster_step::geometry<__nv_bfloat16, __nv_bfloat16>(
-                   kernel_of<__nv_bfloat16, __nv_bfloat16>(), R, Tc, D, H,
-                   F, L_enc, V, out);
+    return f32 ? kernel_of<int8_t, float>()
+               : kernel_of<int8_t, __nv_bfloat16>();
+  return f32 ? kernel_of<float, float>()
+             : kernel_of<__nv_bfloat16, __nv_bfloat16>();
 }

@@ -8,9 +8,10 @@
 //   x = round(emb[prev[b]] + pos_emb[pos])        (float32 tables, the sum
 //                                                  rounded to the compute
 //                                                  type C and back)
-//   every layer at slot pos (decoder_layers.cuh::run_layers)
+//   every layer at slot pos (decoder_cluster.cuh::Step::run)
 //   logits = x W_head + b_head                    (float32)
-//   nxt[b], logp[b] = argmax, log(p_max + 1e-10)  (decoder::argmax_logp)
+//   nxt[b], logp[b] = argmax (the first index of the max),
+//                     log(p_max + 1e-10)
 // Two layouts of the self cache, an entry each:
 // - "v4", time-major (L, T, B, D): the fresh K/V rows are written into the
 //   caches at pos, in place (the TPU kernel's aliased single-row writes);
@@ -18,70 +19,76 @@
 //   (L, B, D) outputs that the caller appends.
 // prev is an int32 tensor in device memory (a step needs no host value);
 // pos comes by value. A row whose prev lies outside the vocabulary gets
-// nxt -1, logp NaN and NaN fresh rows.
+// nxt -1, logp NaN and NaN fresh rows (in "v4" at slot pos; no other slot
+// is touched), and leaves the other rows of its group as they are.
 //
 // Bound on the H100: bytes. A step reads every decoder weight once (about
 // 10.5 MB of bf16 at 8 layers, d_model 256, FFN 512) plus the float32
 // head (141 KB at vocab 138), the cross K/V and the cache prefix, and does
-// about two flops per weight byte per row. Design: one block per row
-// (decoder_layers.cuh); the TPU kernel's one-hot matmuls for the embedding
-// and the position row become two loads, and its vocabulary padding to
-// 128 lanes (a -1e9 bias) is dropped: the head computes exactly V columns.
-// Known weakness: each block reads all weights through its own SM.
-#include "decoder_layers.cuh"
+// about two flops per weight byte per row. Design: B7's kernel
+// (ragged_step.cu) at one position for the launch, on the cluster layer
+// code of decoder_cluster.cuh: the rows go in groups, one thread-block
+// cluster of kClusterBlocks blocks a group (at 16 rows: 8 clusters of 2),
+// each block computing its columns of every product for all the group's
+// rows on the tensor cores, so each weight byte is read once a group; the
+// embedding in the prologue (Step::embed), the head in the epilogue
+// (Step::head, argmax mode: a (max, first index, sum exp) triple a row and
+// block that block 0 merges). The host plans the launch at pos, as B1
+// (fused_step.cu): the self caches' maps end at slot pos, so a stage's
+// boxes never hold the slot that "v4" writes. The TPU kernel's one-hot
+// matmuls for the embedding and the position row become two loads, and its
+// vocabulary padding to 128 lanes (a -1e9 bias) is dropped: the head
+// computes exactly V columns.
+// No fallback: a cluster shape the card cannot place is returned as an
+// error, which the wrapper raises; a model the kernel does not split
+// returns kRefused, which the wrapper raises as a ValueError.
+#include <algorithm>
+
+#include "decoder_cluster.cuh"
 
 namespace {
 
-using decoder::kThreads;
+using cluster_step::kRefused;
+using cluster_step::kThreads;
+using cluster_step::Shape;
 
 template <typename C>
 __global__ void __launch_bounds__(kThreads, 1)
-whole_step_kernel(const int* __restrict__ prev,
-                  const float* __restrict__ emb,
-                  const float* __restrict__ pos_emb, decoder::Weights<C> w,
-                  const C* self_k, const C* self_v,
-                  decoder::CacheLayout self, const C* __restrict__ cross_k,
-                  const C* __restrict__ cross_v,
-                  const float* __restrict__ w_head,
-                  const float* __restrict__ b_head, int* __restrict__ nxt,
-                  float* __restrict__ logp, decoder::FreshRows<C> fresh,
-                  int L, int B, int D, int H, int F, int L_enc, int V,
-                  int pos) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int lstride = max(pos + 1, L_enc);
-  const decoder::Smem s(smem, D, F, H, lstride);
-  float* hy = s.red + decoder::red_floats<C>(D, F);  // V head outputs
-  float* hred = hy + V;                               // max(kThreads, V)
-  const int tok = prev[b];
+whole_step_cluster_kernel(const int* __restrict__ prev,
+                          const float* __restrict__ emb,
+                          const float* __restrict__ pos_emb,
+                          decoder::Weights<C> w, const C* self_k,
+                          const C* self_v, decoder::CacheLayout self,
+                          const C* __restrict__ cross_k,
+                          const C* __restrict__ cross_v,
+                          const float* __restrict__ w_head,
+                          const float* __restrict__ b_head,
+                          int* __restrict__ nxt, float* __restrict__ logp,
+                          decoder::FreshRows<C> fresh,
+                          const __grid_constant__ cluster_step::Maps maps,
+                          Shape s, int V) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using Step = cluster_step::Step<C, C>;
+  // the swizzled weight stages need a 1024-byte aligned base
+  unsigned char* smem =
+      smem_raw + ((1024 - (cluster_step::smem_u32(smem_raw) & 1023)) & 1023);
+  const int row0 = static_cast<int>(blockIdx.x) / s.Cs * s.Mg;
+  Step step(w, self_k, self_v, self, cross_k, cross_v, fresh, &maps, s,
+            smem, row0);
+  // every row at s.pos (checked by the host), dead if its prev is not a
+  // token
+  step.positions(nullptr, prev, s.pos + 1, s.pos + 1, V);
+  step.with_head(w_head, b_head, V);
+  step.start();
+  step.embed(prev + row0, emb, pos_emb);
+  step.cluster.sync();  // every block runs before any remote store
+  step.run();
+  step.head(nullptr, nxt, logp);
+}
 
-  if (tok < 0 || tok >= V) {
-    // out of range: NaN in every output of the row, nothing read
-    const float nan = __int_as_float(0x7fffffff);
-    for (int i = threadIdx.x; i < L * D; i += kThreads) {
-      const size_t at = (i / D) * fresh.layer + b * fresh.row + i % D;
-      fresh.k[at] = from_f32<C>(nan);
-      fresh.v[at] = from_f32<C>(nan);
-    }
-    if (threadIdx.x == 0) {
-      nxt[b] = -1;
-      logp[b] = nan;
-    }
-    return;
-  }
-
-  for (int d = threadIdx.x; d < D; d += kThreads)
-    s.x[d] = round_to<C>(emb[static_cast<size_t>(tok) * D + d] +
-                         pos_emb[static_cast<size_t>(pos) * D + d]);
-  __syncthreads();
-  decoder::run_layers<C, C>(w, self_k, self_v, self, cross_k, cross_v, fresh,
-                            L, B, b, D, H, F, L_enc, pos, true, lstride, s);
-  decoder::head(s.x, w_head, b_head, hy, D, V, hred);
-  const decoder::Pick pick = decoder::argmax_logp(hy, V, s.scratch);
-  if (threadIdx.x == 0) {
-    nxt[b] = pick.index;
-    logp[b] = pick.logp;
-  }
+template <typename C>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(whole_step_cluster_kernel<C>);
 }
 
 // wp: six (weight, scale, bias) triples, scale null (a float bundle).
@@ -94,15 +101,28 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
            const void* w_head, const void* b_head, void* nxt, void* logp,
            void* k_new, void* v_new, int L, int B, int Tc, int D, int H,
            int F, int L_enc, int V, int pos, void* stream) {
-  const size_t lstride = static_cast<size_t>(std::max(pos + 1, L_enc));
-  const size_t floats =
-      decoder::smem_floats<C>(D, F, H, lstride) + decoder::head_floats(V);
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = allow_smem(whole_step_kernel<C>, smem);
+  const void* kernel = kernel_of<C>();
+  Shape s;
+  const bool in_place = k_new == nullptr;
+  cudaError_t err = cluster_step::choose_shape<C, C>(
+      kernel, L, B, Tc, D, H, F, L_enc, pos, &s, 0, in_place ? 1 : 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.stages < 1 || !cluster_step::head_fits<C, C>(s, V)) return kRefused;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  err = cluster_step::configure<C, C>(
+      kernel, s, cfg, attr, static_cast<cudaStream_t>(stream), &active);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  // the self caches' map ends at slot pos (encoded for this launch)
+  cluster_step::Maps maps;
+  err = cluster_step::make_maps<C, C>(s, Tc, std::max(pos, 1), false, wp,
+                                      self_k, self_v, cross_k, cross_v,
+                                      &maps);
   if (err != cudaSuccess) return static_cast<int>(err);
   C* sk = static_cast<C*>(self_k);
   C* sv = static_cast<C*>(self_v);
-  const bool in_place = k_new == nullptr;
   const decoder::CacheLayout self = in_place
                                         ? decoder::time_major(B, Tc, D)
                                         : decoder::batch_major(B, Tc, D);
@@ -111,19 +131,22 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
                : decoder::rows_out<C>(k_new, v_new, B, D);
   using CC = const C*;
   using CF = const float*;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  whole_step_kernel<C><<<B, kThreads, smem, st>>>(
-      static_cast<const int*>(prev), static_cast<CF>(emb),
-      static_cast<CF>(pos_emb), decoder::make_weights<C>(wp, ln), sk, sv,
-      self, static_cast<CC>(cross_k), static_cast<CC>(cross_v),
-      static_cast<CF>(w_head), static_cast<CF>(b_head),
-      static_cast<int*>(nxt), static_cast<float*>(logp), fresh, L, B, D, H,
-      F, L_enc, V, pos);
+  err = cudaLaunchKernelEx(
+      &cfg, whole_step_cluster_kernel<C>, static_cast<const int*>(prev),
+      static_cast<CF>(emb), static_cast<CF>(pos_emb),
+      decoder::make_weights<C>(wp, ln), static_cast<CC>(sk),
+      static_cast<CC>(sv), self, static_cast<CC>(cross_k),
+      static_cast<CC>(cross_v), static_cast<CF>(w_head),
+      static_cast<CF>(b_head), static_cast<int*>(nxt),
+      static_cast<float*>(logp), fresh, maps, s, V);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Every entry returns 0, a cudaError, or kRefused (-1) for a model or batch
+// the kernel does not take (make_shape, head_fits).
 #define WHOLE_STEP_WEIGHTS                                                  \
   const void *w_qkv, const void *b_qkv, const void *w_out,                  \
       const void *b_out, const void *w_cq, const void *b_cq,                \
@@ -173,3 +196,10 @@ WHOLE_STEP_TIME_MAJOR_ENTRY(whole_step_time_major_bf16, __nv_bfloat16)
 WHOLE_STEP_TIME_MAJOR_ENTRY(whole_step_time_major_f32, float)
 WHOLE_STEP_ROWS_ENTRY(whole_step_rows_bf16, __nv_bfloat16)
 WHOLE_STEP_ROWS_ENTRY(whole_step_rows_f32, float)
+
+// The kernel for the one geometry entry (cluster_geometry, fused_step.cu):
+// float bundles only.
+const void* cluster_step::whole_step_kernel(bool int8, bool f32) {
+  if (int8) return nullptr;
+  return f32 ? kernel_of<float>() : kernel_of<__nv_bfloat16>();
+}

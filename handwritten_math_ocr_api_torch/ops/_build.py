@@ -60,8 +60,9 @@ SIGNATURES = {
     # cross_k, cross_v, x_out, L, B, T, D, H, F, L_enc, pos, stream
     "layers_step_in_place_bf16": (P,) * 19 + (I,) * 8 + (P,),
     "layers_step_in_place_f32": (P,) * 19 + (I,) * 8 + (P,),
-    # int8, float32 cache, B, T, D, H, F, L_enc, out (8 ints)
-    "fused_step_geometry": (I,) * 8 + (P,),
+    # kernel (0 B1/B11, 1 B7, 2 B10, 3 B12), int8, float32 cache, B, T, D,
+    # H, F, L_enc, V (head columns, 0 for none), out (8 ints)
+    "cluster_geometry": (I,) * 10 + (P,),
     # B10: prev, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, nxt, logp, [k_new, v_new,]
     # L, B, T, D, H, F, L_enc, V, pos, stream; time-major caches written at
@@ -86,8 +87,6 @@ SIGNATURES = {
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
     "ragged_step_i8_bf16": (P,) * 34 + (I,) * 9 + (P,),
     "ragged_step_i8_f32": (P,) * 34 + (I,) * 9 + (P,),
-    # int8, float32 cache, R, T, D, H, F, L_enc, V, out (8 ints)
-    "ragged_step_geometry": (I,) * 9 + (P,),
     # x, w_q, scale, y, M, K, N, row stride of w_q, stream
     "dequant_matmul_bf16": (P,) * 4 + (I,) * 4 + (P,),
     "dequant_matmul_f32": (P,) * 4 + (I,) * 4 + (P,),

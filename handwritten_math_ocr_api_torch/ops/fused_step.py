@@ -29,10 +29,9 @@ steps and their weight bundles:
   each row at its own position, returning the head's logits (beam search)
   or each row's argmax and its log-probability.
 
-B1, B11 and B7 run the cluster layer code of ``csrc/decoder_cluster.cuh``
-(B7 with its embedding prologue and float32 head epilogue there); B10 and
-B12 share the one-block-a-row layer code and the head of
-``csrc/decoder_layers.cuh``.
+All four, and B12 (``ops/whole_decode.py``), run the cluster layer code of
+``csrc/decoder_cluster.cuh`` (B7 and B10 with its embedding prologue and
+float32 head epilogue there), whose header states the numerics below.
 
 B1 and B7 take the bf16/float32 bundles and the int8 one
 (``quantize_stacked``, the JAX "v2q" bundle of ``DecodeEngine(use_fused=
@@ -283,10 +282,10 @@ def fused_decoder_layers_step_v2_plain(stacked, cfg: ModelConfig, x_emb,
                          cross_k, cross_v, rows)
 
 
-# What the C entries of the cluster kernels (B1, B11, B7) return for a
-# model or batch they do not take (``csrc/decoder_cluster.cuh``: kRefused;
-# its make_shape is the one statement of the shapes they take, and
-# head_fits B7's head's).
+# What the C entries of the cluster kernels (B1, B11, B7, B10, B12) return
+# for a model or batch they do not take (``csrc/decoder_cluster.cuh``:
+# kRefused; its make_shape is the one statement of the shapes they take,
+# and head_fits the head's of B7, B10 and B12).
 REFUSED = -1
 _GEOMETRY_KEYS = ("blocks", "clusters", "rows", "smem_bytes", "stages",
                   "active_clusters", "staged_self_slots",
@@ -304,30 +303,29 @@ def _check_code(code: int, entry: str, cfg: ModelConfig, B: int) -> None:
     _build.check(code, entry)
 
 
-def cluster_geometry(cfg: ModelConfig, B: int, T: int, L_enc: int, dtype,
-                     quantized: bool) -> Dict[str, int]:
-    """The launch geometry of B1/B11 for B rows at the last slot on the
-    card: blocks a cluster, clusters, rows a group, shared memory bytes a
-    block, stages of its copy ring, clusters the card holds at once, and
-    the self-cache and cross K/V slots an item stages in shared memory."""
-    out = (ctypes.c_int * 8)()
-    code = _build.library().fused_step_geometry(
-        int(quantized), int(dtype == torch.float32), B, T, cfg.d_model,
-        cfg.nhead, cfg.dim_feedforward, L_enc, ctypes.addressof(out))
-    _check_code(code, "fused_step_geometry", cfg, B)
-    return dict(zip(_GEOMETRY_KEYS, out))
+# The cluster kernels, by their id in the C entry ``cluster_geometry``
+# (``csrc/decoder_cluster.cuh``, ``cluster_step::Kernel``)
+CLUSTER_KERNELS = {"fused_step": 0, "ragged_step": 1, "whole_step": 2,
+                   "whole_decode": 3}
 
 
-def ragged_geometry(cfg: ModelConfig, R: int, T: int, L_enc: int, V: int,
-                    dtype, quantized: bool) -> Dict[str, int]:
-    """``cluster_geometry``'s fields for B7 at R rows with a head of V
-    columns: the launch is planned for the last slot whatever the rows'
-    positions."""
+def cluster_geometry(kernel: str, cfg: ModelConfig, B: int, T: int,
+                     L_enc: int, dtype, quantized: bool = False,
+                     V: int = 0) -> Dict[str, int]:
+    """The launch geometry of a cluster kernel on the card
+    (``CLUSTER_KERNELS``: B1/B11, B7, B10 or B12) for B rows, planned for
+    the last of T slots, with the float32 head of V columns (B7, B10, B12;
+    resident in shared memory for B12): blocks a cluster, clusters, rows a
+    group, shared memory bytes a block, stages of its copy ring, clusters
+    the card holds at once, and the self-cache and cross K/V slots an item
+    stages in shared memory. B10's two cache layouts take the same shape;
+    it has no int8 entries (ValueError)."""
     out = (ctypes.c_int * 8)()
-    code = _build.library().ragged_step_geometry(
-        int(quantized), int(dtype == torch.float32), R, T, cfg.d_model,
-        cfg.nhead, cfg.dim_feedforward, L_enc, V, ctypes.addressof(out))
-    _check_code(code, "ragged_step_geometry", cfg, R)
+    code = _build.library().cluster_geometry(
+        CLUSTER_KERNELS[kernel], int(quantized), int(dtype == torch.float32),
+        B, T, cfg.d_model, cfg.nhead, cfg.dim_feedforward, L_enc, V,
+        ctypes.addressof(out))
+    _check_code(code, f"cluster_geometry {kernel}", cfg, B)
     return dict(zip(_GEOMETRY_KEYS, out))
 
 
@@ -532,9 +530,10 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     counted), CPU tensors to the plain version.
 
     The kernel runs the rows in groups, one thread-block cluster a group
-    (``csrc/decoder_cluster.cuh``, B1's layer code; ``ragged_geometry``
-    gives the shape), each row at its own position. ``prev`` and ``pos``
-    stay in device memory: the wrapper reads no value of them, so a step
+    (``csrc/decoder_cluster.cuh``, B1's layer code;
+    ``cluster_geometry("ragged_step", ...)`` gives the shape), each row at
+    its own position. ``prev`` and ``pos`` stay in device memory: the
+    wrapper reads no value of them, so a step
     makes no host round trip. A row whose ``prev`` or ``pos`` is out of
     range gets NaN outputs (nxt -1), reads nothing and leaves the other
     rows of its group as they are. A model the kernel does not split
@@ -644,8 +643,12 @@ def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
     argmax, counted), CPU tensors to the plain version. ``prev`` stays in
     device memory; ``pos`` is a Python int passed by value. A row whose
     ``prev`` lies outside the vocabulary gets nxt -1, logp NaN and NaN
-    fresh rows. The TPU kernel's padding of the vocabulary to 128 columns
-    (a -1e9 head bias) and of the position table are dropped."""
+    fresh rows (time-major: at slot ``pos``, no other slot touched). The
+    kernel runs the rows in groups, one thread-block cluster a group, as B7
+    does (``cluster_geometry("whole_step", ...)`` gives the shape); a model it
+    does not split raises ``ValueError``. The TPU kernel's padding of the
+    vocabulary to 128 columns (a -1e9 head bias) and of the position table are
+    dropped."""
     if not self_k.is_cuda:
         return fused_whole_step_plain(stacked, cfg, prev, self_k, self_v,
                                       cross_k, cross_v, pos,
@@ -685,7 +688,7 @@ def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
     code = getattr(_build.library(), entry)(
         *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V,
         int(pos), _build.stream_handle(dev))
-    _build.check(code, entry)
+    _check_code(code, entry, cfg, B)
     fused_whole_step.launches += 1
     return (nxt, logp, *(rows or (self_k, self_v)))
 

@@ -3,8 +3,11 @@
 Port of ``handwritten_math_ocr_api_tpu/ops/whole_decode.py`` (the "v5"
 decode, B12): ``fused_whole_decode`` runs every step of a greedy decode
 (the embedding, all decoder layers, the float32 head, the argmax and the
-finished/EOS bookkeeping) in one launch of ``csrc/whole_decode.cu``, one
-block per batch row. ``build_resident`` makes its bundle:
+finished/EOS bookkeeping) in one launch of ``csrc/whole_decode.cu``: each
+thread-block cluster owns a group of rows and loops over the steps on the
+cluster layer code of ``csrc/decoder_cluster.cuh``
+(``ops/fused_step.cluster_geometry("whole_decode", ...)`` gives the
+shape). ``build_resident`` makes its bundle:
 ``build_stacked_full``'s, int8 with ``quantize``, plus the decoder tree
 under ``"_params"`` for the cross K/V projection at the decode's start.
 
@@ -13,8 +16,9 @@ argmax until it emits ``eos_id`` (that step counted in the log-prob sum),
 then ``pad_id``; ``logprob_sum`` adds log(p_max + 1e-10) over its live
 steps and ``token_count`` counts its non-EOS tokens. The TPU kernel runs
 all ``T_out`` steps for every row; a finished row's later steps change no
-output, so each block stops at its row's EOS and the plain version at the
-step where every row has finished.
+output, so the kernel drops a row at its EOS, each cluster stops where
+its group's rows have all finished, and the plain version at the step
+where every row has finished.
 
 Numerics: those of the other fused steps (``ops/fused_step.py``), except
 that attention takes each step's fresh K/V row in float32, unrounded, as
@@ -39,6 +43,7 @@ from ..core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from . import _build
 from .fused_step import (
     _argmax_head,
+    _check_code,
     _check_layer_shapes,
     _embed_full,
     _layers_plain,
@@ -139,7 +144,8 @@ def fused_whole_decode(stacked, cfg: ModelConfig, memory, max_len=None, *,
     CUDA tensors go to the kernel (one launch for the whole decode,
     counted in ``launches`` or, on the int8 bundle, ``int8_launches``),
     CPU tensors to the plain version. The cross K/V projection before it
-    runs on PyTorch's matmuls, as ``init_fused_cache`` does."""
+    runs on PyTorch's matmuls, as ``init_fused_cache`` does. A model the
+    kernel does not split raises ``ValueError``."""
     if not memory.is_cuda:
         return fused_whole_decode_plain(stacked, cfg, memory, max_len,
                                         sos_id=sos_id, eos_id=eos_id,
@@ -170,7 +176,7 @@ def fused_whole_decode(stacked, cfg: ModelConfig, memory, max_len=None, *,
     code = getattr(_build.library(), entry)(
         *ptrs, L, B, T_out, D, cfg.nhead, cfg.dim_feedforward, L_enc, V,
         sos_id, eos_id, pad_id, _build.stream_handle(dev))
-    _build.check(code, entry)
+    _check_code(code, entry, cfg, B)
     if quantized:
         fused_whole_decode.int8_launches += 1
     else:

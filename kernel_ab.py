@@ -1,18 +1,39 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels against each other on one GPU.
 
-    python3 kernel_ab.py steps PARENT_DIR   # B1 and B11: the tree against
-                                            # another copy of the package
+    python3 kernel_ab.py steps PARENT_DIR   # the decoder-step kernels:
+                                            # the tree against another
+                                            # copy of the package
+    python3 kernel_ab.py decode             # B12 with an L2 policy and at
+                                            # other row groups
     python3 kernel_ab.py dequant            # B9's tile shapes and phases
     python3 kernel_ab.py encoder            # B4's clusters, B3's tiles and
                                             # both kernels' phases
 
-``steps`` times the decoder step kernels B1 (bf16) and B11 at the greedy
-bucket (16 rows) and the last slot (pos 149) from the package of this
-checkout and from the one under PARENT_DIR (a directory holding a
+``steps`` times the kernels on the cluster layer code
+(``csrc/decoder_cluster.cuh``) from the package of this checkout and from
+the one under PARENT_DIR (a directory holding a
 ``handwritten_math_ocr_api_torch/``, such as a ``git archive`` of an
 earlier commit), in turns parent, tree, tree, parent, each in a process of
-its own (the two packages share a name), on the same seeded inputs.
+its own (the two packages share a name), on the same seeded inputs: B1
+(bf16) and B11 at the greedy bucket (16 rows) and the last slot (pos 149),
+B7 (bf16, logits) at the beam's 50 rows at pos 149, B10 in both cache
+layouts at 16 rows and pos 149, and B12 (bf16 and int8 bundles) for a
+whole decode of 16 rows over 150 steps.
+
+``decode`` builds ``csrc/whole_decode.cu`` again as it is, with an L2
+evict_last policy on its weight copies, and at each other rows-a-group count
+(``DECODE_VARIANTS``: text edits of ``csrc/``), and times B12 (bf16 and int8
+bundles, 16 rows, 150 steps) in each, in ``DECODE_ROUNDS`` rounds that run the
+variants in turn forwards and backwards (median, quartiles, and the rounds in
+which each beat the planned launch). Every variant decodes the seeded bundle
+and ``chip_smoke``'s EOS-boosted one (rows that finish beside live ones in
+their group) ``DECODE_REPEATS`` times; every run is held against the plain
+decode by ``chip_smoke.hold_decode`` (the row groups split the attention and
+LayerNorm sums differently, so bf16 tokens may part at near-ties) and
+``chip_smoke.finishing`` (PAD after EOS, counts, lengths), and the runs that
+differ bit for bit from the variant's first run are counted (an ordering fault,
+such as a TMA read of a slot before its write is visible, would show there).
 
 ``dequant`` builds ``csrc/dequant_matmul.cu`` with an extra entry that
 launches any of its bf16 tile shapes (template arguments: warps splitting
@@ -41,6 +62,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import os
+import statistics
 import subprocess
 import sys
 
@@ -78,6 +100,55 @@ ENCODER_PHASES = {
 }
 
 
+# B12 with its weight copies under an L2 evict_last policy: the copy
+# helper, and the weight boxes' copies calling it
+L2_EVICT_LAST = [
+    ("decoder_cluster.cuh",
+     "__device__ __forceinline__ void tensor_copy4(",
+     r"""__device__ __forceinline__ void tensor_copy3_hint(
+    void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+    uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], "
+      "%6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void tensor_copy4("""),
+    ("decoder_cluster.cuh", "        tensor_copy3(stage_at(st) +",
+     "        tensor_copy3_hint(stage_at(st) +")]
+
+
+def rows_a_group(rows: int):
+    """B12's launch at ``rows`` rows a group instead of the planned shape."""
+    old = "      kernel, L, B, T_out, D, H, F, L_enc, T_out - 1, &s, hres);\n"
+    return [("whole_decode.cu", old,
+             old + f"  s = cluster_step::make_shape<W, C>(L, B, T_out, D, H, "
+                   f"F, L_enc, T_out - 1, {rows}, hres);\n")]
+
+
+# B12's variants: (file in csrc/, old text, new text) edits
+DECODE_VARIANTS = {"planned": [], "L2 evict_last": L2_EVICT_LAST,
+                   **{f"{n} rows a group": rows_a_group(n)
+                      for n in (1, 4, 8, 16)}}
+# decodes of each bundle a variant runs and compares bit for bit
+DECODE_REPEATS = 10
+# timed rounds of every variant (alternating their order)
+DECODE_ROUNDS = 10
+
+
+def quartiles(t):
+    """The first and third quartiles of the times ``t``."""
+    q = statistics.quantiles(t, n=4)
+    return q[0], q[2]
+
+
 def steps_in_process(root: str, label: str) -> None:
     """One side of ``steps``: the package under ``root``."""
     sys.path.insert(0, root)
@@ -88,6 +159,7 @@ def steps_in_process(root: str, label: str) -> None:
     from handwritten_math_ocr_api_torch import convert
     from handwritten_math_ocr_api_torch.core.config import load_model_config
     from handwritten_math_ocr_api_torch.ops import fused_step as fs
+    from handwritten_math_ocr_api_torch.ops import whole_decode as wd
 
     if not pkg.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {pkg.__file__}, not {root}'s package")
@@ -100,8 +172,8 @@ def steps_in_process(root: str, label: str) -> None:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).bfloat16()
 
-    st = fs.build_stacked(convert.random_params(cfg, cs.SEED)["decoder"],
-                          cfg, dev)
+    np_params = convert.random_params(cfg, cs.SEED)
+    st = fs.build_stacked_full(np_params["decoder"], cfg, dev)
     sk, sv, ck, cv = (randn(L, B, T, D), randn(L, B, T, D),
                       randn(L, B, L_enc, D), randn(L, B, L_enc, D))
     x = randn(B, D)
@@ -110,8 +182,32 @@ def steps_in_process(root: str, label: str) -> None:
         st, cfg, x, sk, sv, ck, cv, pos), iters=50)
     b11 = cs.cuda_ms(lambda: fs.fused_decoder_layers_step(
         st, cfg, x, sk2, sv2, ck, cv, pos), iters=50)
+    R = 50
+    rk, rv, rck, rcv = (randn(L, R, T, D), randn(L, R, T, D),
+                        randn(L, R, L_enc, D), randn(L, R, L_enc, D))
+    prev = torch.randint(0, cfg.vocab_size, (R,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    at = torch.full((R,), pos, dtype=torch.int32, device=dev)
+    b7 = cs.cuda_ms(lambda: fs.fused_ragged_step(
+        st, cfg, prev, at, rk, rv, rck, rcv, return_logits=True), iters=50)
+    tk, tv = sk.transpose(1, 2).contiguous(), sv.transpose(1, 2).contiguous()
+    b10 = {tm: cs.cuda_ms(lambda: fs.fused_whole_step(
+        st, cfg, prev[:B], *((tk, tv) if tm else (sk, sv)), ck, cv, pos,
+        time_major=tm), iters=50) for tm in (True, False)}
+    dec = convert.to_torch({"decoder": np_params["decoder"]}, cfg,
+                           dev)["decoder"]
+    memory = randn(B, L_enc, D)
+    resident = {int8: wd.build_resident(dec, cfg, int8)
+                for int8 in (False, True)}
+    b12 = {int8: cs.cuda_ms(lambda: wd.fused_whole_decode(
+        resident[int8], cfg, memory), iters=3, warmup=1)
+        for int8 in (False, True)}
     print(f"steps {label}: B1 bf16 {b1:.4f} ms, B11 {b11:.4f} ms "
-          f"({B} rows, pos {pos})", flush=True)
+          f"({B} rows, pos {pos}); B7 bf16 {b7:.4f} ms ({R} rows, logits); "
+          f"B10 time-major {b10[True]:.4f} ms, batch-major "
+          f"{b10[False]:.4f} ms ({B} rows); B12 a decode bf16 "
+          f"{b12[False]:.3f} ms, int8 {b12[True]:.3f} ms ({B} rows)",
+          flush=True)
 
 
 def steps(parent: str) -> None:
@@ -119,6 +215,98 @@ def steps(parent: str) -> None:
                         (parent, "parent")):
         subprocess.run([sys.executable, __file__, "_steps", root, label],
                        check=True, cwd=ROOT)
+
+
+def decode() -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import (
+        EOS_ID,
+        PAD_ID,
+        load_model_config,
+    )
+    from handwritten_math_ocr_api_torch.ops import _build
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+    from handwritten_math_ocr_api_torch.ops import whole_decode as wd
+
+    build = os.path.join(_build.BUILD_ROOT, "kernel_ab_decode")
+    with concurrent.futures.ThreadPoolExecutor(len(DECODE_VARIANTS)) as pool:
+        futures = {name: pool.submit(
+            build_csrc_variant, ["whole_decode.cu"], ("whole_decode",),
+            edits, os.path.join(build, name.replace(" ", "_")))
+            for name, edits in DECODE_VARIANTS.items()}
+        libs = {name: f.result() for name, f in futures.items()}
+    cfg = load_model_config(cs.MODEL_DIR).replace(dtype="bfloat16")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+    B, L_enc, D = 16, cfg.encoder_len, cfg.d_model
+    np_dec = convert.random_params(cfg, cs.SEED)["decoder"]
+    bias = np.array(np_dec["fc_out"]["b"], np.float32)
+    bias[EOS_ID] += cs.EOS_BOOST
+    bundles = {  # name: (decoder, memory), as chip_smoke's phase 3
+        "seeded": (np_dec, torch.randn(B, L_enc, D, generator=gen,
+                                       device=dev).bfloat16()),
+        "EOS-boosted": ({**np_dec, "fc_out": {**np_dec["fc_out"],
+                                              "b": bias}},
+                        torch.from_numpy(np.random.default_rng(9)
+                                         .standard_normal((B, L_enc, D))
+                                         .astype(np.float32))
+                        .to(dev, torch.bfloat16))}
+    # planned by the tree's library, before a variant's replaces it
+    geos = {int8: fs.cluster_geometry("whole_decode", cfg, B,
+                                      cfg.max_seq_len, L_enc, torch.bfloat16,
+                                      int8, cfg.vocab_size)
+            for int8 in (False, True)}
+    try:
+        for int8 in (False, True):
+            row = []
+            for bundle, (np_dec, memory) in bundles.items():
+                dec = convert.to_torch({"decoder": np_dec}, cfg,
+                                       dev)["decoder"]
+                resident = wd.build_resident(dec, cfg, int8)
+                want, logits = wd.fused_whole_decode_plain(
+                    resident, cfg, memory, return_logits=True)
+                for name, lib in libs.items():
+                    _build._lib = lib
+                    runs = [wd.fused_whole_decode(resident, cfg, memory)
+                            for _ in range(DECODE_REPEATS)]
+                    differ = sum(
+                        not all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+                        for r in runs[1:])
+                    what = f"B12 {'int8' if int8 else 'bf16'} {name} {bundle}"
+                    for r in runs:
+                        cs.finishing(r, EOS_ID, PAD_ID)
+                        cs.hold_decode(what, r, want, logits)
+                    ends = cs.steps_per_row(runs[0].tokens, EOS_ID)
+                    print(f"{what}: {DECODE_REPEATS} runs held, {differ} "
+                          f"differ bit for bit from the first; steps a row "
+                          f"{ends}", flush=True)
+                if bundle == "seeded":
+                    timed = (resident, memory)
+            # rounds of every variant, in turn forwards and backwards
+            times = {name: [] for name in libs}
+            for i in range(DECODE_ROUNDS):
+                for name in list(libs)[::1 if i % 2 == 0 else -1]:
+                    _build._lib = libs[name]
+                    times[name].append(cs.cuda_ms(
+                        lambda: wd.fused_whole_decode(timed[0], cfg,
+                                                      timed[1]),
+                        iters=5, warmup=1))
+            for name, t in times.items():
+                wins = sum(a < b for a, b in zip(t, times["planned"]))
+                row.append(f"{name} {statistics.median(t):.3f} (quartiles "
+                           f"{' '.join(f'{q:.3f}' for q in quartiles(t))}; "
+                           f"faster than planned in {wins} of "
+                           f"{DECODE_ROUNDS} rounds)")
+            print(f"decode B12 {'int8' if int8 else 'bf16'} {B} rows, "
+                  f"planned {geos[int8]['rows']} rows a group, median ms "
+                  f"of {DECODE_ROUNDS} rounds: " + ", ".join(row),
+                  flush=True)
+    finally:
+        _build._lib = None
 
 
 def build_variant(edits, out: str) -> ctypes.CDLL:
@@ -154,17 +342,18 @@ def build_variant(edits, out: str) -> ctypes.CDLL:
     return lib
 
 
-def build_encoder_variant(edits, out: str) -> ctypes.CDLL:
-    """swin_block.cu and patch_merging.cu, with the (file, old, new) text
+def build_csrc_variant(sources, prefixes, edits, out: str) -> ctypes.CDLL:
+    """The ``sources`` of ``csrc/``, with the (file, old, new) text
     `edits` applied to them and the headers they include, as one library
-    with the entries of ``_build.SIGNATURES`` that they define."""
+    with the entries of ``_build.SIGNATURES`` whose names start with
+    ``prefixes``."""
     import glob
     import shutil
 
     from handwritten_math_ocr_api_torch.ops import _build
 
     os.makedirs(out, exist_ok=True)
-    names = ["swin_block.cu", "patch_merging.cu"] + [
+    names = list(sources) + [
         os.path.basename(h) for h in glob.glob(os.path.join(_build.CSRC,
                                                             "*.cuh"))]
     for name in names:
@@ -177,13 +366,16 @@ def build_encoder_variant(edits, out: str) -> ctypes.CDLL:
         with open(os.path.join(out, name), "w") as f:
             f.write(src.replace(old, new))
     lib_path = os.path.join(out, "lib.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", out, "-shared",
-                    "-o", lib_path, os.path.join(out, "swin_block.cu"),
-                    os.path.join(out, "patch_merging.cu")], check=True,
-                   capture_output=True)
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", out,
+                           "-shared", "-o", lib_path,
+                           *(os.path.join(out, name) for name in sources)],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed on {out}:\n{done.stdout}"
+                           f"{done.stderr}")
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in _build.SIGNATURES.items():
-        if name.startswith(("swin_block", "patch_merging")):
+        if name.startswith(prefixes):
             getattr(lib, name).argtypes = list(argtypes)
             getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -203,7 +395,8 @@ def encoder() -> None:
     build = os.path.join(_build.BUILD_ROOT, "kernel_ab")
     with concurrent.futures.ThreadPoolExecutor(len(ENCODER_PHASES)) as pool:
         futures = {name: pool.submit(
-            build_encoder_variant, edits,
+            build_csrc_variant, ["swin_block.cu", "patch_merging.cu"],
+            ("swin_block", "patch_merging"), edits,
             os.path.join(build, name.replace(" ", "_")))
             for name, edits in ENCODER_PHASES.items()}
         libs = {name: f.result() for name, f in futures.items()}
@@ -370,6 +563,8 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     if sys.argv[1:2] == ["steps"] and len(sys.argv) == 3:
         steps(os.path.abspath(sys.argv[2]))
+    elif sys.argv[1:] == ["decode"]:
+        decode()
     elif sys.argv[1:] == ["dequant"]:
         dequant()
     elif sys.argv[1:] == ["encoder"]:

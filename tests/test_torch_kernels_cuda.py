@@ -31,11 +31,16 @@ must agree up to such a step in each row; in float32 they are equal, and
 the whole decode's log-prob sums within 1e-2 (150 float32 log-probs).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from handwritten_math_ocr_api_torch import convert
-from handwritten_math_ocr_api_torch.core.config import ModelConfig
+from handwritten_math_ocr_api_torch.core.config import (
+    EOS_ID,
+    PAD_ID,
+    ModelConfig,
+)
 from handwritten_math_ocr_api_torch.models import swin
 from handwritten_math_ocr_api_torch.ops import beam_reorder as br
 from handwritten_math_ocr_api_torch.ops import cache_attention as ca
@@ -220,8 +225,10 @@ def test_cache_append_and_decode_attention(dev, dtype, B, Dh):
         assert torch.equal(k_cache, k2) and torch.equal(v_cache, v2)
 
 
-# B1/B11's batch sizes: one row, a partial row group, one group, more than
-# one (the last partial) and the largest served bucket; its slots: the
+# B1/B11's batch sizes, each its own launch shape on an H100 (cluster
+# groups of 1, 1, 2, 4 and 8 rows: the fewest rows a group whose clusters
+# the card holds at once): one row, the five of a small batch, the greedy
+# bucket, 40 rows and the largest served bucket; its slots: the
 # first, either side of a self-cache copy box's end (16 slots), a middle
 # and the last
 STEP_BATCHES = [1, 5, 16, 40, 64]
@@ -347,12 +354,13 @@ def _hold_picks(nxt, want_nxt, logits, atol):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("time_major", [True, False])
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("B", [1, 5, 16, 40, 50, 64])
 def test_whole_step(dev, np_params, dtype, time_major, B):
-    """B10 in both layouts: nxt as the plain step's (equal in float32;
-    in bf16 except at near-ties), logp and the fresh rows within the step
-    tolerance; time-major caches written at pos, every other slot bit for
-    bit unchanged."""
+    """B10 in both layouts, at the batch sizes the cluster kernel groups
+    differently (50 rows: groups of 4, the last one partial): nxt as the
+    plain step's (equal in float32; in bf16 except at near-ties), logp
+    and the fresh rows within the step tolerance; time-major caches
+    written at pos, every other slot bit for bit unchanged."""
     cfg = CFG.replace(dtype=dtype)
     stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
     L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
@@ -396,6 +404,61 @@ def test_whole_step(dev, np_params, dtype, time_major, B):
                 _close(g, w, STEP_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("time_major", [True, False])
+def test_whole_step_dead_row(dev, np_params, dtype, time_major):
+    """Rows whose prev lies outside the vocabulary beside good ones in
+    their cluster's group (16 rows at the last slot: groups of 2, rows 1
+    and 6 dead): nxt -1, logp NaN and NaN fresh rows in those rows only
+    (time-major: at slot pos, no other slot touched), the other rows as
+    the plain step gives them."""
+    import chip_smoke
+
+    cfg = CFG.replace(dtype=dtype)
+    stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
+    L, T, D, L_enc, B, V = 8, 150, 256, cfg.encoder_len, 16, cfg.vocab_size
+    pos = T - 1      # the launch is planned at pos, the geometry at T - 1
+    shape = (L, T, B, D) if time_major else (L, B, T, D)
+    sk, sv = (_randn(dev, dtype, *shape, seed=20 + i) for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=22 + i)
+              for i in range(2))
+    prev = (torch.arange(B, dtype=torch.int32, device=dev) * 7 + 3) % V
+    prev[1], prev[6] = -1, V
+    dead = (prev < 0) | (prev >= V)
+    geo = fs.cluster_geometry("whole_step", cfg, B, T, L_enc,
+                              getattr(torch, dtype), V=V)
+    assert geo["rows"] >= 2
+    assert chip_smoke.mixed_groups(dead.tolist(), geo["rows"])
+    got_k, got_v = sk.clone(), sv.clone()
+    want_k, want_v = sk.clone(), sv.clone()
+    got = _launched(fs.fused_whole_step,
+                    lambda: fs.fused_whole_step(
+                        stacked, cfg, prev, got_k, got_v, ck, cv, pos,
+                        time_major=time_major))
+    want = fs.fused_whole_step_plain(stacked, cfg, prev.clamp(0, V - 1),
+                                     want_k, want_v, ck, cv, pos,
+                                     time_major=time_major)
+    torch.cuda.synchronize()
+    assert got[0][dead].tolist() == [-1, -1]
+    assert torch.isnan(got[1][dead]).all()
+    if dtype == "float32":
+        assert torch.equal(got[0][~dead], want[0][~dead])
+    _close(got[1][~dead], want[1][~dead], STEP_TOL[dtype])
+    if time_major:
+        other = torch.arange(T, device=dev) != pos
+        rows = [(g[:, pos], w[:, pos], g, old)
+                for g, w, old in ((got_k, want_k, sk), (got_v, want_v, sv))]
+        for g_row, w_row, g, old in rows:
+            assert torch.equal(g[:, other], old[:, other])
+            assert torch.isnan(g_row[:, dead].float()).all()
+            _close(g_row[:, ~dead], w_row[:, ~dead], STEP_TOL[dtype])
+    else:
+        assert torch.equal(got_k, sk) and torch.equal(got_v, sv)
+        for g, w in zip(got[2:], want[2:]):
+            assert torch.isnan(g[:, dead].float()).all()
+            _close(g[:, ~dead], w[:, ~dead], STEP_TOL[dtype])
+
+
 def _hold_decode(got, want, logits, atol):
     """Each row's tokens equal the plain decode's up to its first
     difference, which must come where the plain logits' top two lie
@@ -415,11 +478,13 @@ def _hold_decode(got, want, logits, atol):
 
 
 @pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("B", [1, 5, 16, 17])
 def test_whole_decode(dev, np_params, bundle, B):
     """B12 over 150 steps from random encoder memory, against its plain
-    version: float32 tokens, lengths and counts equal and log-prob sums
-    within 1e-2; bf16 and the int8 bundle (bf16 caches) held by
+    version, at the batch sizes the cluster decode groups differently (17
+    rows: groups of 2, the last one partial):
+    float32 tokens, lengths and counts equal and log-prob sums within
+    1e-2; bf16 and the int8 bundle (bf16 caches) held by
     ``_hold_decode``."""
     dtype = "float32" if bundle == "float32" else "bfloat16"
     cfg = CFG.replace(dtype=dtype)
@@ -442,6 +507,114 @@ def test_whole_decode(dev, np_params, bundle, B):
                                    atol=1e-2, rtol=0)
     else:
         _hold_decode(got, want, logits, STEP_TOL["bfloat16"][0])
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+def test_whole_decode_eos(dev, np_params, bundle):
+    """B12 on chip_smoke's EOS-boosted bundle and 16-row memory, whose
+    rows end at different steps and some never, with rows that finish
+    beside live ones in their cluster's group (groups of 2): tokens (PAD
+    after each EOS), lengths, counts and log-prob sums of the finished and
+    the live rows against the plain version; float32 equal (sums within
+    1e-2), bf16 and int8 held by ``_hold_decode`` with the sums of the
+    rows that agree within 0.5 (chip_smoke's WHOLE_DECODE_LP_ATOL: 150
+    bf16 log-probs)."""
+    import chip_smoke
+
+    dtype = "float32" if bundle == "float32" else "bfloat16"
+    cfg = CFG.replace(dtype=dtype)
+    dec = dict(np_params["decoder"])
+    b = np.array(dec["fc_out"]["b"], np.float32)
+    b[EOS_ID] += chip_smoke.EOS_BOOST
+    dec["fc_out"] = {**dec["fc_out"], "b": b}
+    params = convert.to_torch({"decoder": dec}, cfg, dev)
+    resident = wd.build_resident(params["decoder"], cfg, bundle == "int8")
+    rng = np.random.default_rng(9)
+    B, T = 16, cfg.max_seq_len
+    memory = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_len, cfg.d_model)).astype(np.float32)).to(
+        dev, getattr(torch, dtype))
+    geo = fs.cluster_geometry("whole_decode", cfg, B, T, cfg.encoder_len,
+                              getattr(torch, dtype), bundle == "int8",
+                              cfg.vocab_size)
+    attr = "int8_launches" if bundle == "int8" else "launches"
+    got = _launched(wd.fused_whole_decode,
+                    lambda: wd.fused_whole_decode(resident, cfg, memory),
+                    attr)
+    want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
+                                               return_logits=True)
+    torch.cuda.synchronize()
+    ends = chip_smoke.finishing(got, EOS_ID, PAD_ID)
+    finished = [e for e in ends if e is not None]
+    assert None in ends and len(set(finished)) > 1, ends
+    assert geo["rows"] >= 2
+    assert chip_smoke.mixed_groups(
+        chip_smoke.steps_per_row(got.tokens, EOS_ID), geo["rows"]), ends
+    if bundle == "float32":
+        assert torch.equal(got.tokens, want.tokens)
+        assert torch.equal(got.token_count, want.token_count)
+        torch.testing.assert_close(got.logprob_sum, want.logprob_sum,
+                                   atol=1e-2, rtol=0)
+    else:
+        same = _hold_decode(got, want, logits, STEP_TOL["bfloat16"][0])
+        assert torch.equal(got.lengths[same], want.lengths[same])
+        torch.testing.assert_close(got.logprob_sum[same],
+                                   want.logprob_sum[same], atol=0.5, rtol=0)
+
+
+@pytest.mark.parametrize("change,quantized", [
+    ({"dim_feedforward": 200}, False),  # 25 FFN columns a block
+    ({"dim_feedforward": 192}, True),   # 24 int8 columns a block, not 16k
+    ({"d_model": 320}, False),          # a head's row of 5 16-byte vectors
+])
+def test_whole_step_and_decode_refuse_shapes(dev, change, quantized):
+    """A model the cluster kernels do not split raises ValueError on the
+    card (their C entries' refusal), with no launch counted: B10 (float
+    bundles only) and B12."""
+    cfg = CFG.replace(dtype="bfloat16", num_decoder_layers=1, **change)
+    np_dec = convert.random_params(cfg, seed=1)["decoder"]
+    bf16 = torch.bfloat16
+    B, T, D, L_enc = 2, 8, cfg.d_model, 4
+    if not quantized:
+        stacked = fs.build_stacked_full(np_dec, cfg, dev)
+        sk = torch.zeros(1, B, T, D, dtype=bf16, device=dev)
+        ck = torch.zeros(1, B, L_enc, D, dtype=bf16, device=dev)
+        prev = torch.zeros(B, dtype=torch.int32, device=dev)
+        before = fs.fused_whole_step.launches
+        for time_major in (False, True):
+            caches = sk.transpose(1, 2).contiguous() if time_major else sk
+            with pytest.raises(ValueError, match="does not take"):
+                fs.fused_whole_step(stacked, cfg, prev, caches,
+                                    caches.clone(), ck, ck, 3,
+                                    time_major=time_major)
+        assert fs.fused_whole_step.launches == before
+    dec = convert.to_torch({"decoder": np_dec}, cfg, dev)["decoder"]
+    resident = wd.build_resident(dec, cfg, quantized)
+    memory = torch.zeros(B, L_enc, D, dtype=bf16, device=dev)
+    before = (wd.fused_whole_decode.launches,
+              wd.fused_whole_decode.int8_launches)
+    with pytest.raises(ValueError, match="does not take"):
+        wd.fused_whole_decode(resident, cfg, memory, T)
+    assert (wd.fused_whole_decode.launches,
+            wd.fused_whole_decode.int8_launches) == before
+
+
+def test_whole_step_and_decode_geometry(dev):
+    """B10's and B12's launch shapes at the greedy bucket: groups of at
+    most 16 rows on 8-block clusters, every row counted once; B12's
+    planned with its resident head."""
+    for dtype in (torch.bfloat16, torch.float32):
+        geo = fs.cluster_geometry("whole_step", CFG, 16, 150,
+                                  CFG.encoder_len, dtype, V=CFG.vocab_size)
+        assert geo["blocks"] == 8 and 1 <= geo["rows"] <= 16
+        assert geo["clusters"] == -(-16 // geo["rows"])
+        for quantized in (False, True):
+            geo = fs.cluster_geometry("whole_decode", CFG, 16, 150,
+                                      CFG.encoder_len, dtype, quantized,
+                                      CFG.vocab_size)
+            assert geo["blocks"] == 8 and 1 <= geo["rows"] <= 16
+            assert geo["clusters"] == -(-16 // geo["rows"])
+            assert geo["active_clusters"] >= 1 and geo["stages"] >= 1
 
 
 def _dequant_cases(dec, batch):
@@ -547,9 +720,10 @@ def test_swin_block_geometry(dev, B):
             assert geo["blocks"] > 48
 
 
-# B7's row counts: one row, a partial group, the greedy bucket, the beam's
-# 50 rows (13 groups of 4), the largest served bucket and more rows than
-# one group a cluster of the card holds at once
+# B7's row counts: one row, five rows (one a group), the greedy bucket
+# (groups of 2), the beam's 50 rows (13 groups of 4, the last partial),
+# the largest served bucket and more rows than one group a cluster of the
+# card holds at once
 RAGGED_ROWS = [1, 5, 16, 50, 64, 130]
 
 
@@ -638,14 +812,16 @@ def test_ragged_step_int8(dev, np_params, dtype, R):
 @pytest.mark.parametrize("bundle", ["float", "int8"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ragged_step_dead_row(dev, np_params, dtype, bundle):
-    """Rows whose pos or prev is out of range among good ones of the same
-    group (5 rows: one group): NaN outputs and nxt -1 in those rows only,
-    the group's other rows as the plain step gives them; and a tie in the
-    logits (two equal head columns with the largest bias) resolved to the
-    lower index."""
+    """Rows whose pos or prev is out of range beside good ones in their
+    cluster's group (16 rows: groups of 2, rows 1 and 3 dead): NaN outputs
+    and nxt -1 in those rows only, the other rows as the plain step gives
+    them; and a tie in the logits (two equal head columns with the largest
+    bias) resolved to the lower index."""
+    import chip_smoke
+
     cfg = CFG.replace(dtype=dtype)
     stacked = dict(_ragged_bundle(np_params, cfg, dev, bundle))
-    R, T, V = 5, 150, cfg.vocab_size
+    R, T, V = 16, 150, cfg.vocab_size
     prev, positions, caches = _ragged_inputs(dev, cfg, R, seed=11)
     w_head, b_head = stacked["w_head"].clone(), stacked["b_head"].clone()
     w_head[:, 7] = w_head[:, 3]
@@ -657,7 +833,12 @@ def test_ragged_step_dead_row(dev, np_params, dtype, bundle):
     bad_pos, bad_prev = pos.clone(), prev.clone()
     bad_pos[1] = T        # past the cache
     bad_prev[3] = V       # past the vocabulary
-    dead = torch.tensor([False, True, False, True, False], device=dev)
+    dead = torch.zeros(R, dtype=torch.bool, device=dev)
+    dead[1] = dead[3] = True
+    geo = fs.cluster_geometry("ragged_step", cfg, R, T, cfg.encoder_len,
+                              getattr(torch, dtype), bundle == "int8", V)
+    assert geo["rows"] >= 2
+    assert chip_smoke.mixed_groups(dead.tolist(), geo["rows"])
     for logits in (True, False):
         got = _launched(fs.fused_ragged_step,
                         lambda: fs.fused_ragged_step(
@@ -669,7 +850,7 @@ def test_ragged_step_dead_row(dev, np_params, dtype, bundle):
         outs = got
         if not logits:
             assert got[0][dead].tolist() == [-1, -1]
-            assert got[0][~dead].tolist() == [3, 3, 3]   # the lower index
+            assert got[0][~dead].tolist() == [3] * (R - 2)  # lower index
             outs, want = got[1:], want[1:]
         for g, w in zip(outs, want):
             rows = dead if g.dim() < 3 else (slice(None), dead)
@@ -683,8 +864,9 @@ def test_ragged_step_geometry(dev):
     on 8-block clusters, every group's rows counted once."""
     for dtype, quantized in ((torch.bfloat16, False), (torch.bfloat16, True),
                              (torch.float32, False)):
-        geo = fs.ragged_geometry(CFG, 50, 150, CFG.encoder_len,
-                                 CFG.vocab_size, dtype, quantized)
+        geo = fs.cluster_geometry("ragged_step", CFG, 50, 150,
+                                  CFG.encoder_len, dtype, quantized,
+                                  CFG.vocab_size)
         assert geo["blocks"] == 8 and 1 <= geo["rows"] <= 16
         assert geo["clusters"] == -(-50 // geo["rows"])
         assert geo["active_clusters"] >= 1 and geo["stages"] >= 1

@@ -258,5 +258,5 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
                               "whole_step_time_major", "whole_step_rows",
                               "whole_decode", "whole_decode_i8")
          for t in ("bf16", "f32")]
-        + ["beam_cache_gather", "fused_step_geometry",
-           "ragged_step_geometry", "swin_block_active_clusters"])
+        + ["beam_cache_gather", "cluster_geometry",
+           "swin_block_active_clusters"])
