@@ -8,7 +8,7 @@ Run from the root of a checkout. Phases, each printed on its own lines:
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA kernels in ``handwritten_math_ocr_api_torch/csrc``
    with ``nvcc``, and its seconds;
-3. each of the fifteen kernel entries against its plain PyTorch version
+3. each of the nineteen kernel entries against its plain PyTorch version
    on the card, in bf16, at the shapes the served paths give it (a
    10-image request padded to the 16-row batch bucket; beam search at
    beam 5 on the 10 images, 50 rows): window attention at every stage,
@@ -24,7 +24,11 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    of each launch; and the whole step of "v3"/"v4" in both cache
    layouts (its argmax equal wherever the plain logits' top-2 margin
    exceeds the step tolerance), each at pos 0, 74 and 149 at the bucket
-   and at one row, with its cluster shape; the whole decode of 150 steps
+   and at one row, with its cluster shape; the MQA entries of the fused
+   decoder step (bf16 and int8 bundles) and of the ragged step (both
+   bundles, bf16 and float32) as those of MHA, on the MQA configuration
+   (``nhead_kv=1``: self caches of one 32-lane KV head, a packed qkv
+   weight of 320 columns); the whole decode of 150 steps
    with the bf16 and the int8 resident bundle at the bucket, at one row
    and on an EOS-boosted bundle whose rows, at the bucket, end at
    different steps and some never, with a row that finished beside a
@@ -53,13 +57,15 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    the same function where there is one (else null; for the dequant matmul
    ``torch._weight_int8pack_mm``), and the least time the card could take
    (its bound, and whether bytes or operations set it);
-4. served decoding at full width and depth on four routes of the engine:
-   the ``serving_model_r4`` configuration (Swin-T, d_model 256, 8 decoder
+4. served decoding at full width on four routes of the engine: the
+   ``serving_model_r4`` configuration (Swin-T, d_model 256, 8 decoder
    layers, vocab 138; its ``model_config.json`` and ``vocab.json``) with
    seeded random weights (nonzero biases and norms). The routes are
    ``DecodeEngine()`` (the JAX ``use_pallas=True`` configuration),
    ``DecodeEngine(use_fused=True, pallas_encoder_block=True)``, and each
-   with ``quantize=True`` (the int8 decoder). On each, greedy:
+   with ``quantize=True`` (the int8 decoder); the two default routes with
+   their decoder cut to ``DEFAULT_ROUTE_LAYERS`` layers, the fused ones at
+   full depth. On each, greedy:
    ``predict_batch`` on 10 seeded images and ``predict_single`` on one;
    then beam search: ``predict_batch`` of the 10 images with
    ``beam_size=5``. Each path with every kernel's launch count set to 0
@@ -74,7 +80,16 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    with the plain logits' margin there. Images per second and the
    device's idle share; the int8 routes' bf16 tokens against the float
    route of the same kind (printed);
-5. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
+5. "serve mqa", grouped self-attention at full width and depth on the
+   configuration's shapes with ``nhead_kv`` set (seeded random weights):
+   MQA (``nhead_kv=1``) on the fused route, bf16 and int8, greedy,
+   ``predict_single`` and beam 5 (the MQA entries of the fused decoder
+   step and the ragged step), and on the default route, greedy (grouped
+   attention on plain ops), each checked as in phase 4; GQA-2
+   (``nhead_kv=2``) with ``use_fused``: a warning, the default route
+   (phase 4's checks, greedy), and its tokens equal to the GQA-2 default
+   engine's;
+6. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
    v1, v2, v3, v4, and v5 with the int8 and the bf16 resident bundle) at
    full width on the fused route's encoder memory of the 10-image request:
    each arm's launch counts (150 of its step kernel, or one whole decode),
@@ -82,7 +97,7 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    tokens of every arm equal to its plain path's and v2's (the int8 v5,
    whose matmul inputs round to bf16, held as the whole decode is in
    phase 3);
-6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+7. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port only, reads no checkpoint and no image
@@ -138,6 +153,11 @@ F32_STEP_ATOL = 1e-3
 # limits leave about 2.5x room above those
 WHOLE_DECODE_LP_ATOL = 0.5
 WHOLE_DECODE_INT8_F32_LP_ATOL = 0.15
+# decoder layers of phase 4's two MHA default routes (the model has 8):
+# they run no kernel that another phase does not hold at full depth (B2
+# and B3 in the encoder, B5 and B9 in phase 3), and host-bound steps of
+# ~340 launches made them the script's longest phases
+DEFAULT_ROUTE_LAYERS = 2
 
 
 def log(*parts):
@@ -469,7 +489,8 @@ def check_fused_step(cfg, np_params, batch, quantize=False):
         return torch.randn(*shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    name = "fused_step_int8" if quantize else "fused_decoder_step"
+    mqa = "_mqa" if cfg.kv_heads != cfg.nhead else ""
+    name = f"fused_step{mqa}_int8" if quantize else f"fused_decoder_step{mqa}"
     entry = Entry(name, "handwritten_math_ocr_api_torch/csrc/fused_step.cu",
                   "handwritten_math_ocr_api_tpu/ops/fused_step.py:774",
                   "one launch (all decoder layers) at the last slot "
@@ -478,8 +499,8 @@ def check_fused_step(cfg, np_params, batch, quantize=False):
     if quantize:
         stacked = fs.quantize_stacked(stacked)
     L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
-    F, L_enc = cfg.dim_feedforward, cfg.encoder_len
-    sk, sv = randn(L, batch, T, D), randn(L, batch, T, D)
+    L_enc, kvd = cfg.encoder_len, cfg.kv_dim
+    sk, sv = randn(L, batch, T, kvd), randn(L, batch, T, kvd)
     ck, cv = randn(L, batch, L_enc, D), randn(L, batch, L_enc, D)
     x = randn(batch, D)
     one = first_row(x, sk, sv, ck, cv)
@@ -537,14 +558,15 @@ def first_row(x, *caches):
 def step_bound(cfg, rows, pos, quantize):
     """(bytes, flops) of one decoder step (B1 or B11) for ``rows`` rows at
     slot ``pos``: the weights once, each row's cross K/V and cache prefix,
-    x in, x_out and the fresh K/V rows out; two flops a weight a row and
-    the attention's four a cached element."""
+    x in, x_out and the fresh K/V rows out (self caches of kvd lanes: D,
+    or one KV head's under MQA); two flops a weight a row and the
+    attention's four a query head's element of a slot."""
     L, D = cfg.num_decoder_layers, cfg.d_model
-    L_enc = cfg.encoder_len
+    L_enc, kvd = cfg.encoder_len, cfg.kv_dim
     nbytes, weights = step_weight_bytes(cfg, quantize)
     nbytes += (2 * L * rows * L_enc * D * 2
-               + 2 * L * rows * pos * D * 2 + rows * D * 2    # caches, x
-               + rows * D * 4 + 2 * L * rows * D * 2)         # outputs
+               + 2 * L * rows * pos * kvd * 2 + rows * D * 2  # caches, x
+               + rows * D * 4 + 2 * L * rows * kvd * 2)       # outputs
     flops = (2 * rows * weights
              + 4 * L * rows * D * (pos + 1 + L_enc))          # attention
     return nbytes, flops
@@ -596,8 +618,9 @@ def step_weight_bytes(cfg, quantize):
     or int8 with their float32 scales; plus the float32 biases and
     LayerNorm tables, and the weights' element count)."""
     L, D, F = cfg.num_decoder_layers, cfg.d_model, cfg.dim_feedforward
-    weights = L * (D * 3 * D + 3 * D * D + 2 * D * F)
-    cols = L * (3 * D + 3 * D + F + D)             # output columns
+    qkv = D + 2 * cfg.kv_dim                       # the packed qkv columns
+    weights = L * (D * qkv + 3 * D * D + 2 * D * F)
+    cols = L * (qkv + 3 * D + F + D)               # output columns
     small = (cols + 6 * L * D) * 4                 # biases, LN (f32)
     if quantize:
         return weights + cols * 4 + small, weights
@@ -687,15 +710,15 @@ def ragged_bound(cfg, rows, pos, quantize):
     """(bytes, bf16 flops, float32 flops) of one ragged step for ``rows``
     rows at slot ``pos``: the weights and the float32 head once, each row's
     cross K/V and cache prefix, prev and pos, the embedding rows, the
-    logits and fresh K/V rows out."""
+    logits and fresh K/V rows out (self caches of kvd lanes)."""
     L, D = cfg.num_decoder_layers, cfg.d_model
-    L_enc, V = cfg.encoder_len, cfg.vocab_size
+    L_enc, V, kvd = cfg.encoder_len, cfg.vocab_size, cfg.kv_dim
     nbytes, weights = step_weight_bytes(cfg, quantize)
     nbytes += ((D * V + V) * 4                             # head (f32)
                + 2 * rows * 4 + 2 * rows * D * 4           # prev, pos, rows
                + 2 * L * rows * L_enc * D * 2              # cross K/V
-               + 2 * L * rows * pos * D * 2                # cache prefix
-               + rows * V * 4 + 2 * L * rows * D * 2)      # outputs
+               + 2 * L * rows * pos * kvd * 2              # cache prefix
+               + rows * V * 4 + 2 * L * rows * kvd * 2)    # outputs
     flops = 2 * rows * weights + 4 * L * rows * D * (pos + 1 + L_enc)
     return nbytes, flops, 2 * rows * D * V                 # the head
 
@@ -720,14 +743,15 @@ def check_ragged_step(cfg, np_params, rows, batch, quantize=False):
     from handwritten_math_ocr_api_torch.ops import fused_step as fs
 
     dev = torch.device(DEVICE)
-    name = "ragged_step_int8" if quantize else "ragged_step"
+    mqa = "_mqa" if cfg.kv_heads != cfg.nhead else ""
+    name = f"ragged_step{mqa}_int8" if quantize else f"ragged_step{mqa}"
     entry = Entry(name, "handwritten_math_ocr_api_torch/csrc/"
                   "ragged_step.cu",
                   "handwritten_math_ocr_api_tpu/ops/fused_step.py:1220",
                   f"one launch (embedding, all decoder layers, head logits) "
                   f"for {rows} rows at the last slot (pos = T - 1)")
     L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
-    L_enc, V = cfg.encoder_len, cfg.vocab_size
+    L_enc, V, kvd = cfg.encoder_len, cfg.vocab_size, cfg.kv_dim
     err, timed = 0.0, {}
     for dtype in ("bfloat16", "float32"):
         c = cfg.replace(dtype=dtype)
@@ -743,7 +767,7 @@ def check_ragged_step(cfg, np_params, rows, batch, quantize=False):
         tol = ((STEP_ATOL, STEP_RTOL) if dtype == "bfloat16" or quantize
                else (F32_STEP_ATOL, F32_STEP_ATOL))
         for n, slots in ((rows, (0, T // 2 - 1, T - 1)), (batch, (T - 1,))):
-            sk, sv = randn(L, n, T, D), randn(L, n, T, D)
+            sk, sv = randn(L, n, T, kvd), randn(L, n, T, kvd)
             ck, cv = randn(L, n, L_enc, D), randn(L, n, L_enc, D)
             prev = torch.randint(0, V, (n,), generator=gen, device=dev,
                                  dtype=torch.int32)
@@ -1534,15 +1558,20 @@ def profile_call(fn, what, unprofiled_s, tries=3):
 
 
 def profile_batch(engine, images, unprofiled_s, beam_size=None):
-    """``profile_call`` of one ``predict_batch``."""
+    """``profile_call`` of one ``predict_batch``: one session on the
+    default route, whose 150 steps launch 10,000s of small kernels (reading
+    such a session back takes the host some 40 s; the share of the port's
+    launches it recorded is printed), up to three on the fused one."""
     return profile_call(
         lambda: engine.predict_batch(images, beam_size=beam_size),
-        f"predict_batch({len(images)}, beam_size={beam_size})", unprofiled_s)
+        f"predict_batch({len(images)}, beam_size={beam_size})", unprofiled_s,
+        tries=3 if engine.use_fused else 1)
 
 
 def kernel_counters():
     """(wrapper, count attribute) of each kernel of the ``kernels`` line,
-    in its order: the decoder steps count their int8 entries apart."""
+    in its order: the decoder steps count their int8 entries apart, and B1
+    and B7 their MQA kernels."""
     from handwritten_math_ocr_api_torch.ops.beam_reorder import (
         beam_cache_gather,
     )
@@ -1580,7 +1609,11 @@ def kernel_counters():
                (fused_decoder_layers_step, "launches"),
                (fused_whole_step, "launches"),
                (fused_whole_decode, "launches"),
-               (fused_whole_decode, "int8_launches")])
+               (fused_whole_decode, "int8_launches"),
+               (fused_decoder_layers_step_v2, "mqa_launches"),
+               (fused_decoder_layers_step_v2, "mqa_int8_launches"),
+               (fused_ragged_step, "mqa_launches"),
+               (fused_ragged_step, "mqa_int8_launches")])
 
 
 def reset_counts():
@@ -1605,21 +1638,30 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
     step and in the cross K and V projection of every layer each decode;
     on the fused route it moves the steps' launches to their int8
     entries. No path runs decode attention, nor B10-B12 (only
-    ``serve_variants`` does)."""
+    ``serve_variants`` does). Under MQA/GQA (``nhead_kv`` < ``nhead``) the
+    default route's steps attend on plain ops (no cache-append attention)
+    and the fused route's steps are B1's and B7's MQA kernels."""
     blocks = sum(cfg.swin.depths)
     merges = len(cfg.swin.depths) - 1
     L = cfg.num_decoder_layers
     quantized = route.endswith("_int8")
+    grouped = cfg.kv_heads != cfg.nhead
     if route.startswith("pallas"):
         dq = (6 * L + 1) * steps + 2 * L * encodes if quantized else 0
-        return [encodes * blocks, encodes * merges, L * steps, 0, 0, 0, 0,
-                0, dq, 0, 0, 0, 0, 0, 0]
+        return [encodes * blocks, encodes * merges,
+                0 if grouped else L * steps, 0, 0, 0, 0, 0, dq,
+                *[0] * 10]
     fused = fused_blocks(cfg)
     b1, b7, b8 = (0, steps, steps) if beam else (steps, 0, 0)
     b1, b1_int8 = (0, b1) if quantized else (b1, 0)
     b7, b7_int8 = (0, b7) if quantized else (b7, 0)
-    return [encodes * (blocks - fused), encodes * merges, 0, 0, b1,
-            encodes * fused, b7, b8, 0, b1_int8, b7_int8, 0, 0, 0, 0]
+    mha = [b1, b7, b1_int8, b7_int8]
+    mqa = [0, 0, 0, 0]
+    if grouped:
+        mha, mqa = mqa, [b1, b1_int8, b7, b7_int8]
+    return [encodes * (blocks - fused), encodes * merges, 0, 0, mha[0],
+            encodes * fused, mha[1], b8, 0, mha[2], mha[3], 0, 0, 0, 0,
+            *mqa]
 
 
 def route_decode(engine, cfg, memory, kernels):
@@ -1637,11 +1679,11 @@ def route_decode(engine, cfg, memory, kernels):
                          kernels=kernels)
 
 
-def serve(cfg, np_params, tok, entries, route, **route_kw):
+def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
     """Phase 4: one route of the served path at full width, through the
-    kernels: greedy, then beam search (``serve_beam``). Returns
-    ((images/s, idle share, bf16 greedy tokens) of greedy, serve_beam's
-    result)."""
+    kernels: greedy, then with ``beam`` beam search (``serve_beam``).
+    Returns ((images/s, idle share, bf16 greedy tokens) of greedy,
+    serve_beam's result or None)."""
     import numpy as np
     import torch
 
@@ -1755,8 +1797,10 @@ def serve(cfg, np_params, tok, entries, route, **route_kw):
         lp_err = (r_k.logprob_sum - r_p.logprob_sum).abs().max().item()
         if lp_err > 1e-2:
             raise AssertionError(f"float32 logprob sums differ by {lp_err}")
-    beam = serve_beam(engine, engine32, images, entries, route)
-    return (N_IMAGES / best, idle, res_k.tokens), beam
+    if not beam:
+        return (N_IMAGES / best, idle, res_k.tokens), None
+    return ((N_IMAGES / best, idle, res_k.tokens),
+            serve_beam(engine, engine32, images, entries, route))
 
 
 def fused_int8_trace(engine32, cfg32, memory, route):
@@ -1941,6 +1985,73 @@ def serve_beam(engine, engine32, images, entries, route):
     return N_IMAGES / best, idle, steps, res_k.tokens
 
 
+def serve_grouped(cfg, tok, entries):
+    """Phase 5 ("serve mqa"): grouped self-attention at full width, the
+    configuration's shapes with ``nhead_kv`` set and seeded random weights
+    (no trained MQA or GQA checkpoint exists). MQA (``nhead_kv=1``) on the
+    fused route, bf16 and int8, greedy and beam (B1's and B7's MQA
+    kernels), and on the default route, greedy (grouped attention on plain
+    ops); each through ``serve``: launch counts, images/s, device idle
+    share, float32 tokens against the plain path. GQA-2 (``nhead_kv=2``)
+    with ``use_fused``: the engine must warn and serve on the default
+    route (``serve``, greedy), its tokens equal to the GQA-2 default
+    engine's. Returns {route: serve's result}."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    mqa = cfg.replace(nhead_kv=1)
+    mqa_params = convert.random_params(mqa, SEED)
+    summary = {}
+    for route, kw, beam in (("fused_mqa", fused, True),
+                            ("fused_mqa_int8", {**fused, "quantize": True},
+                             True),
+                            ("pallas_mqa", {}, False)):
+        t0 = time.perf_counter()
+        summary[route] = serve(mqa, mqa_params, tok, entries, route,
+                               beam=beam, **kw)
+        log(f"serve {route}: phase seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    gqa = cfg.replace(nhead_kv=2)
+    gqa_params = convert.random_params(gqa, SEED)
+    warned = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = warned.append
+    logger = logging.getLogger("handwritten_math_ocr_api_torch.decode.api")
+    logger.addHandler(handler)
+    try:
+        summary["pallas_gqa"] = serve(gqa, gqa_params, tok, entries,
+                                      "pallas_gqa", beam=False,
+                                      use_fused=True)
+        fallback = DecodeEngine(gqa_params, gqa, tokenizer=tok,
+                                device=DEVICE, use_fused=True)
+    finally:
+        logger.removeHandler(handler)
+    if fallback.use_fused or not any("GQA" in r.getMessage()
+                                     for r in warned):
+        raise AssertionError("a GQA use_fused engine did not warn and take "
+                             "the default route")
+    default = DecodeEngine(gqa_params, gqa, tokenizer=tok, device=DEVICE)
+    images = np.random.default_rng(SEED).integers(
+        0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+    got = fallback.decode_tokens(images).tokens
+    want = default.decode_tokens(images).tokens
+    log(f"serve pallas_gqa: use_fused warned ({warned[0].getMessage()!r}); "
+        f"bf16 tokens equal to the default GQA engine's "
+        f"{torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        raise AssertionError("GQA use_fused tokens differ from the default "
+                             "engine's")
+    log(f"serve pallas_gqa: phase seconds {time.perf_counter() - t0:.1f}")
+    return summary
+
+
 # the fused greedy decode's arms: (variant, int8 resident bundle); the
 # index in kernel_counters() of the kernel each launches, and whether it
 # launches once a step or once a decode
@@ -1958,7 +2069,7 @@ def arm_launches(arm, steps):
 
 
 def serve_variants(cfg, np_params, tok, entries):
-    """Phase 5: the fused greedy decode's A/B arms
+    """Phase 6: the fused greedy decode's A/B arms
     (``greedy_decode_fused(variant=...)``: v1, v2, v3, v4, and v5 with the
     int8 and the bf16 resident bundle) at full width on the fused route's
     encoder memory of the 10-image request (bucket 16), T steps each. Per
@@ -2125,21 +2236,35 @@ def main() -> int:
     entries.append(check_whole_step(cfg, np_params, bucket))
     entries.append(check_whole_decode(cfg, np_params, bucket, False))
     entries.append(check_whole_decode(cfg, np_params, bucket, True))
+    mqa = cfg.replace(nhead_kv=1)
+    mqa_params = convert.random_params(mqa, SEED)
+    entries.append(check_fused_step(mqa, mqa_params, bucket))
+    entries.append(check_fused_step(mqa, mqa_params, bucket, quantize=True))
+    entries.append(check_ragged_step(mqa, mqa_params, rows, bucket))
+    entries.append(check_ragged_step(mqa, mqa_params, rows, bucket,
+                                     quantize=True))
     log(f"kernels: phase seconds {time.perf_counter() - t0:.1f}")
 
     fused = {"use_fused": True, "pallas_encoder_block": True}
-    routes = {"pallas": {}, "fused": fused,
-              "pallas_int8": {"quantize": True},
-              "fused_int8": {**fused, "quantize": True}}
+    cut = cfg.replace(num_decoder_layers=DEFAULT_ROUTE_LAYERS)
+    cut_params = convert.random_params(cut, SEED)
+    routes = {"pallas": (cut, cut_params, {}),
+              "fused": (cfg, np_params, fused),
+              "pallas_int8": (cut, cut_params, {"quantize": True}),
+              "fused_int8": (cfg, np_params, {**fused, "quantize": True})}
     summary = {}
-    for route, kw in routes.items():
+    for route, (c, p, kw) in routes.items():
         t0 = time.perf_counter()
-        summary[route] = serve(cfg, np_params, tok, entries, route, **kw)
-        log(f"serve {route}: phase seconds {time.perf_counter() - t0:.1f}")
+        summary[route] = serve(c, p, tok, entries, route, **kw)
+        log(f"serve {route}: {c.num_decoder_layers} decoder layers, phase "
+            f"seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    summary.update(serve_grouped(cfg, tok, entries))
+    log(f"serve mqa: phase seconds {time.perf_counter() - t0:.1f}")
     for route, (greedy, beam) in summary.items():
-        for mode, (rate, idle, *_), tokens in (
-                ("greedy", greedy, greedy[-1]),
-                (f"beam {BEAM}", beam, beam[-1])):
+        modes = [("greedy", greedy)] + ([(f"beam {BEAM}", beam)]
+                                        if beam is not None else [])
+        for mode, (rate, idle, *_, tokens) in modes:
             idle_s = "not measured" if idle is None else f"{idle:.3f}"
             log(f"route {route} {mode}: images/s {rate:.2f}, device idle "
                 f"share {idle_s} (of the best unprofiled predict_batch)")

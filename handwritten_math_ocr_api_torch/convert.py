@@ -15,7 +15,8 @@ tree after ``np.asarray`` on each leaf) or tensors onto a device:
   JAX dequant matmul multiplies by them in float32).
 
 ``random_params`` builds a tree of the same structure and shapes as the JAX
-package's ``init_model`` for the Swin-T encoder, with numpy from a seed
+package's ``init_model`` for the Swin-T encoder (any ``nhead_kv``: the
+self-attention projection ``(D, D + 2 kvd)``), with numpy from a seed
 (numpy's generator, so not the JAX values). Its weights follow
 ``init_model``'s initialisers; unlike a fresh ``init_model``, every bias
 and every LayerNorm bias is drawn from N(0, 0.05^2) and every LayerNorm
@@ -90,8 +91,11 @@ class _Init:
     def norm(self, dim: int):
         return {"scale": 1.0 + self.bias(dim), "bias": self.bias(dim)}
 
-    def mha(self, d: int):
-        return {"w_qkv": self.xavier(d, 3 * d), "b_qkv": self.bias(3 * d),
+    def mha(self, d: int, kvd: int = 0):
+        """The packed (d, d + 2 kvd) projection; kvd = d unless given
+        (MQA/GQA self-attention: the KV heads' width)."""
+        n = d + 2 * (kvd or d)
+        return {"w_qkv": self.xavier(d, n), "b_qkv": self.bias(n),
                 "w_out": self.xavier(d, d), "b_out": self.bias(d)}
 
     def mlp(self, d: int, hidden: int):
@@ -102,8 +106,6 @@ def random_params(cfg: ModelConfig, seed: int = 0):
     """A seeded numpy parameter tree for a Swin-T ``ModelConfig``."""
     if cfg.encoder != "swin_t":
         raise NotImplementedError("only the swin_t encoder is ported")
-    if cfg.kv_heads != cfg.nhead:
-        raise NotImplementedError("MQA/GQA self-attention is not ported yet")
     init = _Init(seed)
     sc = cfg.swin
     ps, dim = sc.patch_size, sc.embed_dim
@@ -138,7 +140,8 @@ def random_params(cfg: ModelConfig, seed: int = 0):
     decoder = {
         "embedding": {"table": init.normal((cfg.vocab_size, d), 0.02)},
         "pos": {"table": init.normal((cfg.max_seq_len, d), 0.02)},
-        "layers": [{"self_attn": init.mha(d), "cross_attn": init.mha(d),
+        "layers": [{"self_attn": init.mha(d, cfg.kv_dim),
+                    "cross_attn": init.mha(d),
                     "norm1": init.norm(d), "norm2": init.norm(d),
                     "norm3": init.norm(d),
                     "ffn": init.mlp(d, cfg.dim_feedforward)}

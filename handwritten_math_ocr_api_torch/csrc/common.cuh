@@ -211,7 +211,11 @@ __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // The clusters of a kernel's shape and shared memory that fit on the card
-// at once (0: none), queried once for each.
+// at once (0: none), queried once for each. The table holds every
+// (kernel, cluster, shared memory) the port launches (the cluster step
+// kernels try up to five row groups a launch): a query not kept costs the
+// host a cudaOccupancyMaxActiveClusters call at each launch.
+constexpr int kActiveKeys = 256;
 __host__ inline cudaError_t active_clusters(const void* kernel,
                                            const cudaLaunchConfig_t& cfg,
                                            int* active) {
@@ -219,8 +223,8 @@ __host__ inline cudaError_t active_clusters(const void* kernel,
     const void* kernel;
     int cs, smem;
   };
-  static Key keys[32];
-  static int values[32], used = 0;
+  static Key keys[kActiveKeys];
+  static int values[kActiveKeys], used = 0;
   const int cs = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
   const int smem = static_cast<int>(cfg.dynamicSmemBytes);
   for (int i = 0; i < used; ++i) {
@@ -231,7 +235,7 @@ __host__ inline cudaError_t active_clusters(const void* kernel,
     }
   }
   const cudaError_t err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
-  if (err == cudaSuccess && used < 32) {
+  if (err == cudaSuccess && used < kActiveKeys) {
     keys[used] = {kernel, cs, smem};
     values[used++] = *active;
   }

@@ -40,11 +40,19 @@
 // Heads: block b owns hpb = H / Cs heads from head b / bph * hpb (or
 // shares one head with the other bph = Cs / H blocks) and, of each, the
 // rows [b % bph * Mg / bph, + Mg / bph): its (row, head) attention items.
-// It computes the q, k and v columns (and the cross-attention q columns)
-// of its heads itself, so attention follows the qkv and cq products with
-// no exchange. The out, co, ff1 and ff2 products split their columns
-// evenly: block b computes columns [b n, (b + 1) n), n = N / Cs. After
-// those, and after attention, the blocks push what the others need into
+// It computes the q columns of its heads, the k and v columns of the KV
+// heads they read (and the cross-attention q columns) itself, so
+// attention follows the qkv and cq products with no exchange. The self
+// caches and the packed qkv weight (D, D + 2 kvd) hold Hkv KV heads of dh
+// lanes, kvd = Hkv dh: Hkv = H (MHA), or one KV head that every query
+// head reads (MQA, Step's kMqa; one head a block). Under MQA every block
+// computes the same 2 dh k and v columns (D and D + kvd on), stages its
+// rows' boxes of the one head, and only the blocks of head 0 write a
+// row's fresh K/V. Grouped attention with 1 < Hkv < H is refused
+// (make_shape), as the TPU kernels take MHA and MQA only. The out, co,
+// ff1 and ff2 products split their columns evenly: block b computes
+// columns [b n, (b + 1) n), n = N / Cs. After those, and after
+// attention, the blocks push what the others need into
 // their shared memory (distributed shared memory, 8- or 16-byte remote
 // stores) and meet at one cluster barrier: an attention item's output goes
 // to every block's out/co input (xo), ff1's activations to every block's
@@ -67,7 +75,7 @@
 // zeros; B7's and B12's span all the cache's slots, so it holds later
 // slots; neither is read, and in a single step a row at slot 0 copies
 // none) and the cq stage their cross K/V, so attention reads shared
-// memory. The self caches are batch-major (L, B, T, D), or time-major
+// memory. The self caches are batch-major (L, B, T, kvd), or time-major
 // (L, T, B, D) for B10's "v4" (Shape::time_major: a 4-D map over
 // (D, B, T, L), an item's box (dh, 1, slots, 1)).
 // The copies of the next stages - 1 sublayers are in flight while one
@@ -127,7 +135,7 @@ constexpr int kBox = 256;       // a tensor copy's largest box dimension
 
 // The tensor maps of a launch: the six stacked weights (L, K, N), boxes of
 // (min(K, kBox) rows, a block's column segment); the self caches
-// (L, B, pos, D: the slots before pos of (L, B, T, D) caches, or
+// (L, B, pos, kvd: the slots before pos of (L, B, T, kvd) caches, or
 // (L, pos, B, D) of time-major ones) and the cross K/V (L, B, L_enc, D),
 // boxes of (the staged slots, a head's dh values).
 struct Maps {
@@ -141,6 +149,7 @@ using InputOf = decoder::InputOf<W>;
 // Sizes of one launch: the model, the step, and the cluster's shape.
 struct Shape {
   int L, B, D, H, F, L_enc, pos;
+  int Hkv;        // KV heads of the self caches: H (MHA) or 1 (MQA)
   int Mg;         // rows of a group (<= kGroupMax)
   int Cs;         // blocks of a cluster
   int stages;     // stages of the ring
@@ -189,7 +198,8 @@ __host__ __device__ constexpr int pad_of() {
 // The work split of a Shape: heads a block (hpb) and blocks a head (bph),
 // rows of a block's items (rpb), items a block (ipb), and per product p
 // (qkv, out, cq, co, ff1, ff2) its K, its column segments (3 for qkv: the
-// q, k and v columns of the block's heads) and a segment's columns.
+// q columns of the block's heads, the k and v columns of their KV heads)
+// and a segment's columns.
 struct Split {
   int hpb, bph, rpb, ipb, dh;
   __host__ __device__ explicit Split(const Shape& s) {
@@ -209,13 +219,17 @@ struct Split {
   __host__ __device__ int cols(const Shape& s, int p) const {
     return segs(p) * seg_cols(s, p);
   }
-  // all columns of product p (its weight's row length)
+  // all columns of product p (its weight's row length: D + 2 kvd for qkv)
   __host__ __device__ int n_all(const Shape& s, int p) const {
-    return p == 0 ? 3 * s.D : p == 4 ? s.F : s.D;
+    return p == 0 ? s.D + 2 * s.Hkv * dh : p == 4 ? s.F : s.D;
   }
-  // first column of segment i of block `rank`
+  // first column of segment i of block `rank`: of qkv's k and v segments,
+  // the block's first head's KV head (head / (H / Hkv)) in the k or v block
   __host__ __device__ int col0(const Shape& s, int p, int i, int rank) const {
-    if (p == 0 || p == 2) return i * s.D + rank / bph * hpb * dh;
+    const int head = rank / bph * hpb;
+    if (p == 0 && i > 0)
+      return s.D + (i - 1) * s.Hkv * dh + head / (s.H / s.Hkv) * dh;
+    if (p == 0 || p == 2) return head * dh;
     return rank * seg_cols(s, p);
   }
 };
@@ -238,12 +252,13 @@ struct Div {
 };
 
 // Product p's constants for this block (Step::start() fills them): K, its
-// columns n in segs segments of sc, a segment's elements in the stage and
-// its row bytes and swizzle, the weight boxes (boxes of kb rows), the
-// copy ops and bytes of its stage, the mma split (tiles, reduction parts
-// of kchunk k-steps, items), and each segment's first column.
+// columns n in segs segments of sc (of nall in the weight's row), a
+// segment's elements in the stage and its row bytes and swizzle, the
+// weight boxes (boxes of kb rows), the copy ops and bytes of its stage,
+// the mma split (tiles, reduction parts of kchunk k-steps, items), and
+// each segment's first column.
 struct ProdTab {
-  int K, n, sc, segs, seg_e, row_b, bits, boxes, kb, ops;
+  int K, n, nall, sc, segs, seg_e, row_b, bits, boxes, kb, ops;
   int tiles, kparts, kchunk, items;
   int col0[3];
   unsigned bytes;
@@ -486,7 +501,12 @@ __device__ __forceinline__ void raw_to_f32(const uint4& r, float* out) {
 // and its stores are fenced against the async proxy: the next step's TMA
 // copies read them. No slot-0 rule: a stage issued during step t for step
 // t + 1 copies every live item's box (at step 0 a box of slots never read).
-template <typename W, typename C, bool kDecode = false>
+//
+// kMqa: the self caches hold one KV head (Shape::Hkv 1, kvd = dh) that
+// every item reads (kv_head); of the blocks that hold a row, the one of
+// head 0 writes its fresh K/V. A compile-time switch, so that the MHA
+// kernels' code stays as it was (B1 and B7 only).
+template <typename W, typename C, bool kDecode = false, bool kMqa = false>
 struct Step {
   using X = InputOf<W>;
   static constexpr int kVec = Vec<C>::N;
@@ -569,6 +589,9 @@ struct Step {
     nmax = lay.nmax;
   }
 
+  // the self caches' KV head of query head h
+  __device__ static int kv_head(int h) { return kMqa ? 0 : h; }
+
   // log2 of the warps an attention item over `slots` slots takes: the
   // spare warps, at most one a 16 slots, a power of two (so that a round's
   // items tile the warps)
@@ -611,6 +634,7 @@ struct Step {
       t.segs = sp.segs(p);
       t.sc = sp.seg_cols(s, p);
       t.n = t.segs * t.sc;
+      t.nall = sp.n_all(s, p);
       t.row_b = t.sc * sizeof(W);
       t.bits = swizzle_bits(t.row_b);
       t.seg_e = static_cast<int>(
@@ -724,7 +748,7 @@ struct Step {
       const bool sc_op = i >= t.segs;
       const int seg = sc_op ? i - t.segs : i;
       const float* src = (sc_op ? lin.s : lin.b) +
-                         static_cast<size_t>(l) * sp.n_all(s, p) +
+                         static_cast<size_t>(l) * t.nall +
                          t.col0[seg];
       if (go)
         bulk_copy(extras_at(st) + (sc_op ? nmax : 0) + seg * t.sc, src,
@@ -749,7 +773,8 @@ struct Step {
       if (p == 0)
         tensor_copy4(reinterpret_cast<unsigned char*>(kvs) +
                          (2 * li + kv) * kv_self,
-                     kv ? &maps->self_v : &maps->self_k, h * sp.dh,
+                     kv ? &maps->self_v : &maps->self_k,
+                     kv_head(h) * sp.dh,
                      s.time_major ? row0 + r : 0,
                      s.time_major ? 0 : row0 + r, l, bar);
       else
@@ -905,8 +930,9 @@ struct Step {
         if (part == 0) {
           v *= scale;
         } else {
+          const int h = items[li].h;
           C* dst = (part == 1 ? fresh.k : fresh.v) + l * fresh.layer +
-                   (row0 + r) * fresh.row + items[li].h * dh + d;
+                   (row0 + r) * fresh.row + kv_head(h) * dh + d;
           if constexpr (kDecode) {
             // a finished row writes nothing; the fresh row joins
             // attention unrounded
@@ -915,7 +941,7 @@ struct Step {
             // a dead row's fresh rows are NaN
             const C cv = from_f32<C>(
                 rpos()[r] < 0 ? __int_as_float(0x7fffffff) : v);
-            *dst = cv;
+            if (!kMqa || h == 0) *dst = cv;  // MQA: one writer a row
             v = to_f32(cv);
           }
         }
@@ -1037,7 +1063,8 @@ struct Step {
         size_t stride, kv_stride;
         int n_cache, n, cap;
         if (self_attn) {
-          const size_t at = l * self.layer + (row0 + r) * self.row + h * dh;
+          const size_t at =
+              l * self.layer + (row0 + r) * self.row + kv_head(h) * dh;
           K = self_k + at;
           V = self_v + at;
           stride = self.slot;
@@ -1549,20 +1576,24 @@ inline int slots_in(size_t bytes, int items, int row, int most) {
 // ring takes as many stages as fit up to kMaxStages, at least two if one
 // stage would leave the cache unstaged; what is left stages the items'
 // cross K/V slots, then their self-cache slots (up to Tc - 1, and kBox,
-// slots). hres: B12's resident head columns a block (before the staging);
-// time_major: the self caches are (L, T, B, D) (B10 "v4").
+// slots). Hkv: the self caches' KV heads, H (MHA) or 1 (MQA, one head a
+// block: H <= Cs); grouped attention (1 < Hkv < H) is not taken. hres:
+// B12's resident head columns a block (before the staging); time_major:
+// the self caches are (L, T, B, D) (B10 "v4").
 // This is the one statement of the shapes the kernel takes.
 template <typename W, typename C>
-Shape make_shape(int L, int B, int Tc, int D, int H, int F, int L_enc,
-                 int pos, int Mg, int hres = 0, int time_major = 0) {
+Shape make_shape(int L, int B, int Tc, int D, int H, int Hkv, int F,
+                 int L_enc, int pos, int Mg, int hres = 0,
+                 int time_major = 0) {
   const int Cs = kClusterBlocks;
-  Shape s{L, B, D, H, F, L_enc, pos, Mg, Cs, 0, 0, 0, hres, time_major};
+  Shape s{L, B, D, H, F, L_enc, pos, Hkv, Mg, Cs, 0, 0, 0, hres, time_major};
   const int cols = std::max(8, 16 / static_cast<int>(sizeof(W)));
   const int dh = H > 0 ? D / H : 0;
   const int nvec = dh * static_cast<int>(sizeof(C)) / 16;
   const int bph = Cs >= H ? Cs / std::max(H, 1) : 1;
   const bool ok =
       B >= 1 && L >= 1 && H >= 1 && D % H == 0 && L_enc >= 1 && pos >= 0 &&
+      (Hkv == H || (Hkv == 1 && H <= Cs && !time_major)) &&
       pos < Tc && Mg >= 1 && Mg <= kGroupMax &&
       (Cs % H == 0 || H % Cs == 0) && Mg % bph == 0 &&
       (dh * sizeof(C)) % 16 == 0 && nvec <= 32 && (nvec & (nvec - 1)) == 0 &&
@@ -1724,15 +1755,16 @@ cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
         swizzle_bits(sp.seg_cols(s, p) * sizeof(W)));
     if (err != cudaSuccess) return err;
   }
-  const uint64_t row = s.D * sizeof(C);
+  const uint64_t kvd = static_cast<uint64_t>(s.Hkv) * sp.dh;
+  const uint64_t row = kvd * sizeof(C);
   const uint64_t slots = static_cast<uint64_t>(self_slots);
   const uint64_t B = static_cast<uint64_t>(s.B);
-  const uint64_t self_dims[4] = {static_cast<uint64_t>(s.D),
+  const uint64_t self_dims[4] = {kvd,
                                  s.time_major ? B : slots,
                                  s.time_major ? slots : B,
                                  static_cast<uint64_t>(s.L)};
-  // batch-major (L, B, Tc, D): slot, row, layer; time-major (L, Tc, B, D):
-  // row, slot, layer
+  // batch-major (L, B, Tc, kvd): slot, row, layer; time-major
+  // (L, Tc, B, D): row, slot, layer
   const uint64_t self_strides[3] = {row, s.time_major ? row * B : row * Tc,
                                     row * Tc * B};
   const uint64_t cross_dims[4] = {static_cast<uint64_t>(s.D),
@@ -1793,11 +1825,11 @@ cudaError_t configure(const void* kernel, const Shape& s,
 // stages 0: no shape the kernel takes.
 template <typename W, typename C>
 cudaError_t choose_shape(const void* kernel, int L, int B, int Tc, int D,
-                         int H, int F, int L_enc, int pos, Shape* out,
-                         int hres = 0, int time_major = 0) {
+                         int H, int Hkv, int F, int L_enc, int pos,
+                         Shape* out, int hres = 0, int time_major = 0) {
   Shape last{};
   for (int Mg = 1; Mg <= kGroupMax; Mg *= 2) {
-    const Shape s = make_shape<W, C>(L, B, Tc, D, H, F, L_enc, pos, Mg,
+    const Shape s = make_shape<W, C>(L, B, Tc, D, H, Hkv, F, L_enc, pos, Mg,
                                      hres, time_major);
     if (s.stages < 1) continue;
     cudaLaunchConfig_t cfg;
@@ -1841,11 +1873,11 @@ inline int head_cols(int V) {
 // stages. Returns the error a launch would (kRefused for a shape the
 // kernel does not take).
 template <typename W, typename C>
-int geometry(const void* kernel, int B, int Tc, int D, int H, int F,
-             int L_enc, int V, int* out, bool resident = false) {
+int geometry(const void* kernel, int B, int Tc, int D, int H, int Hkv,
+             int F, int L_enc, int V, int* out, bool resident = false) {
   Shape s;
-  cudaError_t err = choose_shape<W, C>(kernel, 1, B, Tc, D, H, F, L_enc,
-                                       Tc - 1, &s,
+  cudaError_t err = choose_shape<W, C>(kernel, 1, B, Tc, D, H, Hkv, F,
+                                       L_enc, Tc - 1, &s,
                                        resident ? head_cols(V) : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s.stages < 1 || (V > 0 && !head_fits<W, C>(s, V))) return kRefused;
@@ -1867,10 +1899,11 @@ int geometry(const void* kernel, int B, int Tc, int D, int H, int F,
 // The cluster kernels, by their id in the one geometry entry
 // (cluster_geometry, fused_step.cu). Each source file defines its own
 // lookup: its kernel for an int8 or a float bundle over float32 or bf16
-// caches, or nullptr where it has no entry for that pair.
+// caches (B1 and B7: and MQA's, one KV head), or nullptr where it has no
+// entry for that pair.
 enum Kernel { kFusedStep, kRaggedStep, kWholeStep, kWholeDecode };
-const void* fused_step_kernel(bool int8, bool f32);
-const void* ragged_step_kernel(bool int8, bool f32);
+const void* fused_step_kernel(bool int8, bool f32, bool mqa);
+const void* ragged_step_kernel(bool int8, bool f32, bool mqa);
 const void* whole_step_kernel(bool int8, bool f32);
 const void* whole_decode_kernel(bool int8, bool f32);
 

@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel
 // handwritten_math_ocr_api_tpu/ops/fused_step.py::fused_ragged_step
-// (_make_kernel_ragged; MHA, no ring; the bf16/float32 bundle, or the
-// int8 one with bf16 matmul inputs). For row r:
+// (_make_kernel_ragged, no ring; the bf16/float32 bundle, or the int8 one
+// with bf16 matmul inputs; MHA self caches (L, R, T, D), or MQA's of the
+// TPU kernel's kv_dim, one KV head: (L, R, T, dh), a kernel of its own,
+// kMqa). For row r:
 //   x = round(emb[prev[r]] + pos_emb[pos[r]])     (float32 tables, the sum
 //                                                  rounded to the compute
 //                                                  type C and back)
@@ -50,7 +52,7 @@ using cluster_step::kRefused;
 using cluster_step::kThreads;
 using cluster_step::Shape;
 
-template <typename W, typename C>
+template <typename W, typename C, bool kMqa>
 __global__ void __launch_bounds__(kThreads, 1)
 ragged_step_cluster_kernel(const int* __restrict__ prev,
                            const int* __restrict__ pos,
@@ -68,7 +70,7 @@ ragged_step_cluster_kernel(const int* __restrict__ prev,
                            const __grid_constant__ cluster_step::Maps maps,
                            Shape s, int Tc, int V, int Tpos) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  using Step = cluster_step::Step<W, C>;
+  using Step = cluster_step::Step<W, C, false, kMqa>;
   // the swizzled weight stages need a 1024-byte aligned base
   unsigned char* smem =
       smem_raw + ((1024 - (cluster_step::smem_u32(smem_raw) & 1023)) & 1023);
@@ -84,25 +86,26 @@ ragged_step_cluster_kernel(const int* __restrict__ prev,
   step.head(logits, nxt, logp);
 }
 
-template <typename W, typename C>
+template <typename W, typename C, bool kMqa>
 const void* kernel_of() {
-  return reinterpret_cast<const void*>(ragged_step_cluster_kernel<W, C>);
+  return reinterpret_cast<const void*>(ragged_step_cluster_kernel<W, C, kMqa>);
 }
 
 // wp: six (weight, scale, bias) triples, scale null for a float bundle.
-template <typename W, typename C>
-int launch(const void* prev, const void* pos, const void* emb,
-           const void* pos_emb, const void* const* wp, const void* ln,
-           const void* self_k, const void* self_v, const void* cross_k,
-           const void* cross_v, const void* w_head, const void* b_head,
-           void* logits, void* nxt, void* logp, void* k_new, void* v_new,
-           int L, int R, int Tc, int D, int H, int F, int L_enc, int V,
-           int Tpos, void* stream) {
-  const void* kernel = kernel_of<W, C>();
+template <typename W, typename C, bool kMqa>
+int launch_kernel(const void* prev, const void* pos, const void* emb,
+                  const void* pos_emb, const void* const* wp, const void* ln,
+                  const void* self_k, const void* self_v,
+                  const void* cross_k, const void* cross_v,
+                  const void* w_head, const void* b_head, void* logits,
+                  void* nxt, void* logp, void* k_new, void* v_new, int L,
+                  int R, int Tc, int D, int H, int Hkv, int F, int L_enc,
+                  int V, int Tpos, void* stream) {
+  const void* kernel = kernel_of<W, C, kMqa>();
   // planned for the last slot: any row may be there
   Shape s;
-  cudaError_t err = cluster_step::choose_shape<W, C>(kernel, L, R, Tc, D, H,
-                                                     F, L_enc, Tc - 1, &s);
+  cudaError_t err = cluster_step::choose_shape<W, C>(
+      kernel, L, R, Tc, D, H, Hkv, F, L_enc, Tc - 1, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s.stages < 1 || !cluster_step::head_fits<W, C>(s, V)) return kRefused;
   cudaLaunchConfig_t cfg;
@@ -120,18 +123,35 @@ int launch(const void* prev, const void* pos, const void* emb,
   using CC = const C*;
   using CF = const float*;
   using CI = const int*;
+  const int kvd = Hkv * (D / H);  // the self caches' lanes
   err = cudaLaunchKernelEx(
-      &cfg, ragged_step_cluster_kernel<W, C>, static_cast<CI>(prev),
+      &cfg, ragged_step_cluster_kernel<W, C, kMqa>, static_cast<CI>(prev),
       static_cast<CI>(pos), static_cast<CF>(emb), static_cast<CF>(pos_emb),
       decoder::make_weights<W>(wp, ln), static_cast<CC>(self_k),
-      static_cast<CC>(self_v), decoder::batch_major(R, Tc, D),
+      static_cast<CC>(self_v), decoder::batch_major(R, Tc, kvd),
       static_cast<CC>(cross_k), static_cast<CC>(cross_v),
       static_cast<CF>(w_head), static_cast<CF>(b_head),
       static_cast<float*>(logits), static_cast<int*>(nxt),
-      static_cast<float*>(logp), decoder::rows_out<C>(k_new, v_new, R, D),
+      static_cast<float*>(logp), decoder::rows_out<C>(k_new, v_new, R, kvd),
       maps, s, Tc, V, Tpos);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The MHA kernel where Hkv == H, else the MQA one (its shape refuses any
+// Hkv but 1).
+template <typename W, typename C>
+int launch(const void* prev, const void* pos, const void* emb,
+           const void* pos_emb, const void* const* wp, const void* ln,
+           const void* self_k, const void* self_v, const void* cross_k,
+           const void* cross_v, const void* w_head, const void* b_head,
+           void* logits, void* nxt, void* logp, void* k_new, void* v_new,
+           int L, int R, int Tc, int D, int H, int Hkv, int F, int L_enc,
+           int V, int Tpos, void* stream) {
+  return (Hkv == H ? launch_kernel<W, C, false> : launch_kernel<W, C, true>)(
+      prev, pos, emb, pos_emb, wp, ln, self_k, self_v, cross_k, cross_v,
+      w_head, b_head, logits, nxt, logp, k_new, v_new, L, R, Tc, D, H, Hkv,
+      F, L_enc, V, Tpos, stream);
 }
 
 }  // namespace
@@ -151,14 +171,14 @@ int launch(const void* prev, const void* pos, const void* emb,
       const void* self_v, const void* cross_k, const void* cross_v,         \
       const void* w_head, const void* b_head, void* logits, void* nxt,      \
       void* logp, void* k_new, void* v_new, int L, int R, int Tc, int D,    \
-      int H, int F, int L_enc, int V, int Tpos, void* stream) {             \
+      int H, int Hkv, int F, int L_enc, int V, int Tpos, void* stream) {    \
     const void* wp[18] = {w_qkv, nullptr, b_qkv, w_out, nullptr, b_out,    \
                           w_cq,  nullptr, b_cq,  w_co,  nullptr, b_co,     \
                           w_ff1, nullptr, b_ff1, w_ff2, nullptr, b_ff2};   \
     return launch<TYPE, TYPE>(prev, pos, emb, pos_emb, wp, ln, self_k,     \
                               self_v, cross_k, cross_v, w_head, b_head,     \
                               logits, nxt, logp, k_new, v_new, L, R, Tc, D, \
-                              H, F, L_enc, V, Tpos, stream);                \
+                              H, Hkv, F, L_enc, V, Tpos, stream);           \
   }
 
 // The int8 bundle: six (weight, scale, bias) triples; CACHE the cache
@@ -176,14 +196,14 @@ int launch(const void* prev, const void* pos, const void* emb,
       const void* self_v, const void* cross_k, const void* cross_v,         \
       const void* w_head, const void* b_head, void* logits, void* nxt,      \
       void* logp, void* k_new, void* v_new, int L, int R, int Tc, int D,    \
-      int H, int F, int L_enc, int V, int Tpos, void* stream) {             \
+      int H, int Hkv, int F, int L_enc, int V, int Tpos, void* stream) {    \
     const void* wp[18] = {w_qkv, s_qkv, b_qkv, w_out, s_out, b_out,        \
                           w_cq,  s_cq,  b_cq,  w_co,  s_co,  b_co,         \
                           w_ff1, s_ff1, b_ff1, w_ff2, s_ff2, b_ff2};       \
     return launch<int8_t, CACHE>(prev, pos, emb, pos_emb, wp, ln, self_k,  \
                                  self_v, cross_k, cross_v, w_head, b_head,  \
                                  logits, nxt, logp, k_new, v_new, L, R, Tc, \
-                                 D, H, F, L_enc, V, Tpos, stream);          \
+                                 D, H, Hkv, F, L_enc, V, Tpos, stream);     \
   }
 
 RAGGED_STEP_ENTRY(ragged_step_bf16, __nv_bfloat16)
@@ -192,10 +212,15 @@ RAGGED_STEP_I8_ENTRY(ragged_step_i8_bf16, __nv_bfloat16)
 RAGGED_STEP_I8_ENTRY(ragged_step_i8_f32, float)
 
 // The kernel for the one geometry entry (cluster_geometry, fused_step.cu).
-const void* cluster_step::ragged_step_kernel(bool int8, bool f32) {
+template <bool kMqa>
+const void* kernel_for(bool int8, bool f32) {
   if (int8)
-    return f32 ? kernel_of<int8_t, float>()
-               : kernel_of<int8_t, __nv_bfloat16>();
-  return f32 ? kernel_of<float, float>()
-             : kernel_of<__nv_bfloat16, __nv_bfloat16>();
+    return f32 ? kernel_of<int8_t, float, kMqa>()
+               : kernel_of<int8_t, __nv_bfloat16, kMqa>();
+  return f32 ? kernel_of<float, float, kMqa>()
+             : kernel_of<__nv_bfloat16, __nv_bfloat16, kMqa>();
+}
+
+const void* cluster_step::ragged_step_kernel(bool int8, bool f32, bool mqa) {
+  return mqa ? kernel_for<true>(int8, f32) : kernel_for<false>(int8, f32);
 }

@@ -137,7 +137,7 @@ int launch(const void* emb, const void* pos_emb, const void* const* wp,
   // planned for the last slot: a group's rows reach it
   Shape s;
   cudaError_t err = cluster_step::choose_shape<W, C>(
-      kernel, L, B, T_out, D, H, F, L_enc, T_out - 1, &s, hres);
+      kernel, L, B, T_out, D, H, H, F, L_enc, T_out - 1, &s, hres);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s.stages < 1 || !cluster_step::head_fits<W, C>(s, V)) return kRefused;
   cudaLaunchConfig_t cfg;

@@ -105,7 +105,7 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
   Shape s;
   const bool in_place = k_new == nullptr;
   cudaError_t err = cluster_step::choose_shape<C, C>(
-      kernel, L, B, Tc, D, H, F, L_enc, pos, &s, 0, in_place ? 1 : 0);
+      kernel, L, B, Tc, D, H, H, F, L_enc, pos, &s, 0, in_place ? 1 : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s.stages < 1 || !cluster_step::head_fits<C, C>(s, V)) return kRefused;
   cudaLaunchConfig_t cfg;

@@ -32,6 +32,14 @@ steps stream the int8 bundle (``ops/fused_step.py::quantize_stacked`` of
 the stacked, compute-dtype weights) through their int8 entries, while the
 cross K/V projection and the greedy float32 head keep the float weights.
 
+Self-attention with fewer KV heads than heads (``nhead_kv``) is served as
+the JAX engine serves it. The default route attends through grouped
+attention on plain ops for every MQA/GQA config (the cache-append kernel
+is MHA only, as in JAX). The fused route takes MHA and MQA
+(``nhead_kv=1``: the greedy and beam step kernels' MQA entries). A GQA
+config (1 < ``nhead_kv`` < ``nhead``) with ``use_fused`` logs a warning
+and decodes on the default route, as JAX's engine does.
+
 Beam search decodes the images of the request only: the zero images that
 pad a batch to its bucket are encoded (the encoder runs at the bucket) but
 not decoded, as their rows of the result are dropped anyway. Sampling,
@@ -40,6 +48,7 @@ constrained and streaming decoding are not ported yet.
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,11 +98,20 @@ class DecodeEngine:
         gives its blocks their float32 biases. ``quantize`` makes the
         decoder's weights int8: the stacked bundle's with ``use_fused``,
         else the decoder tree's (quantized from ``params`` before it moves
-        to the device)."""
+        to the device). A GQA config with ``use_fused`` warns and takes the
+        default route (and, with ``quantize``, its int8 decoder tree), as
+        the JAX engine does."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.decode_cfg = decode_cfg or DecodeConfig()
         self.tokenizer = tokenizer
+        if use_fused and 1 < cfg.kv_heads < cfg.nhead:
+            # the fused steps take MHA and MQA (nhead_kv=1) only
+            logging.getLogger(__name__).warning(
+                "use_fused requested but config is GQA (nhead_kv=%d of %d "
+                "heads): falling back to the default decode path",
+                cfg.kv_heads, cfg.nhead)
+            use_fused = False
         if quantize and not use_fused:
             params = dict(params)
             params["decoder"] = quantize_decoder_params(params["decoder"])
@@ -106,10 +124,6 @@ class DecodeEngine:
         self.quantize = quantize
         self.stacked = None
         if use_fused:
-            if cfg.kv_heads != cfg.nhead:
-                raise NotImplementedError(
-                    "use_fused: grouped (MQA/GQA) self-attention is not "
-                    "ported; the fused step takes MHA configs only")
             self.stacked = build_stacked_full(params["decoder"], cfg,
                                                self.device)
             if quantize:

@@ -2,8 +2,15 @@
 
 Port of ``handwritten_math_ocr_api_tpu/decode/fused.py``: greedy decode in
 each of its variants and ``beam_decode_fused``, on merged-head caches:
-self ``(L, B, T, D)`` (v4: time-major ``(L, T, B, D)``), cross
-``(L, B, L_enc, D)``.
+self ``(L, B, T, kvd)`` (v4: time-major ``(L, T, B, D)``), kvd =
+``cfg.kv_dim``, cross ``(L, B, L_enc, D)``.
+
+Grouped self-attention, as the JAX functions take it: MQA (``nhead_kv=1``)
+decodes greedy with variant "v2" (B1's MQA kernel) and beam search (B7's);
+every other variant raises ``NotImplementedError`` under MQA ("v2m" too,
+as in JAX), and GQA (1 < ``nhead_kv`` < ``nhead``) raises in both, as its
+configs decode on the default route (``DecodeEngine`` moves a GQA
+``use_fused`` engine there).
 
 - ``greedy_decode_fused``: the same tokens, early exit and confidence
   bookkeeping as ``decode/greedy.py`` (the loop is shared), each step
@@ -48,7 +55,7 @@ import torch
 
 from ..core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from ..models import layers
-from ..models.decoder import _check_mha, _proj
+from ..models.decoder import _proj
 from ..models.model import compute_dtype
 from ..ops.beam_reorder import beam_cache_gather, beam_cache_gather_plain
 from ..ops.fused_step import (
@@ -83,14 +90,14 @@ def project_cross_kv_merged(decoder_params, cfg: ModelConfig, memory):
 
 def init_fused_cache(decoder_params, cfg: ModelConfig, memory,
                      max_len=None, *, time_major: bool = False):
-    """(self_k, self_v, cross_k, cross_v): zero self caches (L, B, T, D),
-    or with ``time_major`` (the "v4" step's) (L, T, B, D), and the
-    projected cross K/V."""
-    _check_mha(cfg)
+    """(self_k, self_v, cross_k, cross_v): zero self caches
+    (L, B, T, kvd), kvd = ``cfg.kv_dim`` (the self-attention weights'
+    K/V width: D under MHA), or with ``time_major`` (the "v4" step's, MHA)
+    (L, T, B, D), and the projected cross K/V."""
     B = memory.shape[0]
     T = max_len or cfg.max_seq_len
-    L, D = cfg.num_decoder_layers, cfg.d_model
-    shape = (L, T, B, D) if time_major else (L, B, T, D)
+    L, kvd = cfg.num_decoder_layers, cfg.kv_dim
+    shape = (L, T, B, kvd) if time_major else (L, B, T, kvd)
     dtype = compute_dtype(cfg)
     self_k = torch.zeros(shape, dtype=dtype, device=memory.device)
     self_v = torch.zeros(shape, dtype=dtype, device=memory.device)
@@ -128,7 +135,13 @@ def greedy_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
     takes the plain versions even on CUDA (the reference path)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is none of {VARIANTS}")
-    _check_mha(cfg)
+    if cfg.kv_heads != cfg.nhead and (variant != "v2"
+                                      or cfg.kv_heads != 1):
+        raise NotImplementedError(
+            f"fused variant {variant!r} supports MHA, and MQA (nhead_kv=1) "
+            "via variant='v2': the TPU kernel's lane replication of the "
+            "shared K/V head is only head-order-correct at one kv head. GQA "
+            "(1 < nhead_kv < nhead) decodes on the default route")
     T = max_len or cfg.max_seq_len
     ids = {"sos_id": sos_id, "eos_id": eos_id, "pad_id": pad_id}
     if variant == "v5":
@@ -205,7 +218,12 @@ def beam_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
     (its slots before ``step``), its fresh rows are appended to it at
     ``step``, and the gather writes the reordered prefix into the other.
     Slots after ``step`` are zero in every row of both pairs (no step has
-    written them), so the prefix gather is the whole gather."""
+    written them), so the prefix gather is the whole gather. MHA and MQA
+    (``nhead_kv=1``); GQA raises ``NotImplementedError``, as in JAX."""
+    if cfg.kv_heads not in (cfg.nhead, 1):
+        raise NotImplementedError(
+            "fused beam decode supports MHA and MQA (nhead_kv=1); GQA "
+            "decodes on the default beam path")
     if "emb" not in stacked:
         raise ValueError("beam_decode_fused needs build_stacked_full's "
                          "bundle (the embedding and head tables)")

@@ -9,17 +9,22 @@ final decoder LayerNorm.
 - ``decoder_forward``: the full teacher-forced pass.
 - ``init_cache`` + ``decoder_step``: one token per step against a KV cache.
   Cross-attention K/V are computed once from the encoder memory; the self
-  cache is ``(B, H, T, Dh)`` per layer. The step's self-attention is the
-  cache-append attention kernel (the JAX ``use_pallas=True`` route), which
-  writes the new K/V row into the cache in place.
+  cache is ``(B, Hkv, T, Dh)`` per layer, Hkv = ``cfg.kv_heads``. Under MHA
+  the step's self-attention is the cache-append attention kernel (the JAX
+  ``use_pallas=True`` route), which writes the new K/V row into the cache
+  in place; under MQA/GQA (``nhead_kv`` < ``nhead``) the step writes the
+  row at ``pos`` and attends through ``layers.grouped_attention`` on plain
+  ops, as the JAX function does (its kernel is MHA only).
 
 A tree from ``ops/quant.py::quantize_decoder_params`` (``w_qkv_q``,
 ``w_out_q``, ``w_q`` with their ``*_scale``) runs every projection and
 the head through the dequant matmul kernel, as the JAX functions run
 ``dequant_matmul``; the cross projection's q, k and v are column slices of
-the packed int8 matrix, read in place.
+the packed int8 matrix, read in place, and the self projection is one
+launch over all its D + 2 kvd columns.
 
-Self-attention is MHA only here (``nhead_kv`` unset), as the kernel is.
+Self-attention takes any ``nhead_kv`` dividing ``nhead`` (MHA, MQA, GQA);
+cross-attention is MHA.
 """
 
 from __future__ import annotations
@@ -37,12 +42,6 @@ from . import layers
 from .model import compute_dtype
 
 Cache = Dict[str, torch.Tensor]
-
-
-def _check_mha(cfg: ModelConfig) -> None:
-    if cfg.kv_heads != cfg.nhead:
-        raise NotImplementedError(
-            "MQA/GQA self-attention (nhead_kv < nhead) is not ported yet")
 
 
 def _embed(params, tgt_ids, positions, dtype):
@@ -64,15 +63,16 @@ def _linear(p, w: str, b: str, x, kernels: bool, cols=slice(None)):
 
 
 def _proj(p, x, part: str, kernels: bool = True):
+    """The q, k or v columns of the packed projection (D, D + 2 kvd)."""
     d = x.shape[-1]
-    lo = {"q": 0, "k": d, "v": 2 * d}[part]
-    return _linear(p, "w_qkv", "b_qkv", x, kernels, slice(lo, lo + d))
+    kvd = ((p["w_qkv_q"] if "w_qkv_q" in p else p["w_qkv"]).shape[1] - d) // 2
+    lo, n = {"q": (0, d), "k": (d, kvd), "v": (d + kvd, kvd)}[part]
+    return _linear(p, "w_qkv", "b_qkv", x, kernels, slice(lo, lo + n))
 
 
 def decoder_forward(params, cfg: ModelConfig, memory, tgt_ids):
     """Teacher-forced full pass. memory (B, L_enc, D); tgt_ids (B, L).
     Returns float32 logits (B, L, vocab)."""
-    _check_mha(cfg)
     B, L = tgt_ids.shape
     dtype = compute_dtype(cfg)
     positions = torch.arange(L, device=tgt_ids.device)[None, :]
@@ -92,10 +92,9 @@ def decoder_forward(params, cfg: ModelConfig, memory, tgt_ids):
 def init_cache(params, cfg: ModelConfig, memory,
                max_len: Optional[int] = None, *,
                kernels: bool = True) -> Cache:
-    """Empty self-attention K/V caches (B, H, T, Dh) and the precomputed
+    """Empty self-attention K/V caches (B, Hkv, T, Dh) and the precomputed
     cross-attention K/V (B, H, L_enc, Dh) of every layer. ``kernels=False``
     takes the plain dequant matmul even on CUDA."""
-    _check_mha(cfg)
     B = memory.shape[0]
     T = max_len or cfg.max_seq_len
     dtype = compute_dtype(cfg)
@@ -108,10 +107,9 @@ def init_cache(params, cfg: ModelConfig, memory,
             _proj(cp, memory, "k", kernels), nh)
         cache[f"cross_v_{i}"] = layers.split_heads(
             _proj(cp, memory, "v", kernels), nh)
-        cache[f"self_k_{i}"] = torch.zeros((B, nh, T, dh), dtype=dtype,
-                                           device=memory.device)
-        cache[f"self_v_{i}"] = torch.zeros((B, nh, T, dh), dtype=dtype,
-                                           device=memory.device)
+        for kv in ("k", "v"):
+            cache[f"self_{kv}_{i}"] = torch.zeros(
+                (B, cfg.kv_heads, T, dh), dtype=dtype, device=memory.device)
     return cache
 
 
@@ -123,21 +121,36 @@ def decoder_step(params, cfg: ModelConfig, tok_ids, pos: int, cache: Cache,
     ``cache`` are updated in place at ``pos``. Equal to ``decoder_forward``
     on the full prefix at its last position (the tests check it).
     ``kernels=False`` takes the plain cache attention (and, on an int8
-    tree, the plain dequant matmul) even on CUDA.
+    tree, the plain dequant matmul) even on CUDA. Under MQA/GQA the
+    self-attention is plain grouped attention over the slots up to
+    ``pos`` whatever ``kernels`` is (the cache attention kernel is MHA
+    only, as the JAX route's).
     """
     dtype = compute_dtype(cfg)
-    nh = cfg.nhead
+    nh, nkv = cfg.nhead, cfg.kv_heads
+    D, kvd = cfg.d_model, cfg.kv_dim
     positions = torch.full_like(tok_ids, pos)[:, None]
     x = _embed(params, tok_ids[:, None], positions, dtype)   # (B, 1, D)
     attend = (cache_append_attention if kernels
               else cache_append_attention_plain)
+    if nkv != nh:  # the slots up to pos, (1, 1, 1, T)
+        slot = torch.arange(cache["self_k_0"].shape[2], device=x.device)
+        mask = torch.zeros(slot.shape, device=x.device).masked_fill(
+            slot > pos, float("-inf"))[None, None, None, :]
     for i, p in enumerate(params["layers"]):
         sp = p["self_attn"]
         qkv = _linear(sp, "w_qkv", "b_qkv", x, kernels)
-        q, k_new, v_new = (layers.split_heads(t, nh).contiguous()
-                           for t in qkv.split(cfg.d_model, dim=-1))
-        sa = attend(q, k_new, v_new, cache[f"self_k_{i}"],
-                    cache[f"self_v_{i}"], pos)
+        q, k_new, v_new = qkv.split([D, kvd, kvd], dim=-1)
+        q = layers.split_heads(q, nh).contiguous()
+        k_new = layers.split_heads(k_new, nkv).contiguous()
+        v_new = layers.split_heads(v_new, nkv).contiguous()
+        sk, sv = cache[f"self_k_{i}"], cache[f"self_v_{i}"]
+        if nkv == nh:
+            sa = attend(q, k_new, v_new, sk, sv, pos)
+        else:
+            sk[:, :, pos] = k_new[:, :, 0]
+            sv[:, :, pos] = v_new[:, :, 0]
+            sa = layers.grouped_attention(q, sk, sv, mask, nh)
         sa = _linear(sp, "w_out", "b_out", layers.merge_heads(sa), kernels)
         x = layers.layer_norm(p["norm1"], x + sa)
 

@@ -3,7 +3,8 @@
 The port of ``handwritten_math_ocr_api_tpu/models/layers.py``. Parameters
 are nested dicts of tensors with the JAX package's names and layouts:
 linear weights are ``(in, out)`` and multiply as ``x @ w``; the attention
-projection is packed ``(D, 3D)`` with q, k, v column blocks. The numerics
+projection is packed ``(D, D + 2 kvd)`` with q, k, v column blocks, kvd = D
+for MHA and the KV heads' width under MQA/GQA (``nhead_kv``). The numerics
 follow the JAX functions: matmuls in the activation dtype, layer norm
 (eps 1e-5) and softmax in float32, attention logits in float32.
 """
@@ -72,21 +73,47 @@ def attention(q: Tensor, k: Tensor, v: Tensor,
     return weights.to(v.dtype) @ v
 
 
+def grouped_attention(q: Tensor, k: Tensor, v: Tensor,
+                      mask: Optional[Tensor], num_heads: int) -> Tensor:
+    """Attention where k and v may carry fewer heads than q (MQA/GQA).
+
+    q: (..., H, Lq, Dh); k, v: (..., Hkv, Lk, Dh), Hkv | H; query head h
+    reads KV head h // (H / Hkv). The query is reshaped to (..., Hkv,
+    H / Hkv, Lq, Dh) and k, v gain a group axis of one, so each KV head is
+    read once, as the JAX function does. A mask of q's rank gains or
+    absorbs the group axis (its head axis is 1, Hkv or H); a mask of rank
+    q.ndim + 1 is taken as it is."""
+    hkv = k.shape[-3]
+    if hkv == num_heads:
+        return attention(q, k, v, mask)
+    g = num_heads // hkv
+    *lead, H, Lq, Dh = q.shape
+    qg = q.reshape(*lead, hkv, g, Lq, Dh)
+    if mask is not None and mask.dim() == q.dim():
+        if mask.shape[-3] == num_heads:  # a mask for each query head
+            mask = mask.reshape(*mask.shape[:-3], hkv, g, *mask.shape[-2:])
+        else:  # head axis 1 or Hkv: insert the group axis
+            mask = mask[..., :, None, :, :]
+    out = attention(qg, k[..., :, None, :, :], v[..., :, None, :, :], mask)
+    return out.reshape(*lead, H, Lq, Dh)
+
+
 def mha(p, query: Tensor, kv: Tensor, num_heads: int,
         mask: Optional[Tensor] = None) -> Tensor:
-    """torch-style multi-head attention with the packed (D, 3D) qkv
-    projection; query (B, Lq, D), kv (B, Lk, D)."""
+    """torch-style attention with the packed (D, D + 2 kvd) qkv
+    projection; query (B, Lq, D), kv (B, Lk, D). The KV heads come from
+    the weight's width: kvd = D is MHA, kvd < D grouped (MQA/GQA)."""
     d = query.shape[-1]
     w = p["w_qkv"].to(query.dtype)
     b = p["b_qkv"].to(query.dtype)
-    if w.shape[1] != 3 * d:
-        raise NotImplementedError(
-            "MQA/GQA self-attention (nhead_kv < nhead) is not ported yet")
+    kvd = (w.shape[1] - d) // 2
+    kv_heads = num_heads * kvd // d
     q = query @ w[:, :d] + b[:d]
-    k = kv @ w[:, d:2 * d] + b[d:2 * d]
-    v = kv @ w[:, 2 * d:] + b[2 * d:]
-    out = attention(split_heads(q, num_heads), split_heads(k, num_heads),
-                    split_heads(v, num_heads), mask)
+    k = kv @ w[:, d:d + kvd] + b[d:d + kvd]
+    v = kv @ w[:, d + kvd:] + b[d + kvd:]
+    out = grouped_attention(split_heads(q, num_heads),
+                            split_heads(k, kv_heads),
+                            split_heads(v, kv_heads), mask, num_heads)
     return linear({"w": p["w_out"], "b": p["b_out"]}, merge_heads(out))
 
 

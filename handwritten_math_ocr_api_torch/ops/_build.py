@@ -50,19 +50,20 @@ SIGNATURES = {
     "decode_attention_bf16": (P, P, P, P, I, I, I, I, P),
     "decode_attention_f32": (P, P, P, P, I, I, I, I, P),
     # x_emb, 6 x (weight, bias), ln, self_k, self_v, cross_k, cross_v,
-    # x_out, k_new, v_new, L, B, T, D, H, F, L_enc, pos, stream
-    "fused_decoder_step_bf16": (P,) * 21 + (I,) * 8 + (P,),
-    "fused_decoder_step_f32": (P,) * 21 + (I,) * 8 + (P,),
+    # x_out, k_new, v_new, L, B, T, D, H, Hkv (the self caches' KV heads:
+    # H, or 1 for MQA), F, L_enc, pos, stream
+    "fused_decoder_step_bf16": (P,) * 21 + (I,) * 9 + (P,),
+    "fused_decoder_step_f32": (P,) * 21 + (I,) * 9 + (P,),
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
-    "fused_decoder_step_i8_bf16": (P,) * 27 + (I,) * 8 + (P,),
-    "fused_decoder_step_i8_f32": (P,) * 27 + (I,) * 8 + (P,),
+    "fused_decoder_step_i8_bf16": (P,) * 27 + (I,) * 9 + (P,),
+    "fused_decoder_step_i8_f32": (P,) * 27 + (I,) * 9 + (P,),
     # B11: x_emb, 6 x (weight, bias), ln, self_k, self_v (written at pos),
     # cross_k, cross_v, x_out, L, B, T, D, H, F, L_enc, pos, stream
     "layers_step_in_place_bf16": (P,) * 19 + (I,) * 8 + (P,),
     "layers_step_in_place_f32": (P,) * 19 + (I,) * 8 + (P,),
     # kernel (0 B1/B11, 1 B7, 2 B10, 3 B12), int8, float32 cache, B, T, D,
-    # H, F, L_enc, V (head columns, 0 for none), out (8 ints)
-    "cluster_geometry": (I,) * 10 + (P,),
+    # H, Hkv, F, L_enc, V (head columns, 0 for none), out (8 ints)
+    "cluster_geometry": (I,) * 11 + (P,),
     # B10: prev, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, nxt, logp, [k_new, v_new,]
     # L, B, T, D, H, F, L_enc, V, pos, stream; time-major caches written at
@@ -81,12 +82,12 @@ SIGNATURES = {
     "whole_decode_i8_f32": (P,) * 30 + (I,) * 11 + (P,),
     # prev, pos, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, logits, nxt, logp, k_new, v_new,
-    # L, R, T, D, H, F, L_enc, V, T_pos, stream
-    "ragged_step_bf16": (P,) * 28 + (I,) * 9 + (P,),
-    "ragged_step_f32": (P,) * 28 + (I,) * 9 + (P,),
+    # L, R, T, D, H, Hkv, F, L_enc, V, T_pos, stream
+    "ragged_step_bf16": (P,) * 28 + (I,) * 10 + (P,),
+    "ragged_step_f32": (P,) * 28 + (I,) * 10 + (P,),
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
-    "ragged_step_i8_bf16": (P,) * 34 + (I,) * 9 + (P,),
-    "ragged_step_i8_f32": (P,) * 34 + (I,) * 9 + (P,),
+    "ragged_step_i8_bf16": (P,) * 34 + (I,) * 10 + (P,),
+    "ragged_step_i8_f32": (P,) * 34 + (I,) * 10 + (P,),
     # x, w_q, scale, y, M, K, N, row stride of w_q, stream
     "dequant_matmul_bf16": (P,) * 4 + (I,) * 4 + (P,),
     "dequant_matmul_f32": (P,) * 4 + (I,) * 4 + (P,),

@@ -33,15 +33,23 @@ All four, and B12 (``ops/whole_decode.py``), run the cluster layer code of
 ``csrc/decoder_cluster.cuh`` (B7 and B10 with its embedding prologue and
 float32 head epilogue there), whose header states the numerics below.
 
+B1 and B7 take MHA and MQA (``nhead_kv=1``, the TPU kernels' ``kv_dim``:
+one KV head that every query head reads; a kernel instantiation of its own
+on the card); grouped attention with more KV heads (GQA) is refused by the
+kernels (ValueError), as the JAX decode loops never send it to the TPU
+kernels. B10, B11 and B12 are MHA only, as their TPU kernels are, and raise
+``NotImplementedError`` on any other config.
+
 B1 and B7 take the bf16/float32 bundles and the int8 one
 (``quantize_stacked``, the JAX "v2q" bundle of ``DecodeEngine(use_fused=
 True, quantize=True)``): the six layer weights int8 with float32 scales
 ``{k}_s`` (L, 1, N) per output column, everything else as before. A
 bundle with ``w_qkv_s`` is the int8 one, as JAX detects it; the wrappers
 then launch the kernels' int8 entries (counted in ``int8_launches``, the
-float bundles in ``launches``). B10 and B11 take the float bundles only:
-their TPU kernels cast activations to the weights' dtype, int8 on an int8
-bundle, so the port raises ``ValueError`` there.
+float bundles in ``launches``; an MQA config's launches of B1 and B7 in
+``mqa_launches`` and ``mqa_int8_launches``). B10 and B11 take the float
+bundles only: their TPU kernels cast activations to the weights' dtype,
+int8 on an int8 bundle, so the port raises ``ValueError`` there.
 
 Numerics of the TPU kernels: the activation row is carried in float32
 across the sublayers; each matmul input is rounded to the weight dtype
@@ -54,8 +62,10 @@ the cache dtype before it joins attention at slot ``pos``, and slots after
 ragged steps' embedding, positional and head tables are float32 too, and
 their embedding sum is rounded to the compute dtype.
 
-Caches are merged-head: self ``(L, B, T, D)`` (v4: ``(L, T, B, D)``),
-cross ``(L, B, L_enc, D)``, heads interleaved along D in torch's order.
+Caches are merged-head: self ``(L, B, T, kvd)`` (v4: ``(L, T, B, D)``),
+kvd = ``cfg.kv_dim`` (D under MHA), cross ``(L, B, L_enc, D)``, heads
+interleaved along the lanes in torch's order; the packed self-attention
+weight ``w_qkv`` is ``(L, D, D + 2 kvd)``.
 """
 
 from __future__ import annotations
@@ -199,6 +209,15 @@ def _require_float(stacked, what: str) -> None:
                          f"to int8)")
 
 
+def _require_mha(cfg: ModelConfig, what: str) -> None:
+    """B10, B11 and B12 take MHA configs only, as their TPU kernels."""
+    if cfg.kv_heads != cfg.nhead:
+        raise NotImplementedError(
+            f"{what} supports MHA only (nhead_kv={cfg.kv_heads} of "
+            f"{cfg.nhead} heads); MQA (nhead_kv=1) decodes with variant "
+            f"'v2', GQA (1 < nhead_kv < nhead) on the default route")
+
+
 def _check_layer_shapes(cfg: ModelConfig, what: str, dt, D: int,
                         L_enc: int) -> None:
     if dt not in (torch.bfloat16, torch.float32):
@@ -231,7 +250,7 @@ def _weight_ptrs(stacked, cfg: ModelConfig, L: int, dt, dev):
     for int8, then ln)."""
     D, ff = cfg.d_model, cfg.dim_feedforward
     quantized = _is_int8(stacked)
-    shapes = {"w_qkv": (L, D, 3 * D), "w_out": (L, D, D),
+    shapes = {"w_qkv": (L, D, D + 2 * cfg.kv_dim), "w_out": (L, D, D),
               "w_cq": (L, D, D), "w_co": (L, D, D), "w_ff1": (L, D, ff),
               "w_ff2": (L, ff, D)}
     f32 = torch.float32
@@ -254,14 +273,18 @@ def _weight_ptrs(stacked, cfg: ModelConfig, L: int, dt, dev):
 
 
 def _heads_attention(q, k, v, nhead: int, keep=None):
-    """q (B, D) float32 pre-scaled; k, v (B, S, D) float32 -> (B, D).
-    ``keep`` (B, S) bool: the slots each row attends (all if None)."""
-    B, S, D = k.shape
+    """q (B, D) float32 pre-scaled; k, v (B, S, kvd) float32 of Hkv =
+    kvd / dh KV heads -> (B, D): query head h reads KV head
+    h // (nhead / Hkv). ``keep`` (B, S) bool: the slots each row attends
+    (all if None)."""
+    B, D = q.shape
+    S, kvd = k.shape[1:]
     dh = D // nhead
-    qh = q.reshape(B, nhead, 1, dh)
-    kh = k.reshape(B, S, nhead, dh).transpose(1, 2)
-    vh = v.reshape(B, S, nhead, dh).transpose(1, 2)
-    logits = qh @ kh.transpose(-1, -2)
+    hkv = kvd // dh
+    qh = q.reshape(B, hkv, nhead // hkv, dh)
+    kh = k.reshape(B, S, hkv, dh).transpose(1, 2)
+    vh = v.reshape(B, S, hkv, dh).transpose(1, 2)
+    logits = qh @ kh.transpose(-1, -2)                     # (B, Hkv, g, S)
     if keep is not None:
         logits = logits.masked_fill(~keep[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
@@ -271,10 +294,10 @@ def _heads_attention(q, k, v, nhead: int, keep=None):
 def fused_decoder_layers_step_v2_plain(stacked, cfg: ModelConfig, x_emb,
                                        self_k, self_v, cross_k, cross_v,
                                        pos: int):
-    """x_emb (B, D); self caches (L, B, T, D), read only; cross K/V
+    """x_emb (B, D); self caches (L, B, T, kvd), read only; cross K/V
     (L, B, L_enc, D), every slot attended (unpadded). Returns
-    (x_out (B, D) float32, k_new, v_new (L, B, D) in the cache dtype)."""
-    L, B, T, D = self_k.shape
+    (x_out (B, D) float32, k_new, v_new (L, B, kvd) in the cache dtype)."""
+    B, T = self_k.shape[1:3]
     if not 0 <= pos < T:
         raise ValueError(f"pos {pos} outside the cache of {T} slots")
     rows = torch.full((B,), pos, dtype=torch.long, device=x_emb.device)
@@ -298,8 +321,9 @@ def _check_code(code: int, entry: str, cfg: ModelConfig, B: int) -> None:
     if code == REFUSED:
         raise ValueError(
             f"the decoder step kernel ({entry}) does not take d_model "
-            f"{cfg.d_model}, {cfg.nhead} heads, FFN {cfg.dim_feedforward} "
-            f"at {B} rows (csrc/decoder_cluster.cuh make_shape)")
+            f"{cfg.d_model}, {cfg.nhead} heads ({cfg.kv_heads} KV heads), "
+            f"FFN {cfg.dim_feedforward} at {B} rows "
+            f"(csrc/decoder_cluster.cuh make_shape)")
     _build.check(code, entry)
 
 
@@ -319,12 +343,14 @@ def cluster_geometry(kernel: str, cfg: ModelConfig, B: int, T: int,
     group, shared memory bytes a block, stages of its copy ring, clusters
     the card holds at once, and the self-cache and cross K/V slots an item
     stages in shared memory. B10's two cache layouts take the same shape;
-    it has no int8 entries (ValueError)."""
+    it has no int8 entries (ValueError). The self caches hold
+    ``cfg.kv_heads`` KV heads: B1 and B7 take MQA (ValueError for GQA),
+    B10 and B12 MHA only (ValueError)."""
     out = (ctypes.c_int * 8)()
     code = _build.library().cluster_geometry(
         CLUSTER_KERNELS[kernel], int(quantized), int(dtype == torch.float32),
-        B, T, cfg.d_model, cfg.nhead, cfg.dim_feedforward, L_enc, V,
-        ctypes.addressof(out))
+        B, T, cfg.d_model, cfg.nhead, cfg.kv_heads, cfg.dim_feedforward,
+        L_enc, V, ctypes.addressof(out))
     _check_code(code, f"cluster_geometry {kernel}", cfg, B)
     return dict(zip(_GEOMETRY_KEYS, out))
 
@@ -332,15 +358,16 @@ def cluster_geometry(kernel: str, cfg: ModelConfig, B: int, T: int,
 def _check_step(cfg: ModelConfig, what: str, x_emb, self_k, self_v,
                 cross_k, cross_v, pos: int):
     """Check the operands of B1 or B11; return (L, B, T, D, L_enc)."""
-    L, B, T, D = self_k.shape
+    L, B, T = self_k.shape[:3]
     L_enc = cross_k.shape[2]
+    D, kvd = x_emb.shape[-1], cfg.kv_dim
     dt, dev = x_emb.dtype, x_emb.device
     _check_layer_shapes(cfg, what, dt, D, L_enc)
     if not 0 <= pos < T:
         raise ValueError(f"pos {pos} outside the cache of {T} slots")
     _build.require(x_emb, "x_emb", shape=(B, D), device=dev)
     for name, t in (("self_k", self_k), ("self_v", self_v)):
-        _build.require(t, name, dtype=dt, shape=(L, B, T, D), device=dev,
+        _build.require(t, name, dtype=dt, shape=(L, B, T, kvd), device=dev,
                        aligned=True)
     for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
         _build.require(t, name, dtype=dt, shape=(L, B, L_enc, D),
@@ -352,7 +379,8 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
                                  self_v, cross_k, cross_v, pos: int):
     """Same contract as ``fused_decoder_layers_step_v2_plain``; CUDA tensors
     go to the kernel (one launch for all layers, counted), CPU tensors to
-    the plain version. ``pos`` is a Python int passed by value."""
+    the plain version. ``pos`` is a Python int passed by value. MHA and MQA
+    (its own kernel instantiation); GQA raises ValueError."""
     if not x_emb.is_cuda:
         return fused_decoder_layers_step_v2_plain(
             stacked, cfg, x_emb, self_k, self_v, cross_k, cross_v, pos)
@@ -362,25 +390,32 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     quantized, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
 
     x_out = torch.empty((B, D), dtype=torch.float32, device=dev)
-    k_new = torch.empty((L, B, D), dtype=dt, device=dev)
-    v_new = torch.empty((L, B, D), dtype=dt, device=dev)
+    k_new = torch.empty((L, B, cfg.kv_dim), dtype=dt, device=dev)
+    v_new = torch.empty((L, B, cfg.kv_dim), dtype=dt, device=dev)
     entry = _ENTRY[quantized, dt]
     ptrs = [x_emb.data_ptr(), *weights]
     ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v, x_out,
                                     k_new, v_new)]
     code = getattr(_build.library(), entry)(
-        *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, int(pos),
-        _build.stream_handle(dev))
+        *ptrs, L, B, T, D, cfg.nhead, cfg.kv_heads, cfg.dim_feedforward,
+        L_enc, int(pos), _build.stream_handle(dev))
     _check_code(code, entry, cfg, B)
-    if quantized:
-        fused_decoder_layers_step_v2.int8_launches += 1
-    else:
-        fused_decoder_layers_step_v2.launches += 1
+    _count(fused_decoder_layers_step_v2, cfg, quantized)
     return x_out, k_new, v_new
+
+
+def _count(wrapper, cfg: ModelConfig, quantized: bool) -> None:
+    """One launch of B1 or B7: of the int8 or the float entry, of the MQA
+    kernel (``mqa_`` counts) or the MHA one."""
+    attr = (("mqa_" if cfg.kv_heads != cfg.nhead else "")
+            + ("int8_launches" if quantized else "launches"))
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 fused_decoder_layers_step_v2.launches = 0
 fused_decoder_layers_step_v2.int8_launches = 0
+fused_decoder_layers_step_v2.mqa_launches = 0
+fused_decoder_layers_step_v2.mqa_int8_launches = 0
 
 
 def fused_decoder_layers_step_plain(stacked, cfg: ModelConfig, x_emb, self_k,
@@ -390,7 +425,8 @@ def fused_decoder_layers_step_plain(stacked, cfg: ModelConfig, x_emb, self_k,
     to the cache dtype); cross K/V (L, B, L_enc, D), every slot attended.
     Returns (x_out (B, D) float32, self_k, self_v), the caches the ones
     given (the JAX function returns its aliased, updated caches). A float
-    bundle only."""
+    bundle and an MHA config only."""
+    _require_mha(cfg, "the v1 step")
     _require_float(stacked, "the v1 step")
     x, k_new, v_new = fused_decoder_layers_step_v2_plain(
         stacked, cfg, x_emb, self_k, self_v, cross_k, cross_v, pos)
@@ -407,6 +443,7 @@ def fused_decoder_layers_step(stacked, cfg: ModelConfig, x_emb, self_k,
     if not x_emb.is_cuda:
         return fused_decoder_layers_step_plain(
             stacked, cfg, x_emb, self_k, self_v, cross_k, cross_v, pos)
+    _require_mha(cfg, "the v1 step")
     _require_float(stacked, "the v1 step")
     L, B, T, D, L_enc = _check_step(cfg, "v1 step", x_emb, self_k, self_v,
                                     cross_k, cross_v, pos)
@@ -432,10 +469,11 @@ def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
     """Every layer on float32 rows x (R, D), row r at slot pos[r] (R,):
     it attends its cache slots before pos[r] and its fresh row, rounded to
     the cache dtype first if ``round_fresh`` (else in float32, as the
-    whole-decode kernel B12 does). Returns (x, k_new, v_new (L, R, D) in
-    the cache dtype)."""
-    L, R, T, D = self_k.shape
-    H = cfg.nhead
+    whole-decode kernel B12 does), each query head the KV head of its
+    group (self caches (L, R, T, kvd)). Returns (x, k_new, v_new
+    (L, R, kvd) in the cache dtype)."""
+    L, R, T, kvd = self_k.shape
+    D, H = x.shape[-1], cfg.nhead
     scale = 1.0 / math.sqrt(D // H)
     quantized = _is_int8(stacked)
     xdt = torch.bfloat16 if quantized else stacked["w_qkv"].dtype
@@ -466,7 +504,7 @@ def _layers_plain(stacked, cfg: ModelConfig, x, self_k, self_v, cross_k,
     k_out, v_out = [], []
     for layer in range(L):
         qkv = mm(x, "w_qkv", "b_qkv")
-        q, k_new, v_new = qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
+        q, k_new, v_new = qkv[:, :D], qkv[:, D:D + kvd], qkv[:, D + kvd:]
         k_out.append(k_new.to(cdt))
         v_out.append(v_new.to(cdt))
         if round_fresh:
@@ -500,12 +538,12 @@ def fused_ragged_step_plain(stacked, cfg: ModelConfig, prev, pos, self_k,
                             return_logits: bool = False):
     """One decode step for R rows at their own positions. prev, pos: (R,)
     int32 (the previous token and the slot of each row); self caches
-    (L, R, T, D), read only; cross K/V (L, R, L_enc, D), every slot
+    (L, R, T, kvd), read only; cross K/V (L, R, L_enc, D), every slot
     attended. ``stacked`` from ``build_stacked_full``.
 
     Returns (logits (R, V) float32, k_new, v_new) with ``return_logits``,
     else (nxt (R,) int32, logp (R,) float32, k_new, v_new); k_new and
-    v_new are (L, R, D) in the cache dtype."""
+    v_new are (L, R, kvd) in the cache dtype."""
     T = self_k.shape[2]
     pos = pos.long()
     if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) >= T):
@@ -542,21 +580,22 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     (the kernel picks its own row groups), the ``t_active`` prefix bucket
     (the kernel reads no slot after a row's position anyway) and the
     zeroing of V past the horizon (NaN protection that becomes not reading
-    those slots). Ring mode, ``n_chunks`` and MQA are not ported."""
+    those slots). MHA and MQA (its own kernel instantiation); GQA raises
+    ValueError. Ring mode and ``n_chunks`` are not ported."""
     if not self_k.is_cuda:
         return fused_ragged_step_plain(stacked, cfg, prev, pos, self_k,
                                        self_v, cross_k, cross_v,
                                        return_logits=return_logits)
-    L, R, T, D = self_k.shape
-    L_enc = cross_k.shape[2]
+    L, R, T, kvd = self_k.shape
+    L_enc, D = cross_k.shape[2:]
     dt = self_k.dtype
     dev = self_k.device
     _check_layer_shapes(cfg, "ragged step", dt, D, L_enc)
     for name, t in (("prev", prev), ("pos", pos)):
         _build.require(t, name, dtype=torch.int32, shape=(R,), device=dev)
     for name, t in (("self_k", self_k), ("self_v", self_v)):
-        _build.require(t, name, dtype=dt, shape=(L, R, T, D), device=dev,
-                       aligned=True)
+        _build.require(t, name, dtype=dt, shape=(L, R, T, cfg.kv_dim),
+                       device=dev, aligned=True)
     for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
         _build.require(t, name, dtype=dt, shape=(L, R, L_enc, D),
                        device=dev, aligned=True)
@@ -567,8 +606,8 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     V, Tpos, (emb, pos_emb, w_head, b_head) = _table_ptrs(stacked, D, dev)
     f32 = torch.float32
 
-    k_new = torch.empty((L, R, D), dtype=dt, device=dev)
-    v_new = torch.empty((L, R, D), dtype=dt, device=dev)
+    k_new = torch.empty((L, R, kvd), dtype=dt, device=dev)
+    v_new = torch.empty((L, R, kvd), dtype=dt, device=dev)
     if return_logits:
         outs = (torch.empty((R, V), dtype=f32, device=dev),)
         heads = [outs[0].data_ptr(), None, None]
@@ -581,18 +620,17 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     ptrs += [w_head, b_head, *heads, k_new.data_ptr(), v_new.data_ptr()]
     entry = _RAGGED_ENTRY[quantized, dt]
     code = getattr(_build.library(), entry)(
-        *ptrs, L, R, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V, Tpos,
-        _build.stream_handle(dev))
+        *ptrs, L, R, T, D, cfg.nhead, cfg.kv_heads, cfg.dim_feedforward,
+        L_enc, V, Tpos, _build.stream_handle(dev))
     _check_code(code, entry, cfg, R)
-    if quantized:
-        fused_ragged_step.int8_launches += 1
-    else:
-        fused_ragged_step.launches += 1
+    _count(fused_ragged_step, cfg, quantized)
     return (*outs, k_new, v_new)
 
 
 fused_ragged_step.launches = 0
 fused_ragged_step.int8_launches = 0
+fused_ragged_step.mqa_launches = 0
+fused_ragged_step.mqa_int8_launches = 0
 
 
 def _embed_full(stacked, prev, pos, dtype):
@@ -615,7 +653,8 @@ def fused_whole_step_plain(stacked, cfg: ModelConfig, prev, self_k, self_v,
     logp (B,) float32, self_k, self_v). Else ("v3"): self caches
     (L, B, T, D), read only; returns (nxt, logp, k_new, v_new (L, B, D)),
     which the caller appends. logp is log(p_max + 1e-10), nxt the first
-    index of the max."""
+    index of the max. An MHA config only."""
+    _require_mha(cfg, "the whole step")
     _require_float(stacked, "the whole step")
     # a batch-major view of time-major caches: (L, B, T, D)
     view_k, view_v = ((self_k.transpose(1, 2), self_v.transpose(1, 2))
@@ -653,6 +692,7 @@ def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
         return fused_whole_step_plain(stacked, cfg, prev, self_k, self_v,
                                       cross_k, cross_v, pos,
                                       time_major=time_major)
+    _require_mha(cfg, "the whole step")
     _require_float(stacked, "the whole step")
     if time_major:
         L, T, B, D = self_k.shape

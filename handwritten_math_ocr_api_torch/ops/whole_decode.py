@@ -47,6 +47,7 @@ from .fused_step import (
     _check_layer_shapes,
     _embed_full,
     _layers_plain,
+    _require_mha,
     _table_ptrs,
     _weight_ptrs,
     build_stacked_full,
@@ -109,6 +110,7 @@ def fused_whole_decode_plain(stacked, cfg: ModelConfig, memory, max_len=None,
     head logits of every step run, (B, steps, V)."""
     from ..decode.greedy import greedy_loop
 
+    _require_mha(cfg, "the whole decode")
     T_out = _horizon(stacked, cfg, max_len)
     ck, cv = _cross_kv(stacked, cfg, memory)
     L, B, _, D = ck.shape
@@ -145,11 +147,13 @@ def fused_whole_decode(stacked, cfg: ModelConfig, memory, max_len=None, *,
     counted in ``launches`` or, on the int8 bundle, ``int8_launches``),
     CPU tensors to the plain version. The cross K/V projection before it
     runs on PyTorch's matmuls, as ``init_fused_cache`` does. A model the
-    kernel does not split raises ``ValueError``."""
+    kernel does not split raises ``ValueError``; an MQA/GQA config
+    ``NotImplementedError`` (MHA only, as the TPU kernel)."""
     if not memory.is_cuda:
         return fused_whole_decode_plain(stacked, cfg, memory, max_len,
                                         sos_id=sos_id, eos_id=eos_id,
                                         pad_id=pad_id)
+    _require_mha(cfg, "the whole decode")
     T_out = _horizon(stacked, cfg, max_len)
     ck, cv = _cross_kv(stacked, cfg, memory)
     L, B, L_enc, D = ck.shape

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels against each other on one GPU.
 
-    python3 kernel_ab.py steps PARENT_DIR   # the decoder-step kernels:
-                                            # the tree against another
-                                            # copy of the package
+    python3 kernel_ab.py steps DIR [DIR ...]  # the decoder-step kernels:
+                                              # the tree against other
+                                              # copies of the package
     python3 kernel_ab.py decode             # B12 with an L2 policy and at
                                             # other row groups
     python3 kernel_ab.py dequant            # B9's tile shapes and phases
@@ -12,14 +12,16 @@
 
 ``steps`` times the kernels on the cluster layer code
 (``csrc/decoder_cluster.cuh``) from the package of this checkout and from
-the one under PARENT_DIR (a directory holding a
+the one under each DIR (a directory holding a
 ``handwritten_math_ocr_api_torch/``, such as a ``git archive`` of an
-earlier commit), in turns parent, tree, tree, parent, each in a process of
-its own (the two packages share a name), on the same seeded inputs: B1
-(bf16) and B11 at the greedy bucket (16 rows) and the last slot (pos 149),
-B7 (bf16, logits) at the beam's 50 rows at pos 149, B10 in both cache
-layouts at 16 rows and pos 149, and B12 (bf16 and int8 bundles) for a
-whole decode of 16 rows over 150 steps.
+earlier commit), in turns (each DIR, the tree, the tree, each DIR in
+reverse), each in a process of its own (the packages share a name), on the
+same seeded inputs: B1 (bf16) and B11 at the greedy bucket (16 rows) and
+the last slot (pos 149), B7 (bf16, logits) at the beam's 50 rows at pos
+149, B10 in both cache layouts at 16 rows and pos 149, and B12 (bf16 and
+int8 bundles) for a whole decode of 16 rows over 150 steps; then, where the
+package takes MQA (``nhead_kv=1``), B1's and B7's MQA entries (bf16 and
+int8 bundles) at the same rows and slot.
 
 ``decode`` builds ``csrc/whole_decode.cu`` again as it is, with an L2
 evict_last policy on its weight copies, and at each other rows-a-group count
@@ -209,10 +211,35 @@ def steps_in_process(root: str, label: str) -> None:
           f"{b12[False]:.3f} ms, int8 {b12[True]:.3f} ms ({B} rows)",
           flush=True)
 
+    mqa = cfg.replace(nhead_kv=1)
+    try:
+        mqa_params = convert.random_params(mqa, cs.SEED)
+    except NotImplementedError:
+        print(f"steps {label}: MQA not in this package", flush=True)
+        return
+    kvd = mqa.kv_dim
+    mk, mv, rmk, rmv = (randn(L, B, T, kvd), randn(L, B, T, kvd),
+                        randn(L, R, T, kvd), randn(L, R, T, kvd))
+    times = []
+    for int8 in (False, True):
+        mst = fs.build_stacked_full(mqa_params["decoder"], mqa, dev)
+        if int8:
+            mst = fs.quantize_stacked(mst)
+        times.append(cs.cuda_ms(lambda: fs.fused_decoder_layers_step_v2(
+            mst, mqa, x, mk, mv, ck, cv, pos), iters=50))
+        times.append(cs.cuda_ms(lambda: fs.fused_ragged_step(
+            mst, mqa, prev, at, rmk, rmv, rck, rcv, return_logits=True),
+            iters=50))
+    print(f"steps {label}: MQA B1 bf16 {times[0]:.4f} ms, int8 "
+          f"{times[2]:.4f} ms ({B} rows, pos {pos}); MQA B7 bf16 "
+          f"{times[1]:.4f} ms, int8 {times[3]:.4f} ms ({R} rows, logits)",
+          flush=True)
 
-def steps(parent: str) -> None:
-    for root, label in ((parent, "parent"), (ROOT, "tree"), (ROOT, "tree"),
-                        (parent, "parent")):
+
+def steps(others) -> None:
+    runs = [(d, os.path.basename(os.path.normpath(d))) for d in others]
+    for root, label in [*runs, (ROOT, "tree"), (ROOT, "tree"),
+                        *runs[::-1]]:
         subprocess.run([sys.executable, __file__, "_steps", root, label],
                        check=True, cwd=ROOT)
 
@@ -561,8 +588,8 @@ def main() -> int:
     import chip_smoke as cs
 
     print(cs.nvidia_smi_line(), flush=True)
-    if sys.argv[1:2] == ["steps"] and len(sys.argv) == 3:
-        steps(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:2] == ["steps"] and len(sys.argv) >= 3:
+        steps([os.path.abspath(d) for d in sys.argv[2:]])
     elif sys.argv[1:] == ["decode"]:
         decode()
     elif sys.argv[1:] == ["dequant"]:

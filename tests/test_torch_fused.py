@@ -385,10 +385,16 @@ def test_engine_one_option_matches_jax_engine(use_fused,
                    use_fused, pallas_encoder_block)
 
 
-def test_engine_fused_refuses_grouped_attention():
+def test_engine_fused_refuses_grouped_attention(caplog):
+    """The fused route refuses GQA (1 < nhead_kv < nhead) as the JAX
+    engine does: a warning, and the engine takes the default route (no
+    stacked bundle). ``tests/test_torch_mqa.py`` decodes on both."""
     cfg = DEC_CFG.replace(nhead_kv=2)
-    with pytest.raises(NotImplementedError, match="MQA/GQA"):
-        tapi.DecodeEngine({"decoder": {}}, cfg, use_fused=True, device="cpu")
+    with caplog.at_level("WARNING"):
+        engine = tapi.DecodeEngine({"decoder": {}}, cfg, use_fused=True,
+                                   device="cpu")
+    assert "GQA" in caplog.text
+    assert not engine.use_fused and engine.stacked is None
 
 
 @pytest.fixture(scope="module")

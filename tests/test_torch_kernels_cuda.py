@@ -892,3 +892,186 @@ def test_beam_cache_gather(dev, dtype, R):
         for o, w in zip(out, want):
             assert torch.equal(o[:, :, :t_ext], w)
             assert not o[:, :, t_ext:].any()
+
+
+# Multi-query self-attention (nhead_kv=1): B1's and B7's MQA kernels (one
+# KV head of Dh = 32 lanes, w_qkv of D + 2 Dh = 320 columns), the beam
+# cache reorder at those lanes and the dequant matmul at the narrow qkv
+# widths (MQA 320, GQA-2 384)
+MQA = CFG.replace(nhead_kv=1)
+MQA_BATCHES = [1, 16, 40]
+MQA_POSITIONS = (0, 74, 149)
+
+
+@pytest.fixture(scope="module")
+def mqa_params():
+    return convert.random_params(MQA, seed=0)
+
+
+def _mqa_step_inputs(dev, dtype, B):
+    L, T, L_enc = 8, 150, MQA.encoder_len
+    sk, sv = (_randn(dev, dtype, L, B, T, MQA.kv_dim, seed=i)
+              for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, B, L_enc, MQA.d_model, seed=2 + i)
+              for i in range(2))
+    return _randn(dev, dtype, B, MQA.d_model, seed=4), (sk, sv, ck, cv)
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("B", MQA_BATCHES)
+def test_fused_decoder_step_mqa(dev, mqa_params, bundle, B):
+    """B1's MQA entries (bf16, float32 and int8 bundles) at the first, a
+    middle and the last slot: x_out and the fresh K/V rows of one KV head
+    within the step tolerance of the plain step (int8: bf16's)."""
+    dtype = "bfloat16" if bundle == "int8" else bundle
+    cfg = MQA.replace(dtype=dtype)
+    stacked = fs.build_stacked(mqa_params["decoder"], cfg, dev)
+    attr = "mqa_launches"
+    if bundle == "int8":
+        stacked, attr = fs.quantize_stacked(stacked), "mqa_int8_launches"
+    x, caches = _mqa_step_inputs(dev, dtype, B)
+    for pos in MQA_POSITIONS:
+        got = _launched(fs.fused_decoder_layers_step_v2,
+                        lambda: fs.fused_decoder_layers_step_v2(
+                            stacked, cfg, x, *caches, pos), attr)
+        want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg, x,
+                                                     *caches, pos)
+        assert tuple(got[1].shape) == (8, B, cfg.kv_dim)
+        for g, w in zip(got, want):
+            _close(g, w, STEP_TOL[dtype])
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "int8"])
+@pytest.mark.parametrize("R", [16, 50])
+def test_ragged_step_mqa(dev, mqa_params, bundle, R):
+    """B7's MQA entries (bf16 and int8 bundles) at the greedy bucket's and
+    the beam's rows, each row at its own slot (all at the first, all at
+    the last, a random vector, 0 and T - 1 alternating): both head modes
+    within the bf16 step tolerance, the argmax equal wherever the plain
+    logits' top two lie further apart than twice the largest logits
+    error."""
+    cfg = MQA.replace(dtype="bfloat16")
+    stacked = fs.build_stacked_full(mqa_params["decoder"], cfg, dev)
+    attr = "mqa_launches"
+    if bundle == "int8":
+        stacked, attr = fs.quantize_stacked(stacked), "mqa_int8_launches"
+    L, T, L_enc = 8, 150, cfg.encoder_len
+    sk, sv = (_randn(dev, "bfloat16", L, R, T, cfg.kv_dim, seed=R + i)
+              for i in range(2))
+    ck, cv = (_randn(dev, "bfloat16", L, R, L_enc, cfg.d_model,
+                     seed=R + 2 + i) for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(R)
+    prev = torch.randint(0, cfg.vocab_size, (R,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    i32 = torch.int32
+    positions = (torch.zeros(R, dtype=i32, device=dev),
+                 torch.full((R,), T - 1, dtype=i32, device=dev),
+                 torch.randint(0, T, (R,), generator=gen, device=dev,
+                               dtype=i32),
+                 torch.arange(R, device=dev, dtype=i32) % 2 * (T - 1))
+    caches = (sk, sv, ck, cv)
+    for pos in positions:
+        got = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, *caches,
+                            return_logits=True), attr)
+        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          return_logits=True)
+        assert tuple(got[1].shape) == (L, R, cfg.kv_dim)
+        for g, w in zip(got, want):
+            _close(g, w, STEP_TOL["bfloat16"])
+        logits_err = (got[0] - want[0]).abs().max()
+        top2 = want[0].topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 2 * logits_err
+        nxt = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, *caches), attr)
+        want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos,
+                                              *caches)
+        assert torch.equal(nxt[0][clear], want_nxt[0][clear])
+        for g, w in zip(nxt[1:], want_nxt[1:]):
+            _close(g, w, STEP_TOL["bfloat16"])
+
+
+def test_mqa_geometry_and_refusals(dev, mqa_params):
+    """The MQA kernels' launch shapes (B1 at 16 rows, B7 at 50) match the
+    MHA kernels' (the same shared memory a block); GQA-2 is refused by B1
+    and B7 (ValueError, no launch counted), by B11 (NotImplementedError),
+    and by every geometry entry; B10 and B12 refuse MQA."""
+    for kernel, rows, V in (("fused_step", 16, 0),
+                            ("ragged_step", 50, CFG.vocab_size)):
+        for quantized in (False, True):
+            args = (rows, 150, CFG.encoder_len, torch.bfloat16, quantized, V)
+            assert (fs.cluster_geometry(kernel, MQA, *args)
+                    == fs.cluster_geometry(kernel, CFG, *args))
+    gqa = CFG.replace(nhead_kv=2, dtype="bfloat16", num_decoder_layers=1)
+    for kernel in fs.CLUSTER_KERNELS:
+        with pytest.raises(ValueError, match="does not take"):
+            fs.cluster_geometry(kernel, gqa, 16, 150, CFG.encoder_len,
+                                torch.bfloat16, False, CFG.vocab_size)
+    for kernel in ("whole_step", "whole_decode"):
+        with pytest.raises(ValueError, match="does not take"):
+            fs.cluster_geometry(kernel, MQA, 16, 150, CFG.encoder_len,
+                                torch.bfloat16, False, CFG.vocab_size)
+    stacked = fs.build_stacked_full(
+        convert.random_params(gqa, seed=1)["decoder"], gqa, dev)
+    bf16 = torch.bfloat16
+    L, B, T, L_enc = 1, 2, 8, 4
+    sk = torch.zeros(L, B, T, gqa.kv_dim, dtype=bf16, device=dev)
+    ck = torch.zeros(L, B, L_enc, gqa.d_model, dtype=bf16, device=dev)
+    x = torch.zeros(B, gqa.d_model, dtype=bf16, device=dev)
+    rows = torch.zeros(B, dtype=torch.int32, device=dev)
+    counters = [(w, a) for w in (fs.fused_decoder_layers_step_v2,
+                                 fs.fused_ragged_step)
+                for a in ("launches", "int8_launches", "mqa_launches",
+                          "mqa_int8_launches")]
+    before = [getattr(w, a) for w, a in counters]
+    with pytest.raises(ValueError, match="does not take"):
+        fs.fused_decoder_layers_step_v2(stacked, gqa, x, sk, sk, ck, ck, 3)
+    with pytest.raises(ValueError, match="does not take"):
+        fs.fused_ragged_step(stacked, gqa, rows, rows + 3, sk, sk, ck, ck)
+    with pytest.raises(NotImplementedError, match="MHA only"):
+        fs.fused_decoder_layers_step(stacked, gqa, x, sk, sk.clone(), ck, ck,
+                                     3)
+    assert [getattr(w, a) for w, a in counters] == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_beam_cache_gather_mqa(dev, dtype):
+    """B8 over MQA self caches: 32 lanes a row (a 64-byte bf16 row, four
+    16-byte vectors), the beam's 50 rows, the whole cache and a prefix."""
+    L, R, T = 8, 50, 150
+    sk, sv = (_randn(dev, dtype, L, R, T, MQA.kv_dim, seed=20 + i)
+              for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    src = torch.randint(0, R, (R,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for t_ext in (1, 37, 150):
+        got = _launched(br.beam_cache_gather,
+                        lambda: br.beam_cache_gather(sk, sv, src, t_ext))
+        want = br.beam_cache_gather_plain(sk, sv, src, t_ext)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nhead_kv", [1, 2])
+def test_dequant_matmul_grouped_qkv(dev, dtype, nhead_kv):
+    """B9 on the default int8 route's self-attention projection under MQA
+    (N = 320) and GQA-2 (N = 384), at one row, the greedy bucket and the
+    beam's rows: one launch of all D + 2 kvd columns."""
+    cfg = CFG.replace(nhead_kv=nhead_kv, dtype=dtype)
+    dec = convert.to_torch(
+        {"decoder": quant.quantize_decoder_params(
+            convert.random_params(cfg, seed=2)["decoder"])}, cfg,
+        dev)["decoder"]
+    sa = dec["layers"][0]["self_attn"]
+    assert sa["w_qkv_q"].shape[1] == cfg.d_model + 2 * cfg.kv_dim
+    for M in (1, 16, 50):
+        x = _randn(dev, dtype, M, cfg.d_model, seed=M)
+        got = _launched(quant.dequant_matmul,
+                        lambda: quant.dequant_matmul(x, sa["w_qkv_q"],
+                                                     sa["w_qkv_scale"]))
+        _close(got, quant.dequant_matmul_plain(x, sa["w_qkv_q"],
+                                               sa["w_qkv_scale"]),
+               TOL[dtype])
