@@ -8,7 +8,7 @@ Run from the root of a checkout. Phases, each printed on its own lines:
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA kernels in ``handwritten_math_ocr_api_torch/csrc``
    with ``nvcc``, and its seconds;
-3. each of the nineteen kernel entries against its plain PyTorch version
+3. each of the twenty-three kernel entries against its plain PyTorch version
    on the card, in bf16, at the shapes the served paths give it (a
    10-image request padded to the 16-row batch bucket; beam search at
    beam 5 on the 10 images, 50 rows): window attention at every stage,
@@ -46,7 +46,14 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    no near-tie), one launch with two rows out of range (NaN and nxt -1
    there only), its cluster shape at both row counts and its times at pos
    0, 74 and 149; the beam cache reorder over the whole cache and a prefix
-   (exactly equal); the int8 dequant matmul at each projection of a
+   (exactly equal); the ragged step's segment-ring entries (bf16 and int8
+   bundles, MHA and MQA, each also in float32) at continuous batching's
+   pool of 48 rows, with segment starts at 0, pos and pos - 63 (a ring of
+   64 rows), the first n_chunks 16-row chunks (1, 2, 3; ring and not) and
+   two rows whose segment starts lie out of range (NaN and nxt -1 there
+   only), timed at pos 149 from slot 86 beside the non-ring entry and at
+   n_chunks 1 and 3 with each one's cluster shape; the int8 dequant
+   matmul at each projection of a
    decoder layer and the float32 head at 16 and 50 rows, and the cross K/V
    projection at 480 and 1500, each shape's time beside cuBLAS's on the
    weight dequantized beforehand. Each with its device time
@@ -80,16 +87,31 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    with the plain logits' margin there. Images per second and the
    device's idle share; the int8 routes' bf16 tokens against the float
    route of the same kind (printed);
-5. "serve mqa", grouped self-attention at full width and depth on the
+5. "serve mqa", grouped self-attention at full width on the
    configuration's shapes with ``nhead_kv`` set (seeded random weights):
-   MQA (``nhead_kv=1``) on the fused route, bf16 and int8, greedy,
-   ``predict_single`` and beam 5 (the MQA entries of the fused decoder
-   step and the ragged step), and on the default route, greedy (grouped
-   attention on plain ops), each checked as in phase 4; GQA-2
+   MQA (``nhead_kv=1``) on the fused route at full depth, bf16 and int8,
+   greedy, ``predict_single`` and beam 5 (the MQA entries of the fused
+   decoder step and the ragged step), and on the default route, greedy
+   (grouped attention on plain ops), each checked as in phase 4; GQA-2
    (``nhead_kv=2``) with ``use_fused``: a warning, the default route
    (phase 4's checks, greedy), and its tokens equal to the GQA-2 default
-   engine's;
-6. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
+   engine's; the default routes with ``DEFAULT_ROUTE_LAYERS`` decoder
+   layers, as phase 4's;
+6. "serve continuous", continuous batching
+   (``decode/continuous.ContinuousDecoder``) at full width: 32 slots,
+   segments of 16 steps (64 when the pool is full and nothing waits), the
+   segment ring; seeded weights with the EOS bias raised, 40 seeded images
+   submitted 8 at once and then 4 a scheduler tick (admissions mid-flight,
+   slots reused). The fused route in bf16: launch counts (the encoder's
+   kernels per admission encode, one ragged step a scheduled step, no
+   other decoder kernel), images/s, the device's idle share and the
+   scheduler's stats; in float32, ring on and off, results and tokens
+   equal to the fused engine's; the int8 bundle (bf16) held against its
+   plain decode as phase 3 holds the whole decode; MQA in float32 equal
+   to its fused engine and its int8 bundle held so too; the default
+   route (``DEFAULT_ROUTE_LAYERS`` decoder layers) in float32 equal to the
+   default engine;
+7. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
    v1, v2, v3, v4, and v5 with the int8 and the bf16 resident bundle) at
    full width on the fused route's encoder memory of the 10-image request:
    each arm's launch counts (150 of its step kernel, or one whole decode),
@@ -97,7 +119,7 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    tokens of every arm equal to its plain path's and v2's (the int8 v5,
    whose matmul inputs round to bf16, held as the whole decode is in
    phase 3);
-7. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+8. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port only, reads no checkpoint and no image
@@ -182,7 +204,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5) -> float:
     launches of a session (the first ones, or all), so each kind of kernel
     counts at its mean time a launch, times its launches per call (its
     recorded count over ``iters``, rounded); a session that recorded no
-    device activity is run again, up to ``tries`` sessions in all."""
+    device activity is run again, up to ``tries`` sessions in all, and
+    then the calls are timed with CUDA events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -204,8 +227,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5) -> float:
             return per_call / 1e3
         log("cuda_ms: the profiler recorded no device activity; "
             "profiling again")
-    raise AssertionError(f"the profiler recorded no device activity in "
-                         f"{tries} sessions")
+    # the profiler went blind on that machine for a while (five empty
+    # sessions in a row in one run): CUDA events around the same calls,
+    # which count the device's gaps between launches too
+    log(f"cuda_ms: the profiler recorded no device activity in {tries} "
+        f"sessions; timed with CUDA events instead (gaps included)")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def ops_s(flops: float, f32_flops: float = 0.0) -> float:
@@ -892,6 +926,194 @@ def check_ragged_dead_rows(name, fs, stacked, cfg, prev, pos, caches, tol,
             f"rows within the step tolerance")
 
 
+# continuous batching's fused pool: 32 slots and the scratch slot, padded
+# to the ragged step's 16-row chunks, and its segment ring of
+# max_segment_steps rows
+CONT_SLOTS = 32
+CONT_POOL = 48
+CONT_SEGMENT_STEPS = 16
+CONT_RING = 64
+
+
+def check_ragged_ring(cfg, np_params, pool, quantize=False):
+    """Phase 3: B7's ring entries (continuous batching's fused segments) at
+    the pool's ``pool`` rows against the plain ring step, bf16 and float32
+    (int8: the bf16 tolerance in both, and the float32 argmax equal where
+    the plain logits' top two lie further apart than twice the largest
+    logits error; else equal in float32): segment starts at 0, pos and
+    pos - (S - 1) in turn over random slots, and every row at slot 149
+    with its segment from 86; the first n_chunks 16-row chunks, n_chunks
+    1, 2 and 3, with and without the ring (bf16); one launch with a row whose
+    segment starts past its slot and one S slots before it (NaN and nxt -1
+    there only). Times at slot 149 and start 86: the ring entry beside the
+    non-ring one on the same rows and slot (the same bytes: the ring holds
+    the slots the cache holds without it), and the ring entry at
+    n_chunks 1 and 3 with each one's cluster geometry."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    dev = torch.device(DEVICE)
+    S = CONT_RING
+    mqa = "_mqa" if cfg.kv_heads != cfg.nhead else ""
+    name = f"ragged_ring{mqa}" + ("_int8" if quantize else "")
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    L_enc, V, kvd = cfg.encoder_len, cfg.vocab_size, cfg.kv_dim
+    entry = Entry(name, "handwritten_math_ocr_api_torch/csrc/ragged_ring.cu",
+                  "handwritten_math_ocr_api_tpu/ops/fused_step.py:1220",
+                  f"one launch (embedding, all decoder layers, head logits) "
+                  f"for {pool} rows at slot {T - 1}, segment start "
+                  f"{T - S}: {T - S} cache slots and {S - 1} ring rows")
+    err, timed = 0.0, None
+    i32 = torch.int32
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(dtype=dtype)
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+        stacked = fs.build_stacked_full(np_params["decoder"], c, dev)
+        if quantize:
+            stacked = fs.quantize_stacked(stacked)
+        tol = ((STEP_ATOL, STEP_RTOL) if dtype == "bfloat16" or quantize
+               else (F32_STEP_ATOL, F32_STEP_ATOL))
+        caches = (randn(L, pool, T, kvd), randn(L, pool, T, kvd),
+                  randn(L, pool, L_enc, D), randn(L, pool, L_enc, D))
+        rk, rv = randn(L, pool, S, kvd), randn(L, pool, S, kvd)
+        prev = torch.randint(0, V, (pool,), generator=gen, device=dev,
+                             dtype=i32)
+        pos = torch.randint(0, T, (pool,), generator=gen, device=dev,
+                            dtype=i32)
+        kind = torch.arange(pool, device=dev) % 3
+        pos = torch.where(kind == 0, pos % S, pos)
+        seg = torch.where(kind == 0, 0, torch.where(kind == 1, pos,
+                                                    pos - (S - 1)))
+        cases = {"mixed": (pos, seg.clamp(min=0).to(i32)),
+                 f"pos {T - 1} seg {T - S}": (
+                     torch.full((pool,), T - 1, dtype=i32, device=dev),
+                     torch.full((pool,), T - S, dtype=i32, device=dev))}
+
+        def both(p, g, **kw):
+            ring = {"seg_start": g, "ring_k": rk, "ring_v": rv, **kw}
+            return (fs.fused_ragged_step(stacked, c, prev, p, *caches,
+                                         **ring),
+                    fs.fused_ragged_step_plain(stacked, c, prev, p, *caches,
+                                               **ring))
+
+        for case, (p, g) in cases.items():
+            for logits in (True, False):
+                got, want = both(p, g, return_logits=logits)
+                torch.cuda.synchronize()
+                what = f"{name} {dtype} {pool} rows {case} logits {logits}"
+                if logits:
+                    plain_logits, logit_err = want[0], max_err(got[0],
+                                                               want[0])
+                else:
+                    differ = got[0] != want[0]
+                    log(f"kernel {what}: argmax agrees "
+                        f"{1 - differ.float().mean().item():.4f}")
+                    if quantize:  # no near-tie
+                        differ &= margin_of(plain_logits) > 2 * logit_err
+                    if dtype == "float32" and bool(differ.any()):
+                        raise AssertionError(f"{what}: argmax differs")
+                    got, want = got[1:], want[1:]
+                for g_, w_ in zip(got, want):
+                    assert_close(what, g_, w_, *tol)
+                e = max(max_err(g_, w_) for g_, w_ in zip(got, want))
+                if dtype == "bfloat16":
+                    err = max(err, e)
+                log(f"kernel {what}: max_abs_err {e:.3g}")
+        p, g = cases["mixed"]
+        for nc in (1, 2, 3) if dtype == "bfloat16" else ():
+            for ring in (True, False):
+                kw = ({"seg_start": g, "ring_k": rk, "ring_v": rv} if ring
+                      else {})
+                run = 16 * nc
+                got = fs.fused_ragged_step(stacked, c, prev, p, *caches,
+                                           n_chunks=nc, return_logits=True,
+                                           **kw)
+                want = fs.fused_ragged_step_plain(
+                    stacked, c, prev, p, *caches, n_chunks=nc,
+                    return_logits=True, **kw)
+                torch.cuda.synchronize()
+                what = f"{name} {dtype} n_chunks {nc} ring {ring}"
+                assert_close(what, got[0][:run], want[0][:run], *tol)
+                for g_, w_ in zip(got[1:], want[1:]):
+                    assert_close(what, g_[:, :run], w_[:, :run], *tol)
+                log(f"kernel {what}: the first {run} rows within the step "
+                    f"tolerance")
+        # dead rows: row 1's segment starts past its slot, row 3's S slots
+        # before it
+        bad, good = g.clone(), g.clone()
+        bad[1], good[1] = p[1] + 1, p[1]
+        p3 = p.clone()
+        p3[3] = T - 1
+        bad[3], good[3] = T - 1 - S, T - 1
+        dead = torch.zeros(pool, dtype=torch.bool, device=dev)
+        dead[1] = dead[3] = True
+        for logits in (True, False):
+            got = fs.fused_ragged_step(stacked, c, prev, p3, *caches,
+                                       seg_start=bad, ring_k=rk, ring_v=rv,
+                                       return_logits=logits)
+            want = fs.fused_ragged_step_plain(
+                stacked, c, prev, p3, *caches, seg_start=good, ring_k=rk,
+                ring_v=rv, return_logits=logits)
+            torch.cuda.synchronize()
+            what = f"{name} {dtype} segment starts out of range"
+            if not logits:
+                if got[0][dead].tolist() != [-1, -1]:
+                    raise AssertionError(f"{what}: nxt {got[0].tolist()}")
+                got, want = got[1:], want[1:]
+            for g_, w_ in zip(got, want):
+                at = dead if g_.dim() < 3 else (slice(None), dead)
+                live = ~dead if g_.dim() < 3 else (slice(None), ~dead)
+                if not torch.isnan(g_[at].float()).all():
+                    raise AssertionError(f"{what}: a dead row's output is "
+                                         f"not NaN")
+                assert_close(what, g_[live], w_[live], *tol)
+        log(f"kernel {name} {dtype}: NaN and nxt -1 in the two rows whose "
+            f"segment starts out of range, the others within the step "
+            f"tolerance")
+        if dtype == "bfloat16":
+            timed = (stacked, c, prev, caches, rk, rv,
+                     *cases[f"pos {T - 1} seg {T - S}"])
+    stacked, c, prev, caches, rk, rv, p, g = timed
+    ring = {"seg_start": g, "ring_k": rk, "ring_v": rv}
+    ms = cuda_ms(lambda: fs.fused_ragged_step(stacked, c, prev, p, *caches,
+                                              return_logits=True, **ring))
+    ms_flat = cuda_ms(lambda: fs.fused_ragged_step(
+        stacked, c, prev, p, *caches, return_logits=True))
+    plain = cuda_ms(lambda: fs.fused_ragged_step_plain(
+        stacked, c, prev, p, *caches, return_logits=True, **ring))
+    nbytes, flops, f32_flops = ragged_bound(cfg, pool, T - 1, quantize)
+    nbytes += pool * 4                                     # seg_start
+    entry.add(1, err, ms, plain, None, nbytes, flops, f32_flops)
+    entry.d["ms_no_ring"] = ms_flat
+    entry.d["cluster"] = fs.cluster_geometry(
+        "ragged_step", cfg, pool, T, L_enc, torch.bfloat16, quantize, V)
+    for nc in (1, 3):
+        run = 16 * nc
+        entry.d[f"ms_n_chunks{nc}"] = cuda_ms(lambda: fs.fused_ragged_step(
+            stacked, c, prev, p, *caches, n_chunks=nc, return_logits=True,
+            **ring))
+        entry.d[f"bound_ms_n_chunks{nc}"] = bound_ms(
+            *ragged_bound(cfg, run, T - 1, quantize))
+        entry.d[f"cluster_n_chunks{nc}"] = geo = fs.cluster_geometry(
+            "ragged_step", cfg, run, T, L_enc, torch.bfloat16, quantize, V)
+        log(f"kernel {name}: n_chunks {nc} ({run} of {pool} rows) ms "
+            f"{entry.d[f'ms_n_chunks{nc}']:.4f} bound_ms "
+            f"{entry.d[f'bound_ms_n_chunks{nc}']:.4f} cluster shape {geo}")
+    log(f"kernel {name}: {pool} rows pos {T - 1} seg {T - S} max_abs_err "
+        f"{err:.3g} ms {ms:.4f} (without the ring, the same rows and slot: "
+        f"{ms_flat:.4f}) plain_ms {plain:.4f} bound_ms "
+        f"{bound_ms(nbytes, flops, f32_flops):.4f} "
+        f"({bound_by(nbytes, flops, f32_flops)}) library_ms null; cluster "
+        f"shape {entry.d['cluster']}")
+    return entry
+
+
 def check_dequant_matmul(cfg, np_params, batch, rows):
     """Phase 3: the int8 dequant matmul against its plain version at every
     shape the default int8 route gives it: the six projections of a
@@ -1570,8 +1792,8 @@ def profile_batch(engine, images, unprofiled_s, beam_size=None):
 
 def kernel_counters():
     """(wrapper, count attribute) of each kernel of the ``kernels`` line,
-    in its order: the decoder steps count their int8 entries apart, and B1
-    and B7 their MQA kernels."""
+    in its order: the decoder steps count their int8 entries apart, B1
+    and B7 their MQA kernels, and B7 its ring entries."""
     from handwritten_math_ocr_api_torch.ops.beam_reorder import (
         beam_cache_gather,
     )
@@ -1613,7 +1835,11 @@ def kernel_counters():
                (fused_decoder_layers_step_v2, "mqa_launches"),
                (fused_decoder_layers_step_v2, "mqa_int8_launches"),
                (fused_ragged_step, "mqa_launches"),
-               (fused_ragged_step, "mqa_int8_launches")])
+               (fused_ragged_step, "mqa_int8_launches"),
+               (fused_ragged_step, "ring_launches"),
+               (fused_ragged_step, "ring_int8_launches"),
+               (fused_ragged_step, "ring_mqa_launches"),
+               (fused_ragged_step, "ring_mqa_int8_launches")])
 
 
 def reset_counts():
@@ -1650,7 +1876,7 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
         dq = (6 * L + 1) * steps + 2 * L * encodes if quantized else 0
         return [encodes * blocks, encodes * merges,
                 0 if grouped else L * steps, 0, 0, 0, 0, 0, dq,
-                *[0] * 10]
+                *[0] * 14]
     fused = fused_blocks(cfg)
     b1, b7, b8 = (0, steps, steps) if beam else (steps, 0, 0)
     b1, b1_int8 = (0, b1) if quantized else (b1, 0)
@@ -1661,7 +1887,7 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
         mha, mqa = mqa, [b1, b1_int8, b7, b7_int8]
     return [encodes * (blocks - fused), encodes * merges, 0, 0, mha[0],
             encodes * fused, mha[1], b8, 0, mha[2], mha[3], 0, 0, 0, 0,
-            *mqa]
+            *mqa, 0, 0, 0, 0]
 
 
 def route_decode(engine, cfg, memory, kernels):
@@ -1995,7 +2221,11 @@ def serve_grouped(cfg, tok, entries):
     share, float32 tokens against the plain path. GQA-2 (``nhead_kv=2``)
     with ``use_fused``: the engine must warn and serve on the default
     route (``serve``, greedy), its tokens equal to the GQA-2 default
-    engine's. Returns {route: serve's result}."""
+    engine's. The default routes, MQA's and GQA-2's, with their decoder
+    cut to ``DEFAULT_ROUTE_LAYERS`` layers, as phase 4's: host-bound steps
+    of plain ops that no kernel of theirs needs at full depth (they were
+    77.5 s and 89.9 s of a 615.9 s run at full depth on an H100 80GB
+    HBM3 at 700.00 W). Returns {route: serve's result}."""
     import logging
 
     import numpy as np
@@ -2007,18 +2237,20 @@ def serve_grouped(cfg, tok, entries):
     fused = {"use_fused": True, "pallas_encoder_block": True}
     mqa = cfg.replace(nhead_kv=1)
     mqa_params = convert.random_params(mqa, SEED)
+    cut = mqa.replace(num_decoder_layers=DEFAULT_ROUTE_LAYERS)
+    cut_params = convert.random_params(cut, SEED)
     summary = {}
-    for route, kw, beam in (("fused_mqa", fused, True),
-                            ("fused_mqa_int8", {**fused, "quantize": True},
-                             True),
-                            ("pallas_mqa", {}, False)):
+    for route, c, p, kw, beam in (
+            ("fused_mqa", mqa, mqa_params, fused, True),
+            ("fused_mqa_int8", mqa, mqa_params, {**fused, "quantize": True},
+             True),
+            ("pallas_mqa", cut, cut_params, {}, False)):
         t0 = time.perf_counter()
-        summary[route] = serve(mqa, mqa_params, tok, entries, route,
-                               beam=beam, **kw)
+        summary[route] = serve(c, p, tok, entries, route, beam=beam, **kw)
         log(f"serve {route}: phase seconds {time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
-    gqa = cfg.replace(nhead_kv=2)
+    gqa = cfg.replace(nhead_kv=2, num_decoder_layers=DEFAULT_ROUTE_LAYERS)
     gqa_params = convert.random_params(gqa, SEED)
     warned = []
     handler = logging.Handler(logging.WARNING)
@@ -2052,6 +2284,299 @@ def serve_grouped(cfg, tok, entries):
     return summary
 
 
+CONT_IMAGES = 40
+
+
+def continuous_decoder(cfg, np_params, tok, **kw):
+    """A ContinuousDecoder at the pool of ``CONT_SLOTS`` slots, segments
+    of ``CONT_SEGMENT_STEPS`` and ``CONT_RING`` steps, that keeps each
+    finished request's tokens, count and log-prob sum (``decoded``) and
+    counts its admissions' encodes (``inserts``)."""
+    from handwritten_math_ocr_api_torch.decode.continuous import (
+        ContinuousDecoder,
+    )
+
+    class Recording(ContinuousDecoder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.decoded, self.inserts = {}, 0
+
+        def _insert(self, slots, imgs):
+            self.inserts += 1
+            return super()._insert(slots, imgs)
+
+        def _process_report(self, seg_idx, rep):
+            held = dict(self._slot_req)
+            out = super()._process_report(seg_idx, rep)
+            for slot, rid in held.items():
+                if rid in out:
+                    self.decoded[rid] = (rep["tokens"][slot].copy(),
+                                         int(rep["count"][slot]),
+                                         float(rep["lp_sum"][slot]))
+            return out
+
+    return Recording(np_params, cfg, tok, num_slots=CONT_SLOTS,
+                     segment_steps=CONT_SEGMENT_STEPS,
+                     max_segment_steps=CONT_RING, device=DEVICE, **kw)
+
+
+def continuous_traffic(dec, images):
+    """Phase 6's traffic: 8 images submitted at once, then 4 a scheduler
+    tick, so that admissions land mid-flight and slots are reused; run to
+    the end. Returns (the (latex, confidence) results, a GreedyResult of
+    the requests' tokens, both in submission order, and the wall
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.greedy import GreedyResult
+
+    dec.decoded.clear()
+    t0 = time.perf_counter()
+    ids = [dec.submit(img) for img in images[:8]]
+    results, n = {}, 8
+    while not dec.idle:
+        results.update(dec.step_once())
+        if n < len(images):
+            ids += [dec.submit(img) for img in images[n:n + 4]]
+            n += 4
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    tokens = torch.from_numpy(np.stack(
+        [dec.decoded[i][0] for i in ids])).long().to(dev)
+    count = torch.tensor([dec.decoded[i][1] for i in ids], device=dev)
+    lp = torch.tensor([dec.decoded[i][2] for i in ids], device=dev)
+    res = GreedyResult(tokens, (tokens != 0).sum(dim=-1), lp, count,
+                       tokens.shape[1])
+    return [results[i] for i in ids], res, wall
+
+
+def continuous_counts(dec, cfg, route, name):
+    """The run's launch counts against its shape: the encoder's kernels in
+    each admission's encode, and one launch of B7's entry for the pool
+    (ring or not, int8 or not, MQA or not) a scheduled step on the fused
+    route (none on the default one), every other kernel none."""
+    from handwritten_math_ocr_api_torch.ops.fused_step import (
+        fused_ragged_step,
+    )
+
+    counts = read_counts()
+    expected = expected_launches(cfg, route, dec.inserts, 0)
+    if dec.use_fused:
+        attr = (("ring_" if dec.segment_ring else "")
+                + ("mqa_" if cfg.kv_heads != cfg.nhead else "")
+                + ("int8_launches" if "w_qkv_s" in dec._seg_params
+                   else "launches"))
+        expected[kernel_counters().index((fused_ragged_step, attr))] = (
+            dec.steps_scheduled)
+    log(f"continuous {name}: {dec.inserts} admission encodes, "
+        f"{dec.steps_scheduled} scheduled steps, launches {counts}, "
+        f"expected {expected}")
+    check_counts(counts, expected)
+    return counts
+
+
+def continuous_vs(name, got, want, pairs_got, pairs_want):
+    """A continuous run against a reference run of the same requests in
+    float32: tokens and counts equal, strings equal, confidences within
+    1e-4 (summation order only)."""
+    import torch
+
+    if not (torch.equal(got.tokens, want.tokens)
+            and torch.equal(got.token_count.long(),
+                            want.token_count.long())):
+        differ = (got.tokens != want.tokens).any(dim=1).nonzero().flatten()
+        raise AssertionError(f"continuous {name}: float32 tokens differ in "
+                             f"rows {differ.tolist()}")
+    conf = max(abs(g[1] - w[1]) for g, w in zip(pairs_got, pairs_want))
+    if ([g[0] for g in pairs_got] != [w[0] for w in pairs_want]
+            or conf > 1e-4):
+        raise AssertionError(f"continuous {name}: results differ "
+                             f"(confidence by {conf})")
+    log(f"continuous {name}: float32 tokens, counts and strings equal, "
+        f"confidences within {conf:.3g}")
+
+
+def plain_fused_decode(engine, cfg, memory):
+    """The fused route's plain greedy decode of ``memory`` (the "v2" step's
+    plain version and the float32 head), and its logits at every step
+    (B, T, V); a row's logits after its end are NaN."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.fused import init_fused_cache
+    from handwritten_math_ocr_api_torch.decode.greedy import greedy_loop
+    from handwritten_math_ocr_api_torch.models import layers
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+
+    dec, stacked = engine.params["decoder"], engine.stacked
+    B, T, V = memory.shape[0], cfg.max_seq_len, cfg.vocab_size
+    sk, sv, ck, cv = init_fused_cache(dec, cfg, memory, T)
+    emb, pos_table = dec["embedding"]["table"], dec["pos"]["table"]
+    logits = torch.full((B, T, V), float("nan"), device=memory.device)
+
+    def step_logits(prev, step):
+        x_emb = (emb[prev] + pos_table[step]).to(getattr(torch, cfg.dtype))
+        x, k_new, v_new = fs.fused_decoder_layers_step_v2_plain(
+            stacked, cfg, x_emb, sk, sv, ck, cv, step)
+        sk[:, :, step] = k_new
+        sv[:, :, step] = v_new
+        logits[:, step] = layers.linear(dec["fc_out"], x.float())
+        return logits[:, step]
+
+    with torch.inference_mode():
+        res = greedy_loop(step_logits, B, T, memory.device)
+    return res, logits
+
+
+def serve_continuous(cfg, tok, entries):
+    """Phase 6 ("serve continuous"): continuous batching
+    (``decode/continuous.ContinuousDecoder``) at full width, 32 slots
+    (the fused pool 48 rows), segments of 16 steps and of 64 when the pool
+    is full and nothing waits, the segment ring of 64 rows; seeded random
+    weights with the EOS bias raised (``EOS_BOOST``), so that requests end
+    at different steps and slots are reused; the traffic of
+    ``continuous_traffic`` on 40 seeded images. The fused route
+    (``use_fused``, ``pallas_encoder_block``) in bf16: launch counts
+    (``continuous_counts``), images/s (best of 3), the device's idle
+    share, the scheduler's stats. In float32, its results (ring on and
+    off) equal to the fused engine's ``predict_with_confidence`` and
+    tokens (B7 against B1: summation order only). The int8 bundle in
+    bf16 held by ``hold_decode`` against its plain decode. MQA
+    (``nhead_kv=1``): float32 equal to the MQA fused engine, and its int8
+    bundle in bf16 held as above. The default route, with its decoder
+    cut to ``DEFAULT_ROUTE_LAYERS`` layers, in float32: equal to the
+    default engine's."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import EOS_ID
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.models import model as model_mod
+
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    images = np.random.default_rng(SEED + 7).integers(
+        0, 256, (CONT_IMAGES, cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+
+    def params_of(c):
+        p = convert.random_params(c, SEED)
+        p["decoder"]["fc_out"]["b"][EOS_ID] += EOS_BOOST
+        return p
+
+    def tally(counts, route):
+        for e, n in zip(entries, counts):
+            e.d["launches"] += n
+            e.d["launches_by_route"][route] = n
+
+    np_params = params_of(cfg)
+    dec = continuous_decoder(cfg, np_params, tok, **fused)
+    dec.warmup(image_dtype=np.uint8)
+    reset_counts()
+    dec.reset_stats()
+    dec.inserts = 0
+    _, bf16_res, first = continuous_traffic(dec, images)
+    tally(continuous_counts(dec, cfg, "fused", "fused bf16"),
+          "continuous fused")
+    st = dec.stats
+    log(f"continuous fused bf16: stats avg_occupancy "
+        f"{st['avg_occupancy']:.4f} work_occupancy "
+        f"{st['work_occupancy']:.4f} rows_scheduled {st['rows_scheduled']} "
+        f"steps {dec.steps_scheduled} segments {st['segments_run']} "
+        f"harvest_blocks {st['harvest_blocks']} t_admit_s {st['t_admit_s']} "
+        f"t_dispatch_s {st['t_dispatch_s']} t_harvest_wait_s "
+        f"{st['t_harvest_wait_s']}; requests' steps "
+        f"{steps_per_row(bf16_res.tokens.cpu(), EOS_ID)}")
+    times = []
+    for _ in range(3):
+        times.append(continuous_traffic(dec, images)[2])
+    best = min(times)
+    log(f"continuous fused bf16: {CONT_IMAGES} requests seconds "
+        f"{[round(t, 4) for t in times]} (first counted run {first:.4f}), "
+        f"images/s {CONT_IMAGES / best:.2f}")
+    idle = profile_call(lambda: continuous_traffic(dec, images),
+                        f"continuous fused bf16 ({CONT_IMAGES} requests)",
+                        best)
+    idle_s = "not measured" if idle is None else f"{idle:.3f}"
+    log(f"route continuous fused: images/s {CONT_IMAGES / best:.2f}, device "
+        f"idle share {idle_s} (of the best unprofiled run)")
+    dec.close()
+
+    # float32: the fused route, ring on and off, against the fused engine
+    cfg32 = cfg.replace(dtype="float32")
+    engine32 = DecodeEngine(np_params, cfg32, tokenizer=tok, device=DEVICE,
+                            **fused)
+    want = engine32.decode_tokens(images)
+    pairs_want = engine32.predict_with_confidence(images)
+    runs = {}
+    for ring in (True, False):
+        d = continuous_decoder(cfg32, np_params, tok, segment_ring=ring,
+                               **fused)
+        reset_counts()
+        pairs, res, _ = continuous_traffic(d, images)
+        name = f"fused float32 ring {ring}"
+        tally(continuous_counts(d, cfg32, "fused", name),
+              f"continuous fused float32 ring {ring}")
+        continuous_vs(name, res, want, pairs, pairs_want)
+        runs[ring] = (res, pairs)
+        d.close()
+    continuous_vs("ring off against ring on", runs[False][0], runs[True][0],
+                  runs[False][1], runs[True][1])
+
+    def held_int8(c, p, name):
+        """The int8 bundle in bf16, held by hold_decode against the plain
+        decode of the engine's memory of the same images."""
+        d = continuous_decoder(c, p, tok, quantize=True, **fused)
+        reset_counts()
+        _, got, _ = continuous_traffic(d, images)
+        tally(continuous_counts(d, c, "fused", name), f"continuous {name}")
+        d.close()
+        engine = DecodeEngine(p, c, tokenizer=tok, device=DEVICE,
+                              quantize=True, **fused)
+        x, n = engine._pad_batch(images)
+        with torch.inference_mode():
+            memory = model_mod.encode(engine.params, c, x,
+                                      use_pallas_block=True)[:n]
+        want8, logits = plain_fused_decode(engine, c, memory)
+        err = hold_decode(f"continuous {name}", got, want8, logits)
+        log(f"continuous {name}: log-prob sums max_abs_err {err:.3g} over "
+            f"the rows that agree")
+        if err > WHOLE_DECODE_LP_ATOL:
+            raise AssertionError(f"continuous {name}: log-prob sums differ "
+                                 f"by {err}")
+
+    held_int8(cfg, np_params, "fused int8 bf16")
+
+    # MQA: float32 against the MQA fused engine, and its int8 bundle
+    mqa = cfg.replace(nhead_kv=1)
+    mqa_params = params_of(mqa)
+    mqa32 = mqa.replace(dtype="float32")
+    engine = DecodeEngine(mqa_params, mqa32, tokenizer=tok, device=DEVICE,
+                          **fused)
+    d = continuous_decoder(mqa32, mqa_params, tok, **fused)
+    reset_counts()
+    pairs, res, _ = continuous_traffic(d, images)
+    tally(continuous_counts(d, mqa32, "fused", "fused mqa float32"),
+          "continuous fused mqa float32")
+    continuous_vs("fused mqa float32", res, engine.decode_tokens(images),
+                  pairs, engine.predict_with_confidence(images))
+    d.close()
+    held_int8(mqa, mqa_params, "fused mqa int8 bf16")
+
+    # the default route (decoder_step_ragged on plain ops), float32
+    cut = cfg32.replace(num_decoder_layers=DEFAULT_ROUTE_LAYERS)
+    cut_params = params_of(cut)
+    engine = DecodeEngine(cut_params, cut, tokenizer=tok, device=DEVICE)
+    d = continuous_decoder(cut, cut_params, tok)
+    reset_counts()
+    pairs, res, _ = continuous_traffic(d, images)
+    tally(continuous_counts(d, cut, "pallas", "default float32"),
+          "continuous default float32")
+    continuous_vs("default float32", res, engine.decode_tokens(images),
+                  pairs, engine.predict_with_confidence(images))
+    d.close()
+
+
 # the fused greedy decode's arms: (variant, int8 resident bundle); the
 # index in kernel_counters() of the kernel each launches, and whether it
 # launches once a step or once a decode
@@ -2069,7 +2594,7 @@ def arm_launches(arm, steps):
 
 
 def serve_variants(cfg, np_params, tok, entries):
-    """Phase 6: the fused greedy decode's A/B arms
+    """Phase 7: the fused greedy decode's A/B arms
     (``greedy_decode_fused(variant=...)``: v1, v2, v3, v4, and v5 with the
     int8 and the bf16 resident bundle) at full width on the fused route's
     encoder memory of the 10-image request (bucket 16), T steps each. Per
@@ -2243,6 +2768,12 @@ def main() -> int:
     entries.append(check_ragged_step(mqa, mqa_params, rows, bucket))
     entries.append(check_ragged_step(mqa, mqa_params, rows, bucket,
                                      quantize=True))
+    entries.append(check_ragged_ring(cfg, np_params, CONT_POOL))
+    entries.append(check_ragged_ring(cfg, np_params, CONT_POOL,
+                                     quantize=True))
+    entries.append(check_ragged_ring(mqa, mqa_params, CONT_POOL))
+    entries.append(check_ragged_ring(mqa, mqa_params, CONT_POOL,
+                                     quantize=True))
     log(f"kernels: phase seconds {time.perf_counter() - t0:.1f}")
 
     fused = {"use_fused": True, "pallas_encoder_block": True}
@@ -2261,6 +2792,9 @@ def main() -> int:
     t0 = time.perf_counter()
     summary.update(serve_grouped(cfg, tok, entries))
     log(f"serve mqa: phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    serve_continuous(cfg, tok, entries)
+    log(f"serve continuous: phase seconds {time.perf_counter() - t0:.1f}")
     for route, (greedy, beam) in summary.items():
         modes = [("greedy", greedy)] + ([(f"beam {BEAM}", beam)]
                                         if beam is not None else [])

@@ -148,7 +148,7 @@ using InputOf = decoder::InputOf<W>;
 
 // Sizes of one launch: the model, the step, and the cluster's shape.
 struct Shape {
-  int L, B, D, H, F, L_enc, pos;
+  int L, B, D, H, F, L_enc, pos;  // B: the rows the launch computes
   int Hkv;        // KV heads of the self caches: H (MHA) or 1 (MQA)
   int Mg;         // rows of a group (<= kGroupMax)
   int Cs;         // blocks of a cluster
@@ -157,6 +157,8 @@ struct Shape {
   int cap_cross;  // cross K/V slots an item stages
   int hres;        // B12: columns of the head a block keeps resident, else 0
   int time_major;  // the self caches are (L, T, B, D) (B10 "v4")
+  int pool;        // rows of the caches (B7 with n_chunks: more than B)
+  int seg_ring;    // B7's ring mode: the segment ring's rows S, else 0
 };
 
 __host__ __device__ inline size_t align16(size_t b) {
@@ -313,7 +315,9 @@ struct Layout {
     }
     const size_t lda = s.D + pad_of<X>(), ldh = s.F + pad_of<X>();
     size_t at = 0;
-    rpos = at;   at = align16(at + sizeof(int) * kGroupMax);  // before x
+    // before x: each row's slot, and in ring mode its segment start
+    rpos = at;
+    at = align16(at + sizeof(int) * kGroupMax * (s.seg_ring > 0 ? 2 : 1));
     x = at;      at = align16(at + sizeof(float) * s.Mg * s.D);
     xa = at;     at = align16(at + sizeof(X) * s.Mg * lda);
     xo = at;     at = align16(at + sizeof(X) * s.Mg * lda);
@@ -506,7 +510,17 @@ __device__ __forceinline__ void raw_to_f32(const uint4& r, float* out) {
 // every item reads (kv_head); of the blocks that hold a row, the one of
 // head 0 writes its fresh K/V. A compile-time switch, so that the MHA
 // kernels' code stays as it was (B1 and B7 only).
-template <typename W, typename C, bool kDecode = false, bool kMqa = false>
+//
+// kRing: B7's segment-ring mode (with_ring(), before positions()). Row r
+// attends three extents under one softmax: its cache slots [0, seg[r])
+// (the staged prefix valid below min(cap_self, seg[r])), the ring rows
+// t - seg[r] of slots [seg[r], pos[r]) (plain 16-byte loads from device
+// memory: the ring is small and stays in L2), and its fresh row at pos[r].
+// A row whose seg[r] lies outside [0, pos[r]], or whose pos[r] - seg[r] is
+// S or more, is dead. A compile-time switch too, so that the other kernels
+// keep their code (B7 only).
+template <typename W, typename C, bool kDecode = false, bool kMqa = false,
+          bool kRing = false>
 struct Step {
   using X = InputOf<W>;
   static constexpr int kVec = Vec<C>::N;
@@ -543,6 +557,7 @@ struct Step {
   int hV = 0, hc = 0, hc0 = 0, hn = 0;
   float* hres;  // B12: the resident head segment (Layout::head)
   int* dec;     // B12: the decode state (Layout::dec)
+  decoder::SegmentRing<C> sring;  // kRing: the segment ring
 
   __device__ Step(const decoder::Weights<W>& w_, const C* sk, const C* sv,
                   decoder::CacheLayout self_, const C* ck, const C* cv,
@@ -617,6 +632,12 @@ struct Step {
   __device__ int* rpos() const {
     return reinterpret_cast<int*>(x) - kGroupMax;
   }
+  // kRing: each row's segment start (positions()), the kGroupMax ints
+  // before rpos()
+  __device__ int* rseg() const { return rpos() - kGroupMax; }
+
+  // kRing, before positions(): the segment ring
+  __device__ void with_ring(const decoder::SegmentRing<C>& r) { sring = r; }
 
   __device__ unsigned char* stage_at(int st) const { return ring + st * stage; }
   __device__ float* extras_at(int st) const {  // bias, scale, LN pair
@@ -767,8 +788,9 @@ struct Step {
     const int kv = i & 1, li = i >> 1;
     if (items[li].r < 0) return 0;
     const int r = items[li].r, h = items[li].h;
-    // a row at slot 0: none (a decode's stage may be for the next step)
-    if (!kDecode && p == 0 && rpos()[r] == 0) return 0;
+    // a row at slot 0 (ring mode: whose segment starts there): none (a
+    // decode's stage may be for the next step)
+    if (!kDecode && p == 0 && (kRing ? rseg()[r] : rpos()[r]) == 0) return 0;
     if (go) {
       if (p == 0)
         tensor_copy4(reinterpret_cast<unsigned char*>(kvs) +
@@ -1030,7 +1052,8 @@ struct Step {
   }
 
   // This block's attention items of layer l: self-attention over slots
-  // [0, pos) of the self cache and the fresh row at pos, or
+  // [0, pos) of the self cache (kRing: [0, seg) of the cache and
+  // [seg, pos) of the segment ring) and the fresh row at pos, or
   // cross-attention over the L_enc slots of the cross K/V; slots staged in
   // shared memory are read there, the rest from device memory. An item
   // takes kWarps / ipb warps where the items are fewer than the warps (at
@@ -1074,7 +1097,7 @@ struct Step {
           Ks = kvs + 2 * li * kv_self / sizeof(C);
           kv_stride = kv_self / sizeof(C);
         } else {
-          const size_t at = (static_cast<size_t>(l) * s.B + row0 + r) *
+          const size_t at = (static_cast<size_t>(l) * s.pool + row0 + r) *
                                 s.L_enc * s.D + h * dh;
           K = cross_k + at;
           V = cross_v + at;
@@ -1086,6 +1109,19 @@ struct Step {
           kv_stride = kv_cross / sizeof(C);
         }
         const C* Vs = Ks + kv_stride;
+        // the slots before the fresh row; kRing: n_cache of them from the
+        // cache, the rest from the ring (Kr, Vr at slot n_cache)
+        const int n_old = n_cache;
+        const C *Kr = nullptr, *Vr = nullptr;
+        if constexpr (kRing) {
+          if (self_attn) {
+            n_cache = rseg()[r];
+            const size_t at = l * sring.layer + (row0 + r) * sring.row +
+                              kv_head(h) * dh;
+            Kr = sring.k + at;
+            Vr = sring.v + at;
+          }
+        }
         const int per = (n + wpi - 1) >> lw;
         const int t0 = min(n, j * per), t1 = min(n, t0 + per);
         float q[kVec];
@@ -1104,8 +1140,12 @@ struct Step {
 #pragma unroll
           for (int u = 0; u < kU; ++u) {
             const int t = s0 + u * spi + sub;
-            if (t < t1 && t < n_cache) {
-              if (t < cap) {
+            if (t < t1 && t < n_old) {
+              if (kRing && t >= n_cache) {
+                const size_t at = (t - n_cache) * sring.slot + v * kVec;
+                rk[u] = *reinterpret_cast<const uint4*>(Kr + at);
+                rv[u] = *reinterpret_cast<const uint4*>(Vr + at);
+              } else if (t < cap) {
                 const size_t at = static_cast<size_t>(t) * dh + v * kVec;
                 rk[u] = *reinterpret_cast<const uint4*>(Ks + at);
                 rv[u] = *reinterpret_cast<const uint4*>(Vs + at);
@@ -1122,7 +1162,7 @@ struct Step {
           for (int u = 0; u < kU; ++u) {
             const int t = s0 + u * spi + sub;
             float kv[kVec];
-            if (t < n_cache) {
+            if (t < n_old) {
               raw_to_f32<C>(rk[u], kv);
             } else {
 #pragma unroll
@@ -1149,7 +1189,7 @@ struct Step {
             const int t = s0 + u * spi + sub;
             if (t < t1) {
               float vv[kVec];
-              if (t < n_cache) {
+              if (t < n_old) {
                 raw_to_f32<C>(rv[u], vv);
               } else {
 #pragma unroll
@@ -1236,7 +1276,9 @@ struct Step {
   // whose prev token outside [0, V) is dead (-1): it reads no table or
   // cache, its attention items are skipped, and its outputs are NaN (nxt
   // -1); its products compute on whatever its rows hold, which reaches no
-  // other row.
+  // other row. kRing: also a row whose segment start seg[row0 + r] lies
+  // outside [pos - (S - 1), pos]; rseg() takes each row's start (0 for a
+  // dead row).
   __device__ void positions(const int* pos, const int* prev, int Tc,
                             int Tpos, int V) {
     const int r = threadIdx.x;
@@ -1249,6 +1291,11 @@ struct Step {
           const int tok = prev[row0 + r];
           if (q >= 0 && q < Tc && q < Tpos && tok >= 0 && tok < V) p = q;
         }
+      }
+      if constexpr (kRing) {
+        const int g = p >= 0 ? sring.seg[row0 + r] : 0;
+        if (g < 0 || g > p || p - g >= s.seg_ring) p = -1;
+        rseg()[r] = p >= 0 ? g : 0;
       }
       rpos()[r] = p;
     }
@@ -1579,20 +1626,25 @@ inline int slots_in(size_t bytes, int items, int row, int most) {
 // slots). Hkv: the self caches' KV heads, H (MHA) or 1 (MQA, one head a
 // block: H <= Cs); grouped attention (1 < Hkv < H) is not taken. hres:
 // B12's resident head columns a block (before the staging); time_major:
-// the self caches are (L, T, B, D) (B10 "v4").
+// the self caches are (L, T, B, D) (B10 "v4"); seg_ring: B7's ring rows S
+// in ring mode (the rows' segment starts take shared memory), else 0. The
+// caches' rows (pool) are B's; a launch over fewer rows than its caches
+// hold (B7's n_chunks) sets pool after.
 // This is the one statement of the shapes the kernel takes.
 template <typename W, typename C>
 Shape make_shape(int L, int B, int Tc, int D, int H, int Hkv, int F,
                  int L_enc, int pos, int Mg, int hres = 0,
-                 int time_major = 0) {
+                 int time_major = 0, int seg_ring = 0) {
   const int Cs = kClusterBlocks;
-  Shape s{L, B, D, H, F, L_enc, pos, Hkv, Mg, Cs, 0, 0, 0, hres, time_major};
+  Shape s{L,  B,  D, H, F,    L_enc,      pos, Hkv,
+          Mg, Cs, 0, 0, 0, hres, time_major, B,   seg_ring};
   const int cols = std::max(8, 16 / static_cast<int>(sizeof(W)));
   const int dh = H > 0 ? D / H : 0;
   const int nvec = dh * static_cast<int>(sizeof(C)) / 16;
   const int bph = Cs >= H ? Cs / std::max(H, 1) : 1;
   const bool ok =
       B >= 1 && L >= 1 && H >= 1 && D % H == 0 && L_enc >= 1 && pos >= 0 &&
+      seg_ring >= 0 &&
       (Hkv == H || (Hkv == 1 && H <= Cs && !time_major)) &&
       pos < Tc && Mg >= 1 && Mg <= kGroupMax &&
       (Cs % H == 0 || H % Cs == 0) && Mg % bph == 0 &&
@@ -1758,7 +1810,7 @@ cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
   const uint64_t kvd = static_cast<uint64_t>(s.Hkv) * sp.dh;
   const uint64_t row = kvd * sizeof(C);
   const uint64_t slots = static_cast<uint64_t>(self_slots);
-  const uint64_t B = static_cast<uint64_t>(s.B);
+  const uint64_t B = static_cast<uint64_t>(s.pool);
   const uint64_t self_dims[4] = {kvd,
                                  s.time_major ? B : slots,
                                  s.time_major ? slots : B,
@@ -1769,7 +1821,7 @@ cudaError_t make_maps(const Shape& s, int Tc, int self_slots, bool keep_self,
                                     row * Tc * B};
   const uint64_t cross_dims[4] = {static_cast<uint64_t>(s.D),
                                   static_cast<uint64_t>(s.L_enc),
-                                  static_cast<uint64_t>(s.B),
+                                  static_cast<uint64_t>(s.pool),
                                   static_cast<uint64_t>(s.L)};
   const uint32_t cap = static_cast<uint32_t>(std::max(s.cap_self, 1));
   const uint32_t self_box[4] = {static_cast<uint32_t>(sp.dh),
@@ -1826,11 +1878,12 @@ cudaError_t configure(const void* kernel, const Shape& s,
 template <typename W, typename C>
 cudaError_t choose_shape(const void* kernel, int L, int B, int Tc, int D,
                          int H, int Hkv, int F, int L_enc, int pos,
-                         Shape* out, int hres = 0, int time_major = 0) {
+                         Shape* out, int hres = 0, int time_major = 0,
+                         int seg_ring = 0) {
   Shape last{};
   for (int Mg = 1; Mg <= kGroupMax; Mg *= 2) {
     const Shape s = make_shape<W, C>(L, B, Tc, D, H, Hkv, F, L_enc, pos, Mg,
-                                     hres, time_major);
+                                     hres, time_major, seg_ring);
     if (s.stages < 1) continue;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;

@@ -82,6 +82,27 @@ __host__ inline FreshRows<C> rows_out(void* k, void* v, int B, int D) {
           static_cast<size_t>(B) * D, static_cast<size_t>(D)};
 }
 
+// B7's segment ring (ring mode): each pool row's segment start seg[r] and
+// the ring K/V (L, B, S, kvd) of the segment's earlier fresh rows, ring row
+// j holding slot seg[r] + j: element d of ring row j of row r in layer l at
+// k + l * layer + r * row + j * slot + d (v alike).
+template <typename C>
+struct SegmentRing {
+  const int* seg;
+  const C* k;
+  const C* v;
+  size_t layer, row, slot;
+};
+
+template <typename C>
+__host__ inline SegmentRing<C> segment_ring(const void* seg, const void* k,
+                                            const void* v, int B, int S,
+                                            int kvd) {
+  return {static_cast<const int*>(seg), static_cast<const C*>(k),
+          static_cast<const C*>(v), static_cast<size_t>(B) * S * kvd,
+          static_cast<size_t>(S) * kvd, static_cast<size_t>(kvd)};
+}
+
 // The self cache itself at slot pos, written in place: the step reads only
 // slots before pos, so no block reads what another writes.
 template <typename C>

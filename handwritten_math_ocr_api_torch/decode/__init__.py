@@ -1,1 +1,1 @@
-"""Greedy decoding and the DecodeEngine of the port."""
+"""Greedy, beam and continuous decoding and the DecodeEngine of the port."""

@@ -40,6 +40,9 @@ configs decode on the default route (``DecodeEngine`` moves a GQA
   ``ops/beam_reorder.beam_cache_gather`` (the parent gather of both self
   caches).
 
+B7's segment-ring mode and its ``n_chunks`` serve continuous batching's
+segments (``decode/continuous.py``), not these loops.
+
 The JAX loop of "v2" chains one while-loop per T-prefix bucket
 (``t_buckets``), so that the TPU kernel's block DMA fetches only a prefix
 of the cache. The port's kernels read only the slots before ``pos`` in the

@@ -8,6 +8,9 @@ final decoder LayerNorm.
 
 - ``decoder_forward``: the full teacher-forced pass.
 - ``init_cache`` + ``decoder_step``: one token per step against a KV cache.
+- ``decoder_step_ragged``: the step with a position per row (continuous
+  batching), on plain ops as the JAX function; ``project_cross_kv`` the
+  cross-attention K/V of new rows (an admission) without a self cache.
   Cross-attention K/V are computed once from the encoder memory; the self
   cache is ``(B, Hkv, T, Dh)`` per layer, Hkv = ``cfg.kv_heads``. Under MHA
   the step's self-attention is the cache-append attention kernel (the JAX
@@ -98,19 +101,28 @@ def init_cache(params, cfg: ModelConfig, memory,
     B = memory.shape[0]
     T = max_len or cfg.max_seq_len
     dtype = compute_dtype(cfg)
-    memory = memory.to(dtype)
-    nh, dh = cfg.nhead, cfg.head_dim
-    cache: Cache = {}
-    for i, p in enumerate(params["layers"]):
-        cp = p["cross_attn"]
-        cache[f"cross_k_{i}"] = layers.split_heads(
-            _proj(cp, memory, "k", kernels), nh)
-        cache[f"cross_v_{i}"] = layers.split_heads(
-            _proj(cp, memory, "v", kernels), nh)
+    cache = project_cross_kv(params, cfg, memory, kernels=kernels)
+    for i in range(len(params["layers"])):
         for kv in ("k", "v"):
             cache[f"self_{kv}_{i}"] = torch.zeros(
-                (B, cfg.kv_heads, T, dh), dtype=dtype, device=memory.device)
+                (B, cfg.kv_heads, T, cfg.head_dim), dtype=dtype,
+                device=memory.device)
     return cache
+
+
+def project_cross_kv(params, cfg: ModelConfig, memory, *,
+                     kernels: bool = True) -> Cache:
+    """The cross-attention K/V (B, H, L_enc, Dh) of every layer for
+    ``memory`` (B, L_enc, D), in the compute dtype, without a self cache:
+    what the continuous decoder installs at an admission."""
+    memory = memory.to(compute_dtype(cfg))
+    out: Cache = {}
+    for i, p in enumerate(params["layers"]):
+        cp = p["cross_attn"]
+        for kv in ("k", "v"):
+            out[f"cross_{kv}_{i}"] = layers.split_heads(
+                _proj(cp, memory, kv, kernels), cfg.nhead)
+    return out
 
 
 def decoder_step(params, cfg: ModelConfig, tok_ids, pos: int, cache: Cache,
@@ -151,6 +163,56 @@ def decoder_step(params, cfg: ModelConfig, tok_ids, pos: int, cache: Cache,
             sk[:, :, pos] = k_new[:, :, 0]
             sv[:, :, pos] = v_new[:, :, 0]
             sa = layers.grouped_attention(q, sk, sv, mask, nh)
+        sa = _linear(sp, "w_out", "b_out", layers.merge_heads(sa), kernels)
+        x = layers.layer_norm(p["norm1"], x + sa)
+
+        cp = p["cross_attn"]
+        qc = layers.split_heads(_proj(cp, x, "q", kernels), nh)
+        ca = layers.attention(qc, cache[f"cross_k_{i}"], cache[f"cross_v_{i}"])
+        ca = _linear(cp, "w_out", "b_out", layers.merge_heads(ca), kernels)
+        x = layers.layer_norm(p["norm2"], x + ca)
+
+        ff = layers.mlp(p["ffn"], x, activation=torch.relu, kernels=kernels)
+        x = layers.layer_norm(p["norm3"], x + ff)
+    logits = layers.linear(params["fc_out"], x.float(), kernels=kernels)
+    return logits[:, 0, :]
+
+
+def decoder_step_ragged(params, cfg: ModelConfig, tok_ids, pos, cache: Cache,
+                        *, kernels: bool = True):
+    """One decode step with a position per row (continuous batching).
+    tok_ids (B,) int; pos (B,) int tensor: row r writes its K/V at slot
+    pos[r] of its self caches (in place) and attends slots [0, pos[r]]
+    through ``layers.grouped_attention``, on plain ops as the JAX function
+    (whose route takes no kernel here). Returns float32 logits (B, vocab).
+    A position past the cache or the position table is clamped into it for
+    the write and the embedding, as JAX's ``dynamic_update_slice`` and
+    gather clamp it (the continuous decoder's finished rows sit there).
+    ``kernels=False`` takes the plain dequant matmul on an int8 tree even
+    on CUDA."""
+    dtype = compute_dtype(cfg)
+    nh, nkv = cfg.nhead, cfg.kv_heads
+    D, kvd = cfg.d_model, cfg.kv_dim
+    pos = pos.long()
+    n_pos = params["pos"]["table"].shape[0]
+    x = _embed(params, tok_ids[:, None].long(),
+               pos.clamp(0, n_pos - 1)[:, None], dtype)      # (B, 1, D)
+    T = cache["self_k_0"].shape[2]
+    slot = torch.arange(T, device=x.device)
+    mask = torch.zeros((pos.shape[0], T), device=x.device).masked_fill(
+        slot[None, :] > pos[:, None], float("-inf"))[:, None, None, :]
+    rows = torch.arange(pos.shape[0], device=x.device)
+    at = pos.clamp(0, T - 1)
+    for i, p in enumerate(params["layers"]):
+        sp = p["self_attn"]
+        qkv = _linear(sp, "w_qkv", "b_qkv", x, kernels)
+        q, k_new, v_new = qkv.split([D, kvd, kvd], dim=-1)
+        sk, sv = cache[f"self_k_{i}"], cache[f"self_v_{i}"]
+        # (B, 1, Hkv dh) -> slot at[r] of row r: (B, Hkv, dh)
+        sk[rows, :, at] = k_new[:, 0].reshape(-1, nkv, D // nh).to(sk.dtype)
+        sv[rows, :, at] = v_new[:, 0].reshape(-1, nkv, D // nh).to(sv.dtype)
+        sa = layers.grouped_attention(layers.split_heads(q, nh), sk, sv,
+                                      mask, nh)
         sa = _linear(sp, "w_out", "b_out", layers.merge_heads(sa), kernels)
         x = layers.layer_norm(p["norm1"], x + sa)
 

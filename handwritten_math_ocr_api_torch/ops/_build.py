@@ -82,12 +82,19 @@ SIGNATURES = {
     "whole_decode_i8_f32": (P,) * 30 + (I,) * 11 + (P,),
     # prev, pos, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, logits, nxt, logp, k_new, v_new,
-    # L, R, T, D, H, Hkv, F, L_enc, V, T_pos, stream
-    "ragged_step_bf16": (P,) * 28 + (I,) * 10 + (P,),
-    "ragged_step_f32": (P,) * 28 + (I,) * 10 + (P,),
+    # L, R (the caches' rows), R_run (the rows computed), T, D, H, Hkv, F,
+    # L_enc, V, T_pos, stream
+    "ragged_step_bf16": (P,) * 28 + (I,) * 11 + (P,),
+    "ragged_step_f32": (P,) * 28 + (I,) * 11 + (P,),
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
-    "ragged_step_i8_bf16": (P,) * 34 + (I,) * 10 + (P,),
-    "ragged_step_i8_f32": (P,) * 34 + (I,) * 10 + (P,),
+    "ragged_step_i8_bf16": (P,) * 34 + (I,) * 11 + (P,),
+    "ragged_step_i8_f32": (P,) * 34 + (I,) * 11 + (P,),
+    # B7's ring mode: as above with seg_start, ring_k, ring_v after cross_v
+    # and the ring's rows S after T_pos
+    "ragged_ring_bf16": (P,) * 31 + (I,) * 12 + (P,),
+    "ragged_ring_f32": (P,) * 31 + (I,) * 12 + (P,),
+    "ragged_ring_i8_bf16": (P,) * 37 + (I,) * 12 + (P,),
+    "ragged_ring_i8_f32": (P,) * 37 + (I,) * 12 + (P,),
     # x, w_q, scale, y, M, K, N, row stride of w_q, stream
     "dequant_matmul_bf16": (P,) * 4 + (I,) * 4 + (P,),
     "dequant_matmul_f32": (P,) * 4 + (I,) * 4 + (P,),

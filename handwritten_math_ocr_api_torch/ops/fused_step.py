@@ -24,10 +24,14 @@ steps and their weight bundles:
   appends ("v3") or time-major ``(L, T, B, D)`` caches written at ``pos``
   in place ("v4");
 - the ragged step (``fused_ragged_step``, body ``_make_kernel_ragged``,
-  B7; bundle ``build_stacked_full``), kernel ``csrc/ragged_step.cu``: the
-  embedding, the same layers and the float32 output head in one launch,
-  each row at its own position, returning the head's logits (beam search)
-  or each row's argmax and its log-probability.
+  B7; bundle ``build_stacked_full``), kernel ``csrc/ragged_step.cuh``
+  (entries in ``ragged_step.cu``, and the segment-ring mode's in
+  ``ragged_ring.cu``): the embedding, the same layers and the float32
+  output head in one launch, each row at its own position, returning the
+  head's logits (beam search) or each row's argmax and its
+  log-probability; in ring mode (continuous batching's segments) each row
+  also attends the fresh rows of the segment's earlier steps from a small
+  ring, and ``n_chunks`` computes only the first rows of the pool.
 
 All four, and B12 (``ops/whole_decode.py``), run the cluster layer code of
 ``csrc/decoder_cluster.cuh`` (B7 and B10 with its embedding prologue and
@@ -47,7 +51,8 @@ True, quantize=True)``): the six layer weights int8 with float32 scales
 bundle with ``w_qkv_s`` is the int8 one, as JAX detects it; the wrappers
 then launch the kernels' int8 entries (counted in ``int8_launches``, the
 float bundles in ``launches``; an MQA config's launches of B1 and B7 in
-``mqa_launches`` and ``mqa_int8_launches``). B10 and B11 take the float
+``mqa_launches`` and ``mqa_int8_launches``; B7's ring entries in the same
+four with ``ring_`` before them). B10 and B11 take the float
 bundles only: their TPU kernels cast activations to the weights' dtype,
 int8 on an int8 bundle, so the port raises ``ValueError`` there.
 
@@ -97,6 +102,10 @@ _RAGGED_ENTRY = {(False, torch.bfloat16): "ragged_step_bf16",
                  (False, torch.float32): "ragged_step_f32",
                  (True, torch.bfloat16): "ragged_step_i8_bf16",
                  (True, torch.float32): "ragged_step_i8_f32"}
+_RING_ENTRY = {(False, torch.bfloat16): "ragged_ring_bf16",
+               (False, torch.float32): "ragged_ring_f32",
+               (True, torch.bfloat16): "ragged_ring_i8_bf16",
+               (True, torch.float32): "ragged_ring_i8_f32"}
 WEIGHT_KEYS = ("w_qkv", "w_out", "w_cq", "w_co", "w_ff1", "w_ff2")
 BIAS_KEYS = ("b_qkv", "b_out", "b_cq", "b_co", "b_ff1", "b_ff2")
 
@@ -404,10 +413,13 @@ def fused_decoder_layers_step_v2(stacked, cfg: ModelConfig, x_emb, self_k,
     return x_out, k_new, v_new
 
 
-def _count(wrapper, cfg: ModelConfig, quantized: bool) -> None:
+def _count(wrapper, cfg: ModelConfig, quantized: bool,
+           ring: bool = False) -> None:
     """One launch of B1 or B7: of the int8 or the float entry, of the MQA
-    kernel (``mqa_`` counts) or the MHA one."""
-    attr = (("mqa_" if cfg.kv_heads != cfg.nhead else "")
+    kernel (``mqa_`` counts) or the MHA one, of B7's ring entries
+    (``ring_`` counts) or the others."""
+    attr = (("ring_" if ring else "")
+            + ("mqa_" if cfg.kv_heads != cfg.nhead else "")
             + ("int8_launches" if quantized else "launches"))
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
@@ -533,36 +545,116 @@ def _argmax_head(logits):
     return logits.argmax(dim=-1).to(torch.int32), torch.log(p_max + 1e-10)
 
 
+def _ragged_run_rows(R: int, T: int, block_b: int, n_chunks, t_active,
+                     seg_start, ring_k, ring_v) -> int:
+    """Check the ragged step's options as the JAX wrapper checks them (the
+    same ValueErrors) and return the rows a step computes: the first
+    ``n_chunks * block_b``, or all R. The pool need be a multiple of
+    ``block_b`` only with ``n_chunks`` (JAX requires it always: its pools
+    are padded, the port's beam rows are not). Ring mode takes all three of
+    ``seg_start``, ``ring_k`` and ``ring_v`` or none (JAX ignores
+    ``seg_start`` and ``ring_v`` without ``ring_k``)."""
+    if t_active is not None and not 0 < t_active <= T:
+        raise ValueError(f"t_active {t_active} not in (0, {T}]")
+    if block_b < 8 or block_b % 8:
+        raise ValueError(f"block_b {block_b} must be a multiple of 8")
+    run = R
+    if n_chunks is not None:
+        if R % block_b:
+            raise ValueError(f"pool size {R} not a multiple of {block_b}")
+        if not 1 <= n_chunks <= R // block_b:
+            raise ValueError(f"n_chunks {n_chunks} not in "
+                             f"[1, {R // block_b}]")
+        run = n_chunks * block_b
+    ring = (seg_start, ring_k, ring_v)
+    if any(a is None for a in ring) and any(a is not None for a in ring):
+        raise ValueError("ring mode needs seg_start, ring_k AND ring_v")
+    return run
+
+
+def _with_ring(cache, ring, seg, pos):
+    """Row r's slots before pos[r] as ring mode attends them: cache slots
+    before seg[r], then ring rows 0 .. pos[r] - seg[r] - 1 (cache
+    (L, R, T, kvd), ring (L, R, S, kvd) -> (L, R, T, kvd); later slots are
+    not read)."""
+    L, R, T, kvd = cache.shape
+    S = ring.shape[2]
+    slot = torch.arange(T, device=cache.device)[None, :]
+    j = (slot - seg[:, None]).clamp(0, S - 1)              # (R, T)
+    from_ring = ring.gather(2, j[None, :, :, None].expand(L, R, T, kvd))
+    return torch.where((slot < seg[:, None])[None, :, :, None], cache,
+                       from_ring)
+
+
 def fused_ragged_step_plain(stacked, cfg: ModelConfig, prev, pos, self_k,
-                            self_v, cross_k, cross_v, *,
-                            return_logits: bool = False):
+                            self_v, cross_k, cross_v, *, block_b: int = 16,
+                            n_chunks=None, return_logits: bool = False,
+                            seg_start=None, ring_k=None, ring_v=None,
+                            t_active=None):
     """One decode step for R rows at their own positions. prev, pos: (R,)
     int32 (the previous token and the slot of each row); self caches
     (L, R, T, kvd), read only; cross K/V (L, R, L_enc, D), every slot
     attended. ``stacked`` from ``build_stacked_full``.
 
+    Ring mode (``seg_start`` (R,) int32 with ``ring_k``/``ring_v``
+    (L, R, S, kvd), the JAX kernel's segment ring): row r attends its
+    cache slots before seg_start[r], ring rows j = t - seg_start[r] for the
+    slots t in [seg_start[r], pos[r]), and its fresh row at pos[r], under
+    one softmax. ``n_chunks`` computes only the first ``n_chunks *
+    block_b`` rows (R a multiple of ``block_b``); the other rows' outputs
+    are unspecified (here NaN, nxt -1). ``t_active`` is checked as JAX
+    checks it and has no other effect. A position outside the cache, or a
+    segment start outside [pos - (S - 1), pos], raises ValueError.
+
     Returns (logits (R, V) float32, k_new, v_new) with ``return_logits``,
     else (nxt (R,) int32, logp (R,) float32, k_new, v_new); k_new and
     v_new are (L, R, kvd) in the cache dtype."""
-    T = self_k.shape[2]
-    pos = pos.long()
+    L, R, T = self_k.shape[:3]
+    run = _ragged_run_rows(R, T, block_b, n_chunks, t_active, seg_start,
+                           ring_k, ring_v)
+    pos = pos[:run].long()
     if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) >= T):
         raise ValueError(f"a position lies outside the cache of {T} slots")
+    caches = [c[:, :run] for c in (self_k, self_v, cross_k, cross_v)]
+    if ring_k is not None:
+        seg = seg_start[:run].long()
+        S = ring_k.shape[2]
+        if seg.numel() and (bool((seg > pos).any())
+                            or bool((pos - seg >= S).any())
+                            or int(seg.min()) < 0):
+            raise ValueError(f"a segment start lies outside [pos - {S - 1}, "
+                             f"pos]")
+        caches[0] = _with_ring(caches[0], ring_k[:, :run], seg, pos)
+        caches[1] = _with_ring(caches[1], ring_v[:, :run], seg, pos)
     # rounded to cfg.dtype under int8 weights, as the JAX kernel, else to
     # the weights' dtype (the same in a build_stacked_full bundle)
     wdt = (getattr(torch, cfg.dtype) if _is_int8(stacked)
            else stacked["w_qkv"].dtype)
     x, k_new, v_new = _layers_plain(stacked, cfg,
-                                    _embed_full(stacked, prev, pos, wdt),
-                                    self_k, self_v, cross_k, cross_v, pos)
+                                    _embed_full(stacked, prev[:run], pos,
+                                                wdt), *caches, pos)
     logits = x @ stacked["w_head"] + stacked["b_head"][0]
-    if return_logits:
-        return logits, k_new, v_new
-    return (*_argmax_head(logits), k_new, v_new)
+    outs = ((logits,) if return_logits else _argmax_head(logits)) + (
+        k_new, v_new)
+    if run == R:
+        return outs
+    # the rows past the run: NaN (nxt -1)
+    full = []
+    for t in outs:
+        axis = 1 if t.dim() == 3 else 0
+        shape = list(t.shape)
+        shape[axis] = R
+        pad = torch.full(shape, -1 if t.dtype == torch.int32 else
+                         float("nan"), dtype=t.dtype, device=t.device)
+        pad.narrow(axis, 0, run).copy_(t)
+        full.append(pad)
+    return tuple(full)
 
 
 def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
-                      cross_k, cross_v, *, return_logits: bool = False):
+                      cross_k, cross_v, *, block_b: int = 16, n_chunks=None,
+                      return_logits: bool = False, seg_start=None,
+                      ring_k=None, ring_v=None, t_active=None):
     """Same contract as ``fused_ragged_step_plain``; CUDA tensors go to the
     kernel (one launch for the embedding, every layer and the head,
     counted), CPU tensors to the plain version.
@@ -570,23 +662,30 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     The kernel runs the rows in groups, one thread-block cluster a group
     (``csrc/decoder_cluster.cuh``, B1's layer code;
     ``cluster_geometry("ragged_step", ...)`` gives the shape), each row at
-    its own position. ``prev`` and ``pos`` stay in device memory: the
-    wrapper reads no value of them, so a step
-    makes no host round trip. A row whose ``prev`` or ``pos`` is out of
-    range gets NaN outputs (nxt -1), reads nothing and leaves the other
-    rows of its group as they are. A model the kernel does not split
-    raises ``ValueError``. Three options of the TPU kernel are TPU tiling
-    and are dropped: the ``block_b`` row chunk and its multiple-of-8 rule
-    (the kernel picks its own row groups), the ``t_active`` prefix bucket
-    (the kernel reads no slot after a row's position anyway) and the
-    zeroing of V past the horizon (NaN protection that becomes not reading
-    those slots). MHA and MQA (its own kernel instantiation); GQA raises
-    ValueError. Ring mode and ``n_chunks`` are not ported."""
+    its own position, over the first ``n_chunks * block_b`` rows (the
+    groups planned for them; the caches' strides stay the pool's) and in
+    ring mode through its ring entries (a kernel of its own). ``prev``,
+    ``pos`` and ``seg_start`` stay in device memory: the wrapper reads no
+    value of them, so a step makes no host round trip. A row whose ``prev``
+    or ``pos`` is out of range, or whose ``seg_start`` lies outside
+    [pos - (S - 1), pos], gets NaN outputs (nxt -1), reads nothing and
+    leaves the other rows of its group as they are; the rows past the run
+    are not written (``torch.empty``). A model the kernel does not split
+    raises ``ValueError``. Of the TPU kernel's options, ``block_b`` keeps
+    only its meaning for ``n_chunks`` (the kernel picks its own row
+    groups), ``t_active`` is checked and has no effect (the kernel reads
+    no slot at or past a row's position anyway), and the zeroing of V past
+    the horizon becomes not reading those slots. MHA and MQA (its own
+    kernel instantiation); GQA raises ValueError."""
     if not self_k.is_cuda:
-        return fused_ragged_step_plain(stacked, cfg, prev, pos, self_k,
-                                       self_v, cross_k, cross_v,
-                                       return_logits=return_logits)
+        return fused_ragged_step_plain(
+            stacked, cfg, prev, pos, self_k, self_v, cross_k, cross_v,
+            block_b=block_b, n_chunks=n_chunks, return_logits=return_logits,
+            seg_start=seg_start, ring_k=ring_k, ring_v=ring_v,
+            t_active=t_active)
     L, R, T, kvd = self_k.shape
+    run = _ragged_run_rows(R, T, block_b, n_chunks, t_active, seg_start,
+                           ring_k, ring_v)
     L_enc, D = cross_k.shape[2:]
     dt = self_k.dtype
     dev = self_k.device
@@ -599,6 +698,14 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
     for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
         _build.require(t, name, dtype=dt, shape=(L, R, L_enc, D),
                        device=dev, aligned=True)
+    ring = ring_k is not None
+    if ring:
+        S = ring_k.shape[2]
+        _build.require(seg_start, "seg_start", dtype=torch.int32, shape=(R,),
+                       device=dev)
+        for name, t in (("ring_k", ring_k), ("ring_v", ring_v)):
+            _build.require(t, name, dtype=dt, shape=(L, R, S, kvd),
+                           device=dev, aligned=True)
     quantized, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
     if quantized and dt != getattr(torch, cfg.dtype):
         raise ValueError(f"int8 ragged step: caches are {dt}, the compute "
@@ -617,20 +724,23 @@ def fused_ragged_step(stacked, cfg: ModelConfig, prev, pos, self_k, self_v,
         heads = [None, outs[0].data_ptr(), outs[1].data_ptr()]
     ptrs = [prev.data_ptr(), pos.data_ptr(), emb, pos_emb, *weights]
     ptrs += [t.data_ptr() for t in (self_k, self_v, cross_k, cross_v)]
+    if ring:
+        ptrs += [t.data_ptr() for t in (seg_start, ring_k, ring_v)]
     ptrs += [w_head, b_head, *heads, k_new.data_ptr(), v_new.data_ptr()]
-    entry = _RAGGED_ENTRY[quantized, dt]
-    code = getattr(_build.library(), entry)(
-        *ptrs, L, R, T, D, cfg.nhead, cfg.kv_heads, cfg.dim_feedforward,
-        L_enc, V, Tpos, _build.stream_handle(dev))
-    _check_code(code, entry, cfg, R)
-    _count(fused_ragged_step, cfg, quantized)
+    sizes = [L, R, run, T, D, cfg.nhead, cfg.kv_heads, cfg.dim_feedforward,
+             L_enc, V, Tpos] + ([S] if ring else [])
+    entry = (_RING_ENTRY if ring else _RAGGED_ENTRY)[quantized, dt]
+    code = getattr(_build.library(), entry)(*ptrs, *sizes,
+                                            _build.stream_handle(dev))
+    _check_code(code, entry, cfg, run)
+    _count(fused_ragged_step, cfg, quantized, ring)
     return (*outs, k_new, v_new)
 
 
-fused_ragged_step.launches = 0
-fused_ragged_step.int8_launches = 0
-fused_ragged_step.mqa_launches = 0
-fused_ragged_step.mqa_int8_launches = 0
+for _attr in ("launches", "int8_launches", "mqa_launches",
+              "mqa_int8_launches"):
+    setattr(fused_ragged_step, _attr, 0)
+    setattr(fused_ragged_step, "ring_" + _attr, 0)
 
 
 def _embed_full(stacked, prev, pos, dtype):

@@ -21,7 +21,10 @@ the last slot (pos 149), B7 (bf16, logits) at the beam's 50 rows at pos
 149, B10 in both cache layouts at 16 rows and pos 149, and B12 (bf16 and
 int8 bundles) for a whole decode of 16 rows over 150 steps; then, where the
 package takes MQA (``nhead_kv=1``), B1's and B7's MQA entries (bf16 and
-int8 bundles) at the same rows and slot.
+int8 bundles) at the same rows and slot; then, where the package takes
+B7's segment ring, its ring entry (bf16, logits; MHA and MQA) at the
+continuous pool's 48 rows at pos 149 with segments from slot 86 (63 ring
+rows), beside the non-ring entry at the same rows and slot.
 
 ``decode`` builds ``csrc/whole_decode.cu`` again as it is, with an L2
 evict_last policy on its weight copies, and at each other rows-a-group count
@@ -234,6 +237,38 @@ def steps_in_process(root: str, label: str) -> None:
           f"{times[2]:.4f} ms ({B} rows, pos {pos}); MQA B7 bf16 "
           f"{times[1]:.4f} ms, int8 {times[3]:.4f} ms ({R} rows, logits)",
           flush=True)
+
+    P, S = 48, 64   # chip_smoke's CONT_POOL and CONT_RING (an older
+    # package's chip_smoke lacks them)
+    ring_times = {}
+    for name, c, params in (("MHA", cfg, np_params), ("MQA", mqa,
+                                                     mqa_params)):
+        pst = fs.build_stacked_full(params["decoder"], c, dev)
+        kvd = c.kv_dim
+        pk, pv, qk, qv = (randn(L, P, T, kvd), randn(L, P, T, kvd),
+                          randn(L, P, S, kvd), randn(L, P, S, kvd))
+        pck, pcv = randn(L, P, L_enc, D), randn(L, P, L_enc, D)
+        pprev = torch.randint(0, c.vocab_size, (P,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        ppos = torch.full((P,), pos, dtype=torch.int32, device=dev)
+        seg = torch.full((P,), pos - (S - 1), dtype=torch.int32, device=dev)
+        try:
+            ring = cs.cuda_ms(lambda: fs.fused_ragged_step(
+                pst, c, pprev, ppos, pk, pv, pck, pcv, seg_start=seg,
+                ring_k=qk, ring_v=qv, return_logits=True), iters=50)
+        except TypeError:
+            print(f"steps {label}: B7's ring not in this package",
+                  flush=True)
+            return
+        flat = cs.cuda_ms(lambda: fs.fused_ragged_step(
+            pst, c, pprev, ppos, pk, pv, pck, pcv, return_logits=True),
+            iters=50)
+        ring_times[name] = (ring, flat)
+    print(f"steps {label}: B7 ring bf16 {ring_times['MHA'][0]:.4f} ms, "
+          f"without the ring {ring_times['MHA'][1]:.4f} ms; MQA B7 ring "
+          f"{ring_times['MQA'][0]:.4f} ms, without {ring_times['MQA'][1]:.4f}"
+          f" ms ({P} rows, pos {pos}, segments from {pos - (S - 1)}, "
+          f"logits)", flush=True)
 
 
 def steps(others) -> None:

@@ -1075,3 +1075,154 @@ def test_dequant_matmul_grouped_qkv(dev, dtype, nhead_kv):
         _close(got, quant.dequant_matmul_plain(x, sa["w_qkv_q"],
                                                sa["w_qkv_scale"]),
                TOL[dtype])
+
+
+# B7's segment-ring entries (continuous batching's fused segments) and its
+# run rows (n_chunks): the continuous decoder's ring of max_segment_steps
+# rows at the pool of 32 slots plus scratch (48 rows, three 16-row chunks)
+RING_S = 64
+
+
+def _ring_inputs(dev, cfg, R, seed):
+    """Caches, cross K/V, a ring of random rows, prev; positions over the
+    cache and segment starts 0, pos and pos - (S - 1) in turn (rows with
+    start 0 at a slot below S)."""
+    L, T, L_enc = 8, 150, cfg.encoder_len
+    sk, sv = (_randn(dev, cfg.dtype, L, R, T, cfg.kv_dim, seed=seed + i)
+              for i in range(2))
+    ck, cv = (_randn(dev, cfg.dtype, L, R, L_enc, cfg.d_model,
+                     seed=seed + 2 + i) for i in range(2))
+    rk, rv = (_randn(dev, cfg.dtype, L, R, RING_S, cfg.kv_dim,
+                     seed=seed + 4 + i) for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+    prev = torch.randint(0, cfg.vocab_size, (R,), generator=gen, device=dev,
+                         dtype=i32)
+    pos = torch.randint(0, T, (R,), generator=gen, device=dev, dtype=i32)
+    kind = torch.arange(R, device=dev) % 3
+    pos = torch.where(kind == 0, pos % RING_S, pos)
+    seg = torch.where(kind == 0, 0, torch.where(kind == 1, pos,
+                                                pos - (RING_S - 1)))
+    seg = seg.clamp(min=0).to(i32)
+    return prev, pos, seg, (sk, sv, ck, cv), (rk, rv)
+
+
+def _ring_cfg(np_params, mqa_params, dev, bundle, kv):
+    """(cfg, stacked, launch count attribute) of a bundle and head mode."""
+    mqa = kv == "mqa"
+    dtype = "bfloat16" if bundle == "int8" else bundle
+    cfg = (MQA if mqa else CFG).replace(dtype=dtype)
+    params = mqa_params if mqa else np_params
+    stacked = _ragged_bundle(params, cfg, dev,
+                             "int8" if bundle == "int8" else "float")
+    attr = ("ring_" + ("mqa_" if mqa else "")
+            + ("int8_launches" if bundle == "int8" else "launches"))
+    return cfg, stacked, attr
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("kv", ["mha", "mqa"])
+@pytest.mark.parametrize("R", [16, 48])
+def test_ragged_step_ring(dev, np_params, mqa_params, bundle, kv, R):
+    """B7's ring entries against the plain ring step: the logits (and the
+    argmax head's logp) and the fresh rows within the step tolerance (int8:
+    bf16's), the argmax equal in float32 and, under int8, wherever the
+    plain logits' top two lie further apart than twice the largest logits
+    error."""
+    cfg, stacked, attr = _ring_cfg(np_params, mqa_params, dev, bundle, kv)
+    prev, pos, seg, caches, (rk, rv) = _ring_inputs(dev, cfg, R, seed=R)
+    ring = {"seg_start": seg, "ring_k": rk, "ring_v": rv}
+    tol = STEP_TOL["bfloat16" if bundle == "int8" else cfg.dtype]
+    got = _launched(fs.fused_ragged_step,
+                    lambda: fs.fused_ragged_step(stacked, cfg, prev, pos,
+                                                 *caches, return_logits=True,
+                                                 **ring), attr)
+    want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                      return_logits=True, **ring)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    logits_err = (got[0] - want[0]).abs().max()
+    top2 = want[0].topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * logits_err
+    nxt = _launched(fs.fused_ragged_step,
+                    lambda: fs.fused_ragged_step(stacked, cfg, prev, pos,
+                                                 *caches, **ring), attr)
+    want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          **ring)
+    if bundle == "float32":
+        assert torch.equal(nxt[0], want_nxt[0])
+    else:
+        assert torch.equal(nxt[0][clear], want_nxt[0][clear])
+    for g, w in zip(nxt[1:], want_nxt[1:]):
+        _close(g, w, tol)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("n_chunks", [1, 2, 3])
+def test_ragged_step_n_chunks(dev, np_params, ring, n_chunks):
+    """The first n_chunks 16-row chunks of a 48-row pool (bf16, with and
+    without the ring): those rows as the plain step gives them, the
+    launch planned for them (cluster_geometry at those rows)."""
+    cfg = CFG.replace(dtype="bfloat16")
+    stacked = _ragged_bundle(np_params, cfg, dev, "float")
+    R, run = 48, 16 * n_chunks
+    prev, pos, seg, caches, (rk, rv) = _ring_inputs(dev, cfg, R, seed=5)
+    kw = ({"seg_start": seg, "ring_k": rk, "ring_v": rv} if ring else {})
+    got = _launched(fs.fused_ragged_step,
+                    lambda: fs.fused_ragged_step(stacked, cfg, prev, pos,
+                                                 *caches, n_chunks=n_chunks,
+                                                 return_logits=True, **kw),
+                    "ring_launches" if ring else "launches")
+    want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                      n_chunks=n_chunks, return_logits=True,
+                                      **kw)
+    _close(got[0][:run], want[0][:run], STEP_TOL["bfloat16"])
+    for g, w in zip(got[1:], want[1:]):
+        _close(g[:, :run], w[:, :run], STEP_TOL["bfloat16"])
+    geo = fs.cluster_geometry("ragged_step", cfg, run, 150, cfg.encoder_len,
+                              torch.bfloat16, False, cfg.vocab_size)
+    assert geo["clusters"] == -(-run // geo["rows"])
+
+
+@pytest.mark.parametrize("bundle", ["float32", "int8"])
+def test_ragged_step_ring_dead_row(dev, np_params, bundle):
+    """Rows whose segment start lies past their slot (row 1) or S or more
+    slots before it (row 3) beside good ones in their groups: NaN outputs
+    and nxt -1 in those rows only, the others as the plain step gives
+    them."""
+    import chip_smoke
+
+    cfg, stacked, attr = _ring_cfg(np_params, None, dev, bundle, "mha")
+    R = 16
+    prev, pos, seg, caches, (rk, rv) = _ring_inputs(dev, cfg, R, seed=13)
+    pos[1], pos[3] = 40, 120
+    seg[1], seg[3] = 41, 120 - RING_S
+    good = seg.clone()
+    good[1], good[3] = 40, 120
+    dead = torch.zeros(R, dtype=torch.bool, device=dev)
+    dead[1] = dead[3] = True
+    geo = fs.cluster_geometry("ragged_step", cfg, R, 150, cfg.encoder_len,
+                              getattr(torch, cfg.dtype), bundle == "int8",
+                              cfg.vocab_size)
+    assert chip_smoke.mixed_groups(dead.tolist(), geo["rows"])
+    tol = STEP_TOL["bfloat16" if bundle == "int8" else cfg.dtype]
+    for logits in (True, False):
+        got = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, *caches, seg_start=seg,
+                            ring_k=rk, ring_v=rv, return_logits=logits),
+                        attr)
+        want = fs.fused_ragged_step_plain(
+            stacked, cfg, prev, pos, *caches, seg_start=good, ring_k=rk,
+            ring_v=rv, return_logits=logits)
+        torch.cuda.synchronize()
+        outs = got
+        if not logits:
+            assert got[0][dead].tolist() == [-1, -1]
+            assert (got[0][~dead] >= 0).all()
+            outs, want = got[1:], want[1:]
+        for g, w in zip(outs, want):
+            rows = dead if g.dim() < 3 else (slice(None), dead)
+            live = ~dead if g.dim() < 3 else (slice(None), ~dead)
+            assert torch.isnan(g[rows].float()).all()
+            _close(g[live], w[live], tol)

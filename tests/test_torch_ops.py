@@ -254,6 +254,7 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
                               "fused_decoder_step", "ragged_step",
                               "swin_block", "dequant_matmul",
                               "fused_decoder_step_i8", "ragged_step_i8",
+                              "ragged_ring", "ragged_ring_i8",
                               "layers_step_in_place",
                               "whole_step_time_major", "whole_step_rows",
                               "whole_decode", "whole_decode_i8")
