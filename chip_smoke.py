@@ -111,7 +111,24 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    to its fused engine and its int8 bundle held so too; the default
    route (``DEFAULT_ROUTE_LAYERS`` decoder layers) in float32 equal to the
    default engine;
-7. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
+7. "quality", the shipped weights on the ``data_eval_hard`` test split:
+   the libzstd probe; ``serving_model_r4/params`` read by the port's own
+   reader (``train/checkpoint.load_params_for_serving``) and its
+   ``tree_digest``, the 2,000 test PNGs decoded by the port's PNG reader
+   and their sha256, both equal to ``tests/fixtures/torch_r4_quality.json``
+   (written by ``quality_bar.py`` with the JAX package on a CPU); the first
+   64 images in float32 on the default route (all 8 decoder layers) and the
+   fused one, predictions equal to JAX's float32 ones but for at most one
+   (each difference with its first differing step and the card's top-2
+   logit margin there); then through the port's harness
+   (``eval/harness.evaluate_model``) at batch 64, each cell's launch counts
+   set to 0 before it and checked after: fused bf16 and int8 greedy on all
+   2,000 images, default bf16 and int8 greedy (8 layers) and fused beam 5
+   on the first 512, and ``ContinuousDecoder`` (fused bf16, one request an
+   image) on the first 512; each cell's exact match no more than 1.5
+   points under its bar and corpus CER no more than 0.01 above it, beside
+   its valid LaTeX, mean confidence, ECE and images/s;
+8. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
    v1, v2, v3, v4, and v5 with the int8 and the bf16 resident bundle) at
    full width on the fused route's encoder memory of the 10-image request:
    each arm's launch counts (150 of its step kernel, or one whole decode),
@@ -119,11 +136,12 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    tokens of every arm equal to its plain path's and v2's (the int8 v5,
    whose matmul inputs round to bf16, held as the whole decode is in
    phase 3);
-8. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+9. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-It imports torch, numpy and the port only, reads no checkpoint and no image
-file, and exits non-zero on any failure, or when no CUDA device is present.
+It imports torch, numpy and the port only; phases 1-6 and 8 run on seeded
+random weights, phase 7 reads the checkpoint and the test split. It exits
+non-zero on any failure, or when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -136,8 +154,8 @@ import time
 
 SEED = 0
 DEVICE = "cuda"
-MODEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "serving_model_r4")  # its JSON files only
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+MODEL_DIR = os.path.join(REPO_ROOT, "serving_model_r4")
 N_IMAGES = 10
 BEAM = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
@@ -2577,6 +2595,297 @@ def serve_continuous(cfg, tok, entries):
     d.close()
 
 
+# phase "quality": the shipped weights on the data_eval_hard test split,
+# held to the JAX package's scores (quality_bar.py's fixture)
+QUALITY_FIXTURE = os.path.join(REPO_ROOT, "tests", "fixtures",
+                               "torch_r4_quality.json")
+QUALITY_DATA = os.path.join(REPO_ROOT, "data_eval_hard")
+QUALITY_BATCH = 64
+QUALITY_SUBSET = 512
+# bf16 and int8 quality gates: exact match at most 1.5 points under its
+# bar and corpus CER at most 0.01 above it. A wrong reader or layout
+# scores near 0; bf16 rounding moves a few near-ties between runs
+QUALITY_EXACT_BELOW = 0.015
+QUALITY_CER_ABOVE = 0.01
+# float32 predictions of the first 64 images equal to JAX's on all but at
+# most this many (63 of 64: summation order may flip one near-tie)
+QUALITY_F32_DIFFER = 1
+
+
+class CountedEngine:
+    """A DecodeEngine for the harness that counts its decodes (one encode
+    each), their decode steps and the host seconds they take (each decode
+    ends on its loop's read of the finished flags)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = 0
+        self.steps = 0
+        self.seconds = 0.0
+
+    def decode_tokens(self, images, beam_size=None):
+        t0 = time.perf_counter()
+        res = self.engine.decode_tokens(images, beam_size)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.steps += self.engine.last_steps
+        return res
+
+
+class ContinuousEngine:
+    """``decode_tokens`` for the harness over a ``continuous_decoder``: each
+    image of a batch is one request, and the decoder runs until the
+    batch's requests are done. Returns their GreedyResult."""
+
+    def __init__(self, dec):
+        self.dec = dec
+
+    def decode_tokens(self, images, beam_size=None):
+        import numpy as np
+        import torch
+
+        from handwritten_math_ocr_api_torch.decode.greedy import GreedyResult
+
+        ids = [self.dec.submit(img) for img in images]
+        while not self.dec.idle:
+            self.dec.step_once()
+        tokens = torch.from_numpy(np.stack(
+            [self.dec.decoded[i][0] for i in ids])).long()
+        count = torch.tensor([self.dec.decoded[i][1] for i in ids])
+        lp = torch.tensor([self.dec.decoded[i][2] for i in ids])
+        return GreedyResult(tokens, (tokens != 0).sum(dim=-1), lp, count,
+                            tokens.shape[1])
+
+
+def quality_loader(tok, cfg, n=None):
+    """The port's test loader at batch 64 in CSV order, over the first
+    ``n`` images (all with None)."""
+    from handwritten_math_ocr_api_torch.core.config import DataConfig
+    from handwritten_math_ocr_api_torch.data.dataset import get_test_loader
+
+    loader = get_test_loader(tok, DataConfig(data_root=QUALITY_DATA,
+                                             batch_size=QUALITY_BATCH), cfg)
+    if n is not None:
+        loader.dataset.rows = loader.dataset.rows[:n]
+    return loader
+
+
+def quality_gate(name, summary, bar):
+    """Print a cell's scores beside its bar; raise if exact match or corpus
+    CER misses its gate."""
+    def f(x):
+        return "none" if x is None else f"{x:.4f}"
+
+    em, cer = summary["accuracy"], summary["corpus_cer"]
+    log(f"quality {name}: {summary['num_samples']} images, exact match "
+        f"{em:.4f} (bar {bar['exact_match']:.4f}), corpus CER {cer:.4f} "
+        f"(bar {bar['corpus_cer']:.4f}), avg CER {summary['avg_cer']:.4f} "
+        f"(bar {bar['avg_cer']:.4f}), valid LaTeX "
+        f"{summary['valid_latex']:.4f} (bar {bar['valid_latex']:.4f}), "
+        f"mean confidence {f(summary.get('mean_confidence'))} (bar "
+        f"{f(bar['mean_confidence'])}), ECE {f(summary.get('ece'))} (bar "
+        f"{f(bar['ece'])}), BLEU-4 {summary['bleu']:.4f} (0.0 without "
+        f"nltk), images/s {summary['images_per_sec']:.2f} (harness wall, "
+        f"host metrics included)")
+    if (em < bar["exact_match"] - QUALITY_EXACT_BELOW
+            or cer > bar["corpus_cer"] + QUALITY_CER_ABOVE):
+        raise AssertionError(
+            f"quality {name}: exact match {em} / corpus CER {cer} miss the "
+            f"bar {bar['exact_match']} - {QUALITY_EXACT_BELOW} / "
+            f"{bar['corpus_cer']} + {QUALITY_CER_ABOVE}")
+
+
+def quality_float32(cfg, np_params, tok, batch, fixture):
+    """The first 64 images in float32 on the default route (all 8 decoder
+    layers) and the fused one: predictions equal to JAX's float32 ones on
+    all but at most ``QUALITY_F32_DIFFER``; each difference printed with its first
+    differing step and the card's top-2 logit margin there (the plain
+    decoder's teacher-forced logits on the card's own tokens)."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.core.config import PAD_ID, SOS_ID
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.models import model as model_mod
+    from handwritten_math_ocr_api_torch.models.decoder import decoder_forward
+
+    want = fixture["float32_first64"]
+    cfg32 = cfg.replace(dtype="float32")
+    routes = {"default": {}, "fused": {"use_fused": True,
+                                       "pallas_encoder_block": True}}
+    for route, kw in routes.items():
+        engine = DecodeEngine(np_params, cfg32, tokenizer=tok, device=DEVICE,
+                              **kw)
+        res = engine.decode_tokens(batch["image"])
+        tokens = res.tokens.cpu().tolist()
+        preds = tok.decode_batch(tokens)
+        diffs = []
+        for i, (p, w) in enumerate(zip(preds, want["predictions"])):
+            if p == w:
+                continue
+            ref = want["tokens"][i] + [PAD_ID] * len(tokens[i])
+            s = next(j for j, t in enumerate(tokens[i]) if t != ref[j])
+            x, _ = engine._pad_batch(batch["image"][i:i + 1])
+            with torch.inference_mode():
+                memory = model_mod.encode(
+                    engine.params, cfg32, x,
+                    use_pallas_block=engine.pallas_encoder_block)[:1]
+                tgt = torch.tensor([[SOS_ID] + tokens[i][:s]],
+                                   device=memory.device)
+                logits = decoder_forward(engine.params["decoder"], cfg32,
+                                         memory, tgt)[0, s]
+            diffs.append((i, s, round(float(margin_of(logits)), 6)))
+        equal = len(preds) - len(diffs)
+        log(f"quality float32 {route}: predictions equal to JAX's float32 "
+            f"on {equal} of {len(preds)}; differences (image, first "
+            f"differing step, card top-2 margin) {diffs}")
+        if len(diffs) > QUALITY_F32_DIFFER:
+            raise AssertionError(f"quality float32 {route}: {equal} of "
+                                 f"{len(preds)} predictions equal JAX's")
+
+
+def quality_profile(engine, name, images):
+    """The wall (best of 3) and the device's busy time and idle share of
+    one decode_tokens of the first batch of real images."""
+    import torch
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.decode_tokens(images)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"quality {name}: decode_tokens({len(images)}) of the first batch, "
+        f"{engine.last_steps} steps, seconds {[round(w, 4) for w in walls]}")
+    profile_call(lambda: engine.decode_tokens(images),
+                 f"quality {name} decode_tokens({len(images)})", min(walls),
+                 tries=1)
+
+
+def quality(tok, entries):
+    """Phase "quality": the shipped weights read by the port's own reader,
+    the test split decoded by its PNG reader, both to the fixture's
+    digests; float32 predictions of the first 64 images against JAX's on
+    the default and the fused route; bf16 and int8 scores through the
+    port's harness at batch 64 against the bars, each cell's launches
+    counted (set to 0 before it, read after); one decode of the first batch
+    on each bf16 greedy route timed and profiled."""
+    import ctypes.util
+    import hashlib
+
+    import numpy as np
+
+    from handwritten_math_ocr_api_torch.data.dataset import read_labels
+    from handwritten_math_ocr_api_torch.data.png import read_png_batch
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.eval.harness import evaluate_model
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        leaves_with_paths,
+        load_params_for_serving,
+        tree_digest,
+    )
+
+    log(f"quality: libzstd {ctypes.util.find_library('zstd')}")
+    with open(QUALITY_FIXTURE) as f:
+        fixture = json.load(f)
+    t0 = time.perf_counter()
+    np_params, _, vocab, idx2char, cfg = load_params_for_serving(MODEL_DIR)
+    read_s = time.perf_counter() - t0
+    digest = tree_digest(np_params)
+    leaves = [x for _, x in leaves_with_paths(np_params)]
+    log(f"quality: checkpoint read in {read_s:.2f} s, {len(leaves)} leaves, "
+        f"{sum(x.size for x in leaves)} parameters, tree_digest {digest} "
+        f"(fixture {fixture['tree_digest']})")
+    if digest != fixture["tree_digest"]:
+        raise AssertionError("quality: the checkpoint's tree_digest differs "
+                             "from the fixture's")
+    if tok.vocab != vocab:
+        raise AssertionError("quality: the artifact's vocab.json differs")
+
+    t0 = time.perf_counter()
+    paths = [os.path.join(QUALITY_DATA, "test_formulas", name)
+             for name, _ in read_labels(os.path.join(QUALITY_DATA,
+                                                     "test_labels.csv"))]
+    stack = read_png_batch(paths)
+    png_s = time.perf_counter() - t0
+    sha = hashlib.sha256(stack.tobytes()).hexdigest()
+    log(f"quality: {len(paths)} test PNGs decoded in {png_s:.2f} s, shape "
+        f"{list(stack.shape)}, sha256 {sha} (fixture "
+        f"{fixture['images_sha256']})")
+    if sha != fixture["images_sha256"]:
+        raise AssertionError("quality: the decoded test images differ from "
+                             "the fixture's")
+
+    first = next(iter(quality_loader(tok, cfg, QUALITY_BATCH)))
+    quality_float32(cfg, np_params, tok, first, fixture)
+
+    bars = fixture["bars"]
+    sub = str(QUALITY_SUBSET)
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    cells = [
+        ("fused bf16 greedy", "fused", fused, None, None,
+         bars["bf16_greedy"]["2000"]),
+        ("fused int8 greedy", "fused_int8", {**fused, "quantize": True},
+         None, None, bars["bf16_greedy_int8"]["2000"]),
+        ("default bf16 greedy", "pallas", {}, QUALITY_SUBSET, None,
+         bars["bf16_greedy"][sub]),
+        ("default int8 greedy", "pallas_int8", {"quantize": True},
+         QUALITY_SUBSET, None, bars["bf16_greedy_int8"][sub]),
+        ("fused bf16 beam 5", "fused", fused, QUALITY_SUBSET, BEAM,
+         bars["bf16_beam5"][sub]),
+    ]
+    results = {}
+    for name, route, kw, n, beam, bar in cells:
+        engine = DecodeEngine(np_params, cfg, tokenizer=tok, device=DEVICE,
+                              **kw)
+        engine.warmup((QUALITY_BATCH,), beam_sizes=(beam,) if beam else (),
+                      dtype=np.uint8)
+        counted = CountedEngine(engine)
+        reset_counts()
+        res = evaluate_model(counted, quality_loader(tok, cfg, n), tok, beam)
+        counts = read_counts()
+        expected = expected_launches(cfg, route, counted.calls,
+                                     counted.steps, beam=bool(beam))
+        log(f"quality {name}: {counted.calls} decodes, {counted.steps} "
+            f"steps, {counted.seconds:.2f} s in decode_tokens of the "
+            f"harness's {res['summary']['elapsed_sec']:.2f} s, launches "
+            f"{counts}, expected {expected}")
+        check_counts(counts, expected)
+        for e, c in zip(entries, counts):
+            e.d["launches"] += c
+            e.d["launches_by_route"][f"quality {name}"] = c
+        quality_gate(name, res["summary"], bar)
+        results[name] = res
+        if route in ("fused", "pallas") and not beam:
+            quality_profile(engine, name, first["image"])
+
+    dec = continuous_decoder(cfg, np_params, tok, **fused)
+    dec.warmup(image_dtype=np.uint8)
+    reset_counts()
+    dec.reset_stats()
+    dec.inserts = 0
+    res = evaluate_model(ContinuousEngine(dec),
+                         quality_loader(tok, cfg, QUALITY_SUBSET), tok)
+    name = "continuous fused bf16 greedy"
+    counts = continuous_counts(dec, cfg, "fused", f"quality {name}")
+    dec.close()
+    for e, c in zip(entries, counts):
+        e.d["launches"] += c
+        e.d["launches_by_route"][f"quality {name}"] = c
+    greedy = [r["prediction"] for r in
+              results["fused bf16 greedy"]["records"][:QUALITY_SUBSET]]
+    agree = np.mean([r["prediction"] == g
+                     for r, g in zip(res["records"], greedy)])
+    log(f"quality {name}: predictions equal to fused bf16 greedy's on "
+        f"{agree:.4f} of {QUALITY_SUBSET} (not held)")
+    quality_gate(name, res["summary"], bars["bf16_greedy"][sub])
+    for route in ("fused", "default"):
+        a = results[f"{route} bf16 greedy"]["summary"]["accuracy"]
+        b = results[f"{route} int8 greedy"]["summary"]["accuracy"]
+        log(f"quality: int8 costs {route} greedy {100 * (a - b):.2f} exact-"
+            f"match points on the card ({a:.4f} bf16, {b:.4f} int8)")
+
+
+
 # the fused greedy decode's arms: (variant, int8 resident bundle); the
 # index in kernel_counters() of the kernel each launches, and whether it
 # launches once a step or once a decode
@@ -2795,6 +3104,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_continuous(cfg, tok, entries)
     log(f"serve continuous: phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    quality(tok, entries)
+    log(f"quality: phase seconds {time.perf_counter() - t0:.1f}")
     for route, (greedy, beam) in summary.items():
         modes = [("greedy", greedy)] + ([(f"beam {BEAM}", beam)]
                                         if beam is not None else [])

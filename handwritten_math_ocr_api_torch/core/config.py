@@ -2,8 +2,9 @@
 
 A copy of the serving-relevant part of ``handwritten_math_ocr_api_tpu/
 core/config.py`` (the port imports nothing of the JAX package): the special
-token ids, ``SwinConfig``, ``ResNetConfig``, ``ModelConfig`` and
-``DecodeConfig`` with the same fields and defaults, plus the loader for the
+token ids, ``SwinConfig``, ``ResNetConfig``, ``ModelConfig``,
+``DecodeConfig`` with the same fields and defaults, ``DataConfig``'s paths
+and batch size, plus the loader for the
 ``model_config.json`` that a serving artifact (such as ``serving_model_r4/``)
 carries.
 """
@@ -94,6 +95,24 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Where a split lies and the test loader's batch size:
+    ``{split}_labels.csv`` with columns ``image_filename, latex_label``,
+    images under ``{split}_formulas/``. Only the test loader is ported, so
+    the JAX config's worker, shuffling and augmentation settings are not
+    here."""
+
+    data_root: str = os.environ.get("MATHOCR_DATA_ROOT", "data")
+    batch_size: int = 64
+
+    def img_dir(self, split: str) -> str:
+        return os.path.join(self.data_root, f"{split}_formulas")
+
+    def label_path(self, split: str) -> str:
+        return os.path.join(self.data_root, f"{split}_labels.csv")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,14 +2,20 @@
 
 The port of ``handwritten_math_ocr_api_tpu/data/preprocess.py``. The
 normalize functions take numpy arrays or tensors and compute the same
-float32 ``x / 255 * 2 - 1``. The file loaders need PIL or cv2, which are
-imported inside them, so the package imports without either.
+float32 ``x / 255 * 2 - 1``. ``load_image_png`` and ``preprocess_file``
+read a PNG with the port's own reader (``data/png.py``, numpy and ``zlib``);
+they take images that are already ``img_h x img_w``, since the stretch
+resize of the JAX package's cv2 loader is not ported (on the corpora it is
+the identity). The PIL and cv2 loaders import those inside them, so the
+package imports without either.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .png import read_png
 
 
 def normalize(img_u8):
@@ -42,3 +48,25 @@ def load_image_cv2(path: str, img_h: int = 96, img_w: int = 320) -> np.ndarray:
     if img is None:
         raise FileNotFoundError(f"cannot read image: {path}")
     return cv2.resize(img, (img_w, img_h))
+
+
+def check_size(img: np.ndarray, img_h: int, img_w: int, path: str) -> None:
+    if img.shape != (img_h, img_w):
+        raise ValueError(
+            f"{path}: image is {img.shape[0]}x{img.shape[1]}, the model "
+            f"takes {img_h}x{img_w}; the stretch resize is not ported")
+
+
+def load_image_png(path: str, img_h: int = 96, img_w: int = 320) -> np.ndarray:
+    """The cv2 loader's counterpart on the port's PNG reader, for images
+    already at the model's size: uint8 (H, W)."""
+    img = read_png(path)
+    check_size(img, img_h, img_w, path)
+    return img
+
+
+def preprocess_file(path: str, cfg=None) -> np.ndarray:
+    """One file -> normalized float32 (1, H, W, 1) NHWC batch."""
+    h = cfg.img_h if cfg else 96
+    w = cfg.img_w if cfg else 320
+    return normalize(load_image_png(path, h, w))[None, ..., None]
