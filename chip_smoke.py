@@ -124,10 +124,13 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    (``eval/harness.evaluate_model``) at batch 64, each cell's launch counts
    set to 0 before it and checked after: fused bf16 and int8 greedy on all
    2,000 images, default bf16 and int8 greedy (8 layers) and fused beam 5
-   on the first 512, and ``ContinuousDecoder`` (fused bf16, one request an
-   image) on the first 512; each cell's exact match no more than 1.5
-   points under its bar and corpus CER no more than 0.01 above it, beside
-   its valid LaTeX, mean confidence, ECE and images/s;
+   on the first 512, ``ContinuousDecoder`` (fused bf16, one request an
+   image) on the first 512, and fused bf16 greedy with ``constrained=True``
+   on the first 512 (valid LaTeX exactly 1); each cell's exact match no
+   more than 1.5 points under its bar and corpus CER no more than 0.01
+   above it, beside its valid LaTeX, mean confidence, ECE and images/s;
+   then fused bf16 sampling with ``top_k=1`` on the first 64, its strings
+   equal to fused greedy's;
 8. the fused greedy decode's A/B arms (``greedy_decode_fused(variant=)``:
    v1, v2, v3, v4, and v5 with the int8 and the bf16 resident bundle) at
    full width on the fused route's encoder memory of the 10-image request:
@@ -136,12 +139,30 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    tokens of every arm equal to its plain path's and v2's (the int8 v5,
    whose matmul inputs round to bf16, held as the whole decode is in
    phase 3);
-9. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+9. "serve modes", the decode modes and serving engines beside greedy and
+   beam, each path's launch counts set to 0 before it and checked after:
+   ``sample_tokens`` of the 10-image request on four routes (default and
+   fused, float and int8; the default ones at ``DEFAULT_ROUTE_LAYERS``),
+   one seed twice equal and two seeds different in bf16, ``top_k=1``
+   equal to greedy in float32, images/s and (fused) the idle share;
+   constrained greedy on both routes (every output valid by
+   ``eval/latex_check.check_latex``, float32 tokens equal to the plain
+   path's) and ``ContinuousDecoder(constrained=True)`` (fused, ring on and
+   off; default) equal to its route's constrained engine in float32;
+   ``predict_stream`` of one image at segments of 8 and 16 on both routes,
+   float32, equal to ``predict_single`` with one host read a segment, the
+   time to the first event beside the stream's; ``serve/batcher.py``'s
+   ``BatchingEngine`` and ``ContinuousServingEngine`` (fused, 32 slots)
+   under 40 concurrent requests in float32, each result equal to its image
+   decoded alone, a cancelled waiter dropped or its slot freed, stats and
+   images/s. The streams, continuous runs and engines use the seeded
+   weights with the EOS bias raised (and the PAD bias lowered);
+10. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-It imports torch, numpy and the port only; phases 1-6 and 8 run on seeded
-random weights, phase 7 reads the checkpoint and the test split. It exits
-non-zero on any failure, or when no CUDA device is present.
+It imports torch, numpy and the port only; phases 1-6, 8 and 9 run on
+seeded random weights, phase 7 reads the checkpoint and the test split. It
+exits non-zero on any failure, or when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -1739,6 +1760,13 @@ def check_counts(counts, expected):
         raise AssertionError(f"kernel launches {counts} != {expected}")
 
 
+def tally(entries, counts, route):
+    """Add a path's launch counts to the kernels' entries."""
+    for e, n in zip(entries, counts):
+        e.d["launches"] += n
+        e.d["launches_by_route"][route] = n
+
+
 # the port's kernels as the profiler names them
 PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "window_attention", "window_attention_mma", "patch_merging",
@@ -1962,9 +1990,7 @@ def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
         f"steps {steps}, launches {counts}, expected {expected} "
         f"({[e.d['name'] for e in entries]})")
     check_counts(counts, expected)
-    for e, n in zip(entries, counts):
-        e.d["launches"] += n
-        e.d["launches_by_route"][route] = n
+    tally(entries, counts, route)
     if len(texts) != N_IMAGES or not all(isinstance(s, str) for s in texts):
         raise AssertionError("predict_batch returned malformed texts")
     if not (isinstance(latex, str) and 0.0 <= conf <= 1.0):
@@ -2160,9 +2186,7 @@ def serve_beam(engine, engine32, images, entries, route):
     log(f"serve {name}: predict_batch({N_IMAGES}, beam_size={BEAM}): "
         f"decode steps {steps}, launches {counts}, expected {expected}")
     check_counts(counts, expected)
-    for e, n in zip(entries, counts):
-        e.d["launches"] += n
-        e.d["launches_by_route"][name] = n
+    tally(entries, counts, name)
     if len(texts) != N_IMAGES or not all(isinstance(t, str) for t in texts):
         raise AssertionError("beam predict_batch returned malformed texts")
     log(f"serve {name}: first text {texts[0][:80]!r}")
@@ -2482,11 +2506,6 @@ def serve_continuous(cfg, tok, entries):
         p["decoder"]["fc_out"]["b"][EOS_ID] += EOS_BOOST
         return p
 
-    def tally(counts, route):
-        for e, n in zip(entries, counts):
-            e.d["launches"] += n
-            e.d["launches_by_route"][route] = n
-
     np_params = params_of(cfg)
     dec = continuous_decoder(cfg, np_params, tok, **fused)
     dec.warmup(image_dtype=np.uint8)
@@ -2494,7 +2513,7 @@ def serve_continuous(cfg, tok, entries):
     dec.reset_stats()
     dec.inserts = 0
     _, bf16_res, first = continuous_traffic(dec, images)
-    tally(continuous_counts(dec, cfg, "fused", "fused bf16"),
+    tally(entries, continuous_counts(dec, cfg, "fused", "fused bf16"),
           "continuous fused")
     st = dec.stats
     log(f"continuous fused bf16: stats avg_occupancy "
@@ -2533,7 +2552,7 @@ def serve_continuous(cfg, tok, entries):
         reset_counts()
         pairs, res, _ = continuous_traffic(d, images)
         name = f"fused float32 ring {ring}"
-        tally(continuous_counts(d, cfg32, "fused", name),
+        tally(entries, continuous_counts(d, cfg32, "fused", name),
               f"continuous fused float32 ring {ring}")
         continuous_vs(name, res, want, pairs, pairs_want)
         runs[ring] = (res, pairs)
@@ -2547,7 +2566,8 @@ def serve_continuous(cfg, tok, entries):
         d = continuous_decoder(c, p, tok, quantize=True, **fused)
         reset_counts()
         _, got, _ = continuous_traffic(d, images)
-        tally(continuous_counts(d, c, "fused", name), f"continuous {name}")
+        tally(entries, continuous_counts(d, c, "fused", name),
+              f"continuous {name}")
         d.close()
         engine = DecodeEngine(p, c, tokenizer=tok, device=DEVICE,
                               quantize=True, **fused)
@@ -2574,7 +2594,8 @@ def serve_continuous(cfg, tok, entries):
     d = continuous_decoder(mqa32, mqa_params, tok, **fused)
     reset_counts()
     pairs, res, _ = continuous_traffic(d, images)
-    tally(continuous_counts(d, mqa32, "fused", "fused mqa float32"),
+    tally(entries,
+          continuous_counts(d, mqa32, "fused", "fused mqa float32"),
           "continuous fused mqa float32")
     continuous_vs("fused mqa float32", res, engine.decode_tokens(images),
                   pairs, engine.predict_with_confidence(images))
@@ -2588,7 +2609,7 @@ def serve_continuous(cfg, tok, entries):
     d = continuous_decoder(cut, cut_params, tok)
     reset_counts()
     pairs, res, _ = continuous_traffic(d, images)
-    tally(continuous_counts(d, cut, "pallas", "default float32"),
+    tally(entries, continuous_counts(d, cut, "pallas", "default float32"),
           "continuous default float32")
     continuous_vs("default float32", res, engine.decode_tokens(images),
                   pairs, engine.predict_with_confidence(images))
@@ -2613,7 +2634,8 @@ QUALITY_F32_DIFFER = 1
 
 
 class CountedEngine:
-    """A DecodeEngine for the harness that counts its decodes (one encode
+    """A DecodeEngine for the harness (``decode_tokens``) or the batcher
+    (``predict_with_confidence``) that counts its decodes (one encode
     each), their decode steps and the host seconds they take (each decode
     ends on its loop's read of the finished flags)."""
 
@@ -2630,6 +2652,14 @@ class CountedEngine:
         self.calls += 1
         self.steps += self.engine.last_steps
         return res
+
+    def predict_with_confidence(self, images):
+        t0 = time.perf_counter()
+        out = self.engine.predict_with_confidence(images)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.steps += self.engine.last_steps
+        return out
 
 
 class ContinuousEngine:
@@ -2761,6 +2791,30 @@ def quality_profile(engine, name, images):
                  tries=1)
 
 
+def quality_top1(np_params, cfg, tok, entries, images):
+    """Sampling with ``top_k=1`` on the first batch of real images, fused
+    bf16, launches counted: its strings equal fused greedy's (the same
+    kernels compute the same logits; only the argmax survives top-1)."""
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    greedy = DecodeEngine(np_params, cfg, tokenizer=tok, device=DEVICE,
+                          use_fused=True, pallas_encoder_block=True)
+    want = tok.decode_batch(greedy.decode_tokens(images).tokens.tolist())
+    got = []
+
+    def run():
+        got.extend(tok.decode_batch(greedy.sample_tokens(
+            images, top_k=1, seed=SEED).tokens.tolist()))
+        return greedy.last_steps
+
+    counted(entries, "quality sample top_k=1", run, route_shape(cfg, "fused"))
+    equal = sum(g == w for g, w in zip(got, want))
+    log(f"quality fused bf16 sample top_k=1: strings equal fused greedy's "
+        f"on {equal} of {len(want)}")
+    if equal != len(want):
+        raise AssertionError("quality: top_k=1 sampling differs from greedy")
+
+
 def quality(tok, entries):
     """Phase "quality": the shipped weights read by the port's own reader,
     the test split decoded by its PNG reader, both to the fixture's
@@ -2832,6 +2886,9 @@ def quality(tok, entries):
          QUALITY_SUBSET, None, bars["bf16_greedy_int8"][sub]),
         ("fused bf16 beam 5", "fused", fused, QUALITY_SUBSET, BEAM,
          bars["bf16_beam5"][sub]),
+        ("fused bf16 constrained greedy", "fused",
+         {**fused, "constrained": True}, QUALITY_SUBSET, None,
+         bars["bf16_greedy_constrained"][sub]),
     ]
     results = {}
     for name, route, kw, n, beam, bar in cells:
@@ -2850,13 +2907,17 @@ def quality(tok, entries):
             f"harness's {res['summary']['elapsed_sec']:.2f} s, launches "
             f"{counts}, expected {expected}")
         check_counts(counts, expected)
-        for e, c in zip(entries, counts):
-            e.d["launches"] += c
-            e.d["launches_by_route"][f"quality {name}"] = c
+        tally(entries, counts, f"quality {name}")
         quality_gate(name, res["summary"], bar)
         results[name] = res
-        if route in ("fused", "pallas") and not beam:
+        if name in ("fused bf16 greedy", "default bf16 greedy"):
             quality_profile(engine, name, first["image"])
+        if engine.constraint is not None:
+            valid = res["summary"]["valid_latex"]
+            if valid != 1.0:
+                raise AssertionError(f"quality {name}: valid LaTeX {valid}, "
+                                     f"not 1 (constrained by construction)")
+    quality_top1(np_params, cfg, tok, entries, first["image"])
 
     dec = continuous_decoder(cfg, np_params, tok, **fused)
     dec.warmup(image_dtype=np.uint8)
@@ -2868,9 +2929,7 @@ def quality(tok, entries):
     name = "continuous fused bf16 greedy"
     counts = continuous_counts(dec, cfg, "fused", f"quality {name}")
     dec.close()
-    for e, c in zip(entries, counts):
-        e.d["launches"] += c
-        e.d["launches_by_route"][f"quality {name}"] = c
+    tally(entries, counts, f"quality {name}")
     greedy = [r["prediction"] for r in
               results["fused bf16 greedy"]["records"][:QUALITY_SUBSET]]
     agree = np.mean([r["prediction"] == g
@@ -2959,9 +3018,7 @@ def serve_variants(cfg, np_params, tok, entries):
         log(f"variant {arm}: {res.steps} steps, launches {counts}, "
             f"expected {expected}")
         check_counts(counts, expected)
-        for e, n in zip(entries, counts):
-            e.d["launches"] += n
-            e.d["launches_by_route"][f"variant {arm}"] = n
+        tally(entries, counts, f"variant {arm}")
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -3013,6 +3070,451 @@ def serve_variants(cfg, np_params, tok, entries):
                 raise AssertionError(f"variant {arm}: float32 log-prob sums "
                                      f"differ by {lp_err}")
     return summary
+
+
+# phase "serve modes": sampling, constrained greedy, streaming and the
+# serving engines of serve/batcher.py
+MODES_SEEDS = (11, 12)
+MODES_TEMPERATURE = 1.0
+MODES_SEGMENTS = (8, 16)
+
+
+def counted(entries, name, fn, expected_of):
+    """Run ``fn`` (which returns the decode steps it ran) with every launch
+    count set to 0 before it; check the counts after against
+    ``expected_of(steps)``; add them to the entries. Returns fn's steps."""
+    reset_counts()
+    steps = fn()
+    counts = read_counts()
+    expected = expected_of(steps)
+    log(f"modes {name}: {steps} steps, launches {counts}, expected "
+        f"{expected}")
+    check_counts(counts, expected)
+    tally(entries, counts, f"modes {name}")
+    return steps
+
+
+def route_shape(cfg, route):
+    """``expected_launches`` of one encode and its decode on ``route``."""
+    return lambda steps: expected_launches(cfg, route, 1, steps)
+
+
+def boosted_params(c, seed=SEED):
+    """Seeded weights with the EOS bias raised (``EOS_BOOST``: rows end at
+    1-150 steps) and the PAD bias lowered (a trained model never emits PAD,
+    and a PAD token ends a stream segment's harvest: ROADMAP C3)."""
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import EOS_ID, PAD_ID
+
+    p = convert.random_params(c, seed)
+    p["decoder"]["fc_out"]["b"][EOS_ID] += EOS_BOOST
+    p["decoder"]["fc_out"]["b"][PAD_ID] = -1e4
+    return p
+
+
+def modes_sampling(cfg, np_params, cut, cut_params, tok, entries, images):
+    """Sampling: ``sample_tokens`` of the images on four routes (default
+    and fused, float and int8), launch counts; the same seed twice gives
+    the same bf16 tokens, two seeds differ; in float32, ``top_k=1`` equals
+    the route's greedy tokens. images/s (best of 3) and, on the fused
+    routes, the idle share. Returns {route: (images/s, idle)}."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    routes = {"pallas": (cut, cut_params, {}),
+              "pallas_int8": (cut, cut_params, {"quantize": True}),
+              "fused": (cfg, np_params, fused),
+              "fused_int8": (cfg, np_params, {**fused, "quantize": True})}
+    out = {}
+    kw = {"temperature": MODES_TEMPERATURE}
+    for route, (c, p, rkw) in routes.items():
+        engine = DecodeEngine(p, c, tokenizer=tok, device=DEVICE, **rkw)
+        engine.sample_tokens(images, seed=MODES_SEEDS[0], **kw)   # warm up
+        torch.cuda.synchronize()
+        runs = []
+
+        def sample(seed):
+            runs.append(engine.sample_tokens(images, seed=seed, **kw))
+            torch.cuda.synchronize()
+            return engine.last_steps
+
+        counted(entries, f"sample {route}", lambda: sample(MODES_SEEDS[0]),
+                route_shape(c, route))
+        sample(MODES_SEEDS[0])
+        sample(MODES_SEEDS[1])
+        if not torch.equal(runs[0].tokens, runs[1].tokens):
+            raise AssertionError(f"modes sample {route}: one seed gave "
+                                 f"two token sets")
+        if torch.equal(runs[0].tokens, runs[2].tokens):
+            raise AssertionError(f"modes sample {route}: two seeds gave "
+                                 f"the same tokens")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.sample_tokens(images, seed=MODES_SEEDS[0], **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        best = min(walls)
+        idle = None
+        if engine.use_fused:   # a default-route session takes ~40 s to read
+            idle = profile_call(
+                lambda: engine.sample_tokens(images, seed=MODES_SEEDS[0],
+                                             **kw),
+                f"modes sample {route}", best, tries=2)
+        out[route] = (len(images) / best, idle)
+        log(f"modes sample {route}: seconds {[round(w, 4) for w in walls]}, "
+            f"{engine.last_steps} steps, images/s {len(images) / best:.2f}; "
+            f"seed {MODES_SEEDS[0]} twice equal, seeds {MODES_SEEDS} differ "
+            f"on {(runs[0].tokens != runs[2].tokens).float().mean():.4f} of "
+            f"the tokens; first text "
+            f"{tok.decode(runs[0].tokens[0].tolist())[:60]!r}")
+
+        c32 = c.replace(dtype="float32")
+        e32 = DecodeEngine(p, c32, tokenizer=tok, device=DEVICE, **rkw)
+        greedy = e32.decode_tokens(images)
+        top1 = e32.sample_tokens(images, top_k=1, seed=MODES_SEEDS[1],
+                                 temperature=1.7)
+        if not (torch.equal(greedy.tokens, top1.tokens)
+                and torch.equal(greedy.token_count, top1.token_count)):
+            raise AssertionError(f"modes sample {route}: float32 top_k=1 "
+                                 f"tokens differ from greedy's")
+        lp = (greedy.logprob_sum - top1.logprob_sum).abs().max().item()
+        if lp > 1e-3:
+            raise AssertionError(f"modes sample {route}: float32 top_k=1 "
+                                 f"log-prob sums differ by {lp}")
+        log(f"modes sample {route}: float32 top_k=1 tokens equal greedy's "
+            f"over {greedy.steps} steps (log-prob sums within {lp:.3g})")
+    return out
+
+
+def modes_constrained(cfg, np_params, cut, cut_params, tok, entries,
+                      images):
+    """Constrained greedy: the images on both routes in bf16, launch
+    counts, every output valid by the port's ``check_latex``; in float32
+    the kernels' tokens equal the plain path's. ``ContinuousDecoder(
+    constrained=True)`` on the EOS-boosted weights in float32 (the fused
+    route with the ring on and off, and the default route) equal to the
+    constrained engine of its route."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.decode.fused import (
+        greedy_decode_fused,
+    )
+    from handwritten_math_ocr_api_torch.decode.greedy import greedy_decode
+    from handwritten_math_ocr_api_torch.eval.latex_check import check_latex
+    from handwritten_math_ocr_api_torch.models import model as model_mod
+
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    routes = {"pallas": (cut, cut_params, {}),
+              "fused": (cfg, np_params, fused)}
+    for route, (c, p, rkw) in routes.items():
+        engine = DecodeEngine(p, c, tokenizer=tok, device=DEVICE,
+                              constrained=True, **rkw)
+        engine.warmup((len(images),), dtype=images.dtype)
+        torch.cuda.synchronize()
+        results = []
+
+        def run():
+            results.extend(engine.predict_with_confidence(images))
+            torch.cuda.synchronize()
+            return engine.last_steps
+
+        counted(entries, f"constrained {route}", run, route_shape(c, route))
+        invalid = [(f, check_latex(f)[1]) for f, _ in results
+                   if not check_latex(f)[0]]
+        if invalid:
+            raise AssertionError(f"modes constrained {route}: invalid "
+                                 f"LaTeX {invalid[:2]}")
+        log(f"modes constrained {route}: {len(results)} outputs valid "
+            f"LaTeX; first {results[0][0][:60]!r}")
+
+        c32 = c.replace(dtype="float32")
+        e32 = DecodeEngine(p, c32, tokenizer=tok, device=DEVICE,
+                           constrained=True, **rkw)
+        x, n = e32._pad_batch(images[:4])
+        dec = e32.params["decoder"]
+        with torch.inference_mode():
+            mem_k = model_mod.encode(e32.params, c32, x,
+                                     use_pallas_block=e32.pallas_encoder_block)
+            mem_p = model_mod.encode(e32.params, c32, x, kernels=False,
+                                     use_pallas_block=e32.pallas_encoder_block)
+            if e32.use_fused:
+                r_k, r_p = (greedy_decode_fused(
+                    dec, e32.stacked, c32, m, constraint=e32.constraint,
+                    kernels=k) for m, k in ((mem_k, True), (mem_p, False)))
+            else:
+                r_k, r_p = (greedy_decode(
+                    dec, c32, m, constraint=e32.constraint, kernels=k)
+                    for m, k in ((mem_k, True), (mem_p, False)))
+        if not torch.equal(r_k.tokens, r_p.tokens):
+            raise AssertionError(f"modes constrained {route}: float32 "
+                                 f"tokens differ from the plain path's")
+        log(f"modes constrained {route}: float32 tokens equal the plain "
+            f"path's over {r_k.steps} steps")
+
+    # continuous, on the EOS-boosted weights, in float32
+    cfg32, cut32 = cfg.replace(dtype="float32"), cut.replace(dtype="float32")
+    for route, c, kw in (("fused", cfg32, {**fused, "segment_ring": True}),
+                         ("fused", cfg32, {**fused, "segment_ring": False}),
+                         ("pallas", cut32, {})):
+        p = boosted_params(c)
+        want = DecodeEngine(p, c, tokenizer=tok, device=DEVICE,
+                            constrained=True,
+                            **{k: v for k, v in kw.items()
+                               if k != "segment_ring"})
+        pairs_want = want.predict_with_confidence(images)
+        d = continuous_decoder(c, p, tok, constrained=True, **kw)
+        reset_counts()
+        pairs, res, _ = continuous_traffic(d, images)
+        name = (f"constrained {route}"
+                + (f" ring {kw['segment_ring']}" if d.use_fused else ""))
+        tally(entries, continuous_counts(d, c, route, name),
+              f"modes {name}")
+        d.close()
+        continuous_vs(name, res, want.decode_tokens(images), pairs,
+                      pairs_want)
+
+
+def modes_streaming(cfg, cut, tok, entries, images):
+    """Streaming on the EOS-boosted weights, float32: ``predict_stream`` of
+    one image (the longest greedy decode that ends) on both routes at
+    segments of 8 and 16; the events' tokens equal its greedy tokens and
+    the final result ``predict_single``'s; one host read a segment; launch
+    counts (the route's encode, then B5 in every layer of every streamed
+    step); the time to the first event beside the stream's."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    out = {}
+    for route, c, rkw in (("pallas", cut, {}),
+                          ("fused", cfg, {"use_fused": True,
+                                          "pallas_encoder_block": True})):
+        c32 = c.replace(dtype="float32")
+        engine = DecodeEngine(boosted_params(c32), c32, tokenizer=tok,
+                              device=DEVICE, **rkw)
+        res = engine.decode_tokens(images)
+        counts = res.token_count.tolist()
+        # the longest decode that ends: the most segments
+        ends = [n for n in counts if n < c32.max_seq_len]
+        if not ends:
+            raise AssertionError(f"modes stream {route}: no image ends")
+        at = counts.index(max(ends))
+        img = images[at]
+        want = [tok.idx2char[t] for t in res.tokens[at, :counts[at]].tolist()]
+        latex, conf = engine.predict_single(img)
+        for seg in MODES_SEGMENTS:
+            list(engine.predict_stream(img, segment_steps=seg))  # warm up
+            torch.cuda.synchronize()
+            events, stamps = [], []
+
+            def stream():
+                reads = engine.stream_reads
+                t0 = time.perf_counter()
+                for e in engine.predict_stream(img, segment_steps=seg):
+                    stamps.append(time.perf_counter() - t0)
+                    events.append(e)
+                torch.cuda.synchronize()
+                segments = engine.stream_reads - reads
+                out[(route, seg)] = (stamps[0], time.perf_counter() - t0,
+                                     segments)
+                return segments * seg
+
+            L = c32.num_decoder_layers
+
+            def shape(steps):
+                # the route's encode, then decoder_step: B5 in every layer
+                expected = expected_launches(c32, route, 1, 0)
+                expected[2] += L * steps
+                return expected
+
+            steps = counted(entries, f"stream {route} {seg}", stream, shape)
+            streamed = [t for e in events[:-1] for t in e["tokens"]]
+            final = events[-1]
+            if (streamed != want or final["formula"] != latex
+                    or abs(final["confidence"] - conf) > 1e-4):
+                raise AssertionError(
+                    f"modes stream {route} {seg}: the stream "
+                    f"{' '.join(streamed)[:80]!r} / {final} differs from "
+                    f"predict_single's {latex[:80]!r}, {conf}")
+            if steps // seg != -(-(len(streamed) + 1) // seg):
+                raise AssertionError(f"modes stream {route} {seg}: "
+                                     f"{steps // seg} host reads for "
+                                     f"{len(streamed) + 1} steps")
+            first, whole, segments = out[(route, seg)]
+            log(f"modes stream {route} {seg}: image {at}, "
+                f"{len(streamed)} tokens + EOS, {segments} segments and "
+                f"host reads, B5 {L} a step; first event {first * 1e3:.1f} "
+                f"ms, the whole stream {whole * 1e3:.1f} ms "
+                f"(predict_single's confidence {conf:.4f})")
+    return out
+
+
+def modes_engines(cfg, tok, entries, images):
+    """The serving engines over the fused route, float32, EOS-boosted
+    weights: 40 concurrent ``predict`` coroutines through ``BatchingEngine``
+    (over the fused engine) and ``ContinuousServingEngine`` (over a
+    32-slot fused ``ContinuousDecoder``), each result equal to its image
+    decoded alone; launch counts; one waiter cancelled: the batcher drops
+    it before its dispatch (``cancelled`` 1), the continuous engine frees
+    its slot (``cancelled`` 1, every slot free at the end); stats and
+    images/s."""
+    import asyncio
+
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.serve.batcher import (
+        BatchingEngine,
+        ContinuousServingEngine,
+    )
+
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    c32 = cfg.replace(dtype="float32")
+    p = boosted_params(c32)
+    engine = DecodeEngine(p, c32, tokenizer=tok, device=DEVICE, **fused)
+    engine.warmup((1, 64))
+    alone = [engine.predict_single(img) for img in images]
+    # the longest decode among the requests the pool admits first: still
+    # in its slot when cancelled
+    steps = engine.decode_tokens(images[:CONT_SLOTS]).token_count.tolist()
+    longest = steps.index(max(steps))
+
+    def same(name, got):
+        bad = [i for i, (g, w) in enumerate(zip(got, alone))
+               if g[0] != w[0] or abs(g[1] - w[1]) > 1e-4]
+        if bad:
+            raise AssertionError(f"modes {name}: results differ from each "
+                                 f"image decoded alone in {bad}")
+
+    async def burst(eng, cancel=None):
+        await eng.start()
+        t0 = time.perf_counter()
+        tasks = [asyncio.ensure_future(eng.predict(img)) for img in images]
+        if cancel is not None:
+            # inside the batcher's linger; mid-decode in a slot
+            await asyncio.sleep(0.02)
+            tasks[cancel].cancel()
+        got = await asyncio.gather(*tasks, return_exceptions=True)
+        wall = time.perf_counter() - t0
+        await eng.stop()
+        return got, wall
+
+    out = {}
+    served = CountedEngine(engine)
+    batcher = BatchingEngine(served)
+    got, wall = asyncio.run(burst(batcher))
+    same("batcher", got)
+    reset_counts()
+    served.calls = served.steps = 0
+    batcher = BatchingEngine(served)
+    got, wall = asyncio.run(burst(batcher))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expected = expected_launches(c32, "fused", served.calls, served.steps)
+    log(f"modes batcher: {served.calls} decodes, {served.steps} steps, "
+        f"launches {counts}, expected {expected}")
+    check_counts(counts, expected)
+    tally(entries, counts, "modes batcher")
+    same("batcher", got)
+    st = batcher.stats
+    out["batcher"] = len(images) / wall
+    log(f"modes batcher: {len(images)} concurrent requests in "
+        f"{wall * 1e3:.1f} ms, images/s {len(images) / wall:.2f}; stats "
+        f"batches_run {st['batches_run']} avg_batch_size "
+        f"{st['avg_batch_size']:.2f} decode "
+        f"{st['stages']['decode']['total_sec']:.3f} s queue_wait "
+        f"{st['stages']['queue_wait']['total_sec']:.3f} s")
+    batcher = BatchingEngine(served, batch_timeout_ms=200.0)
+    got, _ = asyncio.run(burst(batcher, cancel=5))
+    if not (isinstance(got[5], asyncio.CancelledError)
+            and batcher.cancelled == 1
+            and batcher.total_batch_occupancy == len(images) - 1):
+        raise AssertionError(f"modes batcher: a cancelled waiter was not "
+                             f"dropped ({batcher.stats})")
+    same("batcher cancel", [g if i != 5 else alone[5]
+                            for i, g in enumerate(got)])
+    log("modes batcher: the waiter cancelled in the linger window took no "
+        "row; cancelled 1")
+
+    for cancel in (None, longest):
+        dec = continuous_decoder(c32, p, tok, **fused)
+        dec.warmup()
+        reset_counts()
+        dec.reset_stats()
+        dec.inserts = 0
+        serving = ContinuousServingEngine(dec)
+        got, wall = asyncio.run(burst(serving, cancel=cancel))
+        torch.cuda.synchronize()
+        name = "continuous engine" + (" cancel" if cancel else "")
+        tally(entries, continuous_counts(dec, c32, "fused", name),
+              f"modes {name}")
+        st = serving.stats
+        if cancel is None:
+            same(name, got)
+            out["continuous"] = len(images) / wall
+            log(f"modes {name}: {len(images)} concurrent requests in "
+                f"{wall * 1e3:.1f} ms, images/s {len(images) / wall:.2f}; "
+                f"stats segments_run {st['segments_run']} avg_occupancy "
+                f"{st['avg_occupancy']:.4f} worker_step_s "
+                f"{st['worker_step_s']} worker_other_s "
+                f"{st['worker_other_s']} worker_iters {st['worker_iters']}")
+        else:
+            same(name, [g if i != cancel else alone[cancel]
+                        for i, g in enumerate(got)])
+            if not (isinstance(got[cancel], asyncio.CancelledError)
+                    and st["cancelled_waiters"] == 1 and dec.cancelled == 1
+                    and dec.idle
+                    and sorted(dec._free) == list(range(CONT_SLOTS))):
+                raise AssertionError(f"modes {name}: the cancelled "
+                                     f"request's slot was not reclaimed "
+                                     f"({st})")
+            log(f"modes {name}: request {cancel} ({steps[cancel]} tokens "
+                f"alone) cancelled in its slot after 20 ms: cancelled 1, "
+                f"every slot free after the burst")
+    return out
+
+
+def serve_modes(cfg, tok, entries):
+    """Phase "serve modes" (module docstring)."""
+    import numpy as np
+
+    from handwritten_math_ocr_api_torch import convert
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    images = rng.integers(0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1),
+                          dtype=np.uint8)
+    many = np.random.default_rng(SEED + 7).integers(
+        0, 256, (CONT_IMAGES, cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+    np_params = convert.random_params(cfg, SEED)
+    cut = cfg.replace(num_decoder_layers=DEFAULT_ROUTE_LAYERS)
+    cut_params = convert.random_params(cut, SEED)
+    rates = modes_sampling(cfg, np_params, cut, cut_params, tok, entries,
+                           images)
+    log(f"modes: sampling seconds {time.perf_counter() - t0:.1f}")
+    modes_constrained(cfg, np_params, cut, cut_params, tok, entries, images)
+    log(f"modes: constrained seconds {time.perf_counter() - t0:.1f}")
+    streams = modes_streaming(cfg, cut, tok, entries, images)
+    log(f"modes: streaming seconds {time.perf_counter() - t0:.1f}")
+    engines = modes_engines(cfg, tok, entries, many)
+    for route, (rate, idle) in rates.items():
+        idle_s = "not measured" if idle is None else f"{idle:.3f}"
+        log(f"route modes sample {route}: images/s {rate:.2f}, device idle "
+            f"share {idle_s}")
+    for (route, seg), (first, whole, segments) in streams.items():
+        log(f"route modes stream {route} {seg}: first event "
+            f"{first * 1e3:.1f} ms, stream {whole * 1e3:.1f} ms, "
+            f"{segments} segments")
+    for name, rate in engines.items():
+        log(f"route modes {name}: images/s {rate:.2f} (float32, "
+            f"{CONT_IMAGES} concurrent requests)")
+    seconds = time.perf_counter() - t0
+    log(f"serve modes: phase seconds {seconds:.1f}")
+
 
 
 def main() -> int:
@@ -3129,6 +3631,8 @@ def main() -> int:
         idle_s = "not measured" if idle is None else f"{idle:.3f}"
         log(f"variant {arm}: images/s {rate:.2f}, device idle share "
             f"{idle_s} (of the best unprofiled decode), {steps} steps")
+
+    serve_modes(cfg, tok, entries)
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

@@ -1,1 +1,2 @@
-"""Greedy, beam and continuous decoding and the DecodeEngine of the port."""
+"""Greedy, beam, sampled, constrained, streamed and continuous decoding and
+the DecodeEngine of the port."""

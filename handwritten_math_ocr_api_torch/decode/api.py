@@ -42,14 +42,28 @@ and decodes on the default route, as JAX's engine does.
 
 Beam search decodes the images of the request only: the zero images that
 pad a batch to its bucket are encoded (the encoder runs at the bucket) but
-not decoded, as their rows of the result are dropped anyway. Sampling,
-constrained and streaming decoding are not ported yet.
+not decoded, as their rows of the result are dropped anyway.
+
+The other decode modes of the JAX engine, on both routes:
+
+- ``constrained=True``: greedy decoding under the pushdown mask of
+  ``decode/constrain.py`` (structurally valid LaTeX by construction);
+  beam, sampled and streamed decodes ignore it, as in JAX;
+- ``sample_tokens`` and ``predict_single_sampled``: temperature, top-k and
+  top-p sampling (``decode/sampling.py``) from a seeded
+  ``torch.Generator`` on the engine's device; the default route steps
+  through ``decoder_step``, the fused one through the fused step kernel
+  (``greedy_decode_fused(rng=...)``);
+- ``predict_stream``: the greedy tokens in segments (``decode/
+  streaming.py``) through ``decoder_step`` on the float (or, on the
+  default route, int8) decoder tree, on the fused route too, as JAX's
+  engine streams; one host read a segment.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +78,11 @@ from ..ops.fused_step import build_stacked_full, quantize_stacked
 from ..ops.quant import quantize_decoder_params
 from ..ops.swin_block import with_float32_biases
 from .beam import beam_decode
+from .constrain import build_tables
 from .fused import beam_decode_fused, greedy_decode_fused
 from .greedy import GreedyResult, greedy_decode
+from .sampling import sample_decode
+from .streaming import stream_report, stream_segment, stream_start
 
 EMPTY_RESULT_FALLBACK = (
     r"\text{Unable to detect a formula from the image. Please verify the model.}"
@@ -86,7 +103,8 @@ class DecodeEngine:
                  decode_cfg: Optional[DecodeConfig] = None,
                  tokenizer: Optional[Tokenizer] = None, *,
                  use_fused: bool = False, pallas_encoder_block: bool = False,
-                 quantize: bool = False, device=None):
+                 quantize: bool = False, constrained: bool = False,
+                 device=None):
         """``params``: the model's parameter tree with numpy or tensor
         leaves (a JAX tree after ``np.asarray`` on each leaf, or
         ``convert.random_params``); ``convert.to_torch`` moves it to
@@ -100,11 +118,20 @@ class DecodeEngine:
         else the decoder tree's (quantized from ``params`` before it moves
         to the device). A GQA config with ``use_fused`` warns and takes the
         default route (and, with ``quantize``, its int8 decoder tree), as
-        the JAX engine does."""
+        the JAX engine does. ``constrained`` constrains greedy decoding
+        (module docstring); its tables come from the tokenizer's vocab,
+        so it raises ``ValueError`` without one."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.decode_cfg = decode_cfg or DecodeConfig()
         self.tokenizer = tokenizer
+        self.constraint = None
+        if constrained:
+            if tokenizer is None:
+                raise ValueError(
+                    "constrained decoding needs a tokenizer (its vocab "
+                    "derives the grammar class tables)")
+            self.constraint = build_tables(tokenizer.vocab, self.device)
         if use_fused and 1 < cfg.kv_heads < cfg.nhead:
             # the fused steps take MHA and MQA (nhead_kv=1) only
             logging.getLogger(__name__).warning(
@@ -129,6 +156,7 @@ class DecodeEngine:
             if quantize:
                 self.stacked = quantize_stacked(self.stacked)
         self.last_steps = 0  # decoder steps of the latest decode
+        self.stream_reads = 0  # host reads of predict_stream's segments
 
     def _pad_batch(self, images) -> Tuple[torch.Tensor, int]:
         """(B, H, W, 1) float or uint8 (or (B, H, W) uint8) -> a normalized
@@ -147,15 +175,32 @@ class DecodeEngine:
                 x = x[..., None]
         return x.float(), B
 
+    def _encode(self, x):
+        return model_mod.encode(self.params, self.cfg, x,
+                                use_pallas_block=self.pallas_encoder_block)
+
+    @staticmethod
+    def _trim(res: GreedyResult, B: int) -> GreedyResult:
+        return GreedyResult(res.tokens[:B], res.lengths[:B],
+                            res.logprob_sum[:B], res.token_count[:B],
+                            res.steps)
+
+    def _result(self, tokens, lp_sum, count) -> Tuple[str, float]:
+        """(cleaned latex, confidence) of one row's tokens, log-prob sum and
+        count: confidence = exp(lp_sum / count), the fallback string and
+        0.0 when nothing was decoded."""
+        if count == 0:
+            return EMPTY_RESULT_FALLBACK, 0.0
+        conf = float(np.exp(lp_sum / count))
+        return clean_latex_output(self.tokenizer.decode(tokens)), conf
+
     @torch.inference_mode()
     def decode_tokens(self, images, beam_size: Optional[int] = None):
         """images: (B, H, W, 1). Returns the GreedyResult, or with
         ``beam_size`` > 1 the BeamResult, of the true batch (bucket padding
         cut off)."""
         x, B = self._pad_batch(images)
-        memory = model_mod.encode(
-            self.params, self.cfg, x,
-            use_pallas_block=self.pallas_encoder_block)
+        memory = self._encode(x)
         max_len = self.decode_cfg.max_seq_len
         if beam_size and beam_size > 1:
             if self.use_fused:
@@ -169,14 +214,103 @@ class DecodeEngine:
             return res
         if self.use_fused:
             res = greedy_decode_fused(self.params["decoder"], self.stacked,
-                                      self.cfg, memory, max_len)
+                                      self.cfg, memory, max_len,
+                                      constraint=self.constraint)
         else:
             res = greedy_decode(self.params["decoder"], self.cfg, memory,
-                                max_len)
+                                max_len, constraint=self.constraint)
         self.last_steps = res.steps
-        return GreedyResult(res.tokens[:B], res.lengths[:B],
-                            res.logprob_sum[:B], res.token_count[:B],
-                            res.steps)
+        return self._trim(res, B)
+
+    @torch.inference_mode()
+    def sample_tokens(self, images, *, temperature: float = 1.0,
+                      top_k: int = 0, top_p: float = 1.0,
+                      seed: int = 0) -> GreedyResult:
+        """Sampled decode of (B, H, W, 1) images (``decode/sampling.py``):
+        greedy's result structure, of the true batch. The draws come from a
+        generator on the engine's device seeded with ``seed``, over the
+        batch's bucket."""
+        x, B = self._pad_batch(images)
+        memory = self._encode(x)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        filters = {"temperature": temperature, "top_k": top_k,
+                   "top_p": top_p}
+        max_len = self.decode_cfg.max_seq_len
+        if self.use_fused:
+            res = greedy_decode_fused(self.params["decoder"], self.stacked,
+                                      self.cfg, memory, max_len, rng=gen,
+                                      **filters)
+        else:
+            res = sample_decode(self.params["decoder"], self.cfg, memory,
+                                gen, max_len, **filters)
+        self.last_steps = res.steps
+        return self._trim(res, B)
+
+    def predict_single_sampled(self, image, *, temperature: float = 1.0,
+                               top_k: int = 0, top_p: float = 1.0,
+                               seed: int = 0) -> Tuple[str, float]:
+        """Sampled serving decode -> (cleaned latex, confidence), the
+        confidence from the raw distribution's log-probs."""
+        image = np.asarray(image)
+        if image.ndim == 3:
+            image = image[None]
+        res = self.sample_tokens(image, temperature=temperature, top_k=top_k,
+                                 top_p=top_p, seed=seed)
+        return self._result(res.tokens[0].cpu().numpy(),
+                            float(res.logprob_sum[0]),
+                            int(res.token_count[0]))
+
+    def predict_stream(self, image, segment_steps: int = 8) -> Iterator[dict]:
+        """Streaming serving decode of one (H, W, 1) image: a generator of
+        events, ``{"tokens": [...]}`` with each segment's fresh token
+        strings (none for a segment that decoded none), then a final
+        ``{"formula", "confidence", "done": True}`` with ``predict_single``'s
+        confidence and fallback semantics. The cache stays on the device
+        between segments; the host reads once a segment
+        (``stream_reads`` counts the reads).
+
+        The stream ends at its first EOS, after ``max_seq_len`` tokens, or,
+        unlike JAX's, when the cache is full: a PAD token that the model
+        emits is not a token of the stream, and JAX's loop runs on past its
+        cache for as long as the model emits them (for ever, at a fixed
+        point)."""
+        image = np.asarray(image)
+        if image.ndim == 3:
+            image = image[None]
+        dec = self.params["decoder"]
+        max_len = self.decode_cfg.max_seq_len
+        with torch.inference_mode():
+            x, _ = self._pad_batch(image)
+            carry = stream_start(dec, self.cfg, self._encode(x)[:1],
+                                 max_len, segment_steps)
+        all_ids: List[int] = []
+        eos_id, pad_id = self.tokenizer.eos_id, self.tokenizer.pad_id
+        cap = carry.cache["self_k_0"].shape[2]
+        done = False
+        while not done and len(all_ids) < max_len and carry.step < cap:
+            with torch.inference_mode():
+                carry, toks = stream_segment(dec, self.cfg, carry,
+                                             segment_steps)
+                rep = stream_report(carry, toks)[0].cpu().numpy()
+            self.stream_reads += 1
+            done = bool(rep[segment_steps])
+            fresh: List[str] = []
+            for t in rep[:segment_steps].tolist():
+                if t == pad_id:
+                    break
+                all_ids.append(t)
+                if t == eos_id:
+                    done = True
+                    break
+                fresh.append(self.tokenizer.idx2char.get(t, "<unk>"))
+                if len(all_ids) >= max_len:
+                    break
+            if fresh:
+                yield {"tokens": fresh}
+        count = int(rep[segment_steps + 1])
+        lp_sum = float(rep[segment_steps + 2:].view(np.float32)[0])
+        latex, conf = self._result(all_ids, lp_sum, count)
+        yield {"formula": latex, "confidence": conf, "done": True}
 
     def predict_batch(self, images,
                       beam_size: Optional[int] = None) -> List[str]:
@@ -203,15 +337,8 @@ class DecodeEngine:
         tokens = res.tokens.cpu().numpy()
         lp = res.logprob_sum.cpu().numpy()
         counts = res.token_count.cpu().numpy()
-        out: List[Tuple[str, float]] = []
-        for i in range(tokens.shape[0]):
-            if counts[i] == 0:
-                out.append((EMPTY_RESULT_FALLBACK, 0.0))
-                continue
-            conf = float(np.exp(lp[i] / counts[i]))
-            latex = clean_latex_output(self.tokenizer.decode(tokens[i]))
-            out.append((latex, conf))
-        return out
+        return [self._result(t, lp_i, c)
+                for t, lp_i, c in zip(tokens, lp, counts)]
 
     def warmup(self, batch_sizes: Sequence[int] = (1,),
                beam_sizes: Sequence[int] = (), dtype=np.float32) -> None:

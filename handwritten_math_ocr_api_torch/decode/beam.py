@@ -1,8 +1,6 @@
 """Batched beam-search decode with a KV cache.
 
-Port of ``handwritten_math_ocr_api_tpu/decode/beam.py`` (``beam_decode``;
-its ancestry-indirection variant ``beam_decode_indirect``, an A/B
-comparison the engine never calls, is not ported). Each of the B images
+Port of ``handwritten_math_ocr_api_tpu/decode/beam.py``. Each of the B images
 keeps K beams as B*K cache rows. A step scores every beam's continuations
 (sum of per-token log-probs), keeps the K best of the K*V candidates per
 image, reorders the beam state and the self-attention caches by the chosen
@@ -22,6 +20,11 @@ The default route's step is ``decoder_step`` (the cache-append attention
 kernel in every layer); its caches are reordered with ``index_select``,
 the reference's ``take_along_axis``. ``decode/fused.py::beam_decode_fused``
 runs the same bookkeeping (``BeamSearch``) over the fused ragged step.
+
+``beam_decode_indirect`` is JAX's A/B variant that the engine never calls:
+the caches are never reordered; a (B, K, T) ancestry table says which
+beam row's entry at each position belongs to each beam's history, and the
+attention reads through it. Plain ops, MHA only, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 
 from ..core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from ..models import decoder as decoder_mod
+from ..models import layers
+from ..models.model import compute_dtype
 
 NEG_INF = -1.0e9
 
@@ -132,6 +137,91 @@ def beam_decode(params, cfg: ModelConfig, memory, beam_size: int = 5,
         for name in cache:
             if name.startswith("self_"):
                 cache[name] = cache[name].index_select(0, src)
+        step += 1
+        if beams.all_finished():
+            break
+    return beams.result(alpha, step)
+
+
+def _step_indirect(params, cfg: ModelConfig, tok_ids, pos: int, cache,
+                   ancestry, B: int, K: int):
+    """One decode step of B*K beam rows whose self-attention history is
+    read through ``ancestry`` (B, K, T) int64: entry [b, k, t] is the beam
+    row (0..K-1) whose cache slot t belongs to beam k's history (column
+    ``pos`` is each row's own). Each row writes its fresh K/V at ``pos`` of
+    its own row; the reads are steered. Returns float32 logits (B*K, V),
+    the caches updated in place."""
+    dtype = compute_dtype(cfg)
+    nh, D = cfg.nhead, cfg.d_model
+    pos_ids = torch.full_like(tok_ids, pos)[:, None]
+    x = decoder_mod._embed(params, tok_ids[:, None], pos_ids, dtype)
+    T = cache["self_k_0"].shape[2]
+    slot = torch.arange(T, device=x.device)
+    mask = torch.zeros((T,), device=x.device).masked_fill(
+        slot > pos, float("-inf"))
+    for i, p in enumerate(params["layers"]):
+        sp = p["self_attn"]
+        qkv = decoder_mod._linear(sp, "w_qkv", "b_qkv", x, True)
+        q, k_new, v_new = (layers.split_heads(t, nh)
+                           for t in qkv.split([D, D, D], dim=-1))
+        sk, sv = cache[f"self_k_{i}"], cache[f"self_v_{i}"]
+        sk[:, :, pos] = k_new[:, :, 0]
+        sv[:, :, pos] = v_new[:, :, 0]
+        H, Dh = sk.shape[1], sk.shape[3]
+        idx = ancestry[:, :, None, :, None].expand(B, K, H, T, Dh)
+        k_eff = sk.reshape(B, K, H, T, Dh).gather(1, idx)
+        v_eff = sv.reshape(B, K, H, T, Dh).gather(1, idx)
+        sa = layers.attention(q, k_eff.reshape(B * K, H, T, Dh),
+                              v_eff.reshape(B * K, H, T, Dh), mask)
+        sa = decoder_mod._linear(sp, "w_out", "b_out",
+                                 layers.merge_heads(sa), True)
+        x = layers.layer_norm(p["norm1"], x + sa)
+
+        cp = p["cross_attn"]
+        qc = layers.split_heads(decoder_mod._proj(cp, x, "q"), nh)
+        ca = layers.attention(qc, cache[f"cross_k_{i}"],
+                              cache[f"cross_v_{i}"])
+        ca = decoder_mod._linear(cp, "w_out", "b_out",
+                                 layers.merge_heads(ca), True)
+        x = layers.layer_norm(p["norm2"], x + ca)
+
+        ff = layers.mlp(p["ffn"], x, activation=torch.relu)
+        x = layers.layer_norm(p["norm3"], x + ff)
+    return layers.linear(params["fc_out"], x.float())[:, 0, :]
+
+
+@torch.inference_mode()
+def beam_decode_indirect(params, cfg: ModelConfig, memory,
+                         beam_size: int = 5, max_len=None, *,
+                         alpha: float = 0.0) -> BeamResult:
+    """``beam_decode`` with ancestry indirection (module docstring): the
+    same tokens and scores, no per-step cache reorder; only the (B, K, T)
+    ancestry table and the beam state reorder. MHA only: a config with
+    ``nhead_kv`` < ``nhead`` raises ``NotImplementedError``."""
+    if cfg.kv_heads != cfg.nhead:
+        raise NotImplementedError(
+            "ancestry-indirection beam supports MHA only")
+    B = memory.shape[0]
+    K = beam_size
+    T = max_len or cfg.max_seq_len
+    dev = memory.device
+    cache = decoder_mod.init_cache(params, cfg,
+                                   memory.repeat_interleave(K, dim=0),
+                                   max_len=T)
+    beams = BeamSearch(B, K, T, dev)
+    anc = torch.zeros((B, K, T), dtype=torch.int64, device=dev)
+    own = torch.arange(K, device=dev)[None, :].expand(B, K)
+    first = (torch.arange(B, device=dev) * K)[:, None]
+    step = 0
+    while step < T:
+        anc[:, :, step] = own  # rows attend their own fresh entry
+        logits = _step_indirect(params, cfg, beams.prev, step, cache, anc,
+                                B, K)
+        src = beams.step(torch.log_softmax(logits, dim=-1), step)
+        beam_idx = src.reshape(B, K) - first
+        # beam k's history is its parent's, and the column just written is
+        # the parent's own row
+        anc = anc.gather(1, beam_idx[:, :, None].expand(B, K, T))
         step += 1
         if beams.all_finished():
             break

@@ -49,11 +49,19 @@ How the port differs:
   otherwise ignores (it reads no slot at or past a row's position).
 - Caches are updated in place; the small state is made anew each step.
 - Refused with ``NotImplementedError``: ``mesh`` (a sharded pool, ROADMAP
-  A8), ``admission="device"`` (JAX's in-loop ``io_callback`` admission,
-  with A2/A3) and ``constrained=True`` (``decode/constrain.py``, A2).
-  JAX's ``MATHOCR_HARVEST_BATCH`` switch (a batched fetch of every queued
-  report, an A/B for a tunnelled transport) is dropped: the harvester lands
-  one report at a time, JAX's default.
+  A8) and ``admission="device"`` (JAX's in-loop ``io_callback``
+  admission, A3). JAX's ``MATHOCR_HARVEST_BATCH`` switch (a batched fetch
+  of every queued report, an A/B for a tunnelled transport) is dropped:
+  the harvester lands one report at a time, JAX's default.
+
+``constrained=True`` decodes every slot under the pushdown mask of
+``decode/constrain.py``, on both routes, as JAX's: each slot's grammar
+state is a ``con_*`` entry of the cache, reset at its admission; a step's
+logits (the default route's ``decoder_step_ragged``, or B7's with
+``return_logits=True``, ring on or off) are cut to the tables' vocab,
+masked with each row's own position as its step, and their argmax is the
+token; rows that are not live advance with EOS, which changes nothing.
+The log-probs stay on the raw logits.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from ..ops.fused_step import (
     quantize_stacked,
 )
 from ..ops.swin_block import with_float32_biases
+from . import constrain as constrain_mod
 from .api import EMPTY_RESULT_FALLBACK, pick_bucket
 from .fused import project_cross_kv_merged
 
@@ -140,15 +149,54 @@ def _init_small(S: int, T: int, device) -> SmallState:
         count=torch.zeros((S,), dtype=i32, device=device))
 
 
+_CON = ("con_stack", "con_ptr", "con_mode", "con_needs", "con_sup")
+
+
+def _constraint_cache_entries(batch: int, device) -> Dict[str, torch.Tensor]:
+    """Each slot's pushdown state (``constrain.ConstraintState``) as cache
+    entries: reset by an admission, advanced by every step."""
+    return dict(zip(_CON, constrain_mod.init_state(batch, device)))
+
+
+def _reset_constraint_rows(cache: Dict[str, torch.Tensor], slots) -> None:
+    """The admitted ``slots``' pushdown state back to its start."""
+    if "con_stack" in cache:
+        for k in _CON:
+            cache[k] = cache[k].index_fill(0, slots, 0)
+
+
+def _pick(tables, cache, small: "SmallState", logits, max_len: int):
+    """A step's token (int32) and log-prob from its float32 logits: the
+    argmax and its log(softmax + 1e-10). With ``tables`` the logits are cut
+    to the tables' vocab, the argmax is taken under each row's mask (its
+    position as the step), and the cache's ``con_*`` state advances, with
+    EOS for the rows that are not live; the log-prob stays on the raw
+    (cut) logits."""
+    sel = logits
+    if tables is not None:
+        logits = logits[:, :tables.vocab_size]
+        cst = constrain_mod.ConstraintState(*(cache[k] for k in _CON))
+        sel = logits + constrain_mod.step_mask(tables, cst,
+                                               small.pos[:, None], max_len)
+    nxt = sel.argmax(dim=-1)
+    logp = torch.log(torch.softmax(logits, dim=-1) + 1e-10).gather(
+        1, nxt[:, None])[:, 0]
+    if tables is not None:
+        fed = torch.where(_live(small), nxt, EOS_ID)
+        cache.update(zip(_CON, constrain_mod.advance(tables, cst, fed)))
+    return nxt.to(torch.int32), logp
+
+
 def init_slot_state(cfg: ModelConfig, num_slots: int, scratch_slots: int = 1,
-                    encoder_len: Optional[int] = None, *, device=None
+                    encoder_len: Optional[int] = None, *, device=None,
+                    constrained: bool = False
                     ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """The default route's pool: ``num_slots`` slots and ``scratch_slots``
     scratch slots (the target of an admission's padding rows, never
     active), with per-layer caches ``cross_k_{i}``/``cross_v_{i}``
-    (S, H, L_enc, Dh) and ``self_k_{i}``/``self_v_{i}`` (S, Hkv, T, Dh).
-    ``encoder_len`` overrides ``cfg.encoder_len``. Returns (small,
-    cache)."""
+    (S, H, L_enc, Dh) and ``self_k_{i}``/``self_v_{i}`` (S, Hkv, T, Dh),
+    and with ``constrained`` the ``con_*`` pushdown state. ``encoder_len``
+    overrides ``cfg.encoder_len``. Returns (small, cache)."""
     S = num_slots + scratch_slots
     T = cfg.max_seq_len
     dtype = model_mod.compute_dtype(cfg)
@@ -162,6 +210,8 @@ def init_slot_state(cfg: ModelConfig, num_slots: int, scratch_slots: int = 1,
             cache[f"self_{kv}_{i}"] = torch.zeros(
                 (S, cfg.kv_heads, T, cfg.head_dim), dtype=dtype,
                 device=device)
+    if constrained:
+        cache.update(_constraint_cache_entries(S, device))
     return _init_small(S, T, device), cache
 
 
@@ -204,6 +254,7 @@ def insert_requests(params, cfg: ModelConfig, small: SmallState,
     S = small.prev.shape[0]
     for name, val in cross.items():
         cache[name].index_copy_(0, slots, val.to(cache[name].dtype))
+    _reset_constraint_rows(cache, slots)
     valid = slots < (num_slots if num_slots is not None else S - 1)
     return _reset_rows(small, slots, valid), cache
 
@@ -232,33 +283,33 @@ def _write_tokens(s: SmallState, nxt, logp, live, max_len: int
 
 def decode_segment(params, cfg: ModelConfig, small: SmallState,
                    cache: Dict[str, torch.Tensor], n_steps: int, *,
-                   kernels: bool = True
+                   kernels: bool = True, tables=None
                    ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """Advance every live slot by ``n_steps`` greedy tokens (a slot that
     finishes stops there) on the default route: one
     ``decoder_step_ragged`` a step over the whole pool, its self caches
-    updated in place. Reads no device value."""
+    updated in place. ``tables`` (``constrain.ConstraintTables``)
+    constrains the picks (module docstring). Reads no device value."""
     dec = params["decoder"]
     for _ in range(n_steps):
         live = _live(small)
         logits = decoder_mod.decoder_step_ragged(dec, cfg, small.prev,
                                                  small.pos, cache,
                                                  kernels=kernels)
-        nxt = logits.argmax(dim=-1)
-        logp = torch.log(torch.softmax(logits, dim=-1) + 1e-10).gather(
-            1, nxt[:, None])[:, 0]
-        small = _write_tokens(small, nxt.to(torch.int32), logp, live,
-                              cfg.max_seq_len)
+        nxt, logp = _pick(tables, cache, small, logits, cfg.max_seq_len)
+        small = _write_tokens(small, nxt, logp, live, cfg.max_seq_len)
     return small, cache
 
 
 def init_slot_state_fused(cfg: ModelConfig, pool_size: int,
-                          encoder_len: Optional[int] = None, *, device=None
+                          encoder_len: Optional[int] = None, *, device=None,
+                          constrained: bool = False
                           ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """The fused route's pool of ``pool_size`` rows (scratch rows included,
     a multiple of the ragged step's ``block_b``) in the merged-head layout:
     self caches ``self_k``/``self_v`` (L, S, T, kvd), cross K/V
-    ``cross_k``/``cross_v`` (L, S, L_enc, D)."""
+    ``cross_k``/``cross_v`` (L, S, L_enc, D), and with ``constrained`` the
+    ``con_*`` pushdown state."""
     S, T = pool_size, cfg.max_seq_len
     L = cfg.num_decoder_layers
     dtype = model_mod.compute_dtype(cfg)
@@ -273,6 +324,8 @@ def init_slot_state_fused(cfg: ModelConfig, pool_size: int,
         "cross_v": torch.zeros((L, S, L_enc, cfg.d_model), dtype=dtype,
                                device=device),
     }
+    if constrained:
+        cache.update(_constraint_cache_entries(S, device))
     return _init_small(S, T, device), cache
 
 
@@ -287,6 +340,7 @@ def insert_requests_fused(params, cfg: ModelConfig, small: SmallState,
     ck, cv = project_cross_kv_merged(params["decoder"], cfg, memory)
     cache["cross_k"].index_copy_(1, slots, ck.to(cache["cross_k"].dtype))
     cache["cross_v"].index_copy_(1, slots, cv.to(cache["cross_v"].dtype))
+    _reset_constraint_rows(cache, slots)
     return _reset_rows(small, slots, slots < num_slots), cache
 
 
@@ -294,7 +348,7 @@ def decode_segment_fused(stacked, cfg: ModelConfig, small: SmallState,
                          cache: Dict[str, torch.Tensor], n_steps: int, *,
                          block_b: int = 16, n_chunks: Optional[int] = None,
                          ring_s: int = 0, t_active: Optional[int] = None,
-                         kernels: bool = True
+                         kernels: bool = True, tables=None
                          ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """``decode_segment`` on the ragged step kernel (B7): the embedding,
     every layer and the head in one launch a step; only the per-slot
@@ -309,8 +363,19 @@ def decode_segment_fused(stacked, cfg: ModelConfig, small: SmallState,
     write-back at the end (slots [start, end) of each row from its ring
     rows). ``n_steps`` is clamped to ``ring_s``. Without the ring each
     step writes each live row's fresh rows at its position, and a row that
-    is not live writes back what its slot 0 holds."""
-    step_fn = fused_ragged_step if kernels else fused_ragged_step_plain
+    is not live writes back what its slot 0 holds.
+
+    ``tables`` (``constrain.ConstraintTables``): B7 returns its logits
+    (``return_logits=True``), and the token is ``_pick``'s."""
+    kernel = fused_ragged_step if kernels else fused_ragged_step_plain
+
+    def step_fn(*args, **kw):
+        if tables is None:
+            return kernel(*args, **kw)
+        logits, k_rows, v_rows = kernel(*args, **kw, return_logits=True)
+        return (*_pick(tables, cache, small, logits, cfg.max_seq_len),
+                k_rows, v_rows)
+
     sk, sv = cache["self_k"], cache["self_v"]
     ck, cv = cache["cross_k"], cache["cross_v"]
     L, S, T, kvd = sk.shape
@@ -409,20 +474,23 @@ class ContinuousDecoder:
         ``segment_ring``: the fused route's segment ring.
         ``pallas_encoder_block``: the whole Swin block kernel in every
         admission's encode. ``t_buckets``: the fused route's T buckets.
-        ``harvest_threads``: report harvesters (at least one)."""
+        ``constrained``: every slot under the pushdown mask (module
+        docstring); it needs ``tokenizer`` (its vocab derives the tables)
+        and raises ``ValueError`` without one. ``harvest_threads``: report
+        harvesters (at least one)."""
         if admission not in ("host", "device"):
             raise ValueError(f"admission must be host|device: {admission}")
         if admission == "device":
             raise NotImplementedError(
                 "admission='device' (an in-loop io_callback in JAX) is not "
-                "ported: ROADMAP A2/A3")
+                "ported: ROADMAP A3")
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded slot pool (mesh) is not ported: ROADMAP A8")
-        if constrained:
-            raise NotImplementedError(
-                "constrained decoding (decode/constrain.py) is not ported: "
-                "ROADMAP A2")
+        if constrained and tokenizer is None:
+            raise ValueError("constrained continuous decoding needs a "
+                             "tokenizer (its vocab derives the constraint "
+                             "tables)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -447,6 +515,9 @@ class ContinuousDecoder:
         if pallas_encoder_block:
             self.params["encoder"] = with_float32_biases(
                 params["encoder"], self.params["encoder"])
+        self._constraint = (constrain_mod.build_tables(tokenizer.vocab,
+                                                       self.device)
+                            if constrained else None)
         self._l_enc = encoder_len or cfg.encoder_len
         self._block_b = fused_block_b
         Tmax = cfg.max_seq_len
@@ -455,7 +526,8 @@ class ContinuousDecoder:
             # the pool padded to the kernel's chunk multiple
             total = -(-(num_slots + 1) // fused_block_b) * fused_block_b
             self._small, self._cache = init_slot_state_fused(
-                cfg, total, encoder_len, device=self.device)
+                cfg, total, encoder_len, device=self.device,
+                constrained=constrained)
             self._seg_params = build_stacked_full(params["decoder"], cfg,
                                                   self.device)
             if quantize:  # int8 weights, dequantized in the kernel
@@ -474,7 +546,8 @@ class ContinuousDecoder:
                                         else (40, 80, 120))} | {Tmax})
         else:
             self._small, self._cache = init_slot_state(
-                cfg, num_slots, 1, encoder_len, device=self.device)
+                cfg, num_slots, 1, encoder_len, device=self.device,
+                constrained=constrained)
             self._seg_params = self.params
         self._free: List[int] = list(range(num_slots))
         self._slot_req: Dict[int, int] = {}
@@ -757,10 +830,11 @@ class ContinuousDecoder:
                 self._seg_params, self.cfg, self._small, self._cache, n,
                 block_b=self._block_b, n_chunks=nchunks,
                 ring_s=self.max_segment_steps if self.segment_ring else 0,
-                t_active=t_active)
+                t_active=t_active, tables=self._constraint)
         else:
             self._small, self._cache = decode_segment(
-                self._seg_params, self.cfg, self._small, self._cache, n)
+                self._seg_params, self.cfg, self._small, self._cache, n,
+                tables=self._constraint)
         return pack_report(self._small)
 
     @staticmethod

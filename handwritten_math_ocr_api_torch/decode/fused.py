@@ -34,6 +34,12 @@ configs decode on the default route (``DecodeEngine`` moves a GQA
 
   v1, v3 and v4 take a float bundle (their TPU kernels would cast
   activations to int8 on an int8 one); v2, v2m and v5 also the int8 one.
+  v1, v2 and v2m also sample (``rng``, a ``torch.Generator``, with
+  ``temperature``, ``top_k`` and ``top_p``) and decode under a
+  ``constraint`` (``decode/constrain.py``): the pick of
+  ``decode/sampling.TokenPick`` runs on the float32 logits of the head
+  after the step kernel, as JAX's runs in XLA on its kernel's logits. v3,
+  v4 and v5 pick the token in the kernel and refuse both, as in JAX.
 - ``beam_decode_fused``: the bookkeeping of ``decode/beam.py`` over B*K
   rows, each step one launch of ``ops/fused_step.fused_ragged_step``
   (embedding, every layer and the float32 head; its logits) and one of
@@ -80,6 +86,7 @@ from ..ops.whole_decode import (
 )
 from .beam import BeamResult, BeamSearch
 from .greedy import GreedyResult, greedy_loop
+from .sampling import TokenPick
 
 
 def project_cross_kv_merged(decoder_params, cfg: ModelConfig, memory):
@@ -126,7 +133,10 @@ def greedy_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
                         eos_id: int = EOS_ID, pad_id: int = PAD_ID,
                         variant: str = "v2",
                         t_buckets: tuple = (40, 80, 120),
-                        kernels: bool = True) -> GreedyResult:
+                        kernels: bool = True, rng=None,
+                        temperature: float = 1.0, top_k: int = 0,
+                        top_p: float = 1.0,
+                        constraint=None) -> GreedyResult:
     """Greedy decode of ``memory`` (B, L_enc, D) through the kernel of
     ``variant`` (module docstring). ``stacked`` from
     ``ops/fused_step.build_stacked`` (v1, v2, v2m; or its int8 form for
@@ -135,9 +145,17 @@ def greedy_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
     ``ops/whole_decode.build_resident`` (v5; built here, int8 when
     ``stacked`` holds scales, when its tables or ``_params`` are
     missing). ``t_buckets`` is accepted and has no effect. ``kernels=False``
-    takes the plain versions even on CUDA (the reference path)."""
+    takes the plain versions even on CUDA (the reference path). ``rng``
+    (a generator on ``memory``'s device) samples; ``constraint`` masks the
+    logits (module docstring)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is none of {VARIANTS}")
+    for what, arg in (("sampled", rng), ("constrained", constraint)):
+        if arg is not None and variant not in ("v1", "v2", "v2m"):
+            raise NotImplementedError(
+                f"{what} fused decode needs the logits outside the kernel; "
+                f"variant {variant!r} computes the argmax in the kernel: "
+                f"use 'v2'")
     if cfg.kv_heads != cfg.nhead and (variant != "v2"
                                       or cfg.kv_heads != 1):
         raise NotImplementedError(
@@ -201,7 +219,13 @@ def greedy_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
             sv[:, :, step] = v
         return layers.linear(decoder_params["fc_out"], x.float())
 
-    return greedy_loop(step_logits, memory.shape[0], T, memory.device, **ids)
+    pick = None
+    if rng is not None or constraint is not None:
+        pick = TokenPick(memory.shape[0], T, memory.device,
+                         constraint=constraint, generator=rng,
+                         temperature=temperature, top_k=top_k, top_p=top_p)
+    return greedy_loop(step_logits, memory.shape[0], T, memory.device, **ids,
+                       pick=pick)
 
 
 @torch.inference_mode()

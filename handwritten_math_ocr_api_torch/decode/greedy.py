@@ -10,6 +10,11 @@ counts its non-EOS tokens.
 
 The JAX loop is one device program; here it is a Python loop. It reads one
 flag back from the device per step, to end early.
+
+``constraint`` (``decode/constrain.py``'s tables) masks each step's logits
+before the argmax, so that the output is structurally valid LaTeX; the
+log-probs stay on the raw logits, and the constraint's state advances on
+the token fed to the next step (EOS for a finished row).
 """
 
 from __future__ import annotations
@@ -32,14 +37,16 @@ class GreedyResult(NamedTuple):
 
 def greedy_loop(step_fn: Callable, B: int, T: int, dev, *,
                 sos_id: int = SOS_ID, eos_id: int = EOS_ID,
-                pad_id: int = PAD_ID,
-                argmax_in_step: bool = False) -> GreedyResult:
+                pad_id: int = PAD_ID, argmax_in_step: bool = False,
+                pick=None) -> GreedyResult:
     """The loop and bookkeeping shared by the decode routes:
     ``step_fn(prev, step)`` runs one decoder step fed the previous tokens
     ``prev`` (B,) at ``step`` and returns its float32 (B, vocab) logits,
     or with ``argmax_in_step`` (the whole-step kernels, which pick the
     token themselves) each row's argmax and its log(p + 1e-10), (nxt,
-    logp)."""
+    logp). ``pick`` (``decode/sampling.TokenPick``) chooses the token from
+    the logits in place of their argmax (a constraint mask, a draw), and
+    its ``fed`` sees the tokens fed to the next step."""
     tokens = torch.full((B, T), pad_id, dtype=torch.int64, device=dev)
     prev = torch.full((B,), sos_id, dtype=torch.int64, device=dev)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -52,7 +59,8 @@ def greedy_loop(step_fn: Callable, B: int, T: int, dev, *,
             nxt = nxt.long()
         else:
             logits = step_fn(prev, step)
-            nxt = logits.argmax(dim=-1)
+            nxt = (logits.argmax(dim=-1) if pick is None
+                   else pick(logits, step))
             logp_all = torch.log(torch.softmax(logits, dim=-1) + 1e-10)
             logp = logp_all.gather(1, nxt[:, None])[:, 0]
         is_eos = nxt == eos_id
@@ -62,6 +70,8 @@ def greedy_loop(step_fn: Callable, B: int, T: int, dev, *,
         finished |= is_eos
         # feed the true argmax (incl. eos), eos once a row has finished
         prev = torch.where(finished, eos_id, nxt)
+        if pick is not None:
+            pick.fed(prev)
         step += 1
         if bool(finished.all()):
             break
@@ -71,14 +81,20 @@ def greedy_loop(step_fn: Callable, B: int, T: int, dev, *,
 
 @torch.inference_mode()
 def greedy_decode(params, cfg: ModelConfig, memory, max_len=None, *,
-                  kernels: bool = True) -> GreedyResult:
+                  kernels: bool = True, constraint=None) -> GreedyResult:
     """memory: (B, L_enc, d_model) from the encoder. ``kernels=False``
     takes the plain cache attention and dequant matmul even on CUDA (the
-    reference path)."""
+    reference path). ``constraint``: ``constrain.ConstraintTables`` (module
+    docstring)."""
+    from .sampling import TokenPick
+
+    B = memory.shape[0]
     T = max_len or cfg.max_seq_len
     cache = decoder_mod.init_cache(params, cfg, memory, max_len=T,
                                    kernels=kernels)
+    pick = (None if constraint is None
+            else TokenPick(B, T, memory.device, constraint=constraint))
     return greedy_loop(
         lambda prev, step: decoder_mod.decoder_step(
             params, cfg, prev, step, cache, kernels=kernels),
-        memory.shape[0], T, memory.device)
+        B, T, memory.device, pick=pick)

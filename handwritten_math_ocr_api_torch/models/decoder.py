@@ -136,12 +136,15 @@ def decoder_step(params, cfg: ModelConfig, tok_ids, pos: int, cache: Cache,
     tree, the plain dequant matmul) even on CUDA. Under MQA/GQA the
     self-attention is plain grouped attention over the slots up to
     ``pos`` whatever ``kernels`` is (the cache attention kernel is MHA
-    only, as the JAX route's).
+    only, as the JAX route's). A ``pos`` past the positional table (a
+    stream's last segment, whose cache holds whole segments) takes the
+    table's last row, as JAX's gather clamps it.
     """
     dtype = compute_dtype(cfg)
     nh, nkv = cfg.nhead, cfg.kv_heads
     D, kvd = cfg.d_model, cfg.kv_dim
-    positions = torch.full_like(tok_ids, pos)[:, None]
+    n_pos = params["pos"]["table"].shape[0]
+    positions = torch.full_like(tok_ids, min(pos, n_pos - 1))[:, None]
     x = _embed(params, tok_ids[:, None], positions, dtype)   # (B, 1, D)
     attend = (cache_append_attention if kernels
               else cache_append_attention_plain)

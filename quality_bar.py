@@ -11,6 +11,8 @@ default route) and the JAX harness (``evaluate_model``) on the
 - (b) the same with ``quantize=True`` (int8 decoder weights);
 - (c) bf16 beam 5 on the first 512 (no confidence, as the harness gives
   none under beam search);
+- (c') bf16 greedy with ``constrained=True`` (pushdown-constrained
+  decoding) on the first 512;
 - (d) float32 greedy predictions, strings and token ids, of the first 64;
 - (e) float32 greedy on the first 512: JAX's score, the port's score on the
   CPU (``DecodeEngine(device="cpu")``, weights read by the port's own
@@ -22,6 +24,9 @@ Needs JAX, PIL and pandas; the card's machine runs none of it. Rerun it only
 when the checkpoint or the corpus changes:
 
     JAX_PLATFORMS=cpu python quality_bar.py
+
+``--only NAME`` computes one bar of (a)-(c') alone and writes it into the
+existing fixture, leaving the rest of the file as it is.
 """
 
 from __future__ import annotations
@@ -41,6 +46,14 @@ OUT = os.path.join(REPO, "tests", "fixtures", "torch_r4_quality.json")
 BATCH = 64
 SUBSET = 512
 FIRST = 64
+# the bars (a)-(c'): engine keyword arguments, images (None: all 2,000,
+# scored on all and on the first 512) and beam width
+CELLS = {
+    "bf16_greedy": ({}, None, None),
+    "bf16_greedy_int8": ({"quantize": True}, None, None),
+    "bf16_beam5": ({}, SUBSET, 5),
+    "bf16_greedy_constrained": ({"constrained": True}, SUBSET, None),
+}
 
 
 def score(records) -> dict:
@@ -83,6 +96,8 @@ def check_summary(bar: dict, summary: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=OUT)
+    ap.add_argument("--only", choices=sorted(CELLS),
+                    help="compute this bar alone and merge it into --out")
     args = ap.parse_args()
 
     import jax
@@ -121,6 +136,26 @@ def main() -> None:
         check_summary(score(res["records"]), res["summary"])
         return res["records"], time.time() - t
 
+    def bar(name):
+        kw, n, beam = CELLS[name]
+        records, secs = run(name, DecodeEngine(params, state, cfg,
+                                               tokenizer=tok, **kw),
+                            n, beam_size=beam)
+        scores = {"2000": score(records)} if n is None else {}
+        scores[str(SUBSET)] = score(records[:SUBSET])
+        return scores, secs
+
+    if args.only:
+        with open(args.out) as f:
+            out = json.load(f)
+        out["bars"][args.only], out["host_seconds"][args.only] = bar(
+            args.only)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+            f.write("\n")
+        print(f"wrote {args.only} into {args.out}", flush=True)
+        return
+
     labels = loader().dataset.df
     stack = np.stack([
         np.asarray(Image.open(os.path.join(DATA_ROOT, "test_formulas",
@@ -140,19 +175,8 @@ def main() -> None:
         "bars": {},
         "host_seconds": {},
     }
-
-    for name, kw in (("bf16_greedy", {}),
-                     ("bf16_greedy_int8", {"quantize": True})):
-        records, secs = run(name, DecodeEngine(params, state, cfg,
-                                               tokenizer=tok, **kw))
-        out["bars"][name] = {"2000": score(records),
-                             str(SUBSET): score(records[:SUBSET])}
-        out["host_seconds"][name] = secs
-    records, secs = run("bf16_beam5", DecodeEngine(params, state, cfg,
-                                                   tokenizer=tok),
-                        SUBSET, beam_size=5)
-    out["bars"]["bf16_beam5"] = {str(SUBSET): score(records)}
-    out["host_seconds"]["bf16_beam5"] = secs
+    for name in CELLS:
+        out["bars"][name], out["host_seconds"][name] = bar(name)
 
     f32 = cfg.replace(dtype="float32")
     jax_f32 = DecodeEngine(params, state, f32, tokenizer=tok)

@@ -3,8 +3,9 @@
 The default route's ``beam_decode`` (the cache-append attention step) and
 the fused route's ``beam_decode_fused`` (the ragged step with its logits,
 then the beam cache reorder), each module of the slice and the engine's
-``beam_size`` surfaces. On the CPU the port's wrappers run their plain
-versions; the JAX kernels run in Pallas interpret mode. The decoder is
+``beam_size`` surfaces, and the A/B variant ``beam_decode_indirect``. On
+the CPU the port's wrappers run their plain versions; the JAX kernels run
+in Pallas interpret mode. The decoder is
 ``tests/test_fused.py``'s (d_model 32, 4 heads, 2 layers, T 12, vocab 20,
 float32) with every bias and LayerNorm parameter nonzero; inputs are made
 with numpy from a seed.
@@ -104,6 +105,29 @@ def test_beam_decode_matches_jax(decoder, beam, B):
     got = tbeam.beam_decode(tparams, DEC_CFG, _t(memory), beam)
     _check_beams(got, want)
     assert 1 <= got.steps <= DEC_CFG.max_seq_len
+
+
+@pytest.mark.parametrize("beam", [2, 3, 5])
+def test_beam_decode_indirect_matches_jax(decoder, beam):
+    """The ancestry-indirection A/B variant (no per-step cache reorder)
+    against JAX's, and equal to the default beam; MQA refused as in
+    JAX."""
+    from handwritten_math_ocr_api_tpu.decode.beam import (
+        beam_decode_indirect as j_beam_indirect,
+    )
+
+    memory = _memory(3, seed=beam)
+    tparams = convert.to_torch(decoder, DEC_CFG, "cpu")
+    want = j_beam_indirect(_j(decoder), DEC_JCFG, jnp.asarray(memory),
+                           beam_size=beam, alpha=0.7)
+    got = tbeam.beam_decode_indirect(tparams, DEC_CFG, _t(memory), beam,
+                                     alpha=0.7)
+    _check_beams(got, want)
+    plain = tbeam.beam_decode(tparams, DEC_CFG, _t(memory), beam, alpha=0.7)
+    assert torch.equal(got.tokens, plain.tokens)
+    with pytest.raises(NotImplementedError, match="MHA only"):
+        tbeam.beam_decode_indirect(tparams, DEC_CFG.replace(nhead_kv=1),
+                                   _t(memory), beam)
 
 
 def test_beam_decode_length_normalization_matches_jax(decoder):

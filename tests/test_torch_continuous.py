@@ -672,12 +672,14 @@ def test_recycled_slot_survives_nan_cache(trees):
 @pytest.mark.parametrize("kw,error", [
     ({"mesh": object()}, NotImplementedError),
     ({"admission": "device"}, NotImplementedError),
-    ({"constrained": True}, NotImplementedError),
+    ({"constrained": True, "tokenizer": None}, ValueError),
     ({"admission": "nowhere"}, ValueError),
 ])
 def test_refusals(trees, kw, error):
+    kw = {"tokenizer": Tokenizer(VOCAB), **kw}
     with pytest.raises(error):
-        _decoder(trees[4], num_slots=2, **kw)
+        tcont.ContinuousDecoder(trees[4], CFG, num_slots=2, device="cpu",
+                                **kw)
 
 
 def test_quantize_without_fused_warns(trees, caplog):
