@@ -157,12 +157,41 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    decoded alone, a cancelled waiter dropped or its slot freed, stats and
    images/s. The streams, continuous runs and engines use the seeded
    weights with the EOS bias raised (and the PAD bias lowered);
-10. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+10. "serve app", the HTTP app (``serve/app.py`` on ``serve/http.py``)
+   started in this process on 127.0.0.1 and driven by a standard-library
+   client, each step's launch counts set to 0 before it and checked after
+   (each decode's encode and its steps on the fused route; B5 in every
+   layer of every step of a stream): the shipped weights in float32 (a
+   temporary artifact: ``vocab.json``, ``params`` linked,
+   ``model_config.json`` with ``"dtype": "float32"``), fused route
+   (``use_fused_decode``, ``pallas_encoder_block``), dynamic batching,
+   rate limits raised; ``/health``, ``/status`` (device ``cuda``) and
+   ``/model/info`` (the tree's parameter count); 8 test PNGs posted one
+   after another (multipart and base64), each equal to
+   ``engine.predict_single`` on the same uint8 image (confidence within
+   1e-6); 32 concurrent requests, each equal to its image alone (1e-4);
+   ``/predict/batch`` of 10 entries, one bad (9 equal to
+   ``predict_with_confidence``); ``?beam_size=5`` equal to
+   ``predict_batch(beam_size=5)``, ``?top_k=1`` to greedy; a stream of
+   segments of 8 ending in ``/predict``'s result with one host read a
+   segment; 8 greedy, 2 beam, 2 ``top_k=1`` and 2 stream requests at once
+   (the batcher's and the executor's threads launching together), each
+   equal to its result alone; ``/metrics``. Then ``batching_mode=
+   "continuous"`` (32 slots): 32 concurrent requests equal to their
+   images alone, and a client that disconnects mid-decode frees its slot
+   (the decoder's ``cancelled``, ``active_slots`` 0). Printed, not gated:
+   the bf16 shipped weights, fused route, dynamic batching: 16 requests
+   from one client (a request's round trip), then three windows of 384
+   from 16 closed-loop clients: requests/s, p50 and p95 latency, a
+   request's and a batch's stages, for each window and over the three,
+   the card's name and power limit and the host's CPU and load;
+11. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port only; phases 1-6, 8 and 9 run on
-seeded random weights, phase 7 reads the checkpoint and the test split. It
-exits non-zero on any failure, or when no CUDA device is present.
+seeded random weights, phases 7 and 10 read the checkpoint and the test
+split. It exits non-zero on any failure, or when no CUDA device is
+present.
 """
 
 from __future__ import annotations
@@ -3516,6 +3545,585 @@ def serve_modes(cfg, tok, entries):
     log(f"serve modes: phase seconds {seconds:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase "serve app": the HTTP app on the card
+# ---------------------------------------------------------------------------
+
+APP_SEQUENTIAL = 8
+APP_CONCURRENT = 32
+APP_BATCH = 10
+APP_STREAM_SEGMENT = 8
+APP_LOAD_REQUESTS = 384   # a window of the printed load: 24 a client
+APP_LOAD_CLIENTS = 16
+APP_LOAD_WINDOWS = 3      # windows one after another, printed each
+APP_UNLIMITED = dict(rate_limit_per_minute=10 ** 6,
+                     rate_limit_per_hour=10 ** 6, rate_limit_per_day=10 ** 6,
+                     rate_limit_anonymous_daily=10 ** 6,
+                     max_concurrent_requests=10 ** 6)
+
+
+def http_call(port, method, path, body=None, headers=None, timeout=300):
+    """One request to 127.0.0.1:port on a fresh connection: (status,
+    headers (lower-case names), body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return (r.status, {k.lower(): v for k, v in r.getheaders()},
+                r.read())
+    finally:
+        conn.close()
+
+
+def app_json(port, method, path, body=None, headers=None):
+    status, _, data = http_call(port, method, path, body, headers)
+    if status != 200:
+        raise AssertionError(f"app {method} {path}: {status} "
+                             f"{data[:300]!r}")
+    return json.loads(data)
+
+
+def app_predict(port, png, path="/predict", multipart=False):
+    """POST one PNG as JSON base64 (or a multipart upload): the reply's
+    JSON, or a stream's events."""
+    import base64
+
+    if multipart:
+        boundary = "mathocr-smoke-boundary"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f'name="file"; filename="x.png"\r\nContent-Type: image/png'
+                f"\r\n\r\n").encode() + png + f"\r\n--{boundary}--\r\n" \
+            .encode()
+        ctype = f"multipart/form-data; boundary={boundary}"
+    else:
+        body = json.dumps({"image_data": base64.b64encode(png).decode()})
+        ctype = "application/json"
+    status, headers, data = http_call(port, "POST", path, body,
+                                      {"Content-Type": ctype})
+    if status != 200 or "x-request-id" not in headers:
+        raise AssertionError(f"app POST {path}: {status} {data[:300]!r}")
+    if path.startswith("/predict/stream"):
+        return [json.loads(line[len("data: "):])
+                for line in data.decode().splitlines()
+                if line.startswith("data: ")]
+    return json.loads(data)
+
+
+def app_model_dir(dtype):
+    """A serving artifact of the shipped weights with ``dtype`` in its
+    config: ``vocab.json`` copied, ``params`` linked, in a temporary
+    directory (the caller removes it)."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="serve_app_")
+    shutil.copy(os.path.join(MODEL_DIR, "vocab.json"), d)
+    os.symlink(os.path.join(MODEL_DIR, "params"), os.path.join(d, "params"))
+    with open(os.path.join(MODEL_DIR, "model_config.json")) as f:
+        raw = json.load(f)
+    raw["dtype"] = dtype
+    with open(os.path.join(d, "model_config.json"), "w") as f:
+        json.dump(raw, f)
+    return d
+
+
+def app_server(model_dir, **kw):
+    """The port's app (``serve/app.create_app``) on 127.0.0.1, an
+    ephemeral port, served from a thread of this process."""
+    from handwritten_math_ocr_api_torch.core.config import ServeConfig
+    from handwritten_math_ocr_api_torch.serve.app import create_app
+    from handwritten_math_ocr_api_torch.serve.http import ServerThread
+
+    cfg = ServeConfig(model_dir=model_dir, **{**APP_UNLIMITED, **kw})
+    server = ServerThread(create_app(cfg, device=DEVICE), "127.0.0.1", 0)
+    state = server.app["state"]
+    if state.engine is None:
+        server.stop()
+        raise AssertionError("app: the model did not load (see the log)")
+    return server, state
+
+
+class CallLog:
+    """The decodes an engine ran, recorded from any thread: (kind, steps)
+    with kind greedy, beam or sample (one encode each)."""
+
+    def __init__(self, engine):
+        import threading
+
+        self.calls = []
+        self._lock = threading.Lock()
+        decode_tokens, sample_tokens = engine.decode_tokens, \
+            engine.sample_tokens
+
+        def counted_decode(images, beam_size=None):
+            res = decode_tokens(images, beam_size)
+            self._add("beam" if beam_size and beam_size > 1 else "greedy",
+                      res.steps)
+            return res
+
+        def counted_sample(images, **kw):
+            res = sample_tokens(images, **kw)
+            self._add("sample", res.steps)
+            return res
+
+        engine.decode_tokens = counted_decode
+        engine.sample_tokens = counted_sample
+
+    def _add(self, kind, steps):
+        with self._lock:
+            self.calls.append((kind, steps))
+
+    def take(self):
+        with self._lock:
+            out, self.calls = self.calls, []
+        return out
+
+
+def stream_steps(n_tokens, seg=APP_STREAM_SEGMENT):
+    """A stream's decoder steps: whole segments up to its EOS step."""
+    return seg * -(-(n_tokens + 1) // seg)
+
+
+def app_expected(cfg, calls, streams=()):
+    """The launches of the decodes in ``calls`` and of streams of the
+    given token counts on the fused route: per decode its encode and one
+    B1 a greedy or sampled step, one B7 and one B8 a beam step; per
+    stream its encode and B5 in every layer of every step."""
+    total = [0] * len(kernel_counters())
+    for kind, steps in calls:
+        one = expected_launches(cfg, "fused", 1, steps, beam=kind == "beam")
+        total = [a + b for a, b in zip(total, one)]
+    for n in streams:
+        one = expected_launches(cfg, "fused", 1, 0)
+        one[2] += cfg.num_decoder_layers * stream_steps(n)
+        total = [a + b for a, b in zip(total, one)]
+    return total
+
+
+def app_check_counts(entries, name, cfg, calls, streams=()):
+    counts = read_counts()
+    expected = app_expected(cfg, calls, streams)
+    log(f"app {name}: {len(calls)} decodes "
+        f"{sorted(set(k for k, _ in calls))}, {sum(s for _, s in calls)} "
+        f"steps, {len(streams)} streams; launches {counts}, expected "
+        f"{expected}")
+    check_counts(counts, expected)
+    tally(entries, counts, f"app {name}")
+
+
+def same_result(name, got, want, tol):
+    """got: a /predict reply; want: (latex, confidence or None)."""
+    conf = got["confidence"]
+    ok = got["formula"] == want[0] and (
+        (conf is None and want[1] is None)
+        or (conf is not None and want[1] is not None
+            and abs(conf - want[1]) <= tol))
+    if not ok:
+        raise AssertionError(f"app {name}: {got['formula'][:80]!r} "
+                             f"{conf} != {want[0][:80]!r} {want[1]}")
+
+
+def app_pool(n, fn, args):
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(n) as ex:
+        return list(ex.map(fn, args))
+
+
+def app_dynamic(cfg, tok, entries, pngs, images):
+    """The float32 app, dynamic batching, fused route: every route and the
+    mixed-concurrency check (module docstring, phase 10)."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.core.tokenizer import (
+        clean_latex_output,
+    )
+    from handwritten_math_ocr_api_torch.models.model import count_params
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        leaves_with_paths,
+        load_params_for_serving,
+    )
+
+    import base64
+
+    d = app_model_dir("float32")
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server, state = app_server(d, use_fused_decode=True,
+                                   pallas_encoder_block=True,
+                                   warmup_batch_sizes=(1,))
+        port, engine = server.port, state.engine
+        c32 = state.model_cfg
+        log(f"app: float32 app up on port {port} in "
+            f"{time.perf_counter() - t0:.1f} s (fused route)")
+        health = app_json(port, "GET", "/health")
+        status = app_json(port, "GET", "/status")
+        info = app_json(port, "GET", "/model/info")
+        tree = load_params_for_serving(d)[0]
+        n_params = sum(x.numel() if hasattr(x, "numel") else x.size
+                       for _, x in leaves_with_paths(tree))
+        if not (health["healthy"] and status["device"] == DEVICE
+                and info["device"] == DEVICE
+                and info["model_parameters"] == n_params
+                == count_params(tree)):
+            raise AssertionError(f"app: /health {health}, /status "
+                                 f"{status}, /model/info {info}, the tree "
+                                 f"{n_params} parameters")
+        log(f"app: /health healthy, /status device {status['device']}, "
+            f"/model/info {info['model_parameters']} parameters (the "
+            f"tree's {n_params})")
+        calls = CallLog(engine)
+        alone = [engine.predict_single(img) for img in images]
+        beam_alone = [clean_latex_output(engine.predict_batch(
+            img[None], beam_size=BEAM)[0]) for img in images[:2]]
+        calls.take()
+
+        # one after another: each equal to its direct engine call
+        for i in range(APP_SEQUENTIAL):
+            reset_counts()
+            got = app_predict(port, pngs[i], multipart=i % 2 == 0)
+            torch.cuda.synchronize()
+            app_check_counts(entries, f"sequential {i}", c32, calls.take())
+            same_result(f"sequential {i}", got, alone[i], 1e-6)
+        log(f"app: {APP_SEQUENTIAL} requests one after another (multipart "
+            f"and base64) equal to predict_single, confidence within 1e-6")
+
+        # concurrent: the batcher coalesces them
+        reset_counts()
+        t0 = time.perf_counter()
+        got = app_pool(APP_CONCURRENT, lambda i: app_predict(
+            port, pngs[i]), range(APP_CONCURRENT))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        app_check_counts(entries, "concurrent", c32, calls.take())
+        for i, g in enumerate(got):
+            same_result(f"concurrent {i}", g, alone[i], 1e-4)
+        log(f"app: {APP_CONCURRENT} concurrent requests equal to each "
+            f"image alone in {wall * 1e3:.1f} ms")
+
+        # /predict/batch with a bad entry
+        entries_b64 = [base64.b64encode(p).decode()
+                       for p in pngs[:APP_BATCH - 1]]
+        entries_b64.insert(3, "%%%bad")  # 10 entries, the most a batch takes
+        reset_counts()
+        batch = app_json(port, "POST", "/predict/batch",
+                         json.dumps({"images": entries_b64}),
+                         {"Content-Type": "application/json"})
+        app_check_counts(entries, "batch", c32, calls.take())
+        want = engine.predict_with_confidence(images[:APP_BATCH - 1])
+        calls.take()
+        good = [r for r in batch["results"] if r["success"]]
+        if (batch["successful_predictions"] != APP_BATCH - 1
+                or batch["total_images"] != APP_BATCH
+                or batch["results"][3]["success"]):
+            raise AssertionError(f"app batch: {batch}")
+        for i, (g, w) in enumerate(zip(good, want)):
+            same_result(f"batch {i}", g, w, 1e-6)
+        log(f"app: /predict/batch of {APP_BATCH} entries, one bad: "
+            f"{batch['successful_predictions']} equal to "
+            f"predict_with_confidence")
+
+        # beam, top_k=1, stream
+        for i in range(2):
+            reset_counts()
+            got = app_predict(port, pngs[i], f"/predict?beam_size={BEAM}")
+            torch.cuda.synchronize()
+            app_check_counts(entries, f"beam {i}", c32, calls.take())
+            same_result(f"beam {i}", got, (beam_alone[i], None), 0)
+            reset_counts()
+            got = app_predict(port, pngs[i], "/predict?top_k=1&seed=5")
+            torch.cuda.synchronize()
+            app_check_counts(entries, f"top_k=1 {i}", c32, calls.take())
+            same_result(f"top_k=1 {i}", got, alone[i], 1e-5)
+        stream_alone = []
+        for i in range(2):
+            reads = engine.stream_reads
+            reset_counts()
+            events = app_predict(port, pngs[i], "/predict/stream?"
+                                 f"segment_steps={APP_STREAM_SEGMENT}")
+            torch.cuda.synchronize()
+            n = sum(len(e.get("tokens", ())) for e in events)
+            app_check_counts(entries, f"stream {i}", c32, calls.take(),
+                             [n])
+            final = events[-1]
+            if not final.get("done") or engine.stream_reads - reads != \
+                    stream_steps(n) // APP_STREAM_SEGMENT:
+                raise AssertionError(f"app stream {i}: {final}, "
+                                     f"{engine.stream_reads - reads} reads "
+                                     f"for {n} tokens")
+            same_result(f"stream {i}", final, alone[i], 1e-5)
+            stream_alone.append(n)
+        log(f"app: beam {BEAM} equal to predict_batch(beam_size={BEAM}), "
+            f"top_k=1 to greedy, streams of segments of "
+            f"{APP_STREAM_SEGMENT} to /predict with one host read a "
+            f"segment")
+
+        # mixed concurrency: the engine's launches from the batcher's and
+        # several executor threads at once
+        jobs = ([("greedy", i) for i in range(8)]
+                + [("beam", i) for i in range(2)]
+                + [("top1", i) for i in range(2)]
+                + [("stream", i) for i in range(2)])
+        paths = {"greedy": "/predict", "beam": f"/predict?beam_size={BEAM}",
+                 "top1": "/predict?top_k=1&seed=5",
+                 "stream": "/predict/stream?segment_steps="
+                           f"{APP_STREAM_SEGMENT}"}
+        reset_counts()
+        got = app_pool(len(jobs), lambda job: app_predict(
+            port, pngs[job[1]], paths[job[0]]), jobs)
+        torch.cuda.synchronize()
+        streams = [sum(len(e.get("tokens", ())) for e in g)
+                   for (kind, _), g in zip(jobs, got) if kind == "stream"]
+        app_check_counts(entries, "mixed", c32, calls.take(), streams)
+        for (kind, i), g in zip(jobs, got):
+            if kind == "beam":
+                same_result(f"mixed beam {i}", g, (beam_alone[i], None), 0)
+            elif kind == "stream":
+                same_result(f"mixed stream {i}", g[-1], alone[i], 1e-4)
+            else:
+                same_result(f"mixed {kind} {i}", g, alone[i], 1e-4)
+        if streams != stream_alone:
+            raise AssertionError(f"app mixed: streams of {streams} tokens, "
+                                 f"alone {stream_alone}")
+        metrics = app_json(port, "GET", "/metrics")
+        st = metrics["batching"]
+        if st["mode"] != "dynamic" or st["batches_run"] < 1 or \
+                st["images_decoded"] < APP_SEQUENTIAL + APP_CONCURRENT:
+            raise AssertionError(f"app /metrics: {metrics}")
+        log(f"app: mixed concurrency ({len(jobs)} requests: 8 greedy, 2 "
+            f"beam {BEAM}, 2 top_k=1, 2 streams) each equal to its result "
+            f"alone; /metrics batches_run {st['batches_run']} "
+            f"images_decoded {st['images_decoded']} avg_batch_size "
+            f"{st['avg_batch_size']:.2f}, predictions "
+            f"{metrics['predictions']['total']}")
+    finally:
+        if server is not None:
+            server.stop()
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def app_continuous(cfg, tok, entries, pngs, images):
+    """The float32 app with ``batching_mode="continuous"`` (fused, 32
+    slots): 32 concurrent requests each equal to its image alone, launch
+    counts; a client that disconnects mid-decode frees its slot."""
+    import base64
+    import socket
+
+    import torch
+
+    d = app_model_dir("float32")
+    server = None
+    try:
+        server, state = app_server(d, use_fused_decode=True,
+                                   pallas_encoder_block=True,
+                                   batching_mode="continuous",
+                                   num_slots=CONT_SLOTS)
+        port, engine = server.port, state.engine
+        c32 = state.model_cfg
+        dec = state.batcher.decoder
+        alone = [engine.predict_single(img) for img in images]
+        counts = engine.decode_tokens(images).token_count.tolist()
+        dec.inserts = 0
+        insert = dec._insert
+
+        def counted_insert(slots, imgs):
+            dec.inserts += 1
+            return insert(slots, imgs)
+
+        dec._insert = counted_insert
+        dec.reset_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = app_pool(APP_CONCURRENT, lambda i: app_predict(
+            port, pngs[i]), range(APP_CONCURRENT))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        tally(entries, continuous_counts(dec, c32, "fused", "app"),
+              "app continuous")
+        for i, g in enumerate(got):
+            same_result(f"continuous {i}", g, alone[i], 1e-4)
+        log(f"app continuous: {APP_CONCURRENT} concurrent requests equal to "
+            f"each image alone in {wall * 1e3:.1f} ms; segments_run "
+            f"{dec.segments_run}")
+
+        # a client that disconnects while its request holds a slot: the
+        # longest decode
+        longest = counts.index(max(counts))
+        body = json.dumps({"image_data": base64.b64encode(
+            pngs[longest]).decode()}).encode()
+        before = dec.cancelled
+        s = socket.create_connection(("127.0.0.1", port), timeout=60)
+        s.sendall(b"POST /predict HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: "
+                  + str(len(body)).encode() + b"\r\n\r\n" + body)
+        deadline = time.perf_counter() + 30
+        while dec.stats["active_slots"] < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError("app continuous: the request never "
+                                     "took a slot")
+            time.sleep(0.0005)
+        s.close()
+        deadline = time.perf_counter() + 30
+        while not (dec.cancelled > before and dec.idle):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"app continuous: the disconnected "
+                                     f"request's slot was not freed "
+                                     f"({dec.stats})")
+            time.sleep(0.01)
+        stats = app_json(port, "GET", "/metrics")["batching"]
+        if stats["cancelled_waiters"] != 1 or stats["active_slots"] != 0:
+            raise AssertionError(f"app continuous: {stats}")
+        log(f"app continuous: a client that disconnected mid-decode "
+            f"(request {longest}, {counts[longest]} tokens alone) freed its "
+            f"slot: cancelled {dec.cancelled - before}, cancelled_waiters "
+            f"{stats['cancelled_waiters']}, active_slots "
+            f"{stats['active_slots']}")
+    finally:
+        if server is not None:
+            server.stop()
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def host_cpu():
+    """The host's CPU model and vendor (``/proc/cpuinfo``'s first ``model
+    name`` and ``vendor_id``, as that file gives them) and load
+    averages."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = (f"{fields.get('model name', 'not read')} (vendor_id "
+             f"{fields.get('vendor_id', 'not read')})")
+    return model, os.getloadavg()
+
+
+def app_load(pngs, windows=APP_LOAD_WINDOWS):
+    """Printed, not gated: the shipped bf16 weights on the fused route,
+    dynamic batching; one client's requests one after another (a single
+    request's round trip), then ``windows`` windows one after another, in
+    each ``APP_LOAD_CLIENTS`` clients each sending its next request as
+    soon as the last one answers, ``APP_LOAD_REQUESTS`` in all:
+    requests/s, p50/p95 latency and the stages of a request and a batch,
+    for each window and over all of them. Returns (requests/s, p50, p95)
+    over all windows and the windows' (requests/s, p50, p95, input ms)."""
+    import numpy as np
+
+    server, state = app_server(MODEL_DIR, use_fused_decode=True,
+                               pallas_encoder_block=True,
+                               warmup_batch_sizes=(1, 16))
+    per_client = APP_LOAD_REQUESTS // APP_LOAD_CLIENTS
+    runs = []
+    try:
+        port = server.port
+        for png in pngs[:APP_LOAD_CLIENTS]:  # warm: builds, allocator
+            app_predict(port, png)
+        app_pool(APP_LOAD_CLIENTS, lambda i: app_predict(port, pngs[i]),
+                 range(APP_LOAD_CLIENTS))
+        single = []  # one client: a request's whole round trip
+        for png in pngs[:APP_LOAD_CLIENTS]:
+            t0 = time.perf_counter()
+            app_predict(port, png)
+            single.append(time.perf_counter() - t0)
+        batcher = state.batcher
+
+        def client(c):
+            out = []
+            for k in range(per_client):
+                png = pngs[(c * per_client + k) % len(pngs)]
+                t0 = time.perf_counter()
+                app_predict(port, png)
+                out.append(time.perf_counter() - t0)
+            return out
+
+        for _ in range(windows):
+            state.request_timer.reset()  # each window's own stats
+            batcher.timer.reset()
+            batcher.batches_run = batcher.images_decoded = 0
+            batcher.total_batch_occupancy = 0
+            latencies = []
+            t0 = time.perf_counter()
+            for lat in app_pool(APP_LOAD_CLIENTS, client,
+                                range(APP_LOAD_CLIENTS)):
+                latencies += lat
+            wall = time.perf_counter() - t0
+            runs.append((np.array(latencies) * 1e3, wall,
+                         app_json(port, "GET", "/metrics")))
+    finally:
+        server.stop()
+    one = np.array(single) * 1e3
+    log(f"app one client (bf16, fused): {len(one)} requests one after "
+        f"another, latency p50 {np.percentile(one, 50):.1f} ms, min "
+        f"{one.min():.1f} ms, max {one.max():.1f} ms")
+    out = []
+    for i, (lat, wall, metrics) in enumerate(runs):
+        st, stages = metrics["batching"], metrics["request_stages"]
+        bst = st["stages"]
+        out.append((len(lat) / wall, float(np.percentile(lat, 50)),
+                    float(np.percentile(lat, 95)),
+                    stages["input"]["mean_sec"] * 1e3))
+        log(f"app load window {i + 1} (bf16, fused, dynamic): {len(lat)} "
+            f"requests from {APP_LOAD_CLIENTS} closed-loop clients in "
+            f"{wall:.3f} s: requests/s {out[-1][0]:.2f}, latency p50 "
+            f"{out[-1][1]:.1f} ms p95 {out[-1][2]:.1f} ms; batches_run "
+            f"{st['batches_run']} avg_batch_size {st['avg_batch_size']:.2f}")
+        log(f"app load window {i + 1} stages: a request's input (body to "
+            f"uint8 pixels, in the executor) {out[-1][3]:.1f} ms and decode "
+            f"(queued and decoded in its batch) "
+            f"{stages['decode']['mean_sec'] * 1e3:.1f} ms on average; a "
+            f"batch's decode {bst['decode']['mean_sec'] * 1e3:.1f} ms "
+            f"({bst['decode']['count']} batches), an image's queue wait "
+            f"{bst['queue_wait']['mean_sec'] * 1e3:.1f} ms")
+    lat = np.concatenate([r[0] for r in runs])
+    rate = len(lat) / sum(r[1] for r in runs)
+    p50, p95 = (float(np.percentile(lat, q)) for q in (50, 95))
+    log(f"app load, {len(runs)} windows: {len(lat)} requests, requests/s "
+        f"{rate:.2f} (windows {min(r[0] for r in out):.2f}-"
+        f"{max(r[0] for r in out):.2f}), latency p50 {p50:.1f} ms "
+        f"(windows {min(r[1] for r in out):.1f}-"
+        f"{max(r[1] for r in out):.1f}) p95 {p95:.1f} ms (windows "
+        f"{min(r[2] for r in out):.1f}-{max(r[2] for r in out):.1f})")
+    model, load = host_cpu()
+    log(f"app load: on {nvidia_smi_line()}; host CPU {model}, "
+        f"{os.cpu_count()} cores, load average {load[0]:.2f} "
+        f"{load[1]:.2f} {load[2]:.2f}")
+    return (rate, p50, p95), out
+
+
+def serve_app(cfg, tok, entries):
+    """Phase "serve app" (module docstring)."""
+    import glob
+
+    from handwritten_math_ocr_api_torch.data.png import decode_png
+
+    t0 = time.perf_counter()
+    paths = sorted(glob.glob(os.path.join(QUALITY_DATA, "test_formulas",
+                                          "*.png")))[:APP_CONCURRENT]
+    pngs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            pngs.append(f.read())
+    images = [decode_png(b)[..., None] for b in pngs]
+    app_dynamic(cfg, tok, entries, pngs, images)
+    log(f"app: dynamic seconds {time.perf_counter() - t0:.1f}")
+    app_continuous(cfg, tok, entries, pngs, images)
+    log(f"app: continuous seconds {time.perf_counter() - t0:.1f}")
+    (rate, p50, p95), _ = app_load(pngs)
+    log(f"route app load bf16: requests/s {rate:.2f}, p50 {p50:.1f} ms, "
+        f"p95 {p95:.1f} ms")
+    log(f"serve app: phase seconds {time.perf_counter() - t0:.1f}")
+
+
 
 def main() -> int:
     import torch
@@ -3633,6 +4241,7 @@ def main() -> int:
             f"{idle_s} (of the best unprofiled decode), {steps} steps")
 
     serve_modes(cfg, tok, entries)
+    serve_app(cfg, tok, entries)
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

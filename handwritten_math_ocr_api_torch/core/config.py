@@ -3,8 +3,9 @@
 A copy of the serving-relevant part of ``handwritten_math_ocr_api_tpu/
 core/config.py`` (the port imports nothing of the JAX package): the special
 token ids, ``SwinConfig``, ``ResNetConfig``, ``ModelConfig``,
-``DecodeConfig`` with the same fields and defaults, ``DataConfig``'s paths
-and batch size, plus the loader for the
+``DecodeConfig`` and ``ServeConfig`` (with ``from_env`` reading the same
+environment variables) with the same fields and defaults, ``DataConfig``'s
+paths and batch size, plus the loader for the
 ``model_config.json`` that a serving artifact (such as ``serving_model_r4/``)
 carries.
 """
@@ -123,6 +124,156 @@ class DecodeConfig:
     max_seq_len: int = 150
     beam_size: int = 5
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _env_flag(env, name: str, default: bool) -> bool:
+    return env.get(name, "1" if default else "0") in ("1", "true", "True")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Serving config, env-overridable (``from_env``); every field and
+    default as the JAX package's. The port's app serves on one card:
+    ``admission="device"`` and ``mesh_data_axis > 1`` are accepted and
+    served as host admission on one device (``serve/app.py``)."""
+
+    host: str = "0.0.0.0"
+    port: int = 8080
+    api_title: str = "Handwritten Math Formula Recognition API"
+    api_description: str = (
+        "Convert handwritten mathematical formulas to LaTeX using deep learning"
+    )
+    api_version: str = "1.0.0"
+    model_dir: str = "trained-model"
+    api_key: str = ""
+    cors_origins: Tuple[str, ...] = ("*",)
+    trusted_hosts: Tuple[str, ...] = ("*",)
+    max_file_size: int = 10 * 1024 * 1024
+    allowed_extensions: Tuple[str, ...] = (
+        ".jpg", ".jpeg", ".png", ".bmp", ".tiff", ".webp",
+    )
+    # fixed-window rate limits per client
+    rate_limit_per_minute: int = 20
+    rate_limit_per_hour: int = 200
+    rate_limit_per_day: int = 1000
+    rate_limit_anonymous_daily: int = 100
+    max_concurrent_requests: int = 10
+    redis_url: str = ""
+    # "dynamic": coalesce arrivals into one bucketed decode a dispatch;
+    # "continuous": the slot pool of decode/continuous.py
+    batching_mode: str = "dynamic"
+    max_batch_size: int = 64
+    # dynamic batching linger: 0 = drain-and-go, > 0 = wait this long
+    # after the first request for company
+    batch_timeout_ms: float = 0.0
+    max_batch_images: int = 10  # per /predict/batch request
+    # continuous mode: slots, steps between admissions, segments in
+    # flight, report threads (0 = 1), the fused route's segment ring
+    num_slots: int = 63
+    segment_steps: int = 16
+    pipeline_depth: int = 4
+    harvest_threads: int = 0
+    segment_ring: bool = True
+    # continuous mode over a data-axis mesh of this many devices (1 = off;
+    # the port serves one device)
+    mesh_data_axis: int = 1
+    # serving deadline per prediction (seconds; 0 = off): 504, and the
+    # request's device work cancelled as for a client disconnect
+    request_timeout_s: float = 0.0
+    # how long a recycling worker waits for in-flight predictions
+    drain_timeout_s: float = 120.0
+    # after this many prediction requests the worker drains and exits 0
+    # for its supervisor to restart it (0 = off)
+    max_requests: int = 0
+    # continuous admission: "host" (segment-boundary inserts) or "device"
+    # (served as "host" by the port)
+    admission: str = "host"
+    # confidence calibration: "auto" (<model_dir>/calibration.json when
+    # present), "off", or a JSON path
+    calibration: str = "auto"
+    # the fused route: every greedy step one fused decoder-step launch
+    use_fused_decode: bool = False
+    # int8 decoder weights
+    quantize_decode: bool = False
+    # the whole-block Swin kernel in the encoder
+    pallas_encoder_block: bool = False
+    # decode batch sizes run once at startup (SERVING_WARMUP, "0" = none;
+    # from_env defaults to (1,))
+    warmup_batch_sizes: Tuple[int, ...] = ()
+    # greedy decoding under the LaTeX pushdown mask (decode/constrain.py)
+    constrained_decode: bool = False
+    # ship uint8 pixels and normalize on the device
+    uint8_transfer: bool = True
+
+    @classmethod
+    def from_env(cls) -> "ServeConfig":
+        env = os.environ
+        defaults = cls()
+
+        def _split(name: str, default: Tuple[str, ...]) -> Tuple[str, ...]:
+            raw = env.get(name)
+            if not raw:
+                return default
+            return tuple(s.strip() for s in raw.split(",") if s.strip())
+
+        return cls(
+            host=env.get("HOST", defaults.host),
+            port=int(env.get("PORT", defaults.port)),
+            model_dir=env.get("MODEL_DIR", defaults.model_dir),
+            api_key=env.get("MODEL_API_KEY", defaults.api_key),
+            cors_origins=_split("CORS_ORIGINS", defaults.cors_origins),
+            trusted_hosts=_split("TRUSTED_HOSTS", defaults.trusted_hosts),
+            rate_limit_per_minute=int(env.get(
+                "RATE_LIMIT_PER_MINUTE", defaults.rate_limit_per_minute)),
+            rate_limit_per_hour=int(env.get(
+                "RATE_LIMIT_PER_HOUR", defaults.rate_limit_per_hour)),
+            rate_limit_per_day=int(env.get(
+                "RATE_LIMIT_PER_DAY", defaults.rate_limit_per_day)),
+            rate_limit_anonymous_daily=int(env.get(
+                "RATE_LIMIT_ANON_DAILY",
+                defaults.rate_limit_anonymous_daily)),
+            max_concurrent_requests=int(env.get(
+                "MAX_CONCURRENT_REQUESTS", defaults.max_concurrent_requests)),
+            redis_url=env.get("REDIS_URL", defaults.redis_url),
+            max_batch_size=int(env.get("MAX_BATCH_SIZE",
+                                       defaults.max_batch_size)),
+            batch_timeout_ms=float(env.get("BATCH_TIMEOUT_MS",
+                                           defaults.batch_timeout_ms)),
+            batching_mode=env.get("SERVING_BATCH_MODE",
+                                  defaults.batching_mode),
+            num_slots=int(env.get("SERVING_NUM_SLOTS", defaults.num_slots)),
+            segment_steps=int(env.get("SERVING_SEGMENT_STEPS",
+                                      defaults.segment_steps)),
+            pipeline_depth=int(env.get("SERVING_PIPELINE_DEPTH",
+                                       defaults.pipeline_depth)),
+            harvest_threads=int(env.get("SERVING_HARVEST_THREADS",
+                                        defaults.harvest_threads)),
+            segment_ring=_env_flag(env, "SERVING_SEGMENT_RING",
+                                   defaults.segment_ring),
+            warmup_batch_sizes=tuple(
+                int(s) for s in env.get("SERVING_WARMUP", "1").split(",")
+                if s.strip() and int(s) > 0),
+            mesh_data_axis=int(env.get("SERVING_MESH_DATA",
+                                       defaults.mesh_data_axis)),
+            calibration=env.get("SERVING_CALIBRATION", defaults.calibration),
+            admission=env.get("SERVING_ADMISSION", defaults.admission),
+            request_timeout_s=float(env.get("SERVING_REQUEST_TIMEOUT",
+                                            defaults.request_timeout_s)),
+            drain_timeout_s=float(env.get("SERVING_DRAIN_TIMEOUT",
+                                          defaults.drain_timeout_s)),
+            max_requests=int(env.get("SERVING_MAX_REQUESTS",
+                                     defaults.max_requests)),
+            use_fused_decode=_env_flag(env, "SERVING_USE_FUSED",
+                                       defaults.use_fused_decode),
+            quantize_decode=_env_flag(env, "SERVING_QUANTIZE",
+                                      defaults.quantize_decode),
+            pallas_encoder_block=_env_flag(env, "SERVING_PALLAS_ENCODER",
+                                           defaults.pallas_encoder_block),
+            uint8_transfer=_env_flag(env, "SERVING_UINT8_TRANSFER",
+                                     defaults.uint8_transfer),
+            constrained_decode=_env_flag(env, "SERVING_CONSTRAINED",
+                                         defaults.constrained_decode),
+        )
 
 
 def model_config_from_dict(raw: dict) -> ModelConfig:

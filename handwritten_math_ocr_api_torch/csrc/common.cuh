@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -214,7 +215,10 @@ __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 // at once (0: none), queried once for each. The table holds every
 // (kernel, cluster, shared memory) the port launches (the cluster step
 // kernels try up to five row groups a launch): a query not kept costs the
-// host a cudaOccupancyMaxActiveClusters call at each launch.
+// host a cudaOccupancyMaxActiveClusters call at each launch. Host threads
+// launch at once (a server's executor and scheduler threads), so the table
+// is read and written under its lock; the query runs outside it, and an
+// entry that another thread added meanwhile is not added twice.
 constexpr int kActiveKeys = 256;
 __host__ inline cudaError_t active_clusters(const void* kernel,
                                            const cudaLaunchConfig_t& cfg,
@@ -223,21 +227,33 @@ __host__ inline cudaError_t active_clusters(const void* kernel,
     const void* kernel;
     int cs, smem;
   };
+  static std::mutex lock;
   static Key keys[kActiveKeys];
   static int values[kActiveKeys], used = 0;
   const int cs = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
   const int smem = static_cast<int>(cfg.dynamicSmemBytes);
-  for (int i = 0; i < used; ++i) {
-    if (keys[i].kernel == kernel && keys[i].cs == cs &&
-        keys[i].smem == smem) {
+  auto find = [&]() {
+    for (int i = 0; i < used; ++i)
+      if (keys[i].kernel == kernel && keys[i].cs == cs &&
+          keys[i].smem == smem)
+        return i;
+    return -1;
+  };
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    const int i = find();
+    if (i >= 0) {
       *active = values[i];
       return cudaSuccess;
     }
   }
   const cudaError_t err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
-  if (err == cudaSuccess && used < kActiveKeys) {
-    keys[used] = {kernel, cs, smem};
-    values[used++] = *active;
+  if (err == cudaSuccess) {
+    std::lock_guard<std::mutex> guard(lock);
+    if (find() < 0 && used < kActiveKeys) {
+      keys[used] = {kernel, cs, smem};
+      values[used++] = *active;
+    }
   }
   return err;
 }

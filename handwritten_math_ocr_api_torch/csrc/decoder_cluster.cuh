@@ -112,7 +112,9 @@
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <cstring>
+#include <mutex>
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap (the type only)
@@ -1696,8 +1698,9 @@ using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link to
 // the driver library).
 inline cudaError_t encoder(Encode* out) {
-  static Encode fn = nullptr;
-  if (fn == nullptr) {
+  static std::atomic<Encode> fn{nullptr};  // threads that race store the same
+  Encode f = fn.load();
+  if (f == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
     const cudaError_t err = cudaGetDriverEntryPoint(
@@ -1705,10 +1708,25 @@ inline cudaError_t encoder(Encode* out) {
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || p == nullptr)
       return cudaErrorNotSupported;
-    fn = reinterpret_cast<Encode>(p);
+    f = reinterpret_cast<Encode>(p);
+    fn.store(f);
   }
-  *out = fn;
+  *out = f;
   return cudaSuccess;
+}
+
+// cuTensorMapEncodeTiled needs the context current in the calling
+// thread. The runtime makes it current at a thread's first call
+// that touches the device, and a launch whose every earlier step the
+// caches answered makes none: a host thread whose first CUDA work is a
+// launch of these kernels (a server's executor thread) has no context
+// there, and the encode fails. So each thread binds it once.
+inline cudaError_t bind_context() {
+  thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  const cudaError_t err = cudaFree(nullptr);
+  bound = err == cudaSuccess;
+  return err;
 }
 
 template <typename T>
@@ -1722,7 +1740,9 @@ CUtensorMapDataType tma_type() {
 // strides of dims 1.. in `strides`, or dense if null) copied in boxes of
 // `box`. A map with `keep` is encoded once and kept (a decode's steps use
 // the same weights and cross K/V); the self-cache maps end at pos, which
-// every step moves, and are encoded for each launch.
+// every step moves, and are encoded for each launch. The kept maps are
+// read and written under their lock (host threads launch at once); the
+// encode runs outside it.
 template <typename T>
 cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
                        const uint64_t* dims, const uint32_t* box,
@@ -1734,6 +1754,7 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
     uint32_t box[4];
     int rank, swizzle;
   };
+  static std::mutex lock;
   static Key keys[64];
   static CUtensorMap maps[64];
   static int used = 0, next = 0;
@@ -1746,14 +1767,18 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
     key.dims[i] = dims[i];
     key.box[i] = box[i];
   }
-  for (int i = 0; keep && i < used; ++i) {
-    if (std::memcmp(&keys[i], &key, sizeof(Key)) == 0) {
-      *out = maps[i];
-      return cudaSuccess;
+  if (keep) {
+    std::lock_guard<std::mutex> guard(lock);
+    for (int i = 0; i < used; ++i) {
+      if (std::memcmp(&keys[i], &key, sizeof(Key)) == 0) {
+        *out = maps[i];
+        return cudaSuccess;
+      }
     }
   }
   Encode fn;
-  const cudaError_t err = encoder(&fn);
+  cudaError_t err = encoder(&fn);
+  if (err == cudaSuccess) err = bind_context();
   if (err != cudaSuccess) return err;
   cuuint64_t gdim[4], gstride[3];
   cuuint32_t bdim[4], estride[4];
@@ -1775,6 +1800,7 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int rank,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   if (!keep) return cudaSuccess;
+  std::lock_guard<std::mutex> guard(lock);
   keys[next] = key;
   maps[next] = *out;
   next = (next + 1) % 64;
@@ -1848,14 +1874,19 @@ template <typename W, typename C>
 cudaError_t configure(const void* kernel, const Shape& s,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                       cudaStream_t st, int* active) {
+  static std::mutex lock;  // host threads launch at once
   static const void* opted_in[16];
   static int n_opted = 0;
-  if (std::find(opted_in, opted_in + n_opted, kernel) == opted_in + n_opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemMax));
-    if (err != cudaSuccess) return err;
-    if (n_opted < 16) opted_in[n_opted++] = kernel;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    if (std::find(opted_in, opted_in + n_opted, kernel) ==
+        opted_in + n_opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kSmemMax));
+      if (err != cudaSuccess) return err;
+      if (n_opted < 16) opted_in[n_opted++] = kernel;
+    }
   }
   const int groups = (s.B + s.Mg - 1) / s.Mg;
   cfg = cudaLaunchConfig_t{};

@@ -46,6 +46,7 @@
 // an x whose rows are not 16-byte aligned (K not a multiple of 8) or a
 // weight whose rows are not (the 138-column head, 138-byte rows) is staged
 // element by element instead.
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -313,19 +314,20 @@ dequant_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 
 // Allow a kernel up to kSmemMax bytes of dynamic shared memory (once).
 template <typename Kernel>
-cudaError_t allow_all_smem(Kernel kernel, bool* done) {
-  if (*done) return cudaSuccess;
+cudaError_t allow_all_smem(Kernel kernel, std::atomic<bool>* done) {
+  if (done->load()) return cudaSuccess;
+  // threads that race both set the same attribute
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemMax));
-  *done = err == cudaSuccess;
+  if (err == cudaSuccess) done->store(true);
   return err;
 }
 
 template <int KW, int MW, int NT>
 int launch_mma(const void* x, const void* w, const void* scale, void* y,
                int M, int K, int N, int ldw, cudaStream_t st) {
-  static bool attr = false;
+  static std::atomic<bool> attr{false};
   auto kernel = dequant_mma_kernel<KW, MW, NT>;
   const int rows = MW * 16, Kp = (K + 15) & ~15;
   const size_t smem = mma_smem(rows, Kp, NT * 8, KW);
@@ -370,7 +372,7 @@ extern "C" int dequant_matmul_bf16(const void* x, const void* w,
 extern "C" int dequant_matmul_f32(const void* x, const void* w,
                                   const void* scale, void* y, int M, int K,
                                   int N, int ldw, void* stream) {
-  static bool attr = false;
+  static std::atomic<bool> attr{false};
   const size_t smem = f32_smem((K + 3) & ~3);
   if (smem > kSmemMax) return kRefused;
   cudaError_t err = allow_all_smem(dequant_f32_kernel, &attr);

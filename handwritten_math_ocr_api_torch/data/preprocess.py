@@ -6,8 +6,9 @@ float32 ``x / 255 * 2 - 1``. ``load_image_png`` and ``preprocess_file``
 read a PNG with the port's own reader (``data/png.py``, numpy and ``zlib``);
 they take images that are already ``img_h x img_w``, since the stretch
 resize of the JAX package's cv2 loader is not ported (on the corpora it is
-the identity). The PIL and cv2 loaders import those inside them, so the
-package imports without either.
+the identity). The serving path's ``resize_pil_u8`` and ``preprocess_pil``
+(PIL grayscale, bilinear stretch resize) and the cv2 loader import those
+inside them, so the package imports without either.
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ def resize_pil_u8(image, img_h: int = 96, img_w: int = 320) -> np.ndarray:
     image = image.convert("L")
     image = image.resize((img_w, img_h), Image.BILINEAR)
     return np.asarray(image, dtype=np.uint8)
+
+
+def preprocess_pil(image, img_h: int = 96, img_w: int = 320) -> np.ndarray:
+    """Serving-path preprocess: PIL image -> normalized float32 (H, W)."""
+    return normalize(resize_pil_u8(image, img_h, img_w))
 
 
 def load_image_cv2(path: str, img_h: int = 96, img_w: int = 320) -> np.ndarray:

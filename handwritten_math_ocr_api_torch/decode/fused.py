@@ -212,7 +212,10 @@ def greedy_decode_fused(decoder_params, stacked, cfg: ModelConfig, memory,
                    else fused_decoder_layers_step_v2_plain)
 
     def step_logits(prev, step):
-        x_emb = (emb[prev] + pos_table[step]).to(dtype)
+        # a step past the positional table takes its last row, as JAX's
+        # gather clamps (a model whose max_seq_len is under the decode's)
+        at = min(step, pos_table.shape[0] - 1)
+        x_emb = (emb[prev] + pos_table[at]).to(dtype)
         x, k, v = step_fn(stacked, cfg, x_emb, sk, sv, ck, cv, step)
         if variant != "v1":  # v1 wrote the rows into the caches itself
             sk[:, :, step] = k

@@ -1,11 +1,13 @@
 """Image -> encoder memory, the port of ``models/model.py::encode``.
 
 Only the Swin-T encoder is ported; the ResNet encoders wait for a later
-slice and raise here.
+slice and raise here. ``count_params`` counts a parameter tree's elements,
+as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.config import ModelConfig
@@ -34,3 +36,16 @@ def encode(params, cfg: ModelConfig, images: torch.Tensor, *,
     if cfg.memory_norm:
         memory = layers.layer_norm(params["memory_norm"], memory)
     return memory
+
+
+def count_params(params) -> int:
+    """Elements of every leaf (tensor or array) of nested dicts and lists."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    if params is None:
+        return 0
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    return int(np.size(params))

@@ -9,7 +9,9 @@ directory that ``.gitignore`` lists); a finished library is reused.
 
 Each C entry point takes device pointers, sizes and a ``cudaStream_t`` and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
-non-zero code.
+non-zero code. Host threads may launch at once (a server's executor and
+scheduler threads): the library loads once under a lock, and ``count``
+adds a wrapper's launches under one.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -113,6 +116,8 @@ SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -183,14 +188,24 @@ def build(verbose: bool = False) -> str:
 def library():
     """The loaded kernel library (built at first use)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:  # every launch after the first: no lock
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one launch to ``wrapper``'s count ``attr`` (a read and a write
+    that two threads must not interleave)."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(code: int, name: str) -> None:

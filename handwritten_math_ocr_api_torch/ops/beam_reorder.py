@@ -94,7 +94,7 @@ def beam_cache_gather(self_k, self_v, src, t_ext: int, out=None):
         out[0].data_ptr(), out[1].data_ptr(), L, R, T, T_out, t_ext,
         row_bytes, _build.stream_handle(dev))
     _build.check(code, _ENTRY)
-    beam_cache_gather.launches += 1
+    _build.count(beam_cache_gather)
     return out
 
 

@@ -96,7 +96,7 @@ def cache_append_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
         v_cache.data_ptr(), out.data_ptr(), B * H, T, Dh, int(pos),
         _build.stream_handle(q.device))
     _build.check(code, _ENTRY[q.dtype])
-    cache_append_attention.launches += 1
+    _build.count(cache_append_attention)
     return out
 
 
@@ -122,7 +122,7 @@ def decode_attention(q, k_cache, v_cache, pos: int):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         B * H, T, Dh, int(pos), _build.stream_handle(q.device))
     _build.check(code, _DECODE_ENTRY[q.dtype])
-    decode_attention.launches += 1
+    _build.count(decode_attention)
     return out
 
 

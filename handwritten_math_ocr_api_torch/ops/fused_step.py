@@ -421,7 +421,7 @@ def _count(wrapper, cfg: ModelConfig, quantized: bool,
     attr = (("ring_" if ring else "")
             + ("mqa_" if cfg.kv_heads != cfg.nhead else "")
             + ("int8_launches" if quantized else "launches"))
-    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    _build.count(wrapper, attr)
 
 
 fused_decoder_layers_step_v2.launches = 0
@@ -469,7 +469,7 @@ def fused_decoder_layers_step(stacked, cfg: ModelConfig, x_emb, self_k,
         *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, int(pos),
         _build.stream_handle(dev))
     _check_code(code, entry, cfg, B)
-    fused_decoder_layers_step.launches += 1
+    _build.count(fused_decoder_layers_step)
     return x_out, self_k, self_v
 
 
@@ -839,7 +839,7 @@ def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
         *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V,
         int(pos), _build.stream_handle(dev))
     _check_code(code, entry, cfg, B)
-    fused_whole_step.launches += 1
+    _build.count(fused_whole_step)
     return (nxt, logp, *(rows or (self_k, self_v)))
 
 

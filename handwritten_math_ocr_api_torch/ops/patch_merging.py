@@ -98,7 +98,7 @@ def fused_patch_merging(p, x):
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
         out.data_ptr(), B, H, W, C, *tiles, _build.stream_handle(x.device))
     _build.check(code, _ENTRY[x.dtype])
-    fused_patch_merging.launches += 1
+    _build.count(fused_patch_merging)
     return out
 
 

@@ -149,7 +149,7 @@ def dequant_matmul(x, w_q, scale):
         raise ValueError(f"the dequant matmul kernel does not stage K {K} "
                          f"in shared memory ({M} rows, {dt})")
     _build.check(code, _ENTRY[dt])
-    dequant_matmul.launches += 1
+    _build.count(dequant_matmul)
     return y.reshape(*x.shape[:-1], N)
 
 

@@ -351,7 +351,7 @@ def fused_swin_block(p, x, ws: int, shift: int, num_heads: int):
             f"Swin block kernel: no cluster of {tiles[0]} blocks with "
             f"{tiles[-1]} bytes of shared memory fits on the card")
     _build.check(code, _ENTRY[dt])
-    fused_swin_block.launches += 1
+    _build.count(fused_swin_block)
     return out
 
 

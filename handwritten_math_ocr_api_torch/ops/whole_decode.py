@@ -182,9 +182,9 @@ def fused_whole_decode(stacked, cfg: ModelConfig, memory, max_len=None, *,
         sos_id, eos_id, pad_id, _build.stream_handle(dev))
     _check_code(code, entry, cfg, B)
     if quantized:
-        fused_whole_decode.int8_launches += 1
+        _build.count(fused_whole_decode, "int8_launches")
     else:
-        fused_whole_decode.launches += 1
+        _build.count(fused_whole_decode)
     return _out(tokens, lp, cnt, pad_id)
 
 

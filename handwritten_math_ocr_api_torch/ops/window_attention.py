@@ -75,7 +75,7 @@ def window_attention_core(q, k, v, mask):
         out.data_ptr(), B * nW * nh, N, dh, mask.shape[0] * nh,
         _build.stream_handle(q.device))
     _build.check(code, _ENTRY[q.dtype])
-    window_attention_core.launches += 1
+    _build.count(window_attention_core)
     return out
 
 

@@ -9,6 +9,11 @@
     python3 kernel_ab.py dequant            # B9's tile shapes and phases
     python3 kernel_ab.py encoder            # B4's clusters, B3's tiles and
                                             # both kernels' phases
+    python3 kernel_ab.py routes DIR [DIR ...]  # served images/s of the
+                                               # fused routes, the tree
+                                               # against other copies
+    python3 kernel_ab.py app DIR [DIR ...]     # the HTTP app's load, the
+                                               # tree against other copies
 
 ``steps`` times the kernels on the cluster layer code
 (``csrc/decoder_cluster.cuh``) from the package of this checkout and from
@@ -57,6 +62,21 @@ False)``: LayerNorm, cuBLAS, B2 and GELU) and layer norm + one matmul on
 the gathered rows; then builds each kernel again with one phase taken out
 at a time (``ENCODER_PHASES``: text edits of ``csrc/``; the outputs are
 then wrong, only the times count) to show where the time goes.
+
+``routes`` times ``DecodeEngine.predict_batch`` (wall time, the host's
+launches included) of the package under each DIR and of the tree, in turns
+as ``steps`` does, on ``chip_smoke``'s seeded weights and images (10
+images): the fused route in bf16 and int8 (``quantize``) at full depth,
+and MQA (``nhead_kv=1``) fused int8, each greedy (``ROUTE_ROUNDS``
+rounds) and beam 5 (``ROUTE_ROUNDS // 2``), after a warm-up call of each;
+images/s of the median and of the best round.
+
+``app`` runs this tree's ``chip_smoke.app_load`` (the shipped bf16
+weights on the HTTP app, fused route, dynamic batching, 16 closed-loop
+clients, three windows of ``APP_LOAD_REQUESTS`` requests) on the package
+under each DIR and on the tree, in turns as ``steps`` does: requests/s,
+p50/p95 latency and a request's input stage (upload to pixels) of each
+window.
 
 Device time from ``chip_smoke.cuda_ms`` (the profiler); the card's name and
 power limit are printed first. Numbers compare only within one run.
@@ -271,11 +291,108 @@ def steps_in_process(root: str, label: str) -> None:
           f"logits)", flush=True)
 
 
-def steps(others) -> None:
+ROUTE_ROUNDS = 10
+
+
+def load_tree_smoke():
+    """This checkout's ``chip_smoke`` (its constants and its app load),
+    whichever package ``sys.path`` finds first."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def import_package(root: str):
+    sys.path.insert(0, root)
+    import handwritten_math_ocr_api_torch as pkg
+
+    if not pkg.__file__.startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {pkg.__file__}, not {root}'s package")
+
+
+def routes_in_process(root: str, label: str) -> None:
+    """One side of ``routes``: the package under ``root``."""
+    import time
+
+    import numpy as np
+    import torch
+
+    import_package(root)
+    cs = load_tree_smoke()
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.core.tokenizer import (
+        Tokenizer,
+        load_vocab,
+    )
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    cfg = load_model_config(cs.MODEL_DIR)
+    tok = Tokenizer(*load_vocab(os.path.join(cs.MODEL_DIR, "vocab.json")))
+    rng = np.random.default_rng(cs.SEED)
+    images = rng.integers(0, 256, (cs.N_IMAGES, cfg.img_h, cfg.img_w, 1),
+                          dtype=np.uint8)
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    mqa = cfg.replace(nhead_kv=1)
+    for name, c, kw in (("fused", cfg, fused),
+                        ("fused_int8", cfg, {**fused, "quantize": True}),
+                        ("fused_mqa_int8", mqa, {**fused,
+                                                 "quantize": True})):
+        engine = DecodeEngine(convert.random_params(c, cs.SEED), c,
+                              tokenizer=tok, device=cs.DEVICE, **kw)
+        engine.warmup((cs.N_IMAGES,), dtype=np.uint8)
+        row = []
+        for mode, beam, rounds in (("greedy", None, ROUTE_ROUNDS),
+                                   (f"beam {cs.BEAM}", cs.BEAM,
+                                    ROUTE_ROUNDS // 2)):
+            engine.predict_batch(images, beam_size=beam)  # warm
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                engine.predict_batch(images, beam_size=beam)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            row.append(f"{mode} images/s median "
+                       f"{cs.N_IMAGES / statistics.median(times):.2f} best "
+                       f"{cs.N_IMAGES / min(times):.2f} ({engine.last_steps}"
+                       f" steps)")
+        print(f"routes {label}: {name}: " + "; ".join(row), flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+
+def app_in_process(root: str, label: str) -> None:
+    """One side of ``app``: the package under ``root``."""
+    import glob
+
+    import_package(root)
+    cs = load_tree_smoke()
+    paths = sorted(glob.glob(os.path.join(
+        cs.QUALITY_DATA, "test_formulas", "*.png")))[:cs.APP_CONCURRENT]
+    pngs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            pngs.append(f.read())
+    (rate, p50, p95), windows = cs.app_load(pngs)
+    print(f"app {label}: requests/s {rate:.2f}, p50 {p50:.1f} ms, p95 "
+          f"{p95:.1f} ms; windows (requests/s, p50, p95, input ms) "
+          + ", ".join(f"({r:.2f}, {a:.1f}, {b:.1f}, {i:.1f})"
+                      for r, a, b, i in windows), flush=True)
+
+
+def in_turns(kind: str, others) -> None:
+    """Each DIR, the tree, the tree, each DIR in reverse: one process each
+    (the packages share a name)."""
     runs = [(d, os.path.basename(os.path.normpath(d))) for d in others]
     for root, label in [*runs, (ROOT, "tree"), (ROOT, "tree"),
                         *runs[::-1]]:
-        subprocess.run([sys.executable, __file__, "_steps", root, label],
+        subprocess.run([sys.executable, __file__, f"_{kind}", root, label],
                        check=True, cwd=ROOT)
 
 
@@ -616,15 +733,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    if sys.argv[1:2] == ["_steps"]:
-        steps_in_process(sys.argv[2], sys.argv[3])
+    sides = {"_steps": steps_in_process, "_routes": routes_in_process,
+             "_app": app_in_process}
+    if len(sys.argv) == 4 and sys.argv[1] in sides:
+        sides[sys.argv[1]](sys.argv[2], sys.argv[3])
         return 0
+    sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
     print(cs.nvidia_smi_line(), flush=True)
-    if sys.argv[1:2] == ["steps"] and len(sys.argv) >= 3:
-        steps([os.path.abspath(d) for d in sys.argv[2:]])
+    if sys.argv[1:2] in (["steps"], ["routes"], ["app"]) \
+            and len(sys.argv) >= 3:
+        in_turns(sys.argv[1], [os.path.abspath(d) for d in sys.argv[2:]])
     elif sys.argv[1:] == ["decode"]:
         decode()
     elif sys.argv[1:] == ["dequant"]:

@@ -1226,3 +1226,80 @@ def test_ragged_step_ring_dead_row(dev, np_params, bundle):
             live = ~dead if g.dim() < 3 else (slice(None), ~dead)
             assert torch.isnan(g[rows].float()).all()
             _close(g[live], w[live], tol)
+
+
+# host threads launching at once: a server's executor threads (beam,
+# sampled and streamed requests) beside the batcher's and the continuous
+# scheduler's; each thread its own row count, so that the launches differ
+# in cluster shape and tensor maps
+THREAD_ROWS = (1, 3, 5, 16)
+THREAD_LAUNCHES = 20
+
+
+def test_concurrent_launches(dev, np_params):
+    """4 threads x 20 launches each of B1, B7 and B4, started together (the
+    launch caches of ``csrc/common.cuh`` and ``decoder_cluster.cuh`` cold
+    for their tensors): every output equal, bit for bit, to the same launch
+    made alone afterwards, and every launch counted."""
+    import threading
+
+    cfg = CFG.replace(dtype="bfloat16")
+    dec = np_params["decoder"]
+    step_bundle = fs.build_stacked(dec, cfg, dev)
+    ragged_bundle = fs.build_stacked_full(dec, cfg, dev)
+    params = convert.to_torch(np_params, cfg, dev)
+    block = sb.with_float32_biases(
+        np_params["encoder"], params["encoder"])["stages"][0]["blocks"][1]
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    inputs = []
+    for t, B in enumerate(THREAD_ROWS):
+        s = 10 * t
+        step = (_randn(dev, "bfloat16", B, D, seed=s),
+                *(_randn(dev, "bfloat16", L, B, T, D, seed=s + 1 + i)
+                  for i in range(2)),
+                *(_randn(dev, "bfloat16", L, B, L_enc, D, seed=s + 3 + i)
+                  for i in range(2)))
+        prev, positions, caches = _ragged_inputs(dev, cfg, B, seed=s + 5)
+        image = _randn(dev, "bfloat16", B, 24, 80, 96, seed=s + 6)
+        inputs.append((step, prev, positions[2], caches, image))
+
+    def launches(t, i):
+        step, prev, pos, caches, image = inputs[t]
+        return (fs.fused_decoder_layers_step_v2(step_bundle, cfg, *step,
+                                                (7 * i + t) % T),
+                fs.fused_ragged_step(ragged_bundle, cfg, prev, pos, *caches,
+                                     return_logits=True),
+                (sb.fused_swin_block(block, image, 7, 3 * (i % 2), 3),))
+
+    wrappers = (fs.fused_decoder_layers_step_v2, fs.fused_ragged_step,
+                sb.fused_swin_block)
+    before = [w.launches for w in wrappers]
+    start = threading.Barrier(len(THREAD_ROWS))
+    together = [None] * len(THREAD_ROWS)
+    errors = []
+
+    def worker(t):
+        try:
+            start.wait()
+            together[t] = [launches(t, i) for i in range(THREAD_LAUNCHES)]
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(len(THREAD_ROWS))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    n = len(THREAD_ROWS) * THREAD_LAUNCHES
+    assert [w.launches for w in wrappers] == [b + n for b in before]
+    for t in range(len(THREAD_ROWS)):
+        for i in range(THREAD_LAUNCHES):
+            alone = launches(t, i)
+            torch.cuda.synchronize()
+            for got_k, want_k in zip(together[t][i], alone):
+                for g, w in zip(got_k, want_k):
+                    assert torch.equal(g, w), (THREAD_ROWS[t], i)
