@@ -39,6 +39,10 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    beside the unfused block of the default route (``unfused_ms``); patch
    merging at its three merges at one image and at the bucket, beside
    layer norm and one matmul on the gathered rows (``unfused_ms``);
+   the ragged step, the whole step and the whole decode past the
+   positional table (cut to 8 rows: a model whose ``max_seq_len`` lies
+   under the decode's), against their plain versions, which take the
+   table's last row there as JAX's gather clamps the index;
    the ragged step at the beam's 50 rows at pos 0, 74, 149 and a ragged
    position vector and at the bucket's 16 rows at pos 149 and a ragged
    vector, in both head modes, with both bundles (and in float32, where its
@@ -58,9 +62,10 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    projection at 480 and 1500, each shape's time beside cuBLAS's on the
    weight dequantized beforehand. Each with its device time
    (``torch.profiler``: the kernels' own time, not the host's launch
-   rate), the plain version's time (for the whole decode, whose plain
-   version launches some 40,000 small kernels, the synchronized wall of
-   its one reference run), the time of one PyTorch library call computing
+   rate), the plain version's wall (CUDA events around 5 back-to-back
+   calls, ``plain_ms``; for the whole decode, whose plain version launches
+   some 40,000 small kernels, the synchronized wall of its one reference
+   run), the time of one PyTorch library call computing
    the same function where there is one (else null; for the dequant matmul
    ``torch._weight_int8pack_mm``), and the least time the card could take
    (its bound, and whether bytes or operations set it);
@@ -185,12 +190,31 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    from 16 closed-loop clients: requests/s, p50 and p95 latency, a
    request's and a batch's stages, for each window and over the three,
    the card's name and power limit and the host's CPU and load;
-11. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+11. "train", the training path (``train/``): (a) the shipped weights in
+   float32 on the first 256 test images (batches of 64, no augmentation,
+   dropout and stochastic depth 0) against ``tests/fixtures/
+   torch_r4_train.json`` (the JAX package's train and eval steps on a
+   CPU): the eval loss within 1e-3 relative, the token accuracy within
+   0.002, the first batch's gradient norm and its loss after one Adam step
+   within 1e-3 relative; (b) a fresh model at full width (Swin-T, d_model
+   256, 8 decoder layers, ``memory_norm``, the synthetic grammar's vocab,
+   dropout and stochastic depth 0.1) trained in bf16 for 100 steps of 64
+   synthetic stream images, augmented in the step, with warmup: no kernel
+   launched in a train step, the mean loss of the last 20 steps at least
+   ``TRAIN_LOSS_MARGIN`` under the first 20's, images/s, ms a step, the
+   loader's wait, a profiled step's device idle share and the peak
+   device memory; one eval step launching B2 and B3 as an encode does;
+   (c) float32: saved after 3 steps and restored into a fresh state, the
+   next 5 losses equal to an uninterrupted run's; (d) the trained weights
+   written by ``save_params_for_serving``, read back bit for bit and
+   decoded on the default and the fused route, their float32 tokens
+   equal;
+12. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port only; phases 1-6, 8 and 9 run on
-seeded random weights, phases 7 and 10 read the checkpoint and the test
-split. It exits non-zero on any failure, or when no CUDA device is
+seeded random weights, phases 7, 10 and 11 (a) read the checkpoint and the
+test split. It exits non-zero on any failure, or when no CUDA device is
 present.
 """
 
@@ -302,6 +326,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5) -> float:
         f"sessions; timed with CUDA events instead (gaps included)")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def plain_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+    """Mean wall of one call of a kernel's plain version on the card: CUDA
+    events around ``iters`` back-to-back calls after ``warmup``. A plain
+    version launches tens to thousands of small kernels, and the profiler
+    sessions of ``cuda_ms`` over them took most of phase 3's time; the
+    events also count the device's gaps between those launches, so the
+    number is the plain version's wall, at least its device time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
         fn()
@@ -453,7 +499,7 @@ def check_kernels(cfg, params, batch, rows):
             torch.cuda.synchronize()
             assert_close(f"window_attention stage {i + 1} {kind}", got, want)
             ms = cuda_ms(lambda: wa.window_attention_core(q, k, v, mask))
-            plain = cuda_ms(
+            plain = plain_ms(
                 lambda: wa.window_attention_core_plain(q, k, v, mask))
             m4 = mask.expand(nW, nh, N, N).reshape(1, nW * nh, N, N).to(bf16)
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -478,7 +524,7 @@ def check_kernels(cfg, params, batch, rows):
             assert_close(f"patch_merging {i + 1} batch {n}", got, want)
             err = max(err, max_err(got, want))
         ms = cuda_ms(lambda: pm.fused_patch_merging(p_merge, x))
-        plain = cuda_ms(lambda: pm.patch_merging_plain(p_merge, x))
+        plain = plain_ms(lambda: pm.patch_merging_plain(p_merge, x))
         # unfused: layer norm (bf16 in and out) and one matmul on the rows
         # gathered beforehand; several calls, not a yardstick of one
         cat = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
@@ -551,7 +597,7 @@ def check_kernels(cfg, params, batch, rows):
         batch, (0, 1, 7, 8, T // 2 - 1, T // 2, T - 2, T - 1))
     ms = cuda_ms(lambda: ca.cache_append_attention(q, kn, vn, k_cache,
                                                    v_cache, pos))
-    plain = cuda_ms(lambda: ca.cache_append_attention_plain(
+    plain = plain_ms(lambda: ca.cache_append_attention_plain(
         q, kn, vn, k_cache, v_cache, pos))
     kp, vp = k_cache[:, :, :pos + 1], v_cache[:, :, :pos + 1]
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kp, vp))
@@ -565,7 +611,7 @@ def check_kernels(cfg, params, batch, rows):
         f"{ms / lib:.3f} bound_ms {bound_ms(nbytes, flops):.4f}")
 
     ms = cuda_ms(lambda: ca.decode_attention(q, k_cache, v_cache, pos))
-    plain = cuda_ms(lambda: ca.decode_attention_plain(q, k_cache, v_cache,
+    plain = plain_ms(lambda: ca.decode_attention_plain(q, k_cache, v_cache,
                                                       pos))
     nbytes = 2 * G * Dh * 2 + 2 * G * (pos + 1) * Dh * 2   # q, out, prefix
     decode.add(1, err_dec, ms, plain, lib, nbytes, flops)
@@ -629,7 +675,7 @@ def check_fused_step(cfg, np_params, batch, quantize=False):
     pos = T - 1
     ms = cuda_ms(lambda: fs.fused_decoder_layers_step_v2(
         stacked, cfg, x, sk, sv, ck, cv, pos))
-    plain = cuda_ms(lambda: fs.fused_decoder_layers_step_v2_plain(
+    plain = plain_ms(lambda: fs.fused_decoder_layers_step_v2_plain(
         stacked, cfg, x, sk, sv, ck, cv, pos))
     nbytes, flops = step_bound(cfg, batch, pos, quantize)
     entry.add(1, err, ms, plain, None, nbytes, flops)
@@ -777,7 +823,7 @@ def check_swin_block(cfg, np_params, params, batch):
             times[n] = cuda_ms(lambda: sb.fused_swin_block(p, x, ws, ws // 2,
                                                            nh))
         ms = times[batch]
-        plain = cuda_ms(lambda: sb.fused_swin_block_plain(p, x, ws, ws // 2,
+        plain = plain_ms(lambda: sb.fused_swin_block_plain(p, x, ws, ws // 2,
                                                           nh))
         # the default route's block: several calls, one of them B2
         blk = params["encoder"]["stages"][i]["blocks"][-1]
@@ -937,7 +983,7 @@ def check_ragged_step(cfg, np_params, rows, batch, quantize=False):
     pos = T - 1
     ms = by_pos[pos]
     st, c, prev, cases, *caches = timed[rows]
-    plain = cuda_ms(lambda: fs.fused_ragged_step_plain(
+    plain = plain_ms(lambda: fs.fused_ragged_step_plain(
         st, c, prev, cases[f"pos {pos}"], *caches, return_logits=True))
     nbytes, flops, f32_flops = ragged_bound(cfg, rows, pos, quantize)
     entry.add(1, err, ms, plain, None, nbytes, flops, f32_flops)
@@ -1153,7 +1199,7 @@ def check_ragged_ring(cfg, np_params, pool, quantize=False):
                                               return_logits=True, **ring))
     ms_flat = cuda_ms(lambda: fs.fused_ragged_step(
         stacked, c, prev, p, *caches, return_logits=True))
-    plain = cuda_ms(lambda: fs.fused_ragged_step_plain(
+    plain = plain_ms(lambda: fs.fused_ragged_step_plain(
         stacked, c, prev, p, *caches, return_logits=True, **ring))
     nbytes, flops, f32_flops = ragged_bound(cfg, pool, T - 1, quantize)
     nbytes += pool * 4                                     # seg_start
@@ -1239,7 +1285,7 @@ def check_dequant_matmul(cfg, np_params, batch, rows):
         err = max_err(got, want)
         w_deq = (w_q.float() * scale).to(dt)
         ms = cuda_ms(lambda: quant.dequant_matmul(x, w_q, scale))
-        plain = cuda_ms(lambda: quant.dequant_matmul_plain(x, w_q, scale))
+        plain = plain_ms(lambda: quant.dequant_matmul_plain(x, w_q, scale))
         cublas = cuda_ms(lambda: torch.matmul(x, w_deq))
         lib, lib_note = int8pack_ms(x, w_q, scale, want)
         esz = x.element_size()
@@ -1332,7 +1378,7 @@ def check_beam_reorder(cfg, rows):
 
     ms = cuda_ms(kernel_only)
     wrapped = cuda_ms(lambda: br.beam_cache_gather(sk, sv, src, T))
-    plain = cuda_ms(lambda: br.beam_cache_gather_plain(sk, sv, src, T))
+    plain = plain_ms(lambda: br.beam_cache_gather_plain(sk, sv, src, T))
     idx = src.long()
     lib = cuda_ms(lambda: (sk.index_select(1, idx), sv.index_select(1, idx)))
     nbytes = 2 * 2 * L * rows * T * D * 2 + rows * 4
@@ -1413,7 +1459,7 @@ def check_layers_step(cfg, np_params, batch):
     pos = T - 1
     ms = cuda_ms(lambda: fs.fused_decoder_layers_step(
         stacked, cfg, x, sk, sv, ck, cv, pos))
-    plain = cuda_ms(lambda: fs.fused_decoder_layers_step_plain(
+    plain = plain_ms(lambda: fs.fused_decoder_layers_step_plain(
         stacked, cfg, x, sk, sv, ck, cv, pos))
     nbytes, flops = step_bound(cfg, batch, pos, False)
     entry.add(1, err, ms, plain, None, nbytes, flops)
@@ -1540,7 +1586,7 @@ def check_whole_step(cfg, np_params, batch):
         timed1[time_major] = cuda_ms(lambda: fs.fused_whole_step(
             stacked, cfg, *one, pos, time_major=time_major))
         if time_major:
-            plain = cuda_ms(lambda: fs.fused_whole_step_plain(
+            plain = plain_ms(lambda: fs.fused_whole_step_plain(
                 stacked, cfg, prev, sk, sv, ck, cv, pos, time_major=True))
     nbytes, weights = step_weight_bytes(cfg, False)
     nbytes += ((D * V + V) * 4 + batch * D * 4 + D * 4     # head, emb rows
@@ -1772,6 +1818,104 @@ def check_whole_decode(cfg, np_params, batch, quantize):
         f"{reads / 1e9:.3f} GB of cache re-reads not counted) "
         f"plain_ms is one synchronized wall; library_ms null")
     return entry
+
+
+# the positional table cut to this many rows for check_past_table: a model
+# whose max_seq_len lies under the decode's
+PAST_TABLE_ROWS = 8
+
+
+def check_past_table(cfg, np_params, batch):
+    """Phase 3: the three kernels that read the positional table on the
+    card (B7, B10, B12) at positions past it, bf16, each against its plain
+    version, which takes the table's last row there as JAX's gather
+    clamps the index: the bundle's table cut to PAST_TABLE_ROWS rows; B7
+    on ``batch`` rows at a position vector holding the last slot, the first
+    slot past the table and slots inside it (logits and fresh rows within
+    the decoder step's tolerance); B10 at the last slot on one row (logp
+    and the written row within it, nxt equal where the plain margin is
+    clear); B12 a whole decode of T steps on one row, which must run past
+    the table (held by ``hold_decode``). Returns the largest error."""
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.ops import fused_step as fs
+    from handwritten_math_ocr_api_torch.ops import whole_decode as wd
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    L, T, D = cfg.num_decoder_layers, cfg.max_seq_len, cfg.d_model
+    L_enc, V, kvd = cfg.encoder_len, cfg.vocab_size, cfg.kv_dim
+    Tp = PAST_TABLE_ROWS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def cut(bundle):
+        return {**bundle, "pos_emb": bundle["pos_emb"][:Tp].contiguous()}
+
+    stacked = cut(fs.build_stacked_full(np_params["decoder"], cfg, dev))
+    errs = []
+    # B7: a position vector with the last slot, the first past the table
+    prev = torch.randint(0, V, (batch,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pos = torch.randint(0, Tp, (batch,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[1] = T - 1, Tp
+    caches = (randn(L, batch, T, kvd), randn(L, batch, T, kvd),
+              randn(L, batch, L_enc, D), randn(L, batch, L_enc, D))
+    got = fs.fused_ragged_step(stacked, cfg, prev, pos, *caches,
+                               return_logits=True)
+    want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                      return_logits=True)
+    for name, g, w in zip(("logits", "k_new", "v_new"), got, want):
+        assert_close(f"ragged_step past the table {name}", g, w, STEP_ATOL,
+                     STEP_RTOL)
+        errs.append(max_err(g, w))
+    # B10: one row at the last slot, time-major caches
+    one = (prev[:1].contiguous(), randn(L, T, 1, D), randn(L, T, 1, D),
+           caches[2][:, :1].contiguous(), caches[3][:, :1].contiguous())
+    got_k, got_v = one[1].clone(), one[2].clone()
+    want_k, want_v = one[1].clone(), one[2].clone()
+    got = fs.fused_whole_step(stacked, cfg, one[0], got_k, got_v, *one[3:],
+                              T - 1)
+    want = fs.fused_whole_step_plain(stacked, cfg, one[0], want_k, want_v,
+                                     *one[3:], T - 1)
+    logits = fs.fused_ragged_step_plain(
+        stacked, cfg, one[0],
+        torch.full((1,), T - 1, dtype=torch.int32, device=dev),
+        want_k.transpose(1, 2), want_v.transpose(1, 2), *one[3:],
+        return_logits=True)[0]
+    clear = margin_of(logits) > STEP_ATOL
+    if not torch.equal(got[0][clear], want[0][clear]):
+        raise AssertionError("whole_step past the table: nxt differs where "
+                             "the plain margin is clear")
+    for name, g, w in (("logp", got[1], want[1]),
+                       ("cache k", got_k[:, T - 1], want_k[:, T - 1]),
+                       ("cache v", got_v[:, T - 1], want_v[:, T - 1])):
+        assert_close(f"whole_step past the table {name}", g, w, STEP_ATOL,
+                     STEP_RTOL)
+        errs.append(max_err(g, w))
+    # B12: one row's decode of T steps over a table of Tp rows
+    dec = convert.to_torch({"decoder": np_params["decoder"]}, cfg,
+                           dev)["decoder"]
+    resident = cut(wd.build_resident(dec, cfg, False))
+    memory = randn(1, L_enc, D)
+    got = wd.fused_whole_decode(resident, cfg, memory)
+    want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
+                                               return_logits=True)
+    ran = int(logits.shape[1])
+    if ran <= Tp:
+        raise AssertionError(f"whole_decode past the table: the decode "
+                             f"ended at step {ran}, inside the table")
+    errs.append(hold_decode("kernel whole_decode past the table", got, want,
+                            logits))
+    log(f"kernels past the positional table ({Tp} rows, T {T}): ragged_step "
+        f"at pos {pos[:2].tolist()} and {batch - 2} rows inside, "
+        f"whole_step at pos {T - 1}, whole_decode of {ran} steps; "
+        f"max_abs_err {max(errs):.3g}")
+    return max(errs)
 
 
 def fused_blocks(cfg) -> int:
@@ -4125,6 +4269,359 @@ def serve_app(cfg, tok, entries):
 
 
 
+TRAIN_FIXTURE = os.path.join(REPO_ROOT, "tests", "fixtures",
+                             "torch_r4_train.json")
+TRAIN_PARITY_IMAGES = 256
+# (a): eval loss, grad norm and post-step loss within 1e-3 relative and the
+# token accuracy within 0.002 of the JAX package's float32 CPU values
+TRAIN_PARITY_RTOL = 1e-3
+TRAIN_ACC_ATOL = 0.002
+TRAIN_BATCH = 64
+TRAIN_STEPS = 100
+TRAIN_WARMUP = 50          # the learning rate's linear warmup steps
+TRAIN_TIMED_FROM = 20      # steps before the host clock starts
+TRAIN_WINDOW = 20          # the loss is averaged over the first and last
+# the mean loss of the last TRAIN_WINDOW steps must lie this far under
+# that of the first TRAIN_WINDOW: on an H100 the losses fell from a mean
+# of 4.02 over steps 0-19 to about 2.8 at steps 80-99, 2.71 at 100-119
+# and 2.59 at 180-199
+TRAIN_LOSS_MARGIN = 1.0
+TRAIN_WORKERS = 6          # loader threads (the machine has 8 cores)
+TRAIN_DROPOUT = 0.1        # decoder dropout and Swin stochastic depth
+RESUME_BATCH = 16
+RESUME_AT = 3
+RESUME_STEPS = 5
+SERVE_TRAINED_IMAGES = 16
+
+
+def _torch_tree(tree, dev):
+    """Nested dicts/lists of numpy arrays -> float32 tensors on ``dev``."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.utils.tree import map_tree
+
+    return map_tree(lambda a: (a if torch.is_tensor(a) else torch.from_numpy(
+        np.array(a))).float().to(dev), tree)
+
+
+def close_rel(name, got, want, rtol):
+    if abs(got - want) > rtol * abs(want):
+        raise AssertionError(f"{name}: {got} against {want} (JAX), beyond "
+                             f"{rtol} relative")
+
+
+def train_parity():
+    """Phase 11 (a): the shipped weights in float32 (TF32 off) on the first
+    TRAIN_PARITY_IMAGES test images, batches of 64, no augmentation,
+    dropout and stochastic depth 0, against ``tests/fixtures/
+    torch_r4_train.json`` (JAX on the CPU): the eval step's mean loss and
+    the token accuracy, through the encoder's float32 kernels (their
+    launches counted: B2 in every block and B3 at every merge of each
+    encode); the first batch's gradient norm of one train step (no kernel
+    launched) and its eval loss after that Adam step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.core.config import TrainConfig
+    from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_torch.data.preprocess import normalize
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        load_params_for_serving,
+    )
+    from handwritten_math_ocr_api_torch.train.optim import make_optimizer
+    from handwritten_math_ocr_api_torch.train.step import (
+        make_eval_step,
+        make_train_step,
+        state_from_params,
+    )
+
+    with open(TRAIN_FIXTURE) as f:
+        fixture = json.load(f)
+    dev = torch.device(DEVICE)
+    params, _, vocab, idx2char, cfg = load_params_for_serving(MODEL_DIR)
+    tok = Tokenizer(vocab, idx2char)
+    c32 = cfg.replace(dtype="float32", dropout=0.0,
+                      swin=dataclasses.replace(cfg.swin,
+                                               stochastic_depth=0.0))
+    tc = TrainConfig(learning_rate=fixture["learning_rate"],
+                     label_smoothing=fixture["label_smoothing"],
+                     grad_clip_norm=fixture["grad_clip_norm"])
+    opt = make_optimizer(tc)
+
+    def fresh():
+        return state_from_params(_torch_tree(params, dev), opt, tc)
+
+    eval_step = make_eval_step(c32, tc, device=dev)
+    batches = list(quality_loader(tok, c32, TRAIN_PARITY_IMAGES))
+    state = fresh()
+    reset_counts()
+    losses, correct, count = [], 0, 0
+    for b in batches:
+        loss, preds = eval_step(state, b["image"], b["caption"])
+        losses.append(float(loss))
+        tgt = b["caption"][:, 1:]
+        mask = tgt != 0
+        correct += int(((preds.cpu().numpy() == tgt) & mask).sum())
+        count += int(mask.sum())
+    check_counts(read_counts(), expected_launches(c32, "pallas",
+                                                  len(batches), 0))
+    first = batches[0]
+    reset_counts()
+    state, m = make_train_step(c32, tc, opt, device=dev)(
+        state, normalize(first["image"]), first["caption"], SEED)
+    check_counts(read_counts(), [0] * len(kernel_counters()))
+    after, _ = eval_step(state, first["image"], first["caption"])
+    got = {"eval_loss": float(np.mean(losses)),
+           "token_accuracy": correct / count,
+           "grad_norm": float(m["grad_norm"]),
+           "loss_after_step": float(after)}
+    want = {"eval_loss": fixture["eval_loss"],
+            "token_accuracy": fixture["token_accuracy"],
+            "grad_norm": fixture["first_batch"]["grad_norm"],
+            "loss_after_step": fixture["first_batch"]["loss_after_step"]}
+    log(f"train parity (float32, {len(batches) * QUALITY_BATCH} images): "
+        f"port {got}, JAX {want}")
+    for k in ("eval_loss", "grad_norm", "loss_after_step"):
+        close_rel(f"train parity {k}", got[k], want[k], TRAIN_PARITY_RTOL)
+    if abs(got["token_accuracy"] - want["token_accuracy"]) > TRAIN_ACC_ATOL:
+        raise AssertionError(f"train parity token accuracy "
+                             f"{got['token_accuracy']} against "
+                             f"{want['token_accuracy']} (JAX)")
+
+
+def train_stream(cfg, tok, n, seed, batch):
+    """A loader of ``n`` synthetic stream samples (the typeset renderer)
+    at ``cfg``'s size, batches of ``batch``, on TRAIN_WORKERS threads."""
+    from handwritten_math_ocr_api_torch.data.dataset import DataLoader
+    from handwritten_math_ocr_api_torch.data.synthetic import (
+        SyntheticStreamDataset,
+    )
+
+    ds = SyntheticStreamDataset(tok, n, cfg.img_h, cfg.img_w,
+                                cfg.max_seq_len, seed=seed)
+    return DataLoader(ds, batch, num_workers=TRAIN_WORKERS,
+                      drop_remainder=True)
+
+
+def train_full_width(cfg, tok, dev):
+    """Phase 11 (b): training at full width in bf16 from a fresh model
+    (Swin-T, d_model 256, 8 decoder layers, ``memory_norm``; the grammar
+    vocab; dropout and stochastic depth at TRAIN_DROPOUT), batch 64 of
+    the synthetic stream, uint8 images augmented in the step, warmup
+    TRAIN_WARMUP. No kernel launches in the train steps; the loss must
+    fall by TRAIN_LOSS_MARGIN; images/s and ms a step on the host clock
+    after TRAIN_TIMED_FROM steps, the loader's wait a step, the device's
+    idle share of a profiled step, the peak of allocated device memory;
+    then one eval step, whose encode launches B2 and B3. Returns the
+    state."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.core.config import (
+        DataConfig,
+        TrainConfig,
+    )
+    from handwritten_math_ocr_api_torch.train.step import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP)
+    state, opt = create_train_state(cfg, tc, SEED, dev)
+    step = make_train_step(cfg, tc, opt, DataConfig(), device=dev)
+    loader = train_stream(cfg, tok, TRAIN_STEPS * TRAIN_BATCH, SEED,
+                          TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, waits = [], []
+    it = iter(loader)
+    t_start = None
+    try:
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_TIMED_FROM:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            t0 = time.perf_counter()
+            batch = next(it)
+            if i >= TRAIN_TIMED_FROM:
+                waits.append(time.perf_counter() - t0)
+            state, m = step(state, batch["image"], batch["caption"], SEED)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t_start
+    finally:
+        it.close()
+    check_counts(read_counts(), [0] * len(kernel_counters()))
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+    head = float(losses[:TRAIN_WINDOW].mean())
+    tail = float(losses[-TRAIN_WINDOW:].mean())
+    timed = TRAIN_STEPS - TRAIN_TIMED_FROM
+    ms = elapsed / timed * 1e3
+    log(f"train full width: {TRAIN_STEPS} steps of {TRAIN_BATCH}, mean loss "
+        f"of the first {TRAIN_WINDOW} {head:.4f}, of the last "
+        f"{TRAIN_WINDOW} {tail:.4f} (fall {head - tail:.4f}, gate "
+        f"{TRAIN_LOSS_MARGIN}); images/s {timed * TRAIN_BATCH / elapsed:.1f}"
+        f" ms a step {ms:.1f} (host clock over {timed} steps), loader wait "
+        f"a step {sum(waits) / len(waits) * 1e3:.2f} ms, "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; losses every 20 "
+        f"steps {[round(float(x), 4) for x in losses[::20]]}")
+    idle = profile_call(
+        lambda: step(state, batch["image"], batch["caption"], SEED),
+        "one train step", ms / 1e3, tries=1)
+    log(f"train full width: device idle share of a profiled step "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    if not head - tail > TRAIN_LOSS_MARGIN:
+        raise AssertionError(f"train full width: the loss fell by "
+                             f"{head - tail:.4f}, not more than "
+                             f"{TRAIN_LOSS_MARGIN}")
+    reset_counts()
+    make_eval_step(cfg, tc, device=dev)(state, batch["image"],
+                                        batch["caption"])
+    check_counts(read_counts(), expected_launches(cfg, "pallas", 1, 0))
+    log("train full width: no kernel launched in the train steps; the eval "
+        "step's encode launched B2 and B3 as counted")
+    return state
+
+
+def train_resume(cfg, tok, dev):
+    """Phase 11 (c): float32 at full width (batch RESUME_BATCH, warmup, EMA):
+    a run saved after RESUME_AT steps and restored into a fresh state of
+    other weights takes the next RESUME_STEPS steps with the losses of an
+    uninterrupted run, bit for bit (deterministic algorithms on)."""
+    import tempfile
+
+    import torch
+
+    from handwritten_math_ocr_api_torch.core.config import TrainConfig
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from handwritten_math_ocr_api_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    c32 = cfg.replace(dtype="float32")
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP, ema_decay=0.999)
+    n = RESUME_AT + RESUME_STEPS
+    batches = list(train_stream(c32, tok, n * RESUME_BATCH, SEED + 1,
+                                RESUME_BATCH))
+
+    def run(state, step, bs):
+        out = []
+        for b in bs:
+            state, m = step(state, b["image"], b["caption"], SEED)
+            out.append(float(m["loss"]))
+        return state, out
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, opt = create_train_state(c32, tc, SEED + 1, dev)
+        step = make_train_step(c32, tc, opt, device=dev)
+        _, whole = run(state, step, batches)
+        state, _ = create_train_state(c32, tc, SEED + 1, dev)
+        state, _ = run(state, step, batches[:RESUME_AT])
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, "resume", state, 0, 0.0)
+            fresh, _ = create_train_state(c32, tc, SEED + 2, dev)
+            state, _ = load_checkpoint(d, "resume", fresh)
+        _, resumed = run(state, step, batches[RESUME_AT:])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"train resume: losses of steps {RESUME_AT}-{n - 1} uninterrupted "
+        f"{whole[RESUME_AT:]}, resumed {resumed}")
+    if resumed != whole[RESUME_AT:]:
+        raise AssertionError("train resume: the resumed losses differ from "
+                             "the uninterrupted run's")
+
+
+def train_serve(state, cfg, tok, dev):
+    """Phase 11 (d): the trained weights written with
+    ``save_params_for_serving`` and read back by ``load_params_for_serving``
+    bit for bit (``tree_digest``), then served by ``DecodeEngine`` in
+    float32 on the default and the fused route: SERVE_TRAINED_IMAGES stream
+    images, the two routes' tokens equal."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.data.preprocess import normalize
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        load_params_for_serving,
+        save_params_for_serving,
+        tree_digest,
+    )
+
+    with tempfile.TemporaryDirectory() as d:
+        save_params_for_serving(d, state.eval_params, tok.vocab, cfg)
+        params, _, vocab, _, cfg2 = load_params_for_serving(d)
+    if tree_digest(params) != tree_digest(state.eval_params):
+        raise AssertionError("train serve: the artifact's tree is not the "
+                             "saved one")
+    if vocab != tok.vocab or cfg2 != cfg:
+        raise AssertionError("train serve: vocab or config changed")
+    batch = next(iter(train_stream(cfg, tok, SERVE_TRAINED_IMAGES, SEED + 3,
+                                   SERVE_TRAINED_IMAGES)))
+    images = normalize(batch["image"])
+    c32 = cfg.replace(dtype="float32")
+    out = {}
+    for route, kw in (("default", {}),
+                      ("fused", {"use_fused": True,
+                                 "pallas_encoder_block": True})):
+        engine = DecodeEngine(params, c32, tokenizer=tok, device=dev, **kw)
+        reset_counts()
+        res = engine.decode_tokens(images)
+        torch.cuda.synchronize()
+        out[route] = res.tokens.cpu()
+        log(f"train serve {route}: {engine.last_steps} steps, launches "
+            f"{read_counts()}, first prediction "
+            f"{tok.decode(out[route][0].tolist())!r}")
+    agree = (out["default"] == out["fused"]).float().mean().item()
+    log(f"train serve: float32 tokens of the two routes agree {agree:.4f}; "
+        f"targets {tok.decode(np.asarray(batch['caption'][0]).tolist())!r}")
+    if not torch.equal(out["default"], out["fused"]):
+        raise AssertionError("train serve: the routes' float32 tokens "
+                             "differ")
+
+
+def train_phase():
+    """Phase 11, "train": parts (a)-(d)."""
+    import dataclasses
+
+    import torch
+
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_torch.data.synthetic import grammar_vocab
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    train_parity()
+    log(f"train parity: seconds {time.perf_counter() - t0:.1f}")
+    tok = Tokenizer(grammar_vocab())
+    r4 = load_model_config(MODEL_DIR)
+    cfg = r4.replace(vocab_size=len(tok), dropout=TRAIN_DROPOUT,
+                     swin=dataclasses.replace(
+                         r4.swin, stochastic_depth=TRAIN_DROPOUT))
+    t0 = time.perf_counter()
+    state = train_full_width(cfg, tok, dev)
+    log(f"train full width: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    train_resume(cfg, tok, dev)
+    log(f"train resume: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    train_serve(state, cfg.replace(dropout=0.0, swin=r4.swin), tok, dev)
+    log(f"train serve: seconds {time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -4180,6 +4677,7 @@ def main() -> int:
     entries.append(check_whole_step(cfg, np_params, bucket))
     entries.append(check_whole_decode(cfg, np_params, bucket, False))
     entries.append(check_whole_decode(cfg, np_params, bucket, True))
+    check_past_table(cfg, np_params, bucket)
     mqa = cfg.replace(nhead_kv=1)
     mqa_params = convert.random_params(mqa, SEED)
     entries.append(check_fused_step(mqa, mqa_params, bucket))
@@ -4242,6 +4740,9 @@ def main() -> int:
 
     serve_modes(cfg, tok, entries)
     serve_app(cfg, tok, entries)
+    t0 = time.perf_counter()
+    train_phase()
+    log(f"train: phase seconds {time.perf_counter() - t0:.1f}")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

@@ -23,7 +23,9 @@ and every LayerNorm bias is drawn from N(0, 0.05^2) and every LayerNorm
 scale from 1 + N(0, 0.05^2), as a trained model's are nonzero and not one
 (the same draws as ``tests/torch_swin_oracle.py``'s state dict), so that a
 check on these weights sees a bias or a norm parameter that a kernel drops
-or misplaces.
+or misplaces. ``init_params`` builds the same tree with ``init_model``'s
+own initialisers (zero biases, unit LayerNorm scales), the from-scratch
+start of training.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def to_torch(tree, cfg: ModelConfig, device=None):
 
 
 class _Init:
-    """The JAX package's initialisers, drawn from one numpy generator."""
+    """The JAX package's initialisers, drawn from one numpy generator, with
+    the perturbed biases and norms of ``random_params``."""
 
     def __init__(self, seed: int):
         self.rng = np.random.default_rng(seed)
@@ -102,11 +105,35 @@ class _Init:
         return {"fc1": self.linear(d, hidden), "fc2": self.linear(hidden, d)}
 
 
+class _FreshInit(_Init):
+    """``init_model``'s initialisers: zero biases, LayerNorm scale 1 and
+    bias 0 (the weights drawn as ``_Init`` draws them)."""
+
+    def bias(self, dim: int) -> np.ndarray:
+        return np.zeros((dim,), np.float32)
+
+    def norm(self, dim: int):
+        return {"scale": np.ones((dim,), np.float32),
+                "bias": np.zeros((dim,), np.float32)}
+
+
 def random_params(cfg: ModelConfig, seed: int = 0):
     """A seeded numpy parameter tree for a Swin-T ``ModelConfig``."""
+    return _tree(cfg, _Init(seed))
+
+
+def init_params(cfg: ModelConfig, seed: int = 0):
+    """The tree of a freshly initialised model, as the JAX package's
+    ``init_model`` builds it: xavier-uniform matrices, zero biases, unit
+    LayerNorm scales, N(0, 0.02^2) embedding, position and relative-bias
+    tables, the patch embedding N(0, 1 / (ps^2 Cin)); float32 numpy leaves
+    drawn from a numpy generator seeded by ``seed``."""
+    return _tree(cfg, _FreshInit(seed))
+
+
+def _tree(cfg: ModelConfig, init: _Init):
     if cfg.encoder != "swin_t":
         raise NotImplementedError("only the swin_t encoder is ported")
-    init = _Init(seed)
     sc = cfg.swin
     ps, dim = sc.patch_size, sc.embed_dim
     encoder = {

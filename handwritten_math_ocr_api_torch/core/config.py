@@ -1,13 +1,12 @@
-"""Model and decode configuration of the port.
+"""Configuration of the port.
 
-A copy of the serving-relevant part of ``handwritten_math_ocr_api_tpu/
-core/config.py`` (the port imports nothing of the JAX package): the special
-token ids, ``SwinConfig``, ``ResNetConfig``, ``ModelConfig``,
-``DecodeConfig`` and ``ServeConfig`` (with ``from_env`` reading the same
-environment variables) with the same fields and defaults, ``DataConfig``'s
-paths and batch size, plus the loader for the
-``model_config.json`` that a serving artifact (such as ``serving_model_r4/``)
-carries.
+A copy of ``handwritten_math_ocr_api_tpu/core/config.py`` (the port imports
+nothing of the JAX package): the special token ids, ``SwinConfig``,
+``ResNetConfig``, ``ModelConfig``, ``DataConfig``, ``TrainConfig``,
+``DecodeConfig``, ``ServeConfig`` (with ``from_env`` reading the same
+environment variables) and the ``Config`` bundle, with the same fields and
+defaults, plus the loader for the ``model_config.json`` that a serving
+artifact (such as ``serving_model_r4/``) carries.
 """
 
 from __future__ import annotations
@@ -100,20 +99,53 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Where a split lies and the test loader's batch size:
-    ``{split}_labels.csv`` with columns ``image_filename, latex_label``,
-    images under ``{split}_formulas/``. Only the test loader is ported, so
-    the JAX config's worker, shuffling and augmentation settings are not
-    here."""
+    """Dataset paths and loader settings: ``{split}_labels.csv`` with
+    columns ``image_filename, latex_label``, images under
+    ``{split}_formulas/``; the training loader's threads and shuffle seed,
+    and the affine augmentation the train step applies on the device."""
 
     data_root: str = os.environ.get("MATHOCR_DATA_ROOT", "data")
     batch_size: int = 64
+    num_workers: int = 4
+    shuffle_seed: int = 0
+    aug_degrees: float = 2.0
+    aug_shear: float = 2.0
+    aug_scale: Tuple[float, float] = (0.95, 1.05)
 
     def img_dir(self, split: str) -> str:
         return os.path.join(self.data_root, f"{split}_formulas")
 
     def label_path(self, split: str) -> str:
         return os.path.join(self.data_root, f"{split}_labels.csv")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters, every field and default as the JAX
+    package's. ``data_axis`` and ``tensor_axis`` describe a device mesh,
+    which the port's trainer does not take yet (one card)."""
+
+    learning_rate: float = 3e-4
+    epochs: int = 20
+    label_smoothing: float = 0.1
+    # linear learning-rate warmup steps (0 = off)
+    warmup_steps: int = 0
+    grad_clip_norm: float = 1.0
+    # the plateau scheduler on the val loss
+    plateau_factor: float = 0.5
+    plateau_patience: int = 3
+    early_stop_patience: int = 5
+    checkpoint_every: int = 5
+    checkpoint_dir: str = os.environ.get("MATHOCR_CKPT_DIR", "checkpoints")
+    seed: int = 0
+    data_axis: int = -1
+    tensor_axis: int = 1
+    # recompute the encoder in the backward pass instead of keeping its
+    # activations
+    remat: bool = False
+    # decay of an exponential moving average of the params (0 = off); when
+    # on, the val pass and the exported weights use the average
+    ema_decay: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +306,17 @@ class ServeConfig:
             constrained_decode=_env_flag(env, "SERVING_CONSTRAINED",
                                          defaults.constrained_decode),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Top-level bundle."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
 
 def model_config_from_dict(raw: dict) -> ModelConfig:

@@ -1,16 +1,20 @@
-"""LaTeX tokenizer, vocabulary loader and detokenizer.
+"""LaTeX tokenizer, vocabulary builder and loader, and detokenizer.
 
-A copy of ``handwritten_math_ocr_api_tpu/core/tokenizer.py``'s serving
-part: the token regex, the vocab JSON schema (``{"vocab": {...},
-"idx2char": {...}}``), ``Tokenizer`` and the LaTeX cleanup regexes, so that
-vocab files and decoded strings are interchangeable between the packages.
+A copy of ``handwritten_math_ocr_api_tpu/core/tokenizer.py``: the token
+regex, the vocab builders (special tokens first, then the corpus tokens
+sorted), the vocab JSON schema (``{"vocab": {...}, "idx2char": {...}}``),
+``Tokenizer`` and the LaTeX cleanup regexes, so that vocab files and decoded
+strings are interchangeable between the packages. Label CSVs are read with
+the ``csv`` module.
 """
 
 from __future__ import annotations
 
+import csv
 import json
+import os
 import re
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 from .config import (
     EOS_ID,
@@ -19,6 +23,7 @@ from .config import (
     PAD_TOKEN,
     SOS_ID,
     SOS_TOKEN,
+    SPECIAL_TOKENS,
     UNK_ID,
     UNK_TOKEN,
 )
@@ -30,6 +35,40 @@ TOKEN_PATTERN = re.compile(r"(\\[a-zA-Z]+|[{}_^$%&#]|[0-9]+|[a-zA-Z]+|[^\s])")
 
 def tokenize_latex(formula: str) -> List[str]:
     return TOKEN_PATTERN.findall(formula)
+
+
+def create_vocab(formulas: Iterable[str]) -> Dict[str, int]:
+    """token -> id: the special tokens first, then the corpus tokens
+    sorted."""
+    all_tokens = set()
+    for formula in formulas:
+        all_tokens.update(tokenize_latex(formula.strip()))
+    ordered = list(SPECIAL_TOKENS) + sorted(all_tokens)
+    return {token: idx for idx, token in enumerate(ordered)}
+
+
+def create_vocab_from_csvs(label_paths: Sequence[str]) -> Dict[str, int]:
+    """A vocab from the ``latex_label`` column of label CSVs (empty labels
+    skipped, as pandas reads them as missing)."""
+
+    def _formulas():
+        for path in label_paths:
+            with open(path, newline="", encoding="utf-8") as f:
+                for row in csv.DictReader(f):
+                    label = row.get("latex_label")
+                    if label:
+                        yield label
+
+    return create_vocab(_formulas())
+
+
+def save_vocab(vocab: Dict[str, int], path: str) -> None:
+    """Write the vocab JSON in the JAX package's layout."""
+    data = {"vocab": vocab,
+            "idx2char": {idx: char for char, idx in vocab.items()}}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f, ensure_ascii=False, indent=4)
 
 
 def load_vocab(path: str) -> Tuple[Dict[str, int], Dict[int, str]]:

@@ -1274,15 +1274,15 @@ struct Step {
 
   // Each row's slot, before start(): pos[row0 + r] from device memory (B7),
   // or the launch's s.pos for every row (B1, B10, B11: pos null). A row of
-  // B7 or B10 (prev given) whose slot lies outside [0, min(Tc, Tpos)) or
-  // whose prev token outside [0, V) is dead (-1): it reads no table or
+  // B7 or B10 (prev given) whose slot lies outside [0, Tc) or whose prev
+  // token outside [0, V) is dead (-1): it reads no table or
   // cache, its attention items are skipped, and its outputs are NaN (nxt
   // -1); its products compute on whatever its rows hold, which reaches no
   // other row. kRing: also a row whose segment start seg[row0 + r] lies
   // outside [pos - (S - 1), pos]; rseg() takes each row's start (0 for a
   // dead row).
   __device__ void positions(const int* pos, const int* prev, int Tc,
-                            int Tpos, int V) {
+                            int V) {
     const int r = threadIdx.x;
     if (r < s.Mg) {
       int p = s.pos;
@@ -1291,7 +1291,7 @@ struct Step {
         if (r < rows) {
           const int q = pos != nullptr ? pos[row0 + r] : s.pos;
           const int tok = prev[row0 + r];
-          if (q >= 0 && q < Tc && q < Tpos && tok >= 0 && tok < V) p = q;
+          if (q >= 0 && q < Tc && tok >= 0 && tok < V) p = q;
         }
       }
       if constexpr (kRing) {
@@ -1305,18 +1305,22 @@ struct Step {
   }
 
   // The prologue of B7, B10 and B12, after start(): x =
-  // round_to<C>(emb[tok[r]] + pos_emb[pos[r]]) from the float32 tables for
-  // the group's live rows (zero for a dead one), and xa = x rounded to X.
-  // tok: the group's previous tokens (device or shared memory).
+  // round_to<C>(emb[tok[r]] + pos_emb[min(pos[r], Tpos - 1)]) from the
+  // float32 tables for the group's live rows (zero for a dead one), and
+  // xa = x rounded to X: a slot past the position table of Tpos rows takes
+  // its last row, as the reference's gather clamps the index. tok: the
+  // group's previous tokens (device or shared memory).
   __device__ void embed(const int* tok, const float* emb,
-                        const float* pos_emb) {
+                        const float* pos_emb, int Tpos) {
     const int D = s.D, lda = D + pad_of<X>();
     for (int i = threadIdx.x; i < rows * D; i += kThreads) {
       const int r = i / D, d = i - r * D, p = rpos()[r];
       const float v =
           p < 0 ? 0.0f
                 : round_to<C>(emb[static_cast<size_t>(tok[r]) * D + d] +
-                              pos_emb[static_cast<size_t>(p) * D + d]);
+                              pos_emb[static_cast<size_t>(min(p, Tpos - 1)) *
+                                          D +
+                                      d]);
       x[i] = v;
       xa[r * lda + d] = from_f32<X>(v);
     }

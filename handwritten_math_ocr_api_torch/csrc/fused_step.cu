@@ -79,7 +79,7 @@ fused_step_cluster_kernel(const C* __restrict__ x_emb,
   const int row0 = static_cast<int>(blockIdx.x) / s.Cs * s.Mg;
   Step step(w, self_k, self_v, self, cross_k, cross_v, fresh, &maps, s,
             smem, row0);
-  step.positions(nullptr, nullptr, 0, 0, 0);  // every row at s.pos
+  step.positions(nullptr, nullptr, 0, 0);  // every row at s.pos
   step.start();
   const int D = s.D, lda = D + cluster_step::pad_of<X>();
   for (int i = threadIdx.x; i < step.rows * D; i += kThreads) {

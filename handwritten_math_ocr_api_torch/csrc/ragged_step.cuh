@@ -9,17 +9,21 @@
 // segment-ring mode, kernels of their own, kRing, whose entries are in
 // ragged_ring.cu, the others' in ragged_step.cu: two files, so that nvcc
 // builds them in parallel). For row r:
-//   x = round(emb[prev[r]] + pos_emb[pos[r]])     (float32 tables, the sum
+//   x = round(emb[prev[r]] + pos_emb[min(pos[r], Tpos - 1)])
+//                                                 (float32 tables, the sum
 //                                                  rounded to the compute
-//                                                  type C and back)
+//                                                  type C and back; a slot
+//                                                  past the position table
+//                                                  takes its last row)
 //   every layer at slot pos[r]                    (decoder_cluster.cuh)
 //   logits = x W_head + b_head                    (float32)
 // and then either the (V,) float32 logits of the row (return_logits, what
 // beam search ranks) or its argmax (the first index of the max) and
 // log(p_max + 1e-10), the reference's confidence numerics. prev and pos are
 // int32 tensors in device memory, so a step needs no host value. A row
-// whose prev or pos is out of range gets NaN outputs (nxt -1), reads
-// nothing, and leaves the other rows of its group as they are.
+// whose prev lies outside the vocabulary or whose pos lies outside the
+// cache gets NaN outputs (nxt -1), reads nothing, and leaves the other rows
+// of its group as they are.
 //
 // Ring mode (decode/continuous.py's segment ring): each row also has a
 // segment start seg[r] (int32, device memory) and the ring K/V
@@ -97,10 +101,10 @@ ragged_step_cluster_kernel(const int* __restrict__ prev,
   Step step(w, self_k, self_v, self, cross_k, cross_v, fresh, &maps, s,
             smem, row0);
   if constexpr (kRing) step.with_ring(ring);
-  step.positions(pos, prev, Tc, Tpos, V);
+  step.positions(pos, prev, Tc, V);
   step.with_head(w_head, b_head, V);
   step.start();
-  step.embed(prev + row0, emb, pos_emb);
+  step.embed(prev + row0, emb, pos_emb, Tpos);
   step.cluster.sync();  // every block runs before any remote store
   step.run();
   step.head(logits, nxt, logp);

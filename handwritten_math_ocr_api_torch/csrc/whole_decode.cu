@@ -6,9 +6,12 @@
 // (_make_kernel, B12, the "v5" decode; MHA; the bf16 or float32 bundle of
 // build_stacked_full, or the int8 one of quantize_stacked). Batch row b
 // starts from prev = sos_id and, for t = 0, 1, ...:
-//   x = round(emb[prev] + pos_emb[t])             (float32 tables, the sum
+//   x = round(emb[prev] + pos_emb[min(t, Tpos - 1)])
+//                                                 (float32 tables, the sum
 //                                                  rounded to the compute
-//                                                  type C and back)
+//                                                  type C and back; a step
+//                                                  past the position table
+//                                                  takes its last row)
 //   every layer at slot t (decoder_cluster.cuh::Step::run), the fresh K/V
 //   rows written into the row's self cache at slot t; attention takes the
 //   fresh row in float32, unrounded (the TPU kernel's lnew = q * k_new and
@@ -76,8 +79,8 @@ whole_decode_cluster_kernel(const float* __restrict__ emb,
                             float* __restrict__ lp_out,
                             int* __restrict__ cnt_out,
                             const __grid_constant__ cluster_step::Maps maps,
-                            Shape s, int V, int sos_id, int eos_id,
-                            int pad_id) {
+                            Shape s, int V, int Tpos, int sos_id,
+                            int eos_id, int pad_id) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using Step = cluster_step::Step<W, C, true>;
   // the swizzled weight stages need a 1024-byte aligned base
@@ -92,7 +95,7 @@ whole_decode_cluster_kernel(const float* __restrict__ emb,
   step.begin_decode(sos_id);
   step.with_head(w_head, b_head, V);
   step.start();
-  step.embed(step.prev_tok(), emb, pos_emb);
+  step.embed(step.prev_tok(), emb, pos_emb, Tpos);
   step.cluster.sync();  // every block runs before any remote store
   int st = 0, ph = 0;  // the ring's stage and parity run on over the steps
   int t = 0;           // the steps taken
@@ -100,7 +103,7 @@ whole_decode_cluster_kernel(const float* __restrict__ emb,
     if (t > 0) {
       step.fresh.k += self.slot;  // slot t
       step.fresh.v += self.slot;
-      step.embed(step.prev_tok(), emb, pos_emb);
+      step.embed(step.prev_tok(), emb, pos_emb, Tpos);
     }
     step.run(st, ph);
     live = step.pick(t, T_out, eos_id, pad_id, tokens);
@@ -130,7 +133,7 @@ int launch(const void* emb, const void* pos_emb, const void* const* wp,
            const void* ln, void* self_k, void* self_v, const void* cross_k,
            const void* cross_v, const void* w_head, const void* b_head,
            void* tokens, void* lp, void* cnt, int L, int B, int T_out, int D,
-           int H, int F, int L_enc, int V, int sos_id, int eos_id,
+           int H, int F, int L_enc, int V, int Tpos, int sos_id, int eos_id,
            int pad_id, void* stream) {
   const void* kernel = kernel_of<W, C>();
   const int hres = cluster_step::head_cols(V);
@@ -161,7 +164,7 @@ int launch(const void* emb, const void* pos_emb, const void* const* wp,
       static_cast<CC>(cross_k), static_cast<CC>(cross_v),
       static_cast<CF>(w_head), static_cast<CF>(b_head),
       static_cast<int*>(tokens), static_cast<float*>(lp),
-      static_cast<int*>(cnt), maps, s, V, sos_id, eos_id, pad_id);
+      static_cast<int*>(cnt), maps, s, V, Tpos, sos_id, eos_id, pad_id);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -174,12 +177,12 @@ int launch(const void* emb, const void* pos_emb, const void* const* wp,
   const void *ln, void *self_k, void *self_v, const void *cross_k,          \
       const void *cross_v, const void *w_head, const void *b_head,          \
       void *tokens, void *lp, void *cnt, int L, int B, int T_out, int D,    \
-      int H, int F, int L_enc, int V, int sos_id, int eos_id, int pad_id,   \
-      void *stream
+      int H, int F, int L_enc, int V, int Tpos, int sos_id, int eos_id,     \
+      int pad_id, void *stream
 #define WHOLE_DECODE_ARGS                                                   \
   emb, pos_emb, wp, ln, self_k, self_v, cross_k, cross_v, w_head, b_head,   \
-      tokens, lp, cnt, L, B, T_out, D, H, F, L_enc, V, sos_id, eos_id,      \
-      pad_id, stream
+      tokens, lp, cnt, L, B, T_out, D, H, F, L_enc, V, Tpos, sos_id,        \
+      eos_id, pad_id, stream
 
 // The bf16 and float32 bundles: six (weight, bias) pairs.
 #define WHOLE_DECODE_ENTRY(NAME, TYPE)                                      \

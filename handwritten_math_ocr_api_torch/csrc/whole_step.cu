@@ -5,9 +5,12 @@
 // handwritten_math_ocr_api_tpu/ops/fused_step.py::fused_whole_step
 // (_make_kernel_v4, B10; MHA, the bf16 or float32 bundle of
 // build_stacked_full). For batch row b at the step's position pos:
-//   x = round(emb[prev[b]] + pos_emb[pos])        (float32 tables, the sum
+//   x = round(emb[prev[b]] + pos_emb[min(pos, Tpos - 1)])
+//                                                 (float32 tables, the sum
 //                                                  rounded to the compute
-//                                                  type C and back)
+//                                                  type C and back; a step
+//                                                  past the position table
+//                                                  takes its last row)
 //   every layer at slot pos (decoder_cluster.cuh::Step::run)
 //   logits = x W_head + b_head                    (float32)
 //   nxt[b], logp[b] = argmax (the first index of the max),
@@ -66,7 +69,7 @@ whole_step_cluster_kernel(const int* __restrict__ prev,
                           int* __restrict__ nxt, float* __restrict__ logp,
                           decoder::FreshRows<C> fresh,
                           const __grid_constant__ cluster_step::Maps maps,
-                          Shape s, int V) {
+                          Shape s, int V, int Tpos) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using Step = cluster_step::Step<C, C>;
   // the swizzled weight stages need a 1024-byte aligned base
@@ -77,10 +80,10 @@ whole_step_cluster_kernel(const int* __restrict__ prev,
             smem, row0);
   // every row at s.pos (checked by the host), dead if its prev is not a
   // token
-  step.positions(nullptr, prev, s.pos + 1, s.pos + 1, V);
+  step.positions(nullptr, prev, s.pos + 1, V);
   step.with_head(w_head, b_head, V);
   step.start();
-  step.embed(prev + row0, emb, pos_emb);
+  step.embed(prev + row0, emb, pos_emb, Tpos);
   step.cluster.sync();  // every block runs before any remote store
   step.run();
   step.head(nullptr, nxt, logp);
@@ -100,7 +103,7 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
            void* self_v, const void* cross_k, const void* cross_v,
            const void* w_head, const void* b_head, void* nxt, void* logp,
            void* k_new, void* v_new, int L, int B, int Tc, int D, int H,
-           int F, int L_enc, int V, int pos, void* stream) {
+           int F, int L_enc, int V, int Tpos, int pos, void* stream) {
   const void* kernel = kernel_of<C>();
   Shape s;
   const bool in_place = k_new == nullptr;
@@ -138,7 +141,7 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
       static_cast<CC>(sv), self, static_cast<CC>(cross_k),
       static_cast<CC>(cross_v), static_cast<CF>(w_head),
       static_cast<CF>(b_head), static_cast<int*>(nxt),
-      static_cast<float*>(logp), fresh, maps, s, V);
+      static_cast<float*>(logp), fresh, maps, s, V, Tpos);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -166,12 +169,12 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
                       const void* cross_v, const void* w_head,              \
                       const void* b_head, void* nxt, void* logp, int L,     \
                       int B, int Tc, int D, int H, int F, int L_enc, int V, \
-                      int pos, void* stream) {                              \
+                      int Tpos, int pos, void* stream) {                    \
     WHOLE_STEP_WP;                                                          \
     return launch<TYPE>(prev, emb, pos_emb, wp, ln, self_k, self_v,        \
                         cross_k, cross_v, w_head, b_head, nxt, logp,        \
-                        nullptr, nullptr, L, B, Tc, D, H, F, L_enc, V, pos, \
-                        stream);                                            \
+                        nullptr, nullptr, L, B, Tc, D, H, F, L_enc, V,      \
+                        Tpos, pos, stream);                                 \
   }
 
 // "v3": batch-major (L, B, T, D) caches, read only; the fresh rows out.
@@ -183,13 +186,13 @@ int launch(const void* prev, const void* emb, const void* pos_emb,
                       const void* w_head, const void* b_head, void* nxt,    \
                       void* logp, void* k_new, void* v_new, int L, int B,   \
                       int Tc, int D, int H, int F, int L_enc, int V,        \
-                      int pos, void* stream) {                              \
+                      int Tpos, int pos, void* stream) {                    \
     WHOLE_STEP_WP;                                                          \
     return launch<TYPE>(prev, emb, pos_emb, wp, ln,                        \
                         const_cast<void*>(self_k),                          \
                         const_cast<void*>(self_v), cross_k, cross_v,        \
                         w_head, b_head, nxt, logp, k_new, v_new, L, B, Tc,  \
-                        D, H, F, L_enc, V, pos, stream);                    \
+                        D, H, F, L_enc, V, Tpos, pos, stream);              \
   }
 
 WHOLE_STEP_TIME_MAJOR_ENTRY(whole_step_time_major_bf16, __nv_bfloat16)

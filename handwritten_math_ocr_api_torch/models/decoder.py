@@ -6,7 +6,9 @@ plus learned positional embedding, N post-norm decoder layers
 LN), then the vocab projection in float32. No embedding scaling and no
 final decoder LayerNorm.
 
-- ``decoder_forward``: the full teacher-forced pass.
+- ``decoder_forward``: the full teacher-forced pass; with a generator
+  (the training forward, JAX's ``deterministic=False``) dropout at
+  ``cfg.dropout`` on each sublayer's output and the FFN's hidden layer.
 - ``init_cache`` + ``decoder_step``: one token per step against a KV cache.
 - ``decoder_step_ragged``: the step with a position per row (continuous
   batching), on plain ops as the JAX function; ``project_cross_kv`` the
@@ -73,22 +75,26 @@ def _proj(p, x, part: str, kernels: bool = True):
     return _linear(p, "w_qkv", "b_qkv", x, kernels, slice(lo, lo + n))
 
 
-def decoder_forward(params, cfg: ModelConfig, memory, tgt_ids):
+def decoder_forward(params, cfg: ModelConfig, memory, tgt_ids, *,
+                    generator=None):
     """Teacher-forced full pass. memory (B, L_enc, D); tgt_ids (B, L).
-    Returns float32 logits (B, L, vocab)."""
+    Returns float32 logits (B, L, vocab). ``generator``: the training
+    forward's dropout draws (none: deterministic)."""
     B, L = tgt_ids.shape
     dtype = compute_dtype(cfg)
     positions = torch.arange(L, device=tgt_ids.device)[None, :]
     x = _embed(params, tgt_ids, positions, dtype)
     memory = memory.to(dtype)
     mask = layers.causal_mask(L, device=x.device)
+    rate, g = cfg.dropout, generator
     for p in params["layers"]:
         sa = layers.mha(p["self_attn"], x, x, cfg.nhead, mask)
-        x = layers.layer_norm(p["norm1"], x + sa)
+        x = layers.layer_norm(p["norm1"], x + layers.dropout(sa, rate, g))
         ca = layers.mha(p["cross_attn"], x, memory, cfg.nhead)
-        x = layers.layer_norm(p["norm2"], x + ca)
-        ff = layers.mlp(p["ffn"], x, activation=torch.relu)
-        x = layers.layer_norm(p["norm3"], x + ff)
+        x = layers.layer_norm(p["norm2"], x + layers.dropout(ca, rate, g))
+        ff = layers.mlp(p["ffn"], x, activation=torch.relu,
+                        dropout_rate=rate, generator=g)
+        x = layers.layer_norm(p["norm3"], x + layers.dropout(ff, rate, g))
     return layers.linear(params["fc_out"], x.float())
 
 

@@ -6,7 +6,11 @@ linear weights are ``(in, out)`` and multiply as ``x @ w``; the attention
 projection is packed ``(D, D + 2 kvd)`` with q, k, v column blocks, kvd = D
 for MHA and the KV heads' width under MQA/GQA (``nhead_kv``). The numerics
 follow the JAX functions: matmuls in the activation dtype, layer norm
-(eps 1e-5) and softmax in float32, attention logits in float32.
+(eps 1e-5) and softmax in float32, attention logits in float32. Every
+function casts a weight to the activation dtype where it uses it, so a tree
+of float32 master weights trains under a bf16 forward with float32
+gradients, as the JAX train step does. ``dropout`` draws its mask from an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -122,9 +126,23 @@ def gelu_tanh(x: Tensor) -> Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x: Tensor, activation=torch.relu, *,
-        kernels: bool = True) -> Tensor:
+def dropout(x: Tensor, rate: float, generator=None) -> Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate); the identity without a generator (the
+    deterministic forward) or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def mlp(p, x: Tensor, activation=torch.relu, *, kernels: bool = True,
+        dropout_rate: float = 0.0, generator=None) -> Tensor:
+    """fc2(dropout(activation(fc1(x)))); the dropout as ``dropout``."""
     h = activation(linear(p["fc1"], x, kernels=kernels))
+    h = dropout(h, dropout_rate, generator)
     return linear(p["fc2"], h, kernels=kernels)
 
 

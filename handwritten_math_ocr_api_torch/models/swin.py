@@ -18,7 +18,11 @@ runs each block of a stage that passes the reference's route rule
 kernel launch; the other stages keep the window attention kernel.
 
 ``kernels=False`` runs the plain versions of the kernels even on a CUDA
-device; it is the reference path that the kernels are held against.
+device; it is the reference path that the kernels are held against, and
+the training forward's (the kernels have no backward). The training
+forward also takes stochastic depth: ``stochastic_depth_masks`` draws each
+block's two row masks from a generator, the rate rising linearly with the
+block's index as in JAX's ``swin_apply``, and ``swin_apply`` applies them.
 """
 
 from __future__ import annotations
@@ -135,22 +139,54 @@ def window_attention(p, x: Tensor, ws: int, shift: int, num_heads: int, *,
     return x
 
 
+def stochastic_depth_masks(cfg: SwinConfig, batch: int, generator,
+                           device) -> List[Optional[tuple]]:
+    """Each block's stochastic depth draws, in block order: None where the
+    block's rate (``cfg.stochastic_depth * block_id / (n_blocks - 1)``)
+    is 0, else (keep, attention-branch mask, MLP-branch mask), each mask
+    (B, 1, 1, 1) bool, a row kept with probability ``keep``. Drawn before
+    the encoder runs, so that a recomputed encoder (``remat``) sees the
+    same draws."""
+    total = sum(cfg.depths)
+    out = []
+    for block_id in range(total):
+        rate = cfg.stochastic_depth * block_id / max(total - 1, 1)
+        if generator is None or rate == 0.0:
+            out.append(None)
+            continue
+        keep = 1.0 - rate
+        draw = torch.rand((2, batch, 1, 1, 1), generator=generator,
+                          device=device) < keep
+        out.append((keep, draw[0], draw[1]))
+    return out
+
+
+def _drop_path(h: Tensor, keep: float, mask: Tensor) -> Tensor:
+    """Row-mode stochastic depth (torchvision's): h / keep on kept rows,
+    zero on dropped ones."""
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+                                                   device=h.device))
+
+
 def swin_block(p, x: Tensor, ws: int, shift: int, num_heads: int, *,
-               kernels: bool = True, use_pallas_block: bool = False) -> Tensor:
-    """Pre-norm Swin block: x + attn(LN(x)); x + mlp(LN(x)) (inference:
-    no stochastic depth). ``use_pallas_block`` takes the whole-block kernel
-    where the reference's route rule lets its stage fuse."""
-    if use_pallas_block:
+               kernels: bool = True, use_pallas_block: bool = False,
+               drop=None) -> Tensor:
+    """Pre-norm Swin block: x + SD(attn(LN(x))); x + SD(mlp(LN(x))), the
+    stochastic depth SD from ``drop`` (an entry of
+    ``stochastic_depth_masks``; None: the identity). ``use_pallas_block``
+    takes the whole-block kernel where the reference's route rule lets its
+    stage fuse (inference only)."""
+    if use_pallas_block and drop is None:
         W_pad = -(-x.shape[2] // ws) * ws
         if fits_vmem(x.shape[-1], ws, W_pad, p["mlp"]["fc1"]["w"].shape[1]):
             block = fused_swin_block if kernels else fused_swin_block_plain
             return block(p, x.contiguous(), ws, shift, num_heads)
     h = window_attention(p["attn"], layers.layer_norm(p["norm1"], x), ws,
                          shift, num_heads, kernels=kernels)
-    x = x + h
+    x = x + (h if drop is None else _drop_path(h, drop[0], drop[1]))
     h = layers.mlp(p["mlp"], layers.layer_norm(p["norm2"], x),
                    activation=layers.gelu_tanh)
-    return x + h
+    return x + (h if drop is None else _drop_path(h, drop[0], drop[2]))
 
 
 def patch_merging(p, x: Tensor, *, kernels: bool = True) -> Tensor:
@@ -178,20 +214,24 @@ def patch_embed(p, images: Tensor) -> Tensor:
 
 
 def swin_apply_stages(params, images: Tensor, cfg: SwinConfig, *,
-                      kernels: bool = True,
-                      use_pallas_block: bool = False) -> List[Tensor]:
+                      kernels: bool = True, use_pallas_block: bool = False,
+                      drops=None) -> List[Tensor]:
     """The trunk with its taps: [patch-embed out, stage-1 out (after its
-    blocks, before the merge), ..., last-stage out], each (B, h, w, C)."""
+    blocks, before the merge), ..., last-stage out], each (B, h, w, C).
+    ``drops``: ``stochastic_depth_masks``' draws (None: deterministic)."""
     x = patch_embed(params["patch_embed"], images)
     taps = [x]
     ws = cfg.window_size
+    block_id = 0
     for i, depth in enumerate(cfg.depths):
         blocks = params["stages"][i]["blocks"]
         for d in range(depth):
             shift = 0 if d % 2 == 0 else ws // 2
             x = swin_block(blocks[d], x, ws, shift, cfg.num_heads[i],
                            kernels=kernels,
-                           use_pallas_block=use_pallas_block)
+                           use_pallas_block=use_pallas_block,
+                           drop=None if drops is None else drops[block_id])
+            block_id += 1
         taps.append(x)
         if i < len(cfg.depths) - 1:
             x = patch_merging(params["merges"][i], x, kernels=kernels)
@@ -199,9 +239,11 @@ def swin_apply_stages(params, images: Tensor, cfg: SwinConfig, *,
 
 
 def swin_apply(params, images: Tensor, cfg: SwinConfig, *,
-               kernels: bool = True, use_pallas_block: bool = False) -> Tensor:
+               kernels: bool = True, use_pallas_block: bool = False,
+               drops=None) -> Tensor:
     """Full Swin trunk: (B, H, W, 1) -> (B, H/32 * W/32, 768)."""
     x = swin_apply_stages(params, images, cfg, kernels=kernels,
-                          use_pallas_block=use_pallas_block)[-1]
+                          use_pallas_block=use_pallas_block,
+                          drops=drops)[-1]
     B, H, W, C = x.shape
     return x.reshape(B, H * W, C)

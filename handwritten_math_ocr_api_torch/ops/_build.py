@@ -69,20 +69,20 @@ SIGNATURES = {
     "cluster_geometry": (I,) * 11 + (P,),
     # B10: prev, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, nxt, logp, [k_new, v_new,]
-    # L, B, T, D, H, F, L_enc, V, pos, stream; time-major caches written at
-    # pos, or batch-major ones read only and the fresh rows out
-    "whole_step_time_major_bf16": (P,) * 24 + (I,) * 9 + (P,),
-    "whole_step_time_major_f32": (P,) * 24 + (I,) * 9 + (P,),
-    "whole_step_rows_bf16": (P,) * 26 + (I,) * 9 + (P,),
-    "whole_step_rows_f32": (P,) * 26 + (I,) * 9 + (P,),
+    # L, B, T, D, H, F, L_enc, V, T_pos, pos, stream; time-major caches
+    # written at pos, or batch-major ones read only and the fresh rows out
+    "whole_step_time_major_bf16": (P,) * 24 + (I,) * 10 + (P,),
+    "whole_step_time_major_f32": (P,) * 24 + (I,) * 10 + (P,),
+    "whole_step_rows_bf16": (P,) * 26 + (I,) * 10 + (P,),
+    "whole_step_rows_f32": (P,) * 26 + (I,) * 10 + (P,),
     # B12: emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v (scratch),
     # cross_k, cross_v, w_head, b_head, tokens, lp, cnt, L, B, T_out, D, H,
-    # F, L_enc, V, sos_id, eos_id, pad_id, stream
-    "whole_decode_bf16": (P,) * 24 + (I,) * 11 + (P,),
-    "whole_decode_f32": (P,) * 24 + (I,) * 11 + (P,),
+    # F, L_enc, V, T_pos, sos_id, eos_id, pad_id, stream
+    "whole_decode_bf16": (P,) * 24 + (I,) * 12 + (P,),
+    "whole_decode_f32": (P,) * 24 + (I,) * 12 + (P,),
     # the int8 bundle: 6 x (weight, scale, bias) in place of the pairs
-    "whole_decode_i8_bf16": (P,) * 30 + (I,) * 11 + (P,),
-    "whole_decode_i8_f32": (P,) * 30 + (I,) * 11 + (P,),
+    "whole_decode_i8_bf16": (P,) * 30 + (I,) * 12 + (P,),
+    "whole_decode_i8_f32": (P,) * 30 + (I,) * 12 + (P,),
     # prev, pos, emb, pos_emb, 6 x (weight, bias), ln, self_k, self_v,
     # cross_k, cross_v, w_head, b_head, logits, nxt, logp, k_new, v_new,
     # L, R (the caches' rows), R_run (the rows computed), T, D, H, Hkv, F,

@@ -745,8 +745,12 @@ for _attr in ("launches", "int8_launches", "mqa_launches",
 
 def _embed_full(stacked, prev, pos, dtype):
     """float32 rows (R, D) of the embedding sum emb[prev] + pos_emb[pos]
-    rounded to ``dtype``, as the whole and ragged steps begin."""
-    return (stacked["emb"][prev.long()] + stacked["pos_emb"][pos]).to(
+    rounded to ``dtype``, as the whole and ragged steps begin. A position
+    past the table takes its last row, as JAX's gather clamps the index
+    (a model whose ``max_seq_len`` is under the decode's)."""
+    last = stacked["pos_emb"].shape[0] - 1
+    at = pos.clamp(max=last) if torch.is_tensor(pos) else min(pos, last)
+    return (stacked["emb"][prev.long()] + stacked["pos_emb"][at]).to(
         dtype).float()
 
 
@@ -770,9 +774,8 @@ def fused_whole_step_plain(stacked, cfg: ModelConfig, prev, self_k, self_v,
     view_k, view_v = ((self_k.transpose(1, 2), self_v.transpose(1, 2))
                       if time_major else (self_k, self_v))
     L, B, T, D = view_k.shape
-    if not 0 <= pos < min(T, stacked["pos_emb"].shape[0]):
-        raise ValueError(f"pos {pos} outside the cache of {T} slots or the "
-                         f"position table")
+    if not 0 <= pos < T:
+        raise ValueError(f"pos {pos} outside the cache of {T} slots")
     x = _embed_full(stacked, prev, pos, stacked["w_qkv"].dtype)
     rows = torch.full((B,), pos, dtype=torch.long, device=x.device)
     x, k_new, v_new = _layers_plain(stacked, cfg, x, view_k, view_v, cross_k,
@@ -822,9 +825,8 @@ def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
                        device=dev, aligned=True)
     _, weights = _weight_ptrs(stacked, cfg, L, dt, dev)
     V, Tpos, (emb, pos_emb, w_head, b_head) = _table_ptrs(stacked, D, dev)
-    if not 0 <= pos < min(T, Tpos):
-        raise ValueError(f"pos {pos} outside the cache of {T} slots or the "
-                         f"position table of {Tpos}")
+    if not 0 <= pos < T:
+        raise ValueError(f"pos {pos} outside the cache of {T} slots")
 
     nxt = torch.empty((B,), dtype=torch.int32, device=dev)
     logp = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -836,7 +838,7 @@ def fused_whole_step(stacked, cfg: ModelConfig, prev, self_k, self_v,
     ptrs += [t.data_ptr() for t in rows]
     entry = _WHOLE_ENTRY[time_major, dt]
     code = getattr(_build.library(), entry)(
-        *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V,
+        *ptrs, L, B, T, D, cfg.nhead, cfg.dim_feedforward, L_enc, V, Tpos,
         int(pos), _build.stream_handle(dev))
     _check_code(code, entry, cfg, B)
     _build.count(fused_whole_step)

@@ -152,10 +152,11 @@ __device__ __forceinline__ void tensor_copy4("""),
 
 def rows_a_group(rows: int):
     """B12's launch at ``rows`` rows a group instead of the planned shape."""
-    old = "      kernel, L, B, T_out, D, H, F, L_enc, T_out - 1, &s, hres);\n"
+    old = ("      kernel, L, B, T_out, D, H, H, F, L_enc, T_out - 1, &s, "
+           "hres);\n")
     return [("whole_decode.cu", old,
              old + f"  s = cluster_step::make_shape<W, C>(L, B, T_out, D, H, "
-                   f"F, L_enc, T_out - 1, {rows}, hres);\n")]
+                   f"H, F, L_enc, T_out - 1, {rows}, hres);\n")]
 
 
 # B12's variants: (file in csrc/, old text, new text) edits

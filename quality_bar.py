@@ -27,6 +27,18 @@ when the checkpoint or the corpus changes:
 
 ``--only NAME`` computes one bar of (a)-(c') alone and writes it into the
 existing fixture, leaving the rest of the file as it is.
+
+``--train`` writes the training fixture instead,
+``tests/fixtures/torch_r4_train.json``: the JAX package's train and eval
+steps (``train/step.py``, XLA route) on the CPU in float32, dropout and
+stochastic depth at 0, label smoothing 0.1, on the first 256 test images
+in batches of 64 (no augmentation): the mean of the batches' eval losses
+and the token accuracy over the 256; on the first batch the gradients'
+global norm of one train step (Adam at lr 3e-4, clip 1.0, no warmup) and
+the batch's eval loss after that step; and the eval loss of the first 4
+images as one batch (the tier-1 test's check on the CPU):
+
+    JAX_PLATFORMS=cpu python quality_bar.py --train
 """
 
 from __future__ import annotations
@@ -43,6 +55,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "serving_model_r4")
 DATA_ROOT = os.path.join(REPO, "data_eval_hard")
 OUT = os.path.join(REPO, "tests", "fixtures", "torch_r4_quality.json")
+TRAIN_OUT = os.path.join(REPO, "tests", "fixtures", "torch_r4_train.json")
+TRAIN_IMAGES = 256
+TRAIN_FIRST = 4
+LEARNING_RATE = 3e-4
 BATCH = 64
 SUBSET = 512
 FIRST = 64
@@ -93,12 +109,110 @@ def check_summary(bar: dict, summary: dict) -> None:
             raise AssertionError(f"{ours}: {bar[ours]} != {want}")
 
 
+def train_fixture(out_path: str) -> None:
+    """The ``--train`` fixture (module docstring)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from handwritten_math_ocr_api_tpu.core.config import (
+        DataConfig,
+        TrainConfig,
+    )
+    from handwritten_math_ocr_api_tpu.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_tpu.data.dataset import get_test_loader
+    from handwritten_math_ocr_api_tpu.train.checkpoint import (
+        load_params_for_serving,
+    )
+    from handwritten_math_ocr_api_tpu.train.optim import make_optimizer
+    from handwritten_math_ocr_api_tpu.train.step import (
+        TrainState,
+        make_eval_step,
+        make_train_step,
+    )
+
+    params, state, vocab, idx2char, cfg = load_params_for_serving(MODEL_DIR)
+    tok = Tokenizer(vocab, idx2char)
+    cfg = cfg.replace(dtype="float32", dropout=0.0,
+                      swin=dataclasses.replace(cfg.swin,
+                                               stochastic_depth=0.0))
+    tc = TrainConfig(learning_rate=LEARNING_RATE)
+    opt = make_optimizer(tc)
+
+    def fresh():
+        p = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True),
+                                   params)
+        return TrainState(params=p, opt_state=opt.init(p), model_state=state,
+                          step=jnp.zeros((), jnp.int32))
+
+    eval_step = make_eval_step(cfg, tc)
+    train_step = make_train_step(cfg, tc, opt)
+    test = get_test_loader(tok, DataConfig(data_root=DATA_ROOT,
+                                           batch_size=BATCH), cfg)
+    test.dataset.df = test.dataset.df.iloc[:TRAIN_IMAGES]
+    batches = list(test)
+    t = time.time()
+    st = fresh()
+    losses, correct, count = [], 0, 0
+    for b in batches:
+        loss, preds = eval_step(st, b["image"], b["caption"])
+        losses.append(float(loss))
+        tgt = b["caption"][:, 1:]
+        mask = tgt != 0
+        correct += int(((np.asarray(preds) == tgt) & mask).sum())
+        count += int(mask.sum())
+    first = batches[0]
+    images = first["image"].astype(np.float32) / 255.0 * 2.0 - 1.0
+    st2, metrics = train_step(fresh(), jnp.asarray(images),
+                              jnp.asarray(first["caption"]),
+                              jax.random.PRNGKey(0))
+    after, _ = eval_step(st2, first["image"], first["caption"])
+    few, _ = eval_step(fresh(), first["image"][:TRAIN_FIRST],
+                       first["caption"][:TRAIN_FIRST])
+    out = {
+        "source": "quality_bar.py --train (JAX package on the CPU, "
+                  "float32, XLA route)",
+        "model": "serving_model_r4",
+        "split": "data_eval_hard/test_labels.csv",
+        "images": TRAIN_IMAGES,
+        "batch_size": BATCH,
+        "label_smoothing": tc.label_smoothing,
+        "learning_rate": LEARNING_RATE,
+        "grad_clip_norm": tc.grad_clip_norm,
+        "eval_loss": float(np.mean(losses)),
+        "eval_batch_losses": losses,
+        "token_accuracy": correct / count,
+        "first_batch": {
+            "loss": float(metrics["loss"]),
+            "accuracy": float(metrics["accuracy"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "loss_after_step": float(after),
+        },
+        "first4_eval_loss": float(few),
+        "host_seconds": time.time() - t,
+    }
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(f"wrote {out_path}: {out}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--out", default=None,
+                    help=f"default {OUT} (--train: {TRAIN_OUT})")
     ap.add_argument("--only", choices=sorted(CELLS),
                     help="compute this bar alone and merge it into --out")
+    ap.add_argument("--train", action="store_true",
+                    help="write the training fixture (module docstring)")
     args = ap.parse_args()
+    if args.train:
+        train_fixture(args.out or TRAIN_OUT)
+        return
+    args.out = args.out or OUT
 
     import jax
 

@@ -29,6 +29,8 @@ from handwritten_math_ocr_api_torch.core.device import resolve_device
 from handwritten_math_ocr_api_torch.data import preprocess as tpre
 from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
 from handwritten_math_ocr_api_torch.decode.api import pick_bucket as t_pick
+from handwritten_math_ocr_api_torch.train import loop as tloop
+from handwritten_math_ocr_api_torch.train import step as tstep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "handwritten_math_ocr_api_torch")
@@ -81,6 +83,11 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import handwritten_math_ocr_api_torch.decode.api\n"
             "import handwritten_math_ocr_api_torch.convert\n"
+            "import handwritten_math_ocr_api_torch.train.loop\n"
+            "import handwritten_math_ocr_api_torch.train.vocab_extend\n"
+            "import handwritten_math_ocr_api_torch.train.gqa_convert\n"
+            "import handwritten_math_ocr_api_torch.data.synthetic\n"
+            "import handwritten_math_ocr_api_torch.cli\n"
             "import chip_smoke\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
@@ -106,6 +113,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         DecodeEngine({}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.to_torch({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstep.create_train_state(cfg, tcfg.TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstep.make_train_step(cfg, tcfg.TrainConfig(), None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstep.make_eval_step(cfg, tcfg.TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tloop.train_model(tcfg.Config(model=cfg), [], [], None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

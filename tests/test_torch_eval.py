@@ -336,7 +336,7 @@ def test_csv_rows_match_pandas(path):
 def test_data_config_matches_jax():
     got = dataclasses.asdict(tconfig.DataConfig())
     want = dataclasses.asdict(jconfig.DataConfig())
-    assert got == {k: want[k] for k in ("data_root", "batch_size")}
+    assert got == want
     cfg = tconfig.DataConfig(data_root="root")
     assert cfg.img_dir("test") == jconfig.DataConfig(
         data_root="root").img_dir("test")
