@@ -209,10 +209,40 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    written by ``save_params_for_serving``, read back bit for bit and
    decoded on the default and the fused route, their float32 tokens
    equal;
-12. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+12. "resnet", the ResNet encoders (``serving_model_r4``'s configuration
+   with ``encoder`` replaced: the 1-channel ResNet-18 trunk, its height
+   pool and projection to d_model 256, 10 memory columns at 96x320;
+   seeded weights and BatchNorm statistics away from 0 and 1): (a) the
+   decoder kernels that read cross K/V at 10 columns against their plain
+   versions with phase 3's tolerances (B1 bf16 and int8 at the bucket
+   and at one row, pos 0/74/149; B7 both bundles at the beam's 50 rows,
+   pos 0/74/149 and ragged; B7's ring entries at the continuous pool,
+   both bundles; B9 at the cross K/V shapes of 160 and 500 rows; B10-B12
+   and the MQA entries at 10 columns are left to
+   ``tests/test_torch_kernels_cuda.py``), each time printed beside
+   its 30-column time and written into its ``kernels`` entry
+   (``ms_lenc10``); (b) ``resnet18`` on the default route (decoder cut to
+   ``DEFAULT_ROUTE_LAYERS``) and the fused route through phase 4's
+   checks (greedy and beam 5 of 10 images, launch counts with no encoder
+   kernel, float32 tokens equal to the plain path, images/s, idle share),
+   and the encode of 16 images timed by CUDA events; (c) ``res18trans``
+   (8 transformer encoder layers): fused greedy (launch counts), then 16
+   requests through ``ContinuousDecoder`` on the fused route in float32,
+   equal to the fused engine; (d) a seeded reference-layout ``resnet18``
+   built here in plain ``torch.nn``, saved, made a serving artifact by
+   ``python -m handwritten_math_ocr_api_torch convert-checkpoint`` and
+   served in float32: its 40 BatchNorm statistics present, its tokens
+   equal to the in-memory converted tree's, its encoder memory within
+   1e-4 of the module's own ``eval()`` forward; (e) one float32 train
+   step of ``resnet18`` at batch 16 on the card and on the host from the
+   same inputs (loss, gradient norm and new statistics within 1e-4
+   relative), then 30 bf16 steps at batch 64 of the synthetic stream
+   (images/s, ms a step, idle share, peak memory; a finite loss and
+   statistics that moved);
+13. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-It imports torch, numpy and the port only; phases 1-6, 8 and 9 run on
+It imports torch, numpy and the port only; phases 1-6, 8, 9 and 12 run on
 seeded random weights, phases 7, 10 and 11 (a) read the checkpoint and the
 test split. It exits non-zero on any failure, or when no CUDA device is
 present.
@@ -2083,11 +2113,13 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
     step and in the cross K and V projection of every layer each decode;
     on the fused route it moves the steps' launches to their int8
     entries. No path runs decode attention, nor B10-B12 (only
-    ``serve_variants`` does). Under MQA/GQA (``nhead_kv`` < ``nhead``) the
+    ``serve_variants`` does). A ResNet encoder launches no encoder kernel
+    (its convolutions are cuDNN's). Under MQA/GQA (``nhead_kv`` < ``nhead``) the
     default route's steps attend on plain ops (no cache-append attention)
     and the fused route's steps are B1's and B7's MQA kernels."""
-    blocks = sum(cfg.swin.depths)
-    merges = len(cfg.swin.depths) - 1
+    swin = cfg.encoder == "swin_t"  # a ResNet encoder launches none
+    blocks = sum(cfg.swin.depths) if swin else 0
+    merges = len(cfg.swin.depths) - 1 if swin else 0
     L = cfg.num_decoder_layers
     quantized = route.endswith("_int8")
     grouped = cfg.kv_heads != cfg.nhead
@@ -2096,7 +2128,7 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
         return [encodes * blocks, encodes * merges,
                 0 if grouped else L * steps, 0, 0, 0, 0, 0, dq,
                 *[0] * 14]
-    fused = fused_blocks(cfg)
+    fused = fused_blocks(cfg) if swin else 0
     b1, b7, b8 = (0, steps, steps) if beam else (steps, 0, 0)
     b1, b1_int8 = (0, b1) if quantized else (b1, 0)
     b7, b7_int8 = (0, b7) if quantized else (b7, 0)
@@ -2191,9 +2223,11 @@ def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
     x, _ = engine._pad_batch(images)
     with torch.inference_mode():
         mem_k = model_mod.encode(engine.params, cfg, x,
-                                 use_pallas_block=block)
+                                 use_pallas_block=block,
+                                 model_state=engine.model_state)
         mem_p = model_mod.encode(engine.params, cfg, x, kernels=False,
-                                 use_pallas_block=block)
+                                 use_pallas_block=block,
+                                 model_state=engine.model_state)
         res_k = route_decode(engine, cfg, mem_k, True)
         res_p = route_decode(engine, cfg, mem_p, False)
     if not torch.isfinite(mem_k.float()).all():
@@ -2217,9 +2251,11 @@ def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
     x32, _ = engine32._pad_batch(images[:2])
     with torch.inference_mode():
         m_k = model_mod.encode(engine32.params, cfg32, x32,
-                               use_pallas_block=block)
+                               use_pallas_block=block,
+                               model_state=engine32.model_state)
         m_p = model_mod.encode(engine32.params, cfg32, x32, kernels=False,
-                               use_pallas_block=block)
+                               use_pallas_block=block,
+                               model_state=engine32.model_state)
     err32 = max_err(m_k, m_p)
     log(f"serve {route}: float32 memory kernel vs plain max_abs_err "
         f"{err32:.3g}")
@@ -2381,7 +2417,8 @@ def serve_beam(engine, engine32, images, entries, route):
     x, B = engine._pad_batch(images)
     with torch.inference_mode():
         mem = model_mod.encode(engine.params, cfg, x,
-                               use_pallas_block=block)[:B]
+                               use_pallas_block=block,
+                               model_state=engine.model_state)[:B]
         res_k = route_beam(engine, cfg, mem, True)
         res_p = route_beam(engine, cfg, mem, False)
     if not torch.isfinite(res_k.scores).all():
@@ -2393,9 +2430,11 @@ def serve_beam(engine, engine32, images, entries, route):
     x32, B32 = engine32._pad_batch(images[:2])
     with torch.inference_mode():
         m_k = model_mod.encode(engine32.params, cfg32, x32,
-                               use_pallas_block=block)[:B32]
+                               use_pallas_block=block,
+                               model_state=engine32.model_state)[:B32]
         m_p = model_mod.encode(engine32.params, cfg32, x32, kernels=False,
-                               use_pallas_block=block)[:B32]
+                               use_pallas_block=block,
+                               model_state=engine32.model_state)[:B32]
         r_k = route_beam(engine32, cfg32, m_k, True)
         r_p = route_beam(engine32, cfg32, m_p, False)
         other = (beam_decode(engine32.params["decoder"], cfg32, m_k, BEAM)
@@ -4622,6 +4661,505 @@ def train_phase():
     log(f"train serve: seconds {time.perf_counter() - t0:.1f}")
 
 
+# -- phase 12: the ResNet encoders ------------------------------------------
+
+RESNET_ENCODE_IMAGES = 16   # the trunk's encode timed at this batch
+RESNET_CONT_IMAGES = 16     # res18trans requests through ContinuousDecoder
+RESNET_TRAIN_BATCH = 16     # the float32 step held card against host
+RESNET_STREAM_BATCH = 64    # the bf16 steps of the synthetic stream
+RESNET_STREAM_STEPS = 30
+RESNET_MEMORY_ATOL = 1e-4   # converted model against the reference module
+RESNET_TRAIN_RTOL = 1e-4    # the card's float32 step against the host's
+
+
+def resnet_kernels(rcfg, rparams, entries, bucket, rows):
+    """Phase 12 (a): the decoder kernels that the ResNet model's served
+    routes launch with cross K/V, at the ResNet memory of 10 columns,
+    against their plain versions with phase 3's checks and tolerances
+    (phase 3's functions on a ResNet config: B1 bf16 and int8 at the
+    bucket and at one row, pos 0/74/149; B7 at the beam's rows, pos
+    0/74/149 and ragged, both bundles; B7's ring entries at the continuous
+    pool, both bundles), and B9 at the two cross K/V shapes
+    (``resnet_dequant``). B10-B12 and the MQA entries at 10 columns are
+    held by ``tests/test_torch_kernels_cuda.py``. Each time goes into its
+    phase 3 entry as ``ms_lenc10`` (with ``bound_ms_lenc10``) beside its
+    ``ms`` at 30 columns."""
+    by_name = {e.d["name"]: e for e in entries}
+    got = []
+    for quantize in (False, True):
+        got += [check_fused_step(rcfg, rparams, bucket, quantize),
+                check_ragged_step(rcfg, rparams, rows, bucket, quantize),
+                check_ragged_ring(rcfg, rparams, CONT_POOL, quantize)]
+    for e in got:
+        base = by_name[e.d["name"]].d
+        base["ms_lenc10"] = e.d["ms"]
+        base["bound_ms_lenc10"] = e.d["bound_ms"]
+        base["max_abs_err_lenc10"] = e.d["max_abs_err"]
+        if "ms_rows1" in e.d:
+            base["ms_rows1_lenc10"] = e.d["ms_rows1"]
+        log(f"resnet kernel {e.d['name']}: L_enc 10 ms {e.d['ms']:.4f} "
+            f"bound_ms {e.d['bound_ms']:.4f} max_abs_err "
+            f"{e.d['max_abs_err']:.3g}; L_enc 30 ms {base['ms']:.4f} "
+            f"bound_ms {base['bound_ms']:.4f}")
+    resnet_dequant(rcfg, rparams, by_name["dequant_matmul"], bucket, rows)
+
+
+def resnet_dequant(rcfg, rparams, entry, batch, rows):
+    """B9 at the int8 default route's cross K/V projections of the ResNet
+    memory (``batch`` and ``rows`` images of 10 columns: 160 and 500
+    rows) against its plain version, with phase 3's tolerance, timed
+    beside the same projection at 30 columns (480 and 1500 rows, from
+    phase 3's ``by_shape``)."""
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.ops import quant
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    D, L_enc = rcfg.d_model, rcfg.encoder_len
+    ca = convert.to_torch(
+        {"decoder": quant.quantize_decoder_params(rparams["decoder"])},
+        rcfg, dev)["decoder"]["layers"][0]["cross_attn"]
+    w_q, scale = ca["w_qkv_q"][:, D:2 * D], ca["w_qkv_scale"][D:2 * D]
+    at30 = {s["M"]: s["ms"] for s in entry.d["by_shape"]
+            if s["shape"] == "cross k"}
+    out = {}
+    for images in (batch, rows):
+        M = images * L_enc
+        x = torch.randn(M, D, generator=gen, device=dev).to(torch.bfloat16)
+        got = quant.dequant_matmul(x, w_q, scale)
+        want = quant.dequant_matmul_plain(x, w_q, scale)
+        torch.cuda.synchronize()
+        assert_close(f"resnet dequant_matmul cross k M {M}", got, want)
+        ms = cuda_ms(lambda: quant.dequant_matmul(x, w_q, scale))
+        nbytes = M * D * 2 + D * D + D * 4 + M * D * 2
+        out[M] = ms
+        log(f"resnet kernel dequant_matmul cross k: x ({M}, {D}) "
+            f"max_abs_err {max_err(got, want):.3g} ms {ms:.4f} bound_ms "
+            f"{bound_ms(nbytes, 2 * M * D * D):.5f}; at 30 columns "
+            f"(M {images * 30}) ms {at30.get(images * 30, float('nan')):.4f}")
+    entry.d["cross_ms_lenc10"] = out
+
+
+def resnet_encode_ms(engine, images):
+    """The encode of ``images`` (the trunk, its height pool and
+    projection) on the engine's device: CUDA events over 10 calls after
+    2, ms a call."""
+    import torch
+
+    x, _ = engine._pad_batch(images)
+    with torch.inference_mode():
+        for _ in range(2):
+            engine._encode(x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            engine._encode(x)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / 10
+
+
+def resnet_serve(rcfg, tok, entries):
+    """Phase 12 (b): ``resnet18`` with seeded weights and perturbed
+    BatchNorm statistics (rows run all 150 steps, as phase 4's) on the
+    default route (decoder cut to DEFAULT_ROUTE_LAYERS) and the
+    fused route, each through phase 4's ``serve``: greedy and beam 5 of
+    10 images, launch counts (no encoder kernel), float32 tokens equal to
+    the plain path, images/s and idle share; and the encode's time at
+    RESNET_ENCODE_IMAGES images."""
+    import numpy as np
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    state = convert.random_state(rcfg, SEED)
+    cut = rcfg.replace(num_decoder_layers=DEFAULT_ROUTE_LAYERS)
+    routes = {"pallas resnet18": (cut, {}),
+              "fused resnet18": (rcfg, {"use_fused": True,
+                                        "pallas_encoder_block": True})}
+    out = {}
+    for route, (c, kw) in routes.items():
+        t0 = time.perf_counter()
+        out[route] = serve(c, convert.random_params(c, SEED), tok,
+                           entries, route, model_state=state, **kw)
+        log(f"serve {route}: {c.num_decoder_layers} decoder layers, phase "
+            f"seconds {time.perf_counter() - t0:.1f}")
+    images = np.random.default_rng(SEED + 12).integers(
+        0, 256, (RESNET_ENCODE_IMAGES, rcfg.img_h, rcfg.img_w, 1),
+        dtype=np.uint8)
+    engine = DecodeEngine(convert.random_params(rcfg, SEED), rcfg,
+                          tokenizer=tok, model_state=state, device=DEVICE)
+    ms = resnet_encode_ms(engine, images)
+    log(f"resnet18: encode of {RESNET_ENCODE_IMAGES} images (bf16 trunk, "
+        f"height pool, projection, memory norm) ms {ms:.4f} (CUDA events, "
+        f"10 calls)")
+    return out
+
+
+def resnet_trans(tok, entries):
+    """Phase 12 (c): ``res18trans`` (8 transformer encoder layers; the
+    EOS bias raised, ``boosted_params``: rows end at 1-150 steps) on the
+    fused route: greedy ``predict_batch`` of 10 images in bf16 (launch
+    counts), then RESNET_CONT_IMAGES requests through ``ContinuousDecoder``
+    on the fused route in float32 (launch counts), equal to the fused
+    engine's results and tokens."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+
+    cfg = load_model_config(MODEL_DIR).replace(encoder="res18trans")
+    params, state = boosted_params(cfg), convert.random_state(cfg, SEED)
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    rng = np.random.default_rng(SEED + 13)
+    images = rng.integers(0, 256, (max(N_IMAGES, RESNET_CONT_IMAGES),
+                                   cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+    engine = DecodeEngine(params, cfg, tokenizer=tok, model_state=state,
+                          device=DEVICE, **fused)
+    engine.warmup((N_IMAGES,), dtype=np.uint8)
+    reset_counts()
+    texts = engine.predict_batch(images[:N_IMAGES])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, expected_launches(cfg, "fused", 1,
+                                           engine.last_steps))
+    tally(entries, counts, "fused res18trans")
+    if len(texts) != N_IMAGES:
+        raise AssertionError("res18trans predict_batch returned "
+                             f"{len(texts)} texts")
+    log(f"res18trans fused: predict_batch({N_IMAGES}) {engine.last_steps} "
+        f"steps, launches as counted; first text {texts[0][:60]!r}")
+
+    cfg32 = cfg.replace(dtype="float32")
+    conts = images[:RESNET_CONT_IMAGES]
+    dec = continuous_decoder(cfg32, params, tok, use_fused=True,
+                             model_state=state)
+    dec.warmup()
+    reset_counts()
+    results, got, wall = continuous_traffic(dec, conts)
+    tally(entries, continuous_counts(dec, cfg32, "fused",
+                                     "res18trans fused float32"),
+          "continuous res18trans")
+    engine32 = DecodeEngine(params, cfg32, tokenizer=tok, model_state=state,
+                            device=DEVICE, use_fused=True)
+    want = engine32.decode_tokens(conts)
+    pairs = engine32.predict_with_confidence(conts)
+    continuous_vs("res18trans fused float32", got, want, results, pairs)
+    dec.close()
+    log(f"res18trans continuous: {RESNET_CONT_IMAGES} requests in "
+        f"{wall:.3f} s, float32 results and tokens equal to the fused "
+        f"engine's")
+
+
+def reference_resnet(cfg):
+    """A seeded reference-layout ``resnet18`` model in plain ``torch.nn``:
+    ``encoder.features`` (torchvision resnet18's children but the last
+    two, 1-channel), ``encoder.projection`` and the reference decoder's
+    modules; BatchNorm weights, biases and running statistics perturbed,
+    so that eval mode reads them."""
+    import torch
+    from torch import nn
+
+    class Holder(nn.Module):
+        def __init__(self, **mods):
+            super().__init__()
+            for k, v in mods.items():
+                setattr(self, k, v)
+
+    class Block(nn.Module):
+        def __init__(self, cin, cout, stride):
+            super().__init__()
+            self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(cout)
+            self.relu = nn.ReLU(inplace=True)
+            self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.bn2 = nn.BatchNorm2d(cout)
+            self.downsample = None
+            if stride != 1 or cin != cout:
+                self.downsample = nn.Sequential(
+                    nn.Conv2d(cin, cout, 1, stride, bias=False),
+                    nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            idt = x if self.downsample is None else self.downsample(x)
+            out = self.relu(self.bn1(self.conv1(x)))
+            return self.relu(self.bn2(self.conv2(out)) + idt)
+
+    torch.manual_seed(SEED)
+    rc = cfg.resnet
+    seq = [nn.Conv2d(1, rc.stage_channels[0], 7, 2, 3, bias=False),
+           nn.BatchNorm2d(rc.stage_channels[0]), nn.ReLU(inplace=True),
+           nn.MaxPool2d(3, 2, 1)]
+    cin = rc.stage_channels[0]
+    for i, (cout, n) in enumerate(zip(rc.stage_channels, rc.stage_blocks)):
+        blocks = []
+        for b in range(n):
+            blocks.append(Block(cin, cout, 2 if (b == 0 and i > 0) else 1))
+            cin = cout
+        seq.append(nn.Sequential(*blocks))
+    layer = nn.TransformerDecoderLayer(cfg.d_model, cfg.nhead,
+                                       cfg.dim_feedforward, 0.0)
+    decoder = Holder(embedding=nn.Embedding(cfg.vocab_size, cfg.d_model),
+                     pos_encoder=nn.Embedding(cfg.max_seq_len, cfg.d_model),
+                     decoder=nn.TransformerDecoder(layer,
+                                                   cfg.num_decoder_layers),
+                     fc_out=nn.Linear(cfg.d_model, cfg.vocab_size))
+    model = Holder(encoder=Holder(features=nn.Sequential(*seq),
+                                  projection=nn.Linear(cin, cfg.d_model)),
+                   decoder=decoder)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.8, 1.2)
+                m.bias.uniform_(-0.1, 0.1)
+                m.running_mean.uniform_(-0.3, 0.3)
+                m.running_var.uniform_(0.5, 1.5)
+    return model.eval()
+
+
+def resnet_convert(tok):
+    """Phase 12 (d): a seeded reference-layout ``resnet18`` (full width)
+    saved as a training bundle, made a serving artifact by ``python -m
+    handwritten_math_ocr_api_torch convert-checkpoint``, then served in
+    float32: the artifact holds the BatchNorm statistics, its tokens equal
+    those of an engine on the in-memory converted tree, and its encoder
+    memory lies within RESNET_MEMORY_ATOL of the reference module's own
+    ``eval()`` forward on the card (TF32 off)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.compat import torch_convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        load_params_for_serving,
+    )
+    from handwritten_math_ocr_api_torch.utils import tree
+
+    r4 = load_model_config(MODEL_DIR)
+    # the reference model has no memory norm
+    cfg = r4.replace(encoder="resnet18", memory_norm=False)
+    model = reference_resnet(cfg)
+    d = tempfile.mkdtemp(prefix="resnet_convert_")
+    try:
+        pth = os.path.join(d, "best_model.pth")
+        torch.save({"model_state_dict": model.state_dict(), "epoch": 1}, pth)
+        overrides = json.dumps({k: getattr(cfg, k) for k in (
+            "img_h", "img_w", "d_model", "nhead", "dim_feedforward",
+            "num_decoder_layers", "max_seq_len")} | {
+            "dtype": "float32"})
+        out = os.path.join(d, "artifact")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "handwritten_math_ocr_api_torch",
+             "convert-checkpoint", pth, os.path.join(MODEL_DIR, "vocab.json"),
+             out, "--encoder", "resnet18", "--model-overrides", overrides],
+            cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            raise AssertionError(f"convert-checkpoint failed: {run.stderr}")
+        log(f"resnet convert: convert-checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s: {run.stdout.strip()}")
+        params, state, _, _, acfg = load_params_for_serving(out)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_stats = len(tree.leaves(state))
+    if not state.get("resnet") or n_stats != 2 * 20:
+        raise AssertionError(f"the artifact holds {n_stats} BatchNorm "
+                             "statistics, not 40")
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    p_mem, s_mem = torch_convert.convert_state_dict(sd, acfg)
+    rng = np.random.default_rng(SEED + 14)
+    images = rng.integers(0, 256, (N_IMAGES, acfg.img_h, acfg.img_w, 1),
+                          dtype=np.uint8)
+    engine = DecodeEngine(params, acfg, tokenizer=tok, model_state=state,
+                          device=DEVICE)
+    ref_engine = DecodeEngine(p_mem, acfg, tokenizer=tok, model_state=s_mem,
+                              device=DEVICE)
+    got, want = engine.decode_tokens(images), ref_engine.decode_tokens(images)
+    if not torch.equal(got.tokens, want.tokens):
+        raise AssertionError("the artifact's float32 tokens differ from the "
+                             "in-memory converted tree's")
+    x, B = engine._pad_batch(images)
+    with torch.inference_mode():
+        mem = engine._encode(x)[:B]
+        ref = model.to(DEVICE)
+        f = ref.encoder.features(x[:B].permute(0, 3, 1, 2))
+        ref_mem = ref.encoder.projection(f.mean(dim=2).permute(0, 2, 1))
+    err = max_err(mem, ref_mem)
+    log(f"resnet convert: artifact tokens equal to the in-memory tree's "
+        f"over {got.steps} steps (lengths {got.lengths.tolist()}); memory "
+        f"against the reference module's eval() forward max_abs_err "
+        f"{err:.3g} (gate {RESNET_MEMORY_ATOL}; |x| max "
+        f"{ref_mem.abs().max().item():.3g}); {n_stats} statistics")
+    if not err <= RESNET_MEMORY_ATOL:
+        raise AssertionError(f"converted memory differs by {err}")
+
+
+def resnet_train(tok):
+    """Phase 12 (e): a float32 ``resnet18`` train step at batch
+    RESNET_TRAIN_BATCH on the card and on the host from the same params,
+    statistics, images, captions and seed (dropout 0, float images: no
+    draw), loss and gradient norm within RESNET_TRAIN_RTOL relative and
+    the batch's part of the new statistics, (new - 0.9 old) / 0.1, within
+    RESNET_TRAIN_RTOL of each leaf's largest;
+    then RESNET_STREAM_STEPS bf16 steps at batch RESNET_STREAM_BATCH of
+    the synthetic stream (uint8, augmented in the step, dropout 0.1):
+    images/s, ms a step, the idle share of a profiled step, peak memory;
+    a finite loss and statistics that moved."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import (
+        DataConfig,
+        TrainConfig,
+        load_model_config,
+    )
+    from handwritten_math_ocr_api_torch.data.synthetic import grammar_vocab
+    from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_torch.train import optim
+    from handwritten_math_ocr_api_torch.train.step import (
+        create_train_state,
+        make_train_step,
+        state_from_params,
+    )
+    from handwritten_math_ocr_api_torch.utils import tree
+
+    r4 = load_model_config(MODEL_DIR)
+    cfg = r4.replace(encoder="resnet18", dtype="float32", dropout=0.0)
+    params, stats = convert.random_params(cfg, SEED), convert.random_state(
+        cfg, SEED)
+    rng = np.random.default_rng(SEED + 15)
+    images = rng.standard_normal((RESNET_TRAIN_BATCH, cfg.img_h, cfg.img_w,
+                                  1)).astype(np.float32)
+    caps = rng.integers(4, cfg.vocab_size, (RESNET_TRAIN_BATCH, 40))
+    caps[:, 0] = 1
+    tc = TrainConfig()
+    res = {}
+    for dev in (torch.device(DEVICE), torch.device("cpu")):
+        opt = optim.make_optimizer(tc)
+        st = state_from_params(convert.to_torch(params, cfg, dev), opt, tc,
+                               convert.state_to_torch(stats, dev))
+        t0 = time.perf_counter()
+        new, m = make_train_step(cfg, tc, opt, device=dev)(st, images, caps,
+                                                           SEED)
+        res[dev.type] = ({k: float(v) for k, v in m.items()},
+                         [t.cpu() for t in tree.leaves(new.model_state)])
+        log(f"resnet train {dev.type}: float32 step of "
+            f"{RESNET_TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s, "
+            f"loss {res[dev.type][0]['loss']:.6f} grad_norm "
+            f"{res[dev.type][0]['grad_norm']:.6f}")
+    (mg, sg), (mc, sc) = res[DEVICE], res["cpu"]
+    for k in ("loss", "grad_norm"):
+        if abs(mg[k] - mc[k]) > RESNET_TRAIN_RTOL * abs(mc[k]):
+            raise AssertionError(f"resnet train {k}: card {mg[k]} against "
+                                 f"host {mc[k]}, beyond {RESNET_TRAIN_RTOL} "
+                                 "relative")
+    # new = 0.9 old + 0.1 batch, with old the same on both devices: hold
+    # the batch's part, so that its error is not diluted tenfold
+    old = tree.leaves(convert.state_to_torch(stats, "cpu"))
+    worst = 0.0
+    for a, b, o in zip(sg, sc, old):
+        a, b = (a - 0.9 * o) / 0.1, (b - 0.9 * o) / 0.1
+        worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
+    log(f"resnet train: card against host, the batch statistics' largest "
+        f"error relative to their leaf {worst:.3g} (gate "
+        f"{RESNET_TRAIN_RTOL})")
+    if not worst <= RESNET_TRAIN_RTOL:
+        raise AssertionError(f"resnet train statistics differ by {worst}")
+
+    gtok = Tokenizer(grammar_vocab())
+    bcfg = r4.replace(encoder="resnet18", vocab_size=len(gtok),
+                      dropout=TRAIN_DROPOUT)
+    dev = torch.device(DEVICE)
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP)
+    state, opt = create_train_state(bcfg, tc, SEED, dev)
+    before = [t.clone() for t in tree.leaves(state.model_state)]
+    step = make_train_step(bcfg, tc, opt, DataConfig(), device=dev)
+    loader = train_stream(bcfg, gtok, RESNET_STREAM_STEPS
+                          * RESNET_STREAM_BATCH, SEED + 1,
+                          RESNET_STREAM_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    it = iter(loader)
+    timed_from = RESNET_STREAM_STEPS // 3
+    try:
+        for i in range(RESNET_STREAM_STEPS):
+            if i == timed_from:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            batch = next(it)
+            state, m = step(state, batch["image"], batch["caption"], SEED)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t_start
+    finally:
+        it.close()
+    check_counts(read_counts(), [0] * len(kernel_counters()))
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+    timed = RESNET_STREAM_STEPS - timed_from
+    ms = elapsed / timed * 1e3
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(tree.leaves(state.model_state), before))
+    log(f"resnet train stream: {RESNET_STREAM_STEPS} bf16 steps of "
+        f"{RESNET_STREAM_BATCH}, images/s "
+        f"{timed * RESNET_STREAM_BATCH / elapsed:.1f} ms a step {ms:.1f} "
+        f"(host clock over {timed} steps), max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB, losses every 10 steps "
+        f"{[round(float(x), 4) for x in losses[::10]]}, the statistics "
+        f"moved by up to {moved:.3g}")
+    idle = profile_call(
+        lambda: step(state, batch["image"], batch["caption"], SEED),
+        "one resnet18 train step", ms / 1e3, tries=1)
+    log(f"resnet train stream: device idle share of a profiled step "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    if not (torch.isfinite(losses).all() and moved > 0):
+        raise AssertionError("resnet train stream: a loss is not finite or "
+                             "the statistics did not move")
+
+
+def resnet_phase(tok, entries, bucket, rows):
+    """Phase 12, "resnet": parts (a)-(e)."""
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+
+    rcfg = load_model_config(MODEL_DIR).replace(encoder="resnet18")
+    t0 = time.perf_counter()
+    resnet_kernels(rcfg, convert.random_params(rcfg, SEED), entries, bucket,
+                   rows)
+    log(f"resnet kernels: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    summary = resnet_serve(rcfg, tok, entries)
+    log(f"resnet serve: seconds {time.perf_counter() - t0:.1f}")
+    for route, (greedy, beam) in summary.items():
+        for mode, (rate, idle, *_) in (("greedy", greedy),
+                                       (f"beam {BEAM}", beam)):
+            idle_s = "not measured" if idle is None else f"{idle:.3f}"
+            log(f"route {route} {mode}: images/s {rate:.2f}, device idle "
+                f"share {idle_s} (of the best unprofiled predict_batch)")
+    t0 = time.perf_counter()
+    resnet_trans(tok, entries)
+    log(f"resnet res18trans: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    resnet_convert(tok)
+    log(f"resnet convert: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    resnet_train(tok)
+    log(f"resnet train: seconds {time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -4743,6 +5281,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase()
     log(f"train: phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    resnet_phase(tok, entries, bucket, rows)
+    log(f"resnet: phase seconds {time.perf_counter() - t0:.1f}")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

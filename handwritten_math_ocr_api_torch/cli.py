@@ -14,6 +14,11 @@ subcommands and flags:
     python -m handwritten_math_ocr_api_torch make-synthetic|make-corpus \
         --data-root D ...
     python -m handwritten_math_ocr_api_torch extend-vocab|convert-gqa ...
+    python -m handwritten_math_ocr_api_torch convert-checkpoint PTH \
+        VOCAB OUT_DIR [--encoder resnet18] [--model-overrides JSON]
+    python -m handwritten_math_ocr_api_torch convert-encoder PTH OUT_DIR
+    python -m handwritten_math_ocr_api_torch export OUT_DIR \
+        --checkpoint-dir C [--checkpoint best_model] [--use-ema]
     python -m handwritten_math_ocr_api_torch serve --model-dir DIR \
         [--host H] [--port P]
     python -m handwritten_math_ocr_api_torch calibrate --results CSV \
@@ -24,10 +29,14 @@ Training, evaluation, prediction and serving run on the card (``train``,
 and checkpoint tools run on the host. ``evaluate`` and ``predict`` read a
 training checkpoint of the port or of the JAX package (its params).
 ``serve`` takes its settings from the environment as the JAX package's
-does (``ServeConfig.from_env``). Not ported: the handwriting-stroke
-renderer (``--stream-renderer stroke``, ``make-corpus --renderer stroke``
-raise), ``render-inkml``, ``convert-checkpoint``, ``convert-encoder`` and
-``export``.
+does (``ServeConfig.from_env``). ``convert-checkpoint`` makes a serving
+artifact of a reference ``.pth`` (``compat/torch_convert.py``),
+``convert-encoder`` an encoder-only artifact of torchvision's ``swin_t``
+for ``train --init-from``, and ``export`` a serving artifact of a training
+checkpoint, with its model state. ``--model-overrides`` also takes a
+nested ``"resnet"`` dict of ``ResNetConfig`` fields. Not ported: the
+handwriting-stroke renderer (``--stream-renderer stroke``, ``make-corpus
+--renderer stroke`` raise) and ``render-inkml``.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ def _common_data_args(p):
     p.add_argument("--model-overrides", default=None,
                    help="JSON dict of ModelConfig field overrides, e.g. "
                         '\'{"d_model": 64, "num_decoder_layers": 2}\'; '
-                        '"swin" may be a nested dict of SwinConfig fields')
+                        '"swin" may be a nested dict of SwinConfig fields, '
+                        '"resnet" one of ResNetConfig fields')
 
 
 def _device_arg(p):
@@ -56,7 +66,7 @@ def _device_arg(p):
 
 
 def _model_config(args, vocab_size: int):
-    from .core.config import ModelConfig, SwinConfig
+    from .core.config import ModelConfig, ResNetConfig, SwinConfig
 
     cfg = ModelConfig(encoder=args.encoder, vocab_size=vocab_size)
     if getattr(args, "model_overrides", None):
@@ -67,6 +77,10 @@ def _model_config(args, vocab_size: int):
                 if key in sw:
                     sw[key] = tuple(sw[key])
             cfg = cfg.replace(swin=SwinConfig(**sw))
+        if "resnet" in raw:
+            rn = {k: tuple(v) if isinstance(v, list) else v
+                  for k, v in raw.pop("resnet").items()}
+            cfg = cfg.replace(resnet=ResNetConfig(**rn))
         cfg = cfg.replace(**raw)
     return cfg
 
@@ -163,7 +177,8 @@ def cmd_train(args) -> int:
 
 
 def _load_for_decode(args):
-    """(tokenizer, model config, eval params) of ``--checkpoint``."""
+    """(tokenizer, model config, eval params, model state) of
+    ``--checkpoint``."""
     from .core.config import TrainConfig
     from .core.tokenizer import Tokenizer, load_vocab
     from .train.checkpoint import load_checkpoint
@@ -181,7 +196,7 @@ def _load_for_decode(args):
     state, _meta = load_checkpoint(args.checkpoint_dir, args.checkpoint,
                                    state, params_only=True)
     params = tree.map_tree(lambda p: p.detach(), state.eval_params)
-    return tok, mc, params
+    return tok, mc, params, state.model_state
 
 
 def cmd_evaluate(args) -> int:
@@ -190,11 +205,12 @@ def cmd_evaluate(args) -> int:
     from .decode.api import DecodeEngine
     from .eval.harness import evaluate_model, save_results
 
-    tok, mc, params = _load_for_decode(args)
+    tok, mc, params, model_state = _load_for_decode(args)
     dc = DataConfig(data_root=args.data_root, batch_size=args.batch_size)
     engine = DecodeEngine(params, mc, DecodeConfig(), tok,
                           use_fused=args.use_fused, quantize=args.quantize,
-                          constrained=args.constrained, device=args.device)
+                          constrained=args.constrained,
+                          model_state=model_state, device=args.device)
     if args.constrained and args.beam_size and args.beam_size > 1:
         print("warning: --constrained applies to the greedy path only; "
               "beam search evaluates UNCONSTRAINED", file=sys.stderr)
@@ -212,9 +228,10 @@ def cmd_predict(args) -> int:
     from .data.preprocess import preprocess_file
     from .decode.api import DecodeEngine
 
-    tok, mc, params = _load_for_decode(args)
+    tok, mc, params, model_state = _load_for_decode(args)
     engine = DecodeEngine(params, mc, DecodeConfig(), tok,
-                          constrained=args.constrained, device=args.device)
+                          constrained=args.constrained,
+                          model_state=model_state, device=args.device)
     img = preprocess_file(args.image, mc)
     sampled = args.temperature or args.top_k or args.top_p
     if args.constrained and (sampled or (args.beam_size
@@ -234,6 +251,65 @@ def cmd_predict(args) -> int:
         latex, conf = engine.predict_single(img[0])
         print("Predicted LaTeX:", latex)
         print(f"Confidence: {conf:.4f}")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """A reference PyTorch ``.pth`` -> a serving artifact directory."""
+    from .compat.torch_convert import convert_checkpoint
+    from .core.tokenizer import load_vocab
+    from .train.checkpoint import save_params_for_serving
+
+    vocab, _ = load_vocab(args.vocab)
+    cfg = _model_config(args, len(vocab))
+    params, bn_state = convert_checkpoint(args.pth, cfg)
+    out = save_params_for_serving(args.out_dir, params, vocab, cfg,
+                                  model_state=bn_state)
+    print(f"serving artifact -> {out}")
+    return 0
+
+
+def cmd_convert_encoder(args) -> int:
+    """A raw torchvision ``swin_t`` ``.pth`` (ImageNet weights) -> an
+    encoder-only artifact for ``train --init-from`` (its patch
+    convolution averaged to one channel)."""
+    from .compat.torch_convert import (
+        convert_torchvision_swin,
+        load_torch_state_dict,
+    )
+    from .core.config import ModelConfig
+    from .train.checkpoint import save_params_for_serving
+
+    cfg = ModelConfig(encoder="swin_t")
+    enc = convert_torchvision_swin(load_torch_state_dict(args.pth), cfg)
+    # it initialises training and does not serve: the specials as vocab
+    vocab = {"<pad>": 0, "<sos>": 1, "<eos>": 2, "<unk>": 3}
+    out = save_params_for_serving(args.out_dir, {"encoder": enc}, vocab,
+                                  cfg)
+    print(f"encoder artifact -> {out}")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """A training checkpoint -> a serving artifact directory (the params,
+    the model state, the vocab and the model config), read through
+    ``--device`` (``cuda`` unless given)."""
+    from .core.config import TrainConfig
+    from .core.tokenizer import load_vocab
+    from .train.checkpoint import load_checkpoint, save_params_for_serving
+    from .train.step import create_train_state
+
+    vocab, _ = load_vocab(os.path.join(args.checkpoint_dir, "vocab.json"))
+    mc = _model_config(args, len(vocab))
+    # a slot for the EMA when it is asked for
+    tc = TrainConfig(ema_decay=0.999 if args.use_ema else 0.0)
+    state, _ = create_train_state(mc, tc, device=args.device)
+    state, _meta = load_checkpoint(args.checkpoint_dir, args.checkpoint,
+                                   state, params_only=True)
+    out = save_params_for_serving(args.out_dir, state.eval_params, vocab,
+                                  mc, model_state=state.model_state)
+    kind = "ema" if (args.use_ema and state.ema_params is not None) else "raw"
+    print(f"serving artifact ({kind} weights) -> {out}")
     return 0
 
 
@@ -481,6 +557,35 @@ def build_parser() -> argparse.ArgumentParser:
     gq.add_argument("--model-overrides", default=None,
                     help="JSON ModelConfig overrides of the SOURCE model")
     gq.set_defaults(fn=cmd_convert_gqa)
+
+    cv = sub.add_parser("convert-checkpoint",
+                        help="convert a reference PyTorch .pth to a "
+                             "serving artifact")
+    cv.add_argument("pth")
+    cv.add_argument("vocab", help="path to vocab.json")
+    cv.add_argument("out_dir")
+    cv.add_argument("--encoder", default="swin_t", choices=encoders)
+    cv.add_argument("--model-overrides", default=None)
+    cv.set_defaults(fn=cmd_convert)
+
+    ce = sub.add_parser("convert-encoder",
+                        help="convert a raw torchvision swin_t .pth "
+                             "(ImageNet) to an encoder-only artifact for "
+                             "train --init-from")
+    ce.add_argument("pth")
+    ce.add_argument("out_dir")
+    ce.set_defaults(fn=cmd_convert_encoder)
+
+    ex = sub.add_parser("export",
+                        help="training checkpoint -> serving artifact")
+    _common_data_args(ex)
+    _device_arg(ex)
+    ex.add_argument("out_dir")
+    ex.add_argument("--encoder", default="swin_t", choices=encoders)
+    ex.add_argument("--checkpoint", default="best_model")
+    ex.add_argument("--use-ema", action="store_true",
+                    help="export the EMA shadow weights when present")
+    ex.set_defaults(fn=cmd_export)
 
     ca = sub.add_parser("calibrate",
                         help="fit a confidence calibrator from eval CSV")

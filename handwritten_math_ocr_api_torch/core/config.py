@@ -46,8 +46,7 @@ class SwinConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
-    """ResNet-18 encoder hyperparameters (not ported yet; kept so that a
-    ``model_config.json`` round-trips)."""
+    """ResNet-18 encoder hyperparameters (``models/resnet.py``)."""
 
     in_channels: int = 1
     stage_channels: Tuple[int, ...] = (64, 128, 256, 512)
@@ -89,9 +88,13 @@ class ModelConfig:
 
     @property
     def encoder_len(self) -> int:
-        """Number of encoder output tokens fed to cross-attention."""
-        stride = self.swin.patch_size * 2 ** (len(self.swin.depths) - 1)
-        return (self.img_h // stride) * (self.img_w // stride)
+        """Number of encoder output tokens fed to cross-attention: the
+        Swin trunk's stride-32 grid (30 at 96x320), or the W/32 columns
+        that the ResNet encoders keep after pooling the height (10)."""
+        if self.encoder == "swin_t":
+            stride = self.swin.patch_size * 2 ** (len(self.swin.depths) - 1)
+            return (self.img_h // stride) * (self.img_w // stride)
+        return self.img_w // 32
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

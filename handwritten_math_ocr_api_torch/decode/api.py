@@ -8,6 +8,12 @@ confidence) with the reference's confidence = exp(mean log-prob) and its
 fallback string; greedy, as in the reference, whatever ``beam_size``),
 ``warmup`` and the batch buckets a request batch is padded up to.
 
+The engine serves every encoder of ``ModelConfig``: Swin-T, and the
+ResNet encoders (``resnet18``, ``res18trans``) with the BatchNorm
+statistics of ``model_state``, whose convolutions are cuDNN's (they are
+no kernel of the TPU package) and whose 10 memory columns feed the same
+decoder kernels. What follows of the encoder kernels is Swin's.
+
 The engine runs on ``cuda`` unless it is given ``device="cpu"``, and raises
 without a CUDA device. It has two routes, both all kernels on the card:
 
@@ -68,7 +74,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..convert import to_torch
+from ..convert import state_to_torch, to_torch
 from ..core.config import DecodeConfig, ModelConfig
 from ..core.device import resolve_device
 from ..core.tokenizer import Tokenizer, clean_latex_output
@@ -104,7 +110,7 @@ class DecodeEngine:
                  tokenizer: Optional[Tokenizer] = None, *,
                  use_fused: bool = False, pallas_encoder_block: bool = False,
                  quantize: bool = False, constrained: bool = False,
-                 device=None):
+                 model_state=None, device=None):
         """``params``: the model's parameter tree with numpy or tensor
         leaves (a JAX tree after ``np.asarray`` on each leaf, or
         ``convert.random_params``); ``convert.to_torch`` moves it to
@@ -120,7 +126,11 @@ class DecodeEngine:
         default route (and, with ``quantize``, its int8 decoder tree), as
         the JAX engine does. ``constrained`` constrains greedy decoding
         (module docstring); its tables come from the tokenizer's vocab,
-        so it raises ``ValueError`` without one."""
+        so it raises ``ValueError`` without one. ``model_state``: the
+        model's state tree (a ResNet encoder's BatchNorm statistics, as
+        ``load_params_for_serving`` returns it), moved to ``device`` in
+        float32; a ResNet encoder ignores ``pallas_encoder_block``, as in
+        JAX."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.decode_cfg = decode_cfg or DecodeConfig()
@@ -143,7 +153,8 @@ class DecodeEngine:
             params = dict(params)
             params["decoder"] = quantize_decoder_params(params["decoder"])
         self.params = to_torch(params, cfg, self.device)
-        if pallas_encoder_block:
+        self.model_state = state_to_torch(model_state, self.device)
+        if pallas_encoder_block and cfg.encoder == "swin_t":
             self.params["encoder"] = with_float32_biases(
                 params["encoder"], self.params["encoder"])
         self.use_fused = use_fused
@@ -177,7 +188,8 @@ class DecodeEngine:
 
     def _encode(self, x):
         return model_mod.encode(self.params, self.cfg, x,
-                                use_pallas_block=self.pallas_encoder_block)
+                                use_pallas_block=self.pallas_encoder_block,
+                                model_state=self.model_state)
 
     @staticmethod
     def _trim(res: GreedyResult, B: int) -> GreedyResult:

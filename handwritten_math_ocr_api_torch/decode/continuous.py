@@ -76,7 +76,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..convert import to_torch
+from ..convert import state_to_torch, to_torch
 from ..core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from ..core.device import resolve_device
 from ..core.tokenizer import Tokenizer, clean_latex_output
@@ -215,15 +215,18 @@ def init_slot_state(cfg: ModelConfig, num_slots: int, scratch_slots: int = 1,
     return _init_small(S, T, device), cache
 
 
-def _encode(params, cfg: ModelConfig, images, use_pallas_block: bool):
+def _encode(params, cfg: ModelConfig, images, use_pallas_block: bool,
+            model_state=None):
     """(K, H, W, 1) images, or a sequence of K (H, W, 1) ones (uint8 are
-    normalized here) -> memory (K, L_enc, D)."""
+    normalized here) -> memory (K, L_enc, D); ``model_state``: a ResNet
+    encoder's BatchNorm statistics."""
     if not isinstance(images, torch.Tensor):
         images = torch.stack(list(images))
     if images.dtype == torch.uint8:
         images = normalize(images)
     return model_mod.encode(params, cfg, images.float(),
-                            use_pallas_block=use_pallas_block)
+                            use_pallas_block=use_pallas_block,
+                            model_state=model_state)
 
 
 def _reset_rows(small: SmallState, slots, valid) -> SmallState:
@@ -242,14 +245,15 @@ def _reset_rows(small: SmallState, slots, valid) -> SmallState:
 def insert_requests(params, cfg: ModelConfig, small: SmallState,
                     cache: Dict[str, torch.Tensor], slots, images,
                     num_slots: Optional[int] = None,
-                    use_pallas_block: bool = False
+                    use_pallas_block: bool = False, model_state=None
                     ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """Encode ``images`` and install them at ``slots`` ((K,) int64 on the
     device): the cross K/V written into the cache in place, the slots'
     small state reset. Rows whose slot is ``num_slots`` or more (a scratch
     slot: an admission's padding) stay inactive. The self caches are not
-    cleared: a row attends only slots it has written."""
-    memory = _encode(params, cfg, images, use_pallas_block)
+    cleared: a row attends only slots it has written. ``model_state``: a
+    ResNet encoder's BatchNorm statistics."""
+    memory = _encode(params, cfg, images, use_pallas_block, model_state)
     cross = decoder_mod.project_cross_kv(params["decoder"], cfg, memory)
     S = small.prev.shape[0]
     for name, val in cross.items():
@@ -331,12 +335,13 @@ def init_slot_state_fused(cfg: ModelConfig, pool_size: int,
 
 def insert_requests_fused(params, cfg: ModelConfig, small: SmallState,
                           cache: Dict[str, torch.Tensor], slots, images,
-                          num_slots: int, use_pallas_block: bool = False
+                          num_slots: int, use_pallas_block: bool = False,
+                          model_state=None
                           ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """``insert_requests`` for the fused layout: the merged-head cross K/V
     written at ``slots`` (their self-cache rows need no clearing: a
     re-admitted slot attends only slots its own decode rewrites)."""
-    memory = _encode(params, cfg, images, use_pallas_block)
+    memory = _encode(params, cfg, images, use_pallas_block, model_state)
     ck, cv = project_cross_kv_merged(params["decoder"], cfg, memory)
     cache["cross_k"].index_copy_(1, slots, ck.to(cache["cross_k"].dtype))
     cache["cross_v"].index_copy_(1, slots, cv.to(cache["cross_v"].dtype))
@@ -460,7 +465,7 @@ class ContinuousDecoder:
                  segment_ring: bool = True,
                  t_buckets: Optional[Tuple[int, ...]] = None,
                  constrained: bool = False, harvest_threads: int = 0,
-                 admission: str = "host", device=None):
+                 admission: str = "host", model_state=None, device=None):
         """``params``: the model's parameter tree (numpy or tensor leaves,
         as ``DecodeEngine`` takes it), moved to ``device`` (``cuda`` unless
         given; raises without a card). ``pipeline_depth``: segments in
@@ -477,7 +482,9 @@ class ContinuousDecoder:
         ``constrained``: every slot under the pushdown mask (module
         docstring); it needs ``tokenizer`` (its vocab derives the tables)
         and raises ``ValueError`` without one. ``harvest_threads``: report
-        harvesters (at least one)."""
+        harvesters (at least one). ``model_state``: a ResNet encoder's
+        BatchNorm statistics, moved to ``device`` in float32 (a ResNet
+        encoder ignores ``pallas_encoder_block``, as in JAX)."""
         if admission not in ("host", "device"):
             raise ValueError(f"admission must be host|device: {admission}")
         if admission == "device":
@@ -512,7 +519,8 @@ class ContinuousDecoder:
         self.segment_ring = bool(segment_ring) and use_fused
         self.pallas_encoder_block = pallas_encoder_block
         self.params = to_torch(params, cfg, self.device)
-        if pallas_encoder_block:
+        self.model_state = state_to_torch(model_state, self.device)
+        if pallas_encoder_block and cfg.encoder == "swin_t":
             self.params["encoder"] = with_float32_biases(
                 params["encoder"], self.params["encoder"])
         self._constraint = (constrain_mod.build_tables(tokenizer.vocab,
@@ -860,10 +868,10 @@ class ContinuousDecoder:
         if self.use_fused:
             return insert_requests_fused(
                 self.params, self.cfg, self._small, self._cache, slots, imgs,
-                self.num_slots, self.pallas_encoder_block)
+                self.num_slots, self.pallas_encoder_block, self.model_state)
         return insert_requests(self.params, self.cfg, self._small,
                                self._cache, slots, imgs, self.num_slots,
-                               self.pallas_encoder_block)
+                               self.pallas_encoder_block, self.model_state)
 
     def _pad_image(self, h: int, w: int, dtype: torch.dtype) -> torch.Tensor:
         """A zero image on the device, the padding of an admission."""

@@ -1,1 +1,2 @@
-"""Swin-T encoder and transformer decoder of the port."""
+"""The encoders (Swin-T, ResNet-18) and the transformer decoder of the
+port."""

@@ -22,7 +22,8 @@ What differs from JAX's app:
   ``SERVING_PALLAS_ENCODER`` the whole-block Swin kernel. JAX's app builds
   its engine without ``use_pallas`` and so serves JAX's XLA path; the
   results are the same function of the weights (the tests hold them equal
-  in float32). The engine takes no ``model_state`` (Swin has none);
+  in float32). The engines take the artifact's ``model_state`` (a ResNet
+  encoder's BatchNorm statistics), as JAX's do;
 - the device: ``cuda`` unless the state is made with ``device="cpu"``
   (the tests); nothing falls back to the CPU. ``SERVING_MESH_DATA > 1``
   and ``SERVING_ADMISSION=device`` are not ported: each logs a warning and
@@ -136,8 +137,7 @@ class ServerState:
         device = resolve_device(self.requested_device)
         self.device = device.type
         logger.info("using device: %s", self.device)
-        # the port's engines take no model_state (Swin has none)
-        params, _model_state, vocab, idx2char, model_cfg = \
+        params, model_state, vocab, idx2char, model_cfg = \
             load_params_for_serving(self.cfg.model_dir)
         self.vocab = vocab
         self.tokenizer = Tokenizer(vocab, idx2char)
@@ -147,7 +147,8 @@ class ServerState:
             use_fused=self.cfg.use_fused_decode,
             quantize=self.cfg.quantize_decode,
             pallas_encoder_block=self.cfg.pallas_encoder_block,
-            constrained=self.cfg.constrained_decode, device=device)
+            constrained=self.cfg.constrained_decode,
+            model_state=model_state, device=device)
         if self.cfg.batching_mode == "continuous":
             from ..decode.continuous import ContinuousDecoder
             from .batcher import ContinuousServingEngine
@@ -178,7 +179,8 @@ class ServerState:
                 segment_ring=self.cfg.segment_ring,
                 constrained=self.cfg.constrained_decode,
                 harvest_threads=self.cfg.harvest_threads,
-                admission=admission, device=device)
+                admission=admission, model_state=model_state,
+                device=device)
             try:  # the kernel build and allocator growth before traffic
                 decoder.warmup(image_dtype=(
                     np.uint8 if self.cfg.uint8_transfer else np.float32))

@@ -8,8 +8,8 @@ plain containers of CPU tensors (``params``, ``opt_state``,
 ``weights_only=True``), and ``train_meta.json`` with the JAX package's keys
 (``epoch``, ``metric_value``, ``scheduler``, ``extra``). A checkpoint that
 the JAX package wrote (an orbax OCDBT directory) is read too, its
-``params`` and ``ema_params`` only (``params_only=True``): its optimizer
-state belongs to optax.
+``params``, ``ema_params``, ``step`` and ``model_state`` only
+(``params_only=True``): its optimizer state belongs to optax.
 
 Serving artifacts: ``params/``, ``vocab.json`` and ``model_config.json``.
 ``load_params_for_serving`` reads the JAX package's, whose ``params/`` is an
@@ -213,7 +213,9 @@ def load_checkpoint(directory: str, name: str, template,
     export or a resume under another optimizer chain must not depend on
     the training run's. Otherwise an optimizer state of another structure
     (warmup toggled, another model) raises ValueError, as orbax's restore
-    does in the JAX package. The EMA: restored when the template tracks it
+    does in the JAX package. The model state (a ResNet encoder's
+    BatchNorm statistics) is restored into the template's, on its device
+    in float32. The EMA: restored when the template tracks it
     and the checkpoint has it; a checkpoint without it seeds the shadow as
     a copy of the restored params (never the same tensors, which the step
     updates in place)."""
@@ -235,10 +237,12 @@ def load_checkpoint(directory: str, name: str, template,
         else:
             ema = tree_lib.map_tree(lambda p: p.detach().clone(), params)
     model_state = saved.get("model_state") or {}
+    if model_state:
+        model_state = _like(template.model_state, model_state,
+                            "model_state")
     step = saved.get("step", 0)
     state = template.replace(params=params, opt_state=opt_state,
-                             model_state=_cpu(model_state) if model_state
-                             else template.model_state,
+                             model_state=model_state or template.model_state,
                              step=int(np.asarray(step)), ema_params=ema)
     meta_path = os.path.join(path, _META)
     meta = {}

@@ -30,6 +30,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..convert import state_to_torch
 from ..core.config import Config
 from ..core.device import resolve_device
 from ..core.tokenizer import Tokenizer
@@ -97,8 +98,11 @@ def _graft_init(state: TrainState, artifact_dir: str) -> TrainState:
     ema = state.ema_params
     if ema is not None:
         ema = tree.map_tree(lambda p: p.detach().clone(), params)
-    return state.replace(params=params, model_state=src_ms or
-                         state.model_state, ema_params=ema)
+    model_state = state.model_state
+    if src_ms:
+        model_state = state_to_torch(src_ms, state.device)
+    return state.replace(params=params, model_state=model_state,
+                         ema_params=ema)
 
 
 def train_model(cfg: Config, train_loader: Iterable, val_loader: Iterable,

@@ -16,11 +16,15 @@ augmentation, stochastic depth and dropout draw, in that order, from a
 its key, so that a resumed run repeats its draws (the draws are not JAX's).
 The step updates the state's tensors in place and returns the state with
 its step advanced (the JAX step donates its state), and its metrics as
-device tensors: no value is read on the host.
+device tensors: no value is read on the host. A ResNet encoder runs in
+training mode: the returned state holds its new BatchNorm statistics (the
+forward's, under ``remat`` too); the EMA covers the params only, as in
+JAX.
 
 The eval step is deterministic and runs the encoder through its kernels on
 a CUDA device (window attention in every block, patch merging between the
-stages), as JAX's ``make_eval_step(use_pallas=True)``.
+stages), as JAX's ``make_eval_step(use_pallas=True)``; a ResNet encoder
+normalises with the running statistics.
 """
 
 from __future__ import annotations
@@ -163,9 +167,10 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if images.dtype == torch.uint8:
             images = augment_and_normalize(images, aug_cfg, g)
         leaves = tree.leaves(state.params)
-        logits = model_mod.forward(state.params, model_cfg, images, captions,
-                                   generator=g, remat=tc.remat,
-                                   kernels=False)
+        logits, new_ms = model_mod.forward(
+            state.params, model_cfg, images, captions, generator=g,
+            remat=tc.remat, kernels=False, model_state=state.model_state,
+            return_state=True)
         targets = captions[:, 1:]
         loss = smoothed_cross_entropy(logits, targets, PAD_ID,
                                       tc.label_smoothing)
@@ -176,7 +181,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             metrics = {"loss": loss.detach(),
                        "accuracy": token_accuracy(logits, targets, PAD_ID),
                        "grad_norm": grad_norm}
-        return state.replace(step=state.step + 1), metrics
+        return state.replace(step=state.step + 1,
+                             model_state=new_ms or state.model_state), metrics
 
     return train_step
 
@@ -196,7 +202,7 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if images.dtype == torch.uint8:
             images = normalize(images)
         logits = model_mod.forward(state.eval_params, model_cfg, images,
-                                   captions)
+                                   captions, model_state=state.model_state)
         loss = smoothed_cross_entropy(logits, captions[:, 1:], PAD_ID,
                                       train_cfg.label_smoothing)
         return loss, logits.argmax(dim=-1)

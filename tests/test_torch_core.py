@@ -88,6 +88,8 @@ def test_port_imports_with_jax_blocked():
             "import handwritten_math_ocr_api_torch.train.gqa_convert\n"
             "import handwritten_math_ocr_api_torch.data.synthetic\n"
             "import handwritten_math_ocr_api_torch.cli\n"
+            "import handwritten_math_ocr_api_torch.compat.torch_convert\n"
+            "import handwritten_math_ocr_api_torch.models.resnet\n"
             "import chip_smoke\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

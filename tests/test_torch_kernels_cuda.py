@@ -29,6 +29,8 @@ token may differ from the plain version's only where the plain logits'
 top two lie within the step tolerance (a near-tie), and a decode's tokens
 must agree up to such a step in each row; in float32 they are equal, and
 the whole decode's log-prob sums within 1e-2 (150 float32 log-probs).
+The decoder kernels are also held at the ResNet encoders' memory of 10
+columns (``RESNET``), with the same tolerances.
 """
 
 import numpy as np
@@ -1226,6 +1228,204 @@ def test_ragged_step_ring_dead_row(dev, np_params, bundle):
             live = ~dead if g.dim() < 3 else (slice(None), ~dead)
             assert torch.isnan(g[rows].float()).all()
             _close(g[live], w[live], tol)
+
+
+# The ResNet encoders' memory: W / 32 = 10 columns at 96x320 (the Swin
+# trunk's 30), the cross K/V length of every decoder kernel on their
+# served routes: each cluster plan sizes its cross items and TMA boxes
+# from it. The decoder is the same (np_params' decoder tree).
+RESNET = CFG.replace(encoder="resnet18")
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("B", [1, 5, 16, 64])
+def test_decoder_steps_at_resnet_memory(dev, np_params, bundle, B):
+    """B1 (float and int8 bundles) and B11 (float) at L_enc 10 against
+    their plain versions at every slot of STEP_POSITIONS: outputs within
+    the step tolerance (int8: bf16's); B11's other slots unchanged."""
+    dtype = "float32" if bundle == "float32" else "bfloat16"
+    cfg = RESNET.replace(dtype=dtype)
+    assert cfg.encoder_len == 10
+    stacked = fs.build_stacked(np_params["decoder"], cfg, dev)
+    if bundle == "int8":
+        stacked = fs.quantize_stacked(stacked)
+    attr = "int8_launches" if bundle == "int8" else "launches"
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    sk, sv = (_randn(dev, dtype, L, B, T, D, seed=i) for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=2 + i)
+              for i in range(2))
+    x = _randn(dev, dtype, B, D, seed=4)
+    tol = STEP_TOL[dtype]
+    for pos in STEP_POSITIONS:
+        got = _launched(fs.fused_decoder_layers_step_v2,
+                        lambda: fs.fused_decoder_layers_step_v2(
+                            stacked, cfg, x, sk, sv, ck, cv, pos), attr)
+        want = fs.fused_decoder_layers_step_v2_plain(stacked, cfg, x, sk, sv,
+                                                     ck, cv, pos)
+        for g, w in zip(got, want):
+            _close(g, w, tol)
+        if bundle == "int8":
+            continue
+        got_k, got_v = sk.clone(), sv.clone()
+        want_k, want_v = sk.clone(), sv.clone()
+        got = _launched(fs.fused_decoder_layers_step,
+                        lambda: fs.fused_decoder_layers_step(
+                            stacked, cfg, x, got_k, got_v, ck, cv, pos))
+        want = fs.fused_decoder_layers_step_plain(stacked, cfg, x, want_k,
+                                                  want_v, ck, cv, pos)
+        _close(got[0], want[0], tol)
+        other = torch.arange(T, device=dev) != pos
+        for g, w, old in ((got_k, want_k, sk), (got_v, want_v, sv)):
+            _close(g[:, :, pos], w[:, :, pos], tol)
+            assert torch.equal(g[:, :, other], old[:, :, other])
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("R", [1, 16, 50])
+def test_ragged_step_at_resnet_memory(dev, np_params, bundle, R):
+    """B7 at L_enc 10, both head modes, at the positions of
+    ``_ragged_inputs``: logits and fresh rows within the step tolerance
+    (int8: bf16's); the argmax equal in float32 and, in bf16 and int8,
+    wherever the plain logits' top two lie further apart than twice the
+    largest logits error."""
+    dtype = "float32" if bundle == "float32" else "bfloat16"
+    cfg = RESNET.replace(dtype=dtype)
+    stacked = _ragged_bundle(np_params, cfg, dev,
+                             "int8" if bundle == "int8" else "float")
+    attr = "int8_launches" if bundle == "int8" else "launches"
+    tol = STEP_TOL[dtype]
+    prev, positions, caches = _ragged_inputs(dev, cfg, R, seed=R + 3)
+    for pos in positions:
+        got = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, *caches,
+                            return_logits=True), attr)
+        want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          return_logits=True)
+        for g, w in zip(got, want):
+            _close(g, w, tol)
+        top2 = want[0].topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 2 * (got[0] - want[0]).abs().max()
+        nxt = _launched(fs.fused_ragged_step,
+                        lambda: fs.fused_ragged_step(
+                            stacked, cfg, prev, pos, *caches), attr)
+        want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos,
+                                              *caches)
+        if bundle == "float32":
+            assert torch.equal(nxt[0], want_nxt[0])
+        else:
+            assert torch.equal(nxt[0][clear], want_nxt[0][clear])
+        for g, w in zip(nxt[1:], want_nxt[1:]):
+            _close(g, w, tol)
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("R", [16, 48])
+def test_ragged_step_ring_at_resnet_memory(dev, np_params, bundle, R):
+    """B7's ring entries at L_enc 10 (continuous batching's 10-column
+    cross slots), held as ``test_ragged_step_ring`` holds them."""
+    dtype = "float32" if bundle == "float32" else "bfloat16"
+    cfg = RESNET.replace(dtype=dtype)
+    stacked = _ragged_bundle(np_params, cfg, dev,
+                             "int8" if bundle == "int8" else "float")
+    attr = "ring_int8_launches" if bundle == "int8" else "ring_launches"
+    prev, pos, seg, caches, (rk, rv) = _ring_inputs(dev, cfg, R, seed=R + 1)
+    ring = {"seg_start": seg, "ring_k": rk, "ring_v": rv}
+    tol = STEP_TOL[dtype]
+    got = _launched(fs.fused_ragged_step,
+                    lambda: fs.fused_ragged_step(stacked, cfg, prev, pos,
+                                                 *caches, return_logits=True,
+                                                 **ring), attr)
+    want = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                      return_logits=True, **ring)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    top2 = want[0].topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * (got[0] - want[0]).abs().max()
+    nxt = _launched(fs.fused_ragged_step,
+                    lambda: fs.fused_ragged_step(stacked, cfg, prev, pos,
+                                                 *caches, **ring), attr)
+    want_nxt = fs.fused_ragged_step_plain(stacked, cfg, prev, pos, *caches,
+                                          **ring)
+    if bundle == "float32":
+        assert torch.equal(nxt[0], want_nxt[0])
+    else:
+        assert torch.equal(nxt[0][clear], want_nxt[0][clear])
+    for g, w in zip(nxt[1:], want_nxt[1:]):
+        _close(g, w, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("time_major", [True, False])
+@pytest.mark.parametrize("B", [1, 16, 50])
+def test_whole_step_at_resnet_memory(dev, np_params, dtype, time_major, B):
+    """B10 at L_enc 10 in both layouts, held as ``test_whole_step``: nxt
+    equal in float32 (in bf16 except at near-ties), logp and the fresh
+    rows within the step tolerance."""
+    cfg = RESNET.replace(dtype=dtype)
+    stacked = fs.build_stacked_full(np_params["decoder"], cfg, dev)
+    L, T, D, L_enc = 8, 150, 256, cfg.encoder_len
+    shape = (L, T, B, D) if time_major else (L, B, T, D)
+    sk, sv = (_randn(dev, dtype, *shape, seed=i) for i in range(2))
+    ck, cv = (_randn(dev, dtype, L, B, L_enc, D, seed=2 + i)
+              for i in range(2))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    prev = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for pos in (0, 74, 149):
+        got_k, got_v = sk.clone(), sv.clone()
+        want_k, want_v = sk.clone(), sv.clone()
+        got = _launched(fs.fused_whole_step,
+                        lambda: fs.fused_whole_step(
+                            stacked, cfg, prev, got_k, got_v, ck, cv, pos,
+                            time_major=time_major))
+        want = fs.fused_whole_step_plain(stacked, cfg, prev, want_k, want_v,
+                                         ck, cv, pos, time_major=time_major)
+        cache_k = want_k.transpose(1, 2) if time_major else want_k
+        cache_v = want_v.transpose(1, 2) if time_major else want_v
+        logits = fs.fused_ragged_step_plain(
+            stacked, cfg, prev, torch.full((B,), pos, dtype=torch.int32,
+                                           device=dev),
+            cache_k, cache_v, ck, cv, return_logits=True)[0]
+        torch.cuda.synchronize()
+        if dtype == "float32":
+            assert torch.equal(got[0], want[0])
+        else:
+            _hold_picks(got[0], want[0], logits, STEP_TOL[dtype][0])
+        _close(got[1], want[1], STEP_TOL[dtype])
+        if time_major:
+            for g, w in ((got_k, want_k), (got_v, want_v)):
+                _close(g[:, pos], w[:, pos], STEP_TOL[dtype])
+        else:
+            for g, w in zip(got[2:], want[2:]):
+                _close(g, w, STEP_TOL[dtype])
+
+
+@pytest.mark.parametrize("bundle", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("B", [1, 16])
+def test_whole_decode_at_resnet_memory(dev, np_params, bundle, B):
+    """B12 over 150 steps from random 10-column memory, held as
+    ``test_whole_decode``: float32 tokens and counts equal, log-prob sums
+    within 1e-2; bf16 and int8 by ``_hold_decode``."""
+    dtype = "float32" if bundle == "float32" else "bfloat16"
+    cfg = RESNET.replace(dtype=dtype)
+    params = convert.to_torch(np_params, cfg, dev)
+    resident = wd.build_resident(params["decoder"], cfg, bundle == "int8")
+    memory = _randn(dev, dtype, B, cfg.encoder_len, cfg.d_model, seed=19)
+    attr = "int8_launches" if bundle == "int8" else "launches"
+    got = _launched(wd.fused_whole_decode,
+                    lambda: wd.fused_whole_decode(resident, cfg, memory),
+                    attr)
+    want, logits = wd.fused_whole_decode_plain(resident, cfg, memory,
+                                               return_logits=True)
+    torch.cuda.synchronize()
+    if bundle == "float32":
+        assert torch.equal(got.tokens, want.tokens)
+        assert torch.equal(got.token_count, want.token_count)
+        torch.testing.assert_close(got.logprob_sum, want.logprob_sum,
+                                   atol=1e-2, rtol=0)
+    else:
+        _hold_decode(got, want, logits, STEP_TOL["bfloat16"][0])
 
 
 # host threads launching at once: a server's executor threads (beam,

@@ -6,10 +6,9 @@ and GQA-2 (``nhead_kv=2`` of 4 heads). The port's ``grouped_attention``,
 the decoder's full pass, cache and step (float and int8 trees), the plain
 versions of the greedy step B1 and the ragged step B7 against the JAX
 Pallas kernels in interpret mode at MQA (float and int8 bundles), the
-fused greedy ("v2") and beam decodes at MQA, every refusal of a fused
-path where JAX's refuses, and the engine on both routes, greedy and beam
-5, float and int8, against the JAX engine on the same tree (a GQA
-``use_fused`` engine warns and decodes on the default route, as JAX's).
+fused greedy ("v2") and beam decodes at MQA, and every refusal of a fused
+path where JAX's refuses. The engine on both routes against the JAX
+engine is ``tests/test_torch_mqa_engine.py``.
 On the CPU the port's wrappers run their plain versions. The decoder is
 ``tests/test_fused.py``'s (d_model 32, 4 heads, 2 layers, FFN 64, T 12,
 vocab 20, float32) with every bias and LayerNorm parameter nonzero;
@@ -25,8 +24,6 @@ land one bf16 step apart); log-prob sums at 1e-4; beam scores at
 ``tests/test_torch_beam.py``'s 5e-3 / 2e-3; tokens and strings exactly.
 """
 
-import logging
-
 import numpy as np
 import pytest
 import torch
@@ -34,11 +31,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from handwritten_math_ocr_api_tpu.core.config import (
-    DecodeConfig as JDecodeConfig,
-)
-from handwritten_math_ocr_api_tpu.core.tokenizer import Tokenizer as JTokenizer
-from handwritten_math_ocr_api_tpu.decode.api import DecodeEngine as JEngine
 from handwritten_math_ocr_api_tpu.decode.fused import (
     beam_decode_fused as j_beam_fused,
     greedy_decode_fused as j_greedy_fused,
@@ -46,7 +38,6 @@ from handwritten_math_ocr_api_tpu.decode.fused import (
 )
 from handwritten_math_ocr_api_tpu.models import decoder as jdec
 from handwritten_math_ocr_api_tpu.models import layers as jlayers
-from handwritten_math_ocr_api_tpu.models import model as jmodel
 from handwritten_math_ocr_api_tpu.ops import quant as jquant
 from handwritten_math_ocr_api_tpu.ops.fused_step import (
     build_stacked as j_build_stacked,
@@ -57,9 +48,6 @@ from handwritten_math_ocr_api_tpu.ops.fused_step import (
 )
 
 from handwritten_math_ocr_api_torch import convert
-from handwritten_math_ocr_api_torch.core.config import DecodeConfig
-from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
-from handwritten_math_ocr_api_torch.decode import api as tapi
 from handwritten_math_ocr_api_torch.decode import beam as tbeam
 from handwritten_math_ocr_api_torch.decode import fused as tfused
 from handwritten_math_ocr_api_torch.decode.greedy import greedy_decode
@@ -70,9 +58,8 @@ from handwritten_math_ocr_api_torch.ops import quant as tquant
 from handwritten_math_ocr_api_torch.ops import whole_decode as twd
 
 from test_torch_beam import SCORE_ATOL, SCORE_RTOL
-from test_torch_decode import BUCKETS, VOCAB
 from test_torch_fused import DEC_CFG, _j, _t, jitter
-from test_torch_models import CFG, jax_config
+from test_torch_models import jax_config
 
 ATTN_TOL = 1e-5
 LOGIT_TOL = 1e-4
@@ -392,94 +379,3 @@ def test_mha_only_steps_refuse_grouped_attention(decoders, nhead_kv):
                              cfg, quantize=False)
     with pytest.raises(NotImplementedError, match="MHA only"):
         twd.fused_whole_decode(res, cfg, _t(_memory(2, 72)), T)
-
-
-def _engine_tree(nhead_kv, zero_ln1_bias):
-    jcfg = _cfgs(nhead_kv, CFG)[1]
-    jparams, _ = jax.jit(lambda k: jmodel.init_model(k, jcfg))(
-        jax.random.PRNGKey(80 + nhead_kv))
-    tree = jitter(jparams, seed=80 + nhead_kv)
-    if zero_ln1_bias:
-        for stage in tree["encoder"]["stages"]:
-            for blk in stage["blocks"]:
-                blk["norm1"]["bias"][:] = 0.0
-    return tree
-
-
-def _engines(nhead_kv, fused, quantize):
-    cfg, jcfg = _cfgs(nhead_kv, CFG)
-    tree = _engine_tree(nhead_kv, zero_ln1_bias=fused)
-    jax_engine = JEngine(_j(tree), {}, jcfg,
-                         JDecodeConfig(max_seq_len=CFG.max_seq_len,
-                                       batch_buckets=BUCKETS),
-                         JTokenizer(VOCAB), use_pallas=True,
-                         quantize=quantize, use_fused=fused,
-                         pallas_encoder_block=fused)
-    engine = tapi.DecodeEngine(
-        tree, cfg, DecodeConfig(max_seq_len=CFG.max_seq_len,
-                                batch_buckets=BUCKETS),
-        Tokenizer(VOCAB), use_fused=fused, pallas_encoder_block=fused,
-        quantize=quantize, device="cpu")
-    return jax_engine, engine
-
-
-def _check_engines(jax_engine, engine, seed):
-    """Greedy (decode_tokens, predict_batch, predict_single) and beam-5
-    tokens of 3 images padded to the bucket of 4."""
-    images = np.random.default_rng(seed).integers(
-        0, 256, (3, CFG.img_h, CFG.img_w, 1), dtype=np.uint8)
-    want = jax_engine.decode_tokens(images)
-    got = engine.decode_tokens(images)
-    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
-    np.testing.assert_allclose(got.logprob_sum.numpy(),
-                               np.asarray(want.logprob_sum), atol=1e-4,
-                               rtol=1e-4)
-    assert engine.predict_batch(images) == jax_engine.predict_batch(images)
-    assert (engine.predict_single(images[0])[0]
-            == jax_engine.predict_single(images[0])[0])
-    want = jax_engine.decode_tokens(images, beam_size=5)
-    got = engine.decode_tokens(images, beam_size=5)
-    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
-    np.testing.assert_array_equal(got.lengths.numpy(),
-                                  np.asarray(want.lengths))
-    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
-                               atol=SCORE_ATOL, rtol=SCORE_RTOL)
-
-
-@pytest.mark.parametrize("quantize", [False, True])
-@pytest.mark.parametrize("nhead_kv,route", [(1, "default"), (1, "fused"),
-                                            (2, "default")])
-def test_engine_matches_jax_engine(nhead_kv, route, quantize):
-    """The whole slice in float32: the JAX engine (``use_pallas=True``,
-    and on the fused route ``use_fused`` + ``pallas_encoder_block``,
-    encoder LN1 biases zero where the reference's block kernel computes
-    swin_block's function) against the port's with the same options. MQA
-    on the fused route takes the stacked bundle (int8 with ``quantize``);
-    the default route the decoder tree (int8 with ``quantize``)."""
-    fused = route == "fused"
-    jax_engine, engine = _engines(nhead_kv, fused, quantize)
-    assert engine.use_fused == fused
-    if fused:
-        kvd = nhead_kv * CFG.head_dim
-        assert tuple(engine.stacked["w_qkv"].shape[1:]) == (
-            CFG.d_model, CFG.d_model + 2 * kvd)
-        assert (engine.stacked["w_qkv"].dtype == torch.int8) == quantize
-    _check_engines(jax_engine, engine, 90 + nhead_kv)
-
-
-@pytest.mark.parametrize("quantize", [False, True])
-def test_engine_gqa_use_fused_falls_back_as_jax(caplog, quantize):
-    """GQA-2 with ``use_fused``: both engines warn and decode on the
-    default route (with ``quantize``, its int8 decoder tree, the rule
-    applied before the bundle is chosen), and their tokens agree."""
-    with caplog.at_level(logging.WARNING):
-        jax_engine, engine = _engines(2, True, quantize)
-    warned = [r for r in caplog.records if "GQA" in r.getMessage()]
-    assert {r.name for r in warned} == {
-        "handwritten_math_ocr_api_tpu.decode.api",
-        "handwritten_math_ocr_api_torch.decode.api"}
-    assert not engine.use_fused and engine.stacked is None
-    assert not jax_engine.use_fused
-    sa = engine.params["decoder"]["layers"][0]["self_attn"]
-    assert ("w_qkv_q" in sa) == quantize
-    _check_engines(jax_engine, engine, 95)
