@@ -224,8 +224,9 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    (``ms_lenc10``); (b) ``resnet18`` on the default route (decoder cut to
    ``DEFAULT_ROUTE_LAYERS``) and the fused route through phase 4's
    checks (greedy and beam 5 of 10 images, launch counts with no encoder
-   kernel, float32 tokens equal to the plain path, images/s, idle share),
-   and the encode of 16 images timed by CUDA events; (c) ``res18trans``
+   kernel, the float32 memory against the plain path, images/s, idle
+   share; the float32 decodes are phase 4's, the same decoder routes), and
+   the encode of 16 images timed by CUDA events; (c) ``res18trans``
    (8 transformer encoder layers): fused greedy (launch counts), then 16
    requests through ``ContinuousDecoder`` on the fused route in float32,
    equal to the fused engine; (d) a seeded reference-layout ``resnet18``
@@ -239,12 +240,38 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    relative), then 30 bf16 steps at batch 64 of the synthetic stream
    (images/s, ms a step, idle share, peak memory; a finite loss and
    statistics that moved);
-13. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
+13. "admission and data": (a) device admission on the shipped weights
+   (bf16; Swin-T; the default segment route at 8 decoder layers, the
+   whole-block kernel in each staging's encode): the pull kernel
+   (``csrc/admission_pull.cu``, the twenty-fourth entry) against its
+   plain install at phase 6's pool, exactly (cross K/V, state, pushdown
+   rows, occupants, cursor, records; a cancelled entry skipped), timed
+   with an entry to take at every launch; 64 ``data_eval_hard`` test
+   images through a 32-slot ``ContinuousDecoder(admission="device")``
+   with phase 6's traffic, launches counted (the encoder's kernels in
+   each staging, one pull a scheduled step), images/s and idle (a
+   device-only profile of the same 64 requests) beside host admission's, bf16 strings against host admission's (agreement
+   printed); float32 tokens equal to host admission's (batch-1 encodes on
+   both); and, on a decoder of one-step segments with the stream held
+   (``torch.cuda._sleep``) behind two dispatched segments (the launch
+   queue holds no more of the default route's steps),
+   requests submitted then pulled by a segment dispatched before their
+   staging; (b) 20 bf16 steps of a fresh
+   r4-shaped model on the stream of ``train --stream-renderer stroke
+   --stream-hard --stream-native-render``: every sample rendered by the
+   native library built from ``handwritten_math_ocr_api_torch/native/src``
+   (none by Python), images/s, loader wait and idle beside phase 11's;
+   (c) the CLI's ``render-inkml`` and ``make-corpus --renderer stroke
+   --hard --envs`` in subprocesses: exit 0, their CSV rows and PNGs;
+   (d) the native library (edit distances, the token scanner, batch
+   assembly) timed against the Python versions on the card's host, the
+   results equal;
+14. a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port only; phases 1-6, 8, 9 and 12 run on
-seeded random weights, phases 7, 10 and 11 (a) read the checkpoint and the
-test split. It exits non-zero on any failure, or when no CUDA device is
+seeded random weights, phases 7, 10, 11 (a) and 13 (a) read the checkpoint
+and the test split. It exits non-zero on any failure, or when no CUDA device is
 present.
 """
 
@@ -1977,7 +2004,7 @@ PORT_KERNELS = tuple(f"(anonymous namespace)::{k}_kernel" for k in (
     "fused_step_cluster", "swin_block", "swin_block_mma",
     "ragged_step_cluster", "beam_gather",
     "dequant_mma", "dequant_f32", "whole_step_cluster",
-    "whole_decode_cluster"))
+    "whole_decode_cluster", "admission_pull"))
 
 
 def profile_call(fn, what, unprofiled_s, tries=3):
@@ -2028,6 +2055,58 @@ def profile_call(fn, what, unprofiled_s, tries=3):
     return 1 - busy_ms / best_ms
 
 
+def profile_window(fn, what, unprofiled_s, warm):
+    """``profile_call`` for a window of 100,000s of launches (a continuous
+    run of the default route): device activity only, since reading such a
+    session back with the host's operators recorded takes the host about
+    100 s, and one warm-up cycle of the profiler before the window, which
+    runs ``warm`` (a smaller run of the same kernels), since a session can
+    miss the first launches of a kernel. The share of the port's launches
+    the trace holds is printed. Returns the idle share against the best
+    unprofiled wall, or None when the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traces = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(
+                     p.key_averages())) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()                  # the warm-up cycle ends: the window
+        reset_counts()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        prof.step()                  # the window ends: its trace is read
+    read_s = time.perf_counter() - t1
+    rows = [e for e in (traces[0] if traces else [])
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not rows:
+        log(f"profile: {what}: the profiler saw no device time (not "
+            f"measured)")
+        return None
+    seen = sum(e.count for e in rows
+               if any(k in e.key for k in PORT_KERNELS))
+    launched = sum(read_counts())
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    best_ms = unprofiled_s * 1e3
+    log(f"profile: {what} wall {wall_ms:.1f} ms under the profiler (device "
+        f"activity only), device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f} (against the unprofiled {best_ms:.1f} "
+        f"ms: {1 - busy_ms / best_ms:.3f}), device kernels "
+        f"{sum(e.count for e in rows)}, the port's {seen} of {launched}; "
+        f"trace read in {read_s:.1f} s")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x {e.key[:100]}")
+    return 1 - busy_ms / best_ms
+
+
 def profile_batch(engine, images, unprofiled_s, beam_size=None):
     """``profile_call`` of one ``predict_batch``: one session on the
     default route, whose 150 steps launch 10,000s of small kernels (reading
@@ -2043,6 +2122,7 @@ def kernel_counters():
     """(wrapper, count attribute) of each kernel of the ``kernels`` line,
     in its order: the decoder steps count their int8 entries apart, B1
     and B7 their MQA kernels, and B7 its ring entries."""
+    from handwritten_math_ocr_api_torch.ops.admission import admission_pull
     from handwritten_math_ocr_api_torch.ops.beam_reorder import (
         beam_cache_gather,
     )
@@ -2088,7 +2168,8 @@ def kernel_counters():
                (fused_ragged_step, "ring_launches"),
                (fused_ragged_step, "ring_int8_launches"),
                (fused_ragged_step, "ring_mqa_launches"),
-               (fused_ragged_step, "ring_mqa_int8_launches")])
+               (fused_ragged_step, "ring_mqa_int8_launches"),
+               (admission_pull, "launches")])
 
 
 def reset_counts():
@@ -2127,7 +2208,7 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
         dq = (6 * L + 1) * steps + 2 * L * encodes if quantized else 0
         return [encodes * blocks, encodes * merges,
                 0 if grouped else L * steps, 0, 0, 0, 0, 0, dq,
-                *[0] * 14]
+                *[0] * 15]
     fused = fused_blocks(cfg) if swin else 0
     b1, b7, b8 = (0, steps, steps) if beam else (steps, 0, 0)
     b1, b1_int8 = (0, b1) if quantized else (b1, 0)
@@ -2138,7 +2219,7 @@ def expected_launches(cfg, route, encodes, steps, beam=False):
         mha, mqa = mqa, [b1, b1_int8, b7, b7_int8]
     return [encodes * (blocks - fused), encodes * merges, 0, 0, mha[0],
             encodes * fused, mha[1], b8, 0, mha[2], mha[3], 0, 0, 0, 0,
-            *mqa, 0, 0, 0, 0]
+            *mqa, 0, 0, 0, 0, 0]
 
 
 def route_decode(engine, cfg, memory, kernels):
@@ -2156,11 +2237,16 @@ def route_decode(engine, cfg, memory, kernels):
                          kernels=kernels)
 
 
-def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
+def serve(cfg, np_params, tok, entries, route, beam=True,
+          float32_decodes=True, **route_kw):
     """Phase 4: one route of the served path at full width, through the
     kernels: greedy, then with ``beam`` beam search (``serve_beam``).
-    Returns ((images/s, idle share, bf16 greedy tokens) of greedy,
-    serve_beam's result or None)."""
+    Without ``float32_decodes`` the float32 greedy and beam decodes
+    against the plain path are not repeated (phase 12 (b): phase 4 holds
+    the same decoder route in float32 and phase 12 (a) each decoder kernel
+    at its memory columns); the float32 memory is still held. Returns
+    ((images/s, idle share, bf16 greedy tokens) of greedy, serve_beam's
+    result or None)."""
     import numpy as np
     import torch
 
@@ -2261,7 +2347,10 @@ def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
         f"{err32:.3g}")
     if err32 > MEMORY_F32_ATOL:
         raise AssertionError(f"float32 encoder memory differs by {err32}")
-    if engine.use_fused and engine.quantize:
+    if not float32_decodes:
+        log(f"serve {route}: float32 decodes not repeated (phase 4 holds "
+            f"this decoder route in float32)")
+    elif engine.use_fused and engine.quantize:
         fused_int8_trace(engine32, cfg32, m_p, route)
     else:
         with torch.inference_mode():
@@ -2279,7 +2368,8 @@ def serve(cfg, np_params, tok, entries, route, beam=True, **route_kw):
     if not beam:
         return (N_IMAGES / best, idle, res_k.tokens), None
     return ((N_IMAGES / best, idle, res_k.tokens),
-            serve_beam(engine, engine32, images, entries, route))
+            serve_beam(engine, engine32, images, entries, route,
+                       float32_decodes))
 
 
 def fused_int8_trace(engine32, cfg32, memory, route):
@@ -2365,7 +2455,8 @@ def route_beam(engine, cfg, memory, kernels):
                        kernels=kernels)
 
 
-def serve_beam(engine, engine32, images, entries, route):
+def serve_beam(engine, engine32, images, entries, route,
+               float32_decodes=True):
     """Phase 4, beam search: ``predict_batch`` of the images at beam 5 on
     the route of ``engine`` (bf16) through the kernels, its launches
     against the route's shape; then the tokens against the route's plain
@@ -2426,6 +2517,8 @@ def serve_beam(engine, engine32, images, entries, route):
     agree = (res_k.tokens == res_p.tokens).float().mean().item()
     log(f"serve {name}: bf16 beam tokens, kernels vs plain on the same "
         f"memory, agree {agree:.4f}")
+    if not float32_decodes:
+        return N_IMAGES / best, idle, steps, res_k.tokens
 
     x32, B32 = engine32._pad_batch(images[:2])
     with torch.inference_mode():
@@ -2569,8 +2662,8 @@ def continuous_decoder(cfg, np_params, tok, **kw):
                                          float(rep["lp_sum"][slot]))
             return out
 
+    kw = {"segment_steps": CONT_SEGMENT_STEPS, **kw}
     return Recording(np_params, cfg, tok, num_slots=CONT_SLOTS,
-                     segment_steps=CONT_SEGMENT_STEPS,
                      max_segment_steps=CONT_RING, device=DEVICE, **kw)
 
 
@@ -4445,6 +4538,32 @@ def train_stream(cfg, tok, n, seed, batch):
                       drop_remainder=True)
 
 
+def timed_steps(step, state, loader, steps, timed_from):
+    """``steps`` train steps on ``loader``'s batches, the host clock from
+    step ``timed_from`` on and the loader's wait a step after it. Returns
+    (state, losses, waits, elapsed seconds, the last batch)."""
+    import torch
+
+    losses, waits = [], []
+    it = iter(loader)
+    try:
+        for i in range(steps):
+            if i == timed_from:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            t0 = time.perf_counter()
+            batch = next(it)
+            if i >= timed_from:
+                waits.append(time.perf_counter() - t0)
+            state, m = step(state, batch["image"], batch["caption"], SEED)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t_start
+    finally:
+        it.close()
+    return state, torch.stack(losses).float().cpu(), waits, elapsed, batch
+
+
 def train_full_width(cfg, tok, dev):
     """Phase 11 (b): training at full width in bf16 from a fresh model
     (Swin-T, d_model 256, 8 decoder layers, ``memory_norm``; the grammar
@@ -4476,27 +4595,10 @@ def train_full_width(cfg, tok, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    losses, waits = [], []
-    it = iter(loader)
-    t_start = None
-    try:
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_TIMED_FROM:
-                torch.cuda.synchronize()
-                t_start = time.perf_counter()
-            t0 = time.perf_counter()
-            batch = next(it)
-            if i >= TRAIN_TIMED_FROM:
-                waits.append(time.perf_counter() - t0)
-            state, m = step(state, batch["image"], batch["caption"], SEED)
-            losses.append(m["loss"])
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t_start
-    finally:
-        it.close()
+    state, losses, waits, elapsed, batch = timed_steps(
+        step, state, loader, TRAIN_STEPS, TRAIN_TIMED_FROM)
     check_counts(read_counts(), [0] * len(kernel_counters()))
     peak = torch.cuda.max_memory_allocated()
-    losses = torch.stack(losses).float().cpu()
     head = float(losses[:TRAIN_WINDOW].mean())
     tail = float(losses[-TRAIN_WINDOW:].mean())
     timed = TRAIN_STEPS - TRAIN_TIMED_FROM
@@ -4767,8 +4869,10 @@ def resnet_serve(rcfg, tok, entries):
     BatchNorm statistics (rows run all 150 steps, as phase 4's) on the
     default route (decoder cut to DEFAULT_ROUTE_LAYERS) and the
     fused route, each through phase 4's ``serve``: greedy and beam 5 of
-    10 images, launch counts (no encoder kernel), float32 tokens equal to
-    the plain path, images/s and idle share; and the encode's time at
+    10 images, launch counts (no encoder kernel), the float32 memory
+    against the plain path (the float32 decodes are phase 4's: the same
+    decoder routes, and (a) holds each decoder kernel at 10 columns),
+    images/s and idle share; and the encode's time at
     RESNET_ENCODE_IMAGES images."""
     import numpy as np
 
@@ -4784,7 +4888,8 @@ def resnet_serve(rcfg, tok, entries):
     for route, (c, kw) in routes.items():
         t0 = time.perf_counter()
         out[route] = serve(c, convert.random_params(c, SEED), tok,
-                           entries, route, model_state=state, **kw)
+                           entries, route, float32_decodes=False,
+                           model_state=state, **kw)
         log(f"serve {route}: {c.num_decoder_layers} decoder layers, phase "
             f"seconds {time.perf_counter() - t0:.1f}")
     images = np.random.default_rng(SEED + 12).integers(
@@ -5160,6 +5265,607 @@ def resnet_phase(tok, entries, bucket, rows):
     log(f"resnet train: seconds {time.perf_counter() - t0:.1f}")
 
 
+# -- phase 13: device admission, the hard training stream, the data CLI ------
+
+ADMIT_IMAGES = 64        # data_eval_hard test images through device admission
+ADMIT_FIRST = 16         # running before the in-flight segments
+ADMIT_LATE = 16          # submitted while four segments are in flight
+ADMIT_HOLD_SLEEPS = 3    # the stream held by 3 x 1e9 cycles (about 1.5 s)
+ADMIT_HELD = 2           # one-step segments queued behind the hold
+ADMIT_POOL_ENTRIES = 200          # published for the pull kernel's timing
+ADMIT_WARM = 8           # requests run in the profiler's warm-up cycle
+HARD_STEPS = 20
+HARD_BATCH = 64
+HARD_TIMED_FROM = 5
+HARD_DEGRADE = 0.6       # the CLI's --stream-degrade default
+CLI_CORPUS = (8, 4, 4)   # make-corpus --train/--val/--test
+NATIVE_REPEATS = 2       # walls the edit distances' timing takes the best of
+NATIVE_FAST_REPEATS = 20  # the same for tokenizing and the batch assembly
+
+
+def check_admission_pull(cfg):
+    """Phase 13 (a), the pull kernel against its plain install at the
+    pool of phase 6 (33 slots, 64 staging rows, the serving config's cross
+    K/V in bf16, the pushdown rows of a constrained decoder): the same
+    entries published to two mailboxes, the first one cancelled; three
+    pulls each; the cross K/V, every state row, the occupants, the cursor
+    and the records equal exactly, the cancelled entry skipped in both.
+    Then its time with an entry to take at every launch, the plain
+    install's, and its bound (the pool rows read and the cross rows
+    written). Returns its Entry."""
+    import torch
+
+    from handwritten_math_ocr_api_torch.decode.constrain import STACK_DEPTH
+    from handwritten_math_ocr_api_torch.ops import admission as adm
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    L, H, Dh = cfg.num_decoder_layers, cfg.nhead, cfg.head_dim
+    S, P, T = CONT_SLOTS + 1, 2 * CONT_SLOTS, cfg.max_seq_len
+    row = (H, cfg.encoder_len, Dh)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    def ints(hi, *shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    pool = (randn(P, L, *row), randn(P, L, *row))
+    cross = (randn(L, S, *row), randn(L, S, *row))
+    i32 = torch.int32
+    state = adm.PullState(
+        prev=ints(cfg.vocab_size, S), pos=ints(T, S),
+        active=ints(2, S).bool(), finished=ints(2, S).bool(),
+        tokens=ints(cfg.vocab_size, S, T),
+        lp_sum=torch.randn((S,), generator=g, device=dev),
+        count=ints(T, S),
+        con=(ints(9, S, STACK_DEPTH), ints(STACK_DEPTH, S), ints(3, S),
+             ints(2, S).bool(), ints(2, S).bool()),
+        occupant=ints(5, S, dtype=torch.int64))
+
+    def copy():
+        return (tuple(t.clone() for t in cross),
+                adm.PullState(*(t.clone() for t in state[:7]),
+                              tuple(t.clone() for t in state.con),
+                              state.occupant.clone()))
+
+    # (pool row, slot): the first cancelled; its slot taken by the second;
+    # the last pool row into the scratch slot
+    plan = [(5, 7), (11, 7), (P - 1, S - 1), (0, 0)]
+    boxes, runs = [], []
+    for kernel in (True, False):
+        mb = adm.Mailbox(256, dev)
+        for p, slot in plan:
+            mb.publish(mb.reserve(), p, slot)
+        mb.cancel(1)
+        c, st = copy()
+        pull = adm.admission_pull if kernel else adm.admission_pull_plain
+        adm.admission_pull.launches = 0
+        for step in range(3):
+            pull(mb, *pool, *c, st, seg=9, step=step)
+        torch.cuda.synchronize()
+        if kernel and adm.admission_pull.launches != 3:
+            raise AssertionError("admission pull: the kernel did not count "
+                                 "its launches")
+        boxes.append(mb)
+        runs.append((c, st))
+    (ck, sk), (cp, sp) = runs
+    for name, a, b in ([("cross_k", ck[0], cp[0]), ("cross_v", ck[1], cp[1])]
+                       + [(n, x, y) for n, x, y in zip(
+                           ("prev", "pos", "active", "finished", "tokens",
+                            "lp_sum", "count"), sk[:7], sp[:7])]
+                       + [(f"con[{i}]", x, y)
+                          for i, (x, y) in enumerate(zip(sk.con, sp.con))]
+                       + [("occupant", sk.occupant, sp.occupant),
+                          ("cursor", boxes[0].cursor, boxes[1].cursor)]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"admission pull: {name} differs from the "
+                                 f"plain install")
+    rec_k, rec_p = boxes[0].entries[:4].copy(), boxes[1].entries[:4].copy()
+    if not (rec_k == rec_p).all():
+        raise AssertionError(f"admission pull: records differ: {rec_k} "
+                             f"against {rec_p}")
+    if (boxes[0].taken(1) is not None or boxes[0].taken(2) != (9, 0)
+            or boxes[0].taken(3) != (9, 1) or boxes[0].taken(4) != (9, 2)
+            or not torch.equal(ck[0][:, 7], pool[0][11])
+            or not torch.equal(ck[1][:, S - 1], pool[1][P - 1])
+            or int(boxes[0].cursor) != 4):
+        raise AssertionError(f"admission pull: wrong entries taken: "
+                             f"{rec_k}")
+    log("admission pull: kernel equal to the plain install (cross K/V, "
+        "state, pushdown rows, occupants, cursor, records; entry 1 "
+        "cancelled and skipped, one entry a step)")
+
+    # timing: an entry to take at every launch
+    def published(n):
+        mb = adm.Mailbox(1024, dev)
+        for i in range(n):
+            mb.publish(mb.reserve(), i % P, i % CONT_SLOTS)
+        return mb
+
+    c, st = copy()
+    mb = published(ADMIT_POOL_ENTRIES)
+    ms = cuda_ms(lambda: adm.admission_pull(mb, *pool, *c, st, seg=1,
+                                            step=0))
+    taken = int(mb.cursor)
+    mbp = published(64)
+    plain = plain_ms(lambda: adm.admission_pull_plain(mbp, *pool, *c, st,
+                                                      seg=1, step=0))
+    nbytes = (2 * 2 * L * H * cfg.encoder_len * Dh * 2   # pool in, cross out
+              + T * 4 + 6 * 4 + STACK_DEPTH * 4 + 8 * 8)
+    entry = Entry("admission_pull", "handwritten_math_ocr_api_torch/csrc/"
+                  "admission_pull.cu",
+                  "none: handwritten_math_ocr_api_tpu/decode/continuous.py"
+                  ":269 (admit_pull, an io_callback; no pallas_call)",
+                  "a pull that installs an entry")
+    entry.add(1, 0.0, ms, plain, None, nbytes, 0.0)
+    log(f"admission pull: ms {ms:.4f} a pull that installs ({taken} "
+        f"entries taken over the timed launches), plain install "
+        f"{plain:.4f} ms, bound {entry.d['bound_ms']:.5f} ms "
+        f"({nbytes} bytes)")
+    for m in (mb, mbp, *boxes):
+        m.close()
+    return entry
+
+
+def admission_decoder(cfg, np_params, tok, **kw):
+    """``continuous_decoder`` that also counts its stagings (one encode
+    each) as admission encodes."""
+    dec = continuous_decoder(cfg, np_params, tok, **kw)
+    stage = dec._stage
+
+    def counted(img, row):
+        dec.inserts += 1
+        return stage(img, row)
+
+    dec._stage = counted
+    return dec
+
+
+def admission_counts(dec, cfg, name):
+    """Launch counts of a device-admission run: the encoder's kernels in
+    each staging's encode (the block kernel where the route rule fuses,
+    with ``pallas_encoder_block``), one pull a scheduled step, nothing
+    else (the default route's steps run plain ops)."""
+    from handwritten_math_ocr_api_torch.ops.admission import admission_pull
+
+    counts = read_counts()
+    route = "fused" if dec.pallas_encoder_block else "pallas"
+    expected = expected_launches(cfg, route, dec.inserts, 0)
+    expected[kernel_counters().index((admission_pull, "launches"))] = (
+        dec.steps_scheduled)
+    log(f"admission {name}: {dec.inserts} staging encodes, "
+        f"{dec.steps_scheduled} scheduled steps, launches {counts}, "
+        f"expected {expected}")
+    check_counts(counts, expected)
+    return counts
+
+
+def admission_early(cfg, np_params, tok, images):
+    """A request pulled by a segment dispatched before its staging, on a
+    device-admission decoder of one-step segments. A default-route step at
+    8 layers is some 300 launches, and the host blocks once the stream's
+    launch queue is full: on the H100 two one-step segments fit behind a
+    held stream, a third blocked the host until the hold ended (so longer
+    segments, or four of them, cannot be queued). ADMIT_FIRST requests run
+    until every entry of theirs is pulled; then the stream is held
+    (``torch.cuda._sleep``: work the card has not reached, as under load)
+    and ADMIT_HELD segments are dispatched behind the hold; then
+    ADMIT_LATE requests are submitted. Their
+    stagings run on the staging stream beside the hold and are published
+    by the decoder's thread, so the segments queued before them take them
+    when the hold ends: ``pulled_early`` counts them, from the pulls'
+    records. Returns the results of all requests."""
+    import numpy as np
+    import torch
+
+    dec = admission_decoder(cfg, np_params, tok, admission="device",
+                            pallas_encoder_block=True, segment_steps=1)
+    dec.warmup(image_dtype=np.uint8)
+    ids = [dec.submit(img) for img in images[:ADMIT_FIRST]]
+    results = {}
+    for _ in range(100):
+        results.update(dec.step_once())
+        torch.cuda.synchronize()
+        if not dec._staged:   # every first entry pulled
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ADMIT_HOLD_SLEEPS):   # its argument is a 32-bit int
+        torch.cuda._sleep(10 ** 9)
+    before = dec._seg_counter
+    trace = []
+    while dec._seg_counter - before < ADMIT_HELD:
+        results.update(dec.step_once())
+        held = not torch.cuda.current_stream().query()
+        trace.append((round(time.perf_counter() - t0, 4), dec._inflight,
+                      held))
+        if not held:
+            break
+    dispatched = dec._seg_counter - before
+    late = [dec.submit(img) for img in
+            images[ADMIT_FIRST:ADMIT_FIRST + ADMIT_LATE]]
+    while not dec.idle:
+        results.update(dec.step_once())
+    records = [dec._mailbox.taken(seq) for seq in
+               range(dec._mailbox.next_seq - ADMIT_LATE,
+                     dec._mailbox.next_seq)]
+    log(f"admission early: (seconds, in flight, stream held) after each "
+        f"dispatch behind the hold {trace}; segments {before + 1}-"
+        f"{before + dispatched} dispatched before the {ADMIT_LATE} late "
+        f"requests' staging, whose (segment, step) {records}; pulled by a "
+        f"segment dispatched before their staging {dec.pulled_early}")
+    dec.close()
+    if dec.pulled_early < 1:
+        raise AssertionError("admission early: no request was pulled by a "
+                             "segment dispatched before its staging")
+    return [results[i] for i in ids + late]
+
+
+def admission_phase(tok, entries):
+    """Phase 13 (a): device admission on the card, on serving_model_r4's
+    shipped weights (Swin-T, 8 decoder layers, the default segment route,
+    the whole-block kernel in each staging's encode): the pull kernel
+    against its plain install (``check_admission_pull``); 64 data_eval_hard
+    test images through a 32-slot ``ContinuousDecoder(admission="device")``
+    with phase 6's traffic (8, then 4 a tick): bf16 launches counted, its
+    strings against host admission's (agreement printed), images/s and
+    idle beside host admission's; float32 tokens equal to host admission
+    with batch-1 encodes (the same encoder computation as a staging); and
+    ``admission_early``'s request pulled by a segment dispatched before
+    its staging."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch.data.dataset import read_labels
+    from handwritten_math_ocr_api_torch.data.png import read_png_batch
+    from handwritten_math_ocr_api_torch.train.checkpoint import (
+        load_params_for_serving,
+    )
+
+    np_params, _, _, _, cfg = load_params_for_serving(MODEL_DIR)
+    entry = check_admission_pull(cfg)
+    entries.append(entry)   # the last of kernel_counters()
+    paths = [os.path.join(QUALITY_DATA, "test_formulas", name)
+             for name, _ in read_labels(os.path.join(
+                 QUALITY_DATA, "test_labels.csv"))[:ADMIT_IMAGES]]
+    images = read_png_batch(paths)[..., None]
+    kw = {"pallas_encoder_block": True}
+
+    def timed(dec, name):
+        """Counted run, best of 2 walls of the 64 requests, and the idle
+        share of a third run of the same 64 requests under
+        ``profile_window`` against the best unprofiled wall."""
+        t0 = time.perf_counter()
+        dec.warmup(image_dtype=np.uint8)
+        reset_counts()
+        dec.reset_stats()
+        dec.inserts = 0
+        pairs, res, first = continuous_traffic(dec, images)
+        counts = (admission_counts(dec, cfg, name)
+                  if dec.admission == "device" else read_counts())
+        st = dec.stats
+        steps = dec.steps_scheduled
+        times = [continuous_traffic(dec, images)[2] for _ in range(2)]
+        best = min(times)
+        idle = profile_window(
+            lambda: continuous_traffic(dec, images),
+            f"admission {name} ({ADMIT_IMAGES} requests)", best,
+            warm=lambda: continuous_traffic(dec, images[:ADMIT_WARM]))
+        idle_s = "not measured" if idle is None else f"{idle:.3f}"
+        log(f"admission {name}: {ADMIT_IMAGES} requests seconds "
+            f"{[round(t, 4) for t in times]} (first counted run "
+            f"{first:.4f}), images/s {ADMIT_IMAGES / best:.2f}; device idle "
+            f"share {idle_s} (the same {ADMIT_IMAGES} requests); stats "
+            f"segments {st['segments_run']} steps "
+            f"{steps} avg_occupancy {st['avg_occupancy']:.4f} t_admit_s "
+            f"{st['t_admit_s']} t_dispatch_s {st['t_dispatch_s']}; "
+            f"seconds {time.perf_counter() - t0:.1f}")
+        return pairs, res, counts, ADMIT_IMAGES / best, idle
+
+    dev_bf16 = admission_decoder(cfg, np_params, tok, admission="device",
+                                 **kw)
+    pairs_d, res_d, counts, rate_d, idle_d = timed(dev_bf16, "device bf16")
+    tally(entries, counts, "admission device bf16")
+    dev_bf16.close()
+    t0 = time.perf_counter()
+    early = admission_early(cfg, np_params, tok, images)
+    log(f"admission early: seconds {time.perf_counter() - t0:.1f}")
+    host_bf16 = admission_decoder(cfg, np_params, tok, **kw)
+    pairs_h, res_h, _, rate_h, idle_h = timed(host_bf16, "host bf16")
+    host_bf16.close()
+    agree = (res_d.tokens == res_h.tokens).float().mean().item()
+    same = sum(a[0] == b[0] for a, b in zip(pairs_d, pairs_h))
+    log(f"admission bf16: device against host admission, tokens agree "
+        f"{agree:.4f}, strings equal {same} of {ADMIT_IMAGES} (bf16: the "
+        f"staging encodes one image, the host insert a bucket); early run "
+        f"strings equal {sum(a[0] == b[0] for a, b in zip(early, pairs_h[:len(early)]))}"
+        f" of {len(early)}")
+    for name, rate, idle in (("device", rate_d, idle_d),
+                             ("host", rate_h, idle_h)):
+        log(f"route admission {name} (default route, 8 layers, bf16): "
+            f"images/s {rate:.2f}, device idle share "
+            f"{'not measured' if idle is None else f'{idle:.3f}'}")
+
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(dtype="float32")
+    runs = {}
+    for admission in ("device", "host"):
+        d = admission_decoder(cfg32, np_params, tok, admission=admission,
+                              encode_buckets=(1,), **kw)
+        reset_counts()
+        d.inserts = 0
+        runs[admission] = continuous_traffic(d, images)[:2]
+        if admission == "device":
+            tally(entries, admission_counts(d, cfg32, "device float32"),
+                  "admission device float32")
+        d.close()
+    continuous_vs("admission float32 device against host", runs["device"][1],
+                  runs["host"][1], runs["device"][0], runs["host"][0])
+    log(f"admission float32: seconds {time.perf_counter() - t0:.1f}")
+
+
+def hard_train(cfg, tok, dev, native_lib):
+    """Phase 13 (b): 20 bf16 steps of a fresh r4-shaped model (the rich
+    grammar's vocab) on the stream of ``train --stream-renderer stroke
+    --stream-hard --stream-native-render`` (the CLI's options: rich,
+    max_tokens 60, 8 terms, depth 3, degrade 0.6, the native renderer) at
+    batch 64 on TRAIN_WORKERS loader threads. Gated: every sample rendered
+    by the native library built from the port's sources, none by the
+    Python renderer; the loss finite. Images/s and the loader's wait a
+    step after HARD_TIMED_FROM steps, and the idle share of a profiled
+    step, beside phase 11's typeset stream."""
+    import threading
+
+    import torch
+
+    from handwritten_math_ocr_api_torch import native
+    from handwritten_math_ocr_api_torch.core.config import (
+        DataConfig,
+        TrainConfig,
+    )
+    from handwritten_math_ocr_api_torch.data import strokes
+    from handwritten_math_ocr_api_torch.data.dataset import DataLoader
+    from handwritten_math_ocr_api_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    calls = {"native": 0, "python": 0}
+    lock = threading.Lock()   # the loader's threads render at once
+    render_native, render_python = (native.render_formula,
+                                    strokes.render_stroke_image)
+
+    def counted_native(*a, **k):
+        with lock:
+            calls["native"] += 1
+        return render_native(*a, **k)
+
+    def counted_python(*a, **k):
+        with lock:
+            calls["python"] += 1
+        return render_python(*a, **k)
+
+    native.render_formula = counted_native
+    strokes.render_stroke_image = counted_python
+    try:
+        ds = strokes.StrokeStreamDataset(
+            tok, HARD_STEPS * HARD_BATCH, cfg.img_h, cfg.img_w,
+            cfg.max_seq_len, seed=SEED, rich=True, max_tokens=60,
+            max_terms=8, depth=3, degrade=HARD_DEGRADE, native=True)
+        loader = DataLoader(ds, HARD_BATCH, num_workers=TRAIN_WORKERS,
+                            drop_remainder=True)
+        tc = TrainConfig(warmup_steps=TRAIN_WARMUP)
+        state, opt = create_train_state(cfg, tc, SEED, dev)
+        step = make_train_step(cfg, tc, opt, DataConfig(), device=dev)
+        state, losses, waits, elapsed, batch = timed_steps(
+            step, state, loader, HARD_STEPS, HARD_TIMED_FROM)
+    finally:
+        native.render_formula = render_native
+        strokes.render_stroke_image = render_python
+    timed = HARD_STEPS - HARD_TIMED_FROM
+    ms = elapsed / timed * 1e3
+    log(f"hard train: {HARD_STEPS} bf16 steps of {HARD_BATCH} (stroke, "
+        f"hard, native render), losses {[round(float(x), 4) for x in losses]}"
+        f"; images/s {timed * HARD_BATCH / elapsed:.1f}, ms a step {ms:.1f}"
+        f" (host clock over {timed} steps), loader wait a step "
+        f"{sum(waits) / len(waits) * 1e3:.2f} ms; renders native "
+        f"{calls['native']}, Python {calls['python']}; library {native_lib}")
+    if (calls["python"] or calls["native"] != HARD_STEPS * HARD_BATCH
+            or not torch.isfinite(losses).all()):
+        raise AssertionError(f"hard train: renders {calls}, losses "
+                             f"{losses.tolist()}")
+    idle = profile_call(
+        lambda: step(state, batch["image"], batch["caption"], SEED),
+        "one hard-stream train step", ms / 1e3, tries=1)
+    log(f"hard train: device idle share of a profiled step "
+        f"{'not measured' if idle is None else f'{idle:.3f}'} (phase 11's "
+        f"typeset stream: its 'train full width' lines above)")
+
+
+def data_cli(out_root):
+    """Phase 13 (c): the port's CLI on the card's machine, in subprocesses:
+    ``render-inkml`` on a directory of ``SAMPLE_INKML`` files, then
+    ``make-corpus --renderer stroke --hard --envs`` at a small n. Gated:
+    exit 0, the CSVs' header and rows, every PNG at 96x320 uint8 with ink
+    apart from the paper."""
+    import subprocess
+
+    from handwritten_math_ocr_api_torch.data.dataset import read_labels
+    from handwritten_math_ocr_api_torch.data.png import read_png
+    from handwritten_math_ocr_api_torch.data.synthetic import SAMPLE_INKML
+
+    ink = os.path.join(out_root, "inkml")
+    os.makedirs(ink, exist_ok=True)
+    for i in range(3):
+        with open(os.path.join(ink, f"s{i}.inkml"), "w") as f:
+            f.write(SAMPLE_INKML)
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "handwritten_math_ocr_api_torch", *args],
+            cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"cli {args[0]}: exit {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        log(f"cli {args[0]}: {out.stdout.strip()[:200]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    def held(img_dir, csv_path, n):
+        rows = read_labels(csv_path)
+        if len(rows) != n:
+            raise AssertionError(f"{csv_path}: {len(rows)} rows, not {n}")
+        for name, label in rows:
+            img = read_png(os.path.join(img_dir, name))
+            # ink well apart from the paper (faint under degradation)
+            if (img.shape != (96, 320) or img.dtype.name != "uint8"
+                    or not label or int(img.min()) > int(img.max()) - 60):
+                raise AssertionError(f"{name}: {img.shape} {img.dtype} "
+                                     f"{label!r} {img.min()}-{img.max()}")
+        return rows
+
+    cli("render-inkml", ink, os.path.join(out_root, "ink_png"),
+        os.path.join(out_root, "ink_labels.csv"))
+    rows = held(os.path.join(out_root, "ink_png"),
+                os.path.join(out_root, "ink_labels.csv"), 3)
+    corpus = os.path.join(out_root, "corpus")
+    n_train, n_val, n_test = CLI_CORPUS
+    cli("make-corpus", "--data-root", corpus, "--renderer", "stroke",
+        "--hard", "--envs", "--train", str(n_train), "--val", str(n_val),
+        "--test", str(n_test))
+    for split, n in (("train", n_train), ("validate", n_val),
+                     ("test", n_test)):
+        held(os.path.join(corpus, f"{split}_formulas"),
+             os.path.join(corpus, f"{split}_labels.csv"), n)
+    log(f"cli: render-inkml rows {rows}; make-corpus --renderer stroke "
+        f"--hard --envs {CLI_CORPUS} files and rows held")
+
+
+def native_timing():
+    """Phase 13 (d): the native library against the Python it replaces on
+    the card's host, each the best of NATIVE_REPEATS walls (of
+    NATIVE_FAST_REPEATS for the calls of milliseconds), the results equal
+    (gated): the evaluation harness's per-pair edit distances and
+    ``compute_metrics``' batch of them over the data_eval_hard test labels
+    (each against the next: pairs of real lengths; the Python version of
+    both is the per-pair loop, timed once), the token scanner against
+    ``create_vocab``'s regex over those labels, and ``assemble_batch`` of
+    a training batch (64 images of 96x320) against the loader's
+    ``np.stack``."""
+    import numpy as np
+
+    from handwritten_math_ocr_api_torch import native
+    from handwritten_math_ocr_api_torch.core import tokenizer
+    from handwritten_math_ocr_api_torch.data import dataset
+    from handwritten_math_ocr_api_torch.eval import metrics
+
+    labels = [label for _, label in dataset.read_labels(
+        os.path.join(QUALITY_DATA, "test_labels.csv"))]
+    targets = labels[1:] + labels[:1]
+    rng = np.random.default_rng(SEED)
+    images = [rng.integers(0, 256, (96, 320), dtype=np.uint8)
+              for _ in range(HARD_BATCH)]
+    n = len(labels)
+    available = native.available
+
+    def python(fn):
+        """``fn`` with the hooks on their Python versions."""
+        def run():
+            native.available = lambda: False
+            try:
+                return fn()
+            finally:
+                native.available = available
+        return run
+
+    def best(fn, repeats=NATIVE_REPEATS):
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = fn()
+            walls.append(time.perf_counter() - t0)
+        return out, min(walls) * 1e3
+
+    def pairs():
+        return [metrics.edit_distance(p, t) for p, t in zip(labels, targets)]
+
+    fast = NATIVE_FAST_REPEATS
+    py_pairs = best(python(pairs))
+    for name, fn, py, repeats in (
+            (f"edit_distance, {n} pairs one by one (the harness)", pairs,
+             py_pairs, NATIVE_REPEATS),
+            (f"batch_edit_distance, {n} pairs (compute_metrics)",
+             lambda: metrics.batch_edit_distance(labels, targets), py_pairs,
+             NATIVE_REPEATS),
+            (f"tokenize, {n} labels (create_vocab: the regex)",
+             lambda: [native.tokenize(f) for f in labels],
+             best(lambda: [tokenizer.tokenize_latex(f) for f in labels],
+                  fast), fast),
+            (f"assemble_batch, {HARD_BATCH} x 96x320 (the loader: np.stack)",
+             lambda: native.assemble_batch(images)[..., 0],
+             best(lambda: np.stack(images), fast), fast)):
+        got, ms_native = best(fn, repeats)
+        want, ms_python = py
+        if not (np.array_equal(got, want) if isinstance(got, np.ndarray)
+                else list(got) == list(want)):
+            raise AssertionError(f"native {name}: differs from Python")
+        log(f"native {name}: native {ms_native:.3f} ms, Python "
+            f"{ms_python:.3f} ms (best of {repeats}; equal)")
+
+
+def phase13(tok, entries):
+    """Phase 13: (a) ``admission_phase`` (the pull kernel's Entry appended
+    to ``entries``), (b) ``hard_train``, (c) ``data_cli``, (d)
+    ``native_timing``."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from handwritten_math_ocr_api_torch import native
+    from handwritten_math_ocr_api_torch.core.config import load_model_config
+    from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_torch.data.synthetic import grammar_vocab
+
+    t0 = time.perf_counter()
+    admission_phase(tok, entries)
+    log(f"phase 13 (a) admission: seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    pkg = os.path.join(REPO_ROOT, "handwritten_math_ocr_api_torch",
+                       ".kernel_build")
+    if not (native.available() and lib.startswith(pkg)
+            and native.library_path() == lib):
+        raise AssertionError(f"native library {lib} is not the port's "
+                             f"build")
+    log(f"native: {native.version()} built from "
+        f"handwritten_math_ocr_api_torch/native/src into "
+        f"{os.path.relpath(lib, REPO_ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hard_tok = Tokenizer(grammar_vocab(rich=True))
+    r4 = load_model_config(MODEL_DIR)
+    cfg = r4.replace(vocab_size=len(hard_tok), dropout=TRAIN_DROPOUT,
+                     swin=dataclasses.replace(
+                         r4.swin, stochastic_depth=TRAIN_DROPOUT))
+    hard_train(cfg, hard_tok, torch.device(DEVICE),
+               os.path.relpath(lib, REPO_ROOT))
+    log(f"phase 13 (b) hard train: seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase13-") as out:
+        data_cli(out)
+    log(f"phase 13 (c) data cli: seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    native_timing()
+    log(f"phase 13 (d) native timing: seconds "
+        f"{time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -5284,6 +5990,9 @@ def main() -> int:
     t0 = time.perf_counter()
     resnet_phase(tok, entries, bucket, rows)
     log(f"resnet: phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    phase13(tok, entries)
+    log(f"admission and data: phase seconds {time.perf_counter() - t0:.1f}")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

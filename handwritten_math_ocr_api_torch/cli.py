@@ -12,7 +12,9 @@ subcommands and flags:
     python -m handwritten_math_ocr_api_torch predict IMAGE \
         --checkpoint-dir C [--beam-size K | --temperature T ...]
     python -m handwritten_math_ocr_api_torch make-synthetic|make-corpus \
-        --data-root D ...
+        --data-root D [--renderer stroke [--hard] [--envs]] ...
+    python -m handwritten_math_ocr_api_torch render-inkml INKML_DIR \
+        OUT_IMG_DIR OUT_CSV [--limit N]
     python -m handwritten_math_ocr_api_torch extend-vocab|convert-gqa ...
     python -m handwritten_math_ocr_api_torch convert-checkpoint PTH \
         VOCAB OUT_DIR [--encoder resnet18] [--model-overrides JSON]
@@ -34,9 +36,12 @@ artifact of a reference ``.pth`` (``compat/torch_convert.py``),
 ``convert-encoder`` an encoder-only artifact of torchvision's ``swin_t``
 for ``train --init-from``, and ``export`` a serving artifact of a training
 checkpoint, with its model state. ``--model-overrides`` also takes a
-nested ``"resnet"`` dict of ``ResNetConfig`` fields. Not ported: the
-handwriting-stroke renderer (``--stream-renderer stroke``, ``make-corpus
---renderer stroke`` raise) and ``render-inkml``.
+nested ``"resnet"`` dict of ``ResNetConfig`` fields. The synthetic stream
+and ``make-corpus`` take the handwriting-stroke renderer
+(``data/strokes.py``: ``--stream-renderer stroke``, ``--stream-hard`` with
+``--stream-degrade``, ``--stream-native-render`` on the host C++ library;
+``--renderer stroke --hard``), and ``render-inkml`` rasterizes InkML
+(``data/inkml.py``).
 """
 
 from __future__ import annotations
@@ -85,12 +90,6 @@ def _model_config(args, vocab_size: int):
     return cfg
 
 
-def _no_stroke(renderer: str) -> None:
-    if renderer == "stroke":
-        raise SystemExit("the stroke renderer (data/strokes.py) is not "
-                         "ported yet; use --stream-renderer typeset")
-
-
 def cmd_build_vocab(args) -> int:
     from .core.tokenizer import create_vocab_from_csvs, save_vocab
 
@@ -110,7 +109,6 @@ def cmd_train(args) -> int:
     from .data.dataset import DataLoader, get_data_loaders
     from .train.loop import train_model
 
-    _no_stroke(args.stream_renderer)
     vpath = os.path.join(args.checkpoint_dir, "vocab.json")
     if args.synthetic_stream:
         # an endless synthetic stream: the vocab comes from the grammar
@@ -148,18 +146,31 @@ def cmd_train(args) -> int:
     )
     if args.synthetic_stream:
         mc = cfg.model
+        stroke = args.stream_renderer == "stroke"
+        if stroke:
+            from .data.strokes import StrokeStreamDataset as stream_ds
+        else:
+            stream_ds = SyntheticStreamDataset
         hard = {}
         if args.stream_hard:
+            # the MathWriting-difficulty regime: the extended inventory,
+            # longer and deeper formulas, and (stroke renderer) degraded ink
             hard = dict(rich=True, max_tokens=args.stream_max_tokens,
                         max_terms=8, depth=3)
+            if stroke:
+                hard["degrade"] = args.stream_degrade
         if args.stream_envs:
             hard["envs"] = True
+        if args.stream_native_render:
+            if not stroke:
+                raise SystemExit("--stream-native-render requires "
+                                 "--stream-renderer stroke")
+            hard["native"] = True
 
         def mk(n, seed, freeze):
             return DataLoader(
-                SyntheticStreamDataset(tok, n, mc.img_h, mc.img_w,
-                                       mc.max_seq_len, seed=seed,
-                                       freeze=freeze, **hard),
+                stream_ds(tok, n, mc.img_h, mc.img_w, mc.max_seq_len,
+                          seed=seed, freeze=freeze, **hard),
                 cfg.data.batch_size, shuffle=False,
                 num_workers=cfg.data.num_workers, drop_remainder=True)
 
@@ -324,16 +335,34 @@ def cmd_make_synthetic(args) -> int:
     return 0
 
 
-def cmd_make_corpus(args) -> int:
-    from .data.synthetic import make_corpus
+def cmd_render_inkml(args) -> int:
+    from .data.inkml import render_inkml_dir
 
-    _no_stroke(args.renderer)
-    if args.hard:
-        raise SystemExit("--hard requires --renderer stroke")
-    if args.envs:
-        raise SystemExit("--envs requires --renderer stroke")
-    make_corpus(args.data_root, n_train=args.train, n_val=args.val,
-                n_test=args.test, seed=args.seed)
+    n = render_inkml_dir(args.inkml_dir, args.out_img_dir, args.out_csv,
+                         limit=args.limit)
+    print(f"rendered {n} inkml files -> {args.out_img_dir}")
+    return 0
+
+
+def cmd_make_corpus(args) -> int:
+    kw = {}
+    if args.renderer == "stroke":
+        from .data.strokes import make_stroke_corpus as mk
+
+        if args.hard:  # the regime of train --stream-hard
+            kw = dict(rich=True, max_tokens=args.max_tokens, max_terms=8,
+                      depth=3, degrade=args.degrade)
+        if args.envs:
+            kw["envs"] = True
+    else:
+        from .data.synthetic import make_corpus as mk
+
+        if args.hard:
+            raise SystemExit("--hard requires --renderer stroke")
+        if args.envs:
+            raise SystemExit("--envs requires --renderer stroke")
+    mk(args.data_root, n_train=args.train, n_val=args.val, n_test=args.test,
+       seed=args.seed, **kw)
     print(f"learnable corpus ({args.train}/{args.val}/{args.test}, "
           f"{args.renderer}) -> {args.data_root}")
     return 0
@@ -442,12 +471,21 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--stream-renderer", default="typeset",
                     choices=["typeset", "stroke"],
                     help="synthetic-stream pixels: 'typeset' (font-rendered "
-                         "LaTeX source); 'stroke' is not ported yet")
+                         "LaTeX source) or 'stroke' (handwriting-style "
+                         "structural layout, data/strokes.py)")
     tr.add_argument("--stream-hard", action="store_true",
                     help="extended symbol inventory, longer and deeper "
-                         "formulas")
+                         "formulas, and with the stroke renderer denser "
+                         "layouts and degraded ink")
     tr.add_argument("--stream-max-tokens", type=int, default=60,
                     help="--stream-hard: formula length cap in tokens")
+    tr.add_argument("--stream-native-render", action="store_true",
+                    help="stroke renderer: the host C++ display-list "
+                         "renderer (native/src/stroke_render.cpp; same "
+                         "distribution, another random stream)")
+    tr.add_argument("--stream-degrade", type=float, default=0.6,
+                    help="--stream-hard + stroke renderer: ink degradation "
+                         "strength in [0, 1]")
     tr.add_argument("--stream-envs", action="store_true",
                     help="stream 2-D LaTeX environments (matrix, cases); "
                          "fine-tuning a checkpoint without them needs "
@@ -507,6 +545,13 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--seed", type=int, default=0)
     pr.set_defaults(fn=cmd_predict)
 
+    ri = sub.add_parser("render-inkml", help="rasterize InkML to PNGs+CSV")
+    ri.add_argument("inkml_dir")
+    ri.add_argument("out_img_dir")
+    ri.add_argument("out_csv")
+    ri.add_argument("--limit", type=int, default=None)
+    ri.set_defaults(fn=cmd_render_inkml)
+
     ms = sub.add_parser("make-synthetic", help="generate synthetic dataset")
     ms.add_argument("--data-root", default="data")
     ms.add_argument("--train", type=int, default=256)
@@ -524,11 +569,18 @@ def build_parser() -> argparse.ArgumentParser:
     mc.add_argument("--seed", type=int, default=0)
     mc.add_argument("--renderer", default="typeset",
                     choices=["typeset", "stroke"],
-                    help="'stroke' is not ported yet")
+                    help="'stroke': handwriting-style structural renders "
+                         "(data/strokes.py)")
     mc.add_argument("--hard", action="store_true",
-                    help="stroke renderer only")
+                    help="stroke renderer: the MathWriting-difficulty "
+                         "regime (matches train --stream-hard)")
+    mc.add_argument("--max-tokens", type=int, default=60,
+                    help="--hard: formula length cap")
+    mc.add_argument("--degrade", type=float, default=0.6,
+                    help="--hard: ink degradation strength in [0, 1]")
     mc.add_argument("--envs", action="store_true",
-                    help="stroke renderer only")
+                    help="include 2-D environment formulas (stroke "
+                         "renderer only)")
     mc.set_defaults(fn=cmd_make_corpus)
 
     xv = sub.add_parser("extend-vocab",

@@ -2,7 +2,10 @@
 
 A copy of ``handwritten_math_ocr_api_tpu/core/tokenizer.py``: the token
 regex, the vocab builders (special tokens first, then the corpus tokens
-sorted), the vocab JSON schema (``{"vocab": {...}, "idx2char": {...}}``),
+sorted; the corpus pass on the regex, where JAX's takes the native token
+scanner when it builds: on an H100 host the two took the same time over
+the 2,000 test labels, ``chip_smoke.py``'s ``native_timing``), the vocab
+JSON schema (``{"vocab": {...}, "idx2char": {...}}``),
 ``Tokenizer`` and the LaTeX cleanup regexes, so that vocab files and decoded
 strings are interchangeable between the packages. Label CSVs are read with
 the ``csv`` module.

@@ -3,8 +3,8 @@
 The port of ``handwritten_math_ocr_api_tpu/data/dataset.py``. A split is
 ``{split}_labels.csv`` (columns ``image_filename, latex_label``, read with
 the ``csv`` module) and its PNGs under ``{split}_formulas/``, decoded by the
-port's PNG reader (images must be at the model's size: the JAX loader's cv2
-stretch resize is not ported). Each sample is the uint8 image and
+port's PNG reader and stretch-resized to the model's size with cv2, as the
+JAX loader resizes them. Each sample is the uint8 image and
 ``<sos> tokens <eos>`` ids padded or cut to ``max_seq_len``. Batches are
 dicts: ``image`` uint8 (B, H, W, 1), ``caption`` int32 (B, L), ``length``
 int32 (B,), ``valid`` bool (B,); a short last batch is dropped
@@ -22,7 +22,11 @@ caller's thread, decoding a file dataset's PNGs together
 (``data/png.py::decode_png_batch``): the test loader's way, since the
 port's decode loops are bound by the host's launches, which such threads
 slow down (on an H100 the fused greedy decodes of the 2,000 test images
-took 32.75 s beside four image threads and 1.56 s without them).
+took 32.75 s beside four image threads and 1.56 s without them). A batch's
+images are stacked by numpy, where JAX's loader takes the host C++
+library's ``assemble_batch``: on an H100 host that thread pool was slower
+than ``np.stack`` for a training batch (``chip_smoke.py``'s
+``native_timing``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import numpy as np
 from ..core.config import DataConfig, ModelConfig
 from ..core.tokenizer import Tokenizer
 from .png import read_png_batch
-from .preprocess import check_size, load_image_png
+from .preprocess import load_image_png, stretch
 
 
 def read_labels(label_path: str) -> List[Tuple[str, str]]:
@@ -85,8 +89,16 @@ class MathFormulaDataset:
         """The samples ``idxs`` at once: images uint8 (n, H, W) and each
         sample's (caption, length)."""
         paths = [os.path.join(self.img_dir, self.rows[i][0]) for i in idxs]
-        images = read_png_batch(paths)
-        check_size(images[0], self.img_h, self.img_w, paths[0])
+        try:
+            images = read_png_batch(paths)
+        except ValueError as e:  # images of different sizes: one by one
+            if "different sizes" not in str(e):
+                raise
+            images = np.stack([load_image_png(p, self.img_h, self.img_w)
+                               for p in paths])
+        if images.shape[1:] != (self.img_h, self.img_w):
+            images = np.stack([stretch(im, self.img_h, self.img_w)
+                               for im in images])
         captions = [encode_caption(self.tokenizer, self.rows[i][1],
                                    self.max_seq_len) for i in idxs]
         return images, captions

@@ -3,12 +3,13 @@
 The port of ``handwritten_math_ocr_api_tpu/data/preprocess.py``. The
 normalize functions take numpy arrays or tensors and compute the same
 float32 ``x / 255 * 2 - 1``. ``load_image_png`` and ``preprocess_file``
-read a PNG with the port's own reader (``data/png.py``, numpy and ``zlib``);
-they take images that are already ``img_h x img_w``, since the stretch
-resize of the JAX package's cv2 loader is not ported (on the corpora it is
-the identity). The serving path's ``resize_pil_u8`` and ``preprocess_pil``
-(PIL grayscale, bilinear stretch resize) and the cv2 loader import those
-inside them, so the package imports without either.
+read a PNG with the port's own reader (``data/png.py``, numpy and ``zlib``)
+and stretch-resize an image that is not ``img_h x img_w`` with cv2's
+bilinear resize, as the JAX package's cv2 loader does (``stretch``; on the
+corpora, whose images are at the model's size, it is the identity). The
+serving path's ``resize_pil_u8`` and ``preprocess_pil`` (PIL grayscale,
+bilinear stretch resize) and the cv2 functions import those inside them,
+so the package imports without either.
 """
 
 from __future__ import annotations
@@ -56,19 +57,21 @@ def load_image_cv2(path: str, img_h: int = 96, img_w: int = 320) -> np.ndarray:
     return cv2.resize(img, (img_w, img_h))
 
 
-def check_size(img: np.ndarray, img_h: int, img_w: int, path: str) -> None:
-    if img.shape != (img_h, img_w):
-        raise ValueError(
-            f"{path}: image is {img.shape[0]}x{img.shape[1]}, the model "
-            f"takes {img_h}x{img_w}; the stretch resize is not ported")
+def stretch(img: np.ndarray, img_h: int, img_w: int) -> np.ndarray:
+    """uint8 (h, w) -> (img_h, img_w): cv2's bilinear stretch resize (the
+    JAX loader's ``cv2.resize``), the image itself where it is at that
+    size already."""
+    if img.shape == (img_h, img_w):
+        return img
+    import cv2
+
+    return cv2.resize(img, (img_w, img_h))
 
 
 def load_image_png(path: str, img_h: int = 96, img_w: int = 320) -> np.ndarray:
-    """The cv2 loader's counterpart on the port's PNG reader, for images
-    already at the model's size: uint8 (H, W)."""
-    img = read_png(path)
-    check_size(img, img_h, img_w, path)
-    return img
+    """The cv2 loader's counterpart on the port's PNG reader: uint8 (H, W),
+    stretch-resized to the model's size."""
+    return stretch(read_png(path), img_h, img_w)
 
 
 def preprocess_file(path: str, cfg=None) -> np.ndarray:

@@ -4,10 +4,9 @@ The port of ``handwritten_math_ocr_api_tpu/data/synthetic.py``: the same
 formula grammars and seeds, so the labels, the formula streams and the
 text renders equal the JAX package's; the PNGs are written with PIL and the
 CSVs with the ``csv`` module (the JAX module writes them with other
-libraries; the files hold the same pixels and rows). One difference:
-``random_ink_image`` draws its strokes with PIL lines, not anti-aliased
-polylines, so its pixels are not the JAX function's (its random draws, and
-so the labels of ``make_synthetic_dataset``, are).
+libraries; the files hold the same pixels and rows). ``random_ink_image``
+draws cv2's anti-aliased polylines, as JAX's does, so its pixels equal the
+JAX function's.
 
 The real MathWriting corpus is not shipped; these fabricate datasets in
 its contract (``{split}_formulas/*.png`` + ``{split}_labels.csv``), and
@@ -54,20 +53,20 @@ def random_formula(rng: random.Random, max_tokens: int = 12) -> str:
 
 def random_ink_image(rng: np.random.Generator, img_h: int,
                      img_w: int) -> np.ndarray:
-    """Plausible-looking handwriting-ish strokes on white: the JAX
-    function's random draws, each stroke a 2-pixel PIL polyline."""
-    from PIL import Image, ImageDraw
+    """Plausible-looking handwriting-ish strokes on white: each stroke a
+    2-pixel anti-aliased cv2 polyline, as in JAX."""
+    import cv2
 
-    img = Image.new("L", (img_w, img_h), 255)
-    draw = ImageDraw.Draw(img)
+    img = np.full((img_h, img_w), 255, np.uint8)
     n_strokes = int(rng.integers(3, 10))
     for _ in range(n_strokes):
         n_pts = int(rng.integers(3, 8))
         xs = rng.integers(4, img_w - 4, n_pts)
         ys = rng.integers(4, img_h - 4, n_pts)
-        draw.line([(int(x), int(y)) for x, y in zip(xs, ys)], fill=0,
-                  width=2)
-    return np.asarray(img, np.uint8)
+        pts = np.stack([xs, ys], axis=1).astype(np.int32)
+        cv2.polylines(img, [pts.reshape(-1, 1, 2)], False, 0, 2,
+                      lineType=cv2.LINE_AA)
+    return img
 
 
 def _write_png(path: str, img: np.ndarray) -> None:

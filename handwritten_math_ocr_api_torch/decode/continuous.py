@@ -49,10 +49,29 @@ How the port differs:
   otherwise ignores (it reads no slot at or past a row's position).
 - Caches are updated in place; the small state is made anew each step.
 - Refused with ``NotImplementedError``: ``mesh`` (a sharded pool, ROADMAP
-  A8) and ``admission="device"`` (JAX's in-loop ``io_callback``
-  admission, A3). JAX's ``MATHOCR_HARVEST_BATCH`` switch (a batched fetch
-  of every queued report, an A/B for a tunnelled transport) is dropped:
-  the harvester lands one report at a time, JAX's default.
+  A8), with either admission. JAX's ``MATHOCR_HARVEST_BATCH`` switch (a
+  batched fetch of every queued report, an A/B for a tunnelled transport)
+  is dropped: the harvester lands one report at a time, JAX's default.
+
+``admission="device"`` (JAX's in-loop ``io_callback`` pull) on the default
+route, as in JAX (``use_fused`` warns and takes it): the host stages each
+request (a batch-1 encode on the encoder kernels and its cross K/V
+projection, on a side stream on the card) into a row of a staging pool,
+and once that copy has finished publishes an entry (pool row, slot,
+sequence number) to a mailbox in mapped pinned host memory
+(``ops/admission.Mailbox``; a publisher thread waits on the copy's event).
+At the head of every step of a segment the pull kernel
+(``ops/admission.admission_pull``) takes at most one published entry and
+installs it into its slot, in place in the step's state. So a request
+staged while segments are already queued joins the first of them that runs
+after its publication, where host admission waits for the next dispatch.
+The slot is the request's from its staging on (``_admit_seg`` holds the
+``_NOT_PULLED`` sentinel until a report shows the pull's record: the
+segment that took the entry); a cancel marks the entry skipped and
+deactivates the slot on the device only while that entry occupies it (a
+per-slot occupant written by the pull), so that a slot re-staged while
+segments run keeps its new request. On the CPU the pull is the plain
+install, synchronously, and staging publishes at once.
 
 ``constrained=True`` decodes every slot under the pushdown mask of
 ``decode/constrain.py``, on both routes, as JAX's: each slot's grammar
@@ -83,6 +102,7 @@ from ..core.tokenizer import Tokenizer, clean_latex_output
 from ..data.preprocess import normalize
 from ..models import decoder as decoder_mod
 from ..models import model as model_mod
+from ..ops.admission import Mailbox, PullState, admission_pull
 from ..ops.fused_step import (
     build_stacked_full,
     fused_ragged_step,
@@ -95,6 +115,9 @@ from .api import EMPTY_RESULT_FALLBACK, pick_bucket
 from .fused import project_cross_kv_merged
 
 logger = logging.getLogger(__name__)
+
+# device admission: a slot staged but not yet pulled by a running segment
+_NOT_PULLED = 10 ** 18
 
 
 class ContinuousSegmentError(RuntimeError):
@@ -287,15 +310,19 @@ def _write_tokens(s: SmallState, nxt, logp, live, max_len: int
 
 def decode_segment(params, cfg: ModelConfig, small: SmallState,
                    cache: Dict[str, torch.Tensor], n_steps: int, *,
-                   kernels: bool = True, tables=None
+                   kernels: bool = True, tables=None, pull=None
                    ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
     """Advance every live slot by ``n_steps`` greedy tokens (a slot that
     finishes stops there) on the default route: one
     ``decoder_step_ragged`` a step over the whole pool, its self caches
     updated in place. ``tables`` (``constrain.ConstraintTables``)
-    constrains the picks (module docstring). Reads no device value."""
+    constrains the picks (module docstring). ``pull(i, small, cache)``
+    runs at the head of step ``i`` (device admission: it may install a
+    staged request in place). Reads no device value."""
     dec = params["decoder"]
-    for _ in range(n_steps):
+    for i in range(n_steps):
+        if pull is not None:
+            pull(i, small, cache)
         live = _live(small)
         logits = decoder_mod.decoder_step_ragged(dec, cfg, small.prev,
                                                  small.pos, cache,
@@ -482,18 +509,22 @@ class ContinuousDecoder:
         ``constrained``: every slot under the pushdown mask (module
         docstring); it needs ``tokenizer`` (its vocab derives the tables)
         and raises ``ValueError`` without one. ``harvest_threads``: report
-        harvesters (at least one). ``model_state``: a ResNet encoder's
+        harvesters (at least one). ``admission``: ``"host"`` (inserts at
+        segment boundaries) or ``"device"`` (the mailbox pull, module
+        docstring; the default route). ``model_state``: a ResNet encoder's
         BatchNorm statistics, moved to ``device`` in float32 (a ResNet
         encoder ignores ``pallas_encoder_block``, as in JAX)."""
         if admission not in ("host", "device"):
             raise ValueError(f"admission must be host|device: {admission}")
-        if admission == "device":
-            raise NotImplementedError(
-                "admission='device' (an in-loop io_callback in JAX) is not "
-                "ported: ROADMAP A3")
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded slot pool (mesh) is not ported: ROADMAP A8")
+        if admission == "device" and use_fused:
+            logger.warning("device admission pulls into the default "
+                           "segment route, as JAX's (its io_callback runs "
+                           "outside the fused kernel); disabling fused "
+                           "decode")
+            use_fused = False
         if constrained and tokenizer is None:
             raise ValueError("constrained continuous decoding needs a "
                              "tokenizer (its vocab derives the constraint "
@@ -516,6 +547,7 @@ class ContinuousDecoder:
             logger.warning("quantize needs the fused segment kernel "
                            "(in-kernel dequant); serving float weights")
         self.use_fused = use_fused
+        self.admission = admission
         self.segment_ring = bool(segment_ring) and use_fused
         self.pallas_encoder_block = pallas_encoder_block
         self.params = to_torch(params, cfg, self.device)
@@ -557,6 +589,8 @@ class ContinuousDecoder:
                 cfg, num_slots, 1, encoder_len, device=self.device,
                 constrained=constrained)
             self._seg_params = self.params
+            if admission == "device":
+                self._init_device_admission()
         self._free: List[int] = list(range(num_slots))
         self._slot_req: Dict[int, int] = {}
         self._pos_ub: Dict[int, int] = {}     # slot -> position upper bound
@@ -576,6 +610,7 @@ class ContinuousDecoder:
         self._stale_before = 0  # reports of segments before this dropped
         self.reset_stats()
         self.cancelled = 0
+        self.pulled_early = 0  # pulled by a segment dispatched before staging
 
     # -- public API ---------------------------------------------------------
 
@@ -591,6 +626,16 @@ class ContinuousDecoder:
         self._slot_req.clear()
         self._admit_seg.clear()
         self._pos_ub.clear()
+        if self.admission == "device":
+            # staged entries are skipped by the pulls that have not taken
+            # them; one a running segment took decodes into a free slot
+            # until it finishes or the slot's next entry resets it
+            for seq in self._slot_entry.values():
+                self._mailbox.cancel(seq)
+                if seq in self._pool_busy:
+                    self._cancelled_entries.add(seq)
+            self._slot_entry.clear()
+            self._staged.clear()
         self._free = list(range(self.num_slots))
         self._stale_before = self._seg_counter + 1
         while True:  # already-landed reports: account and drop
@@ -628,7 +673,13 @@ class ContinuousDecoder:
         self._next_id += 1
         dt = np.uint8 if np.asarray(image).dtype == np.uint8 else np.float32
         img = torch.from_numpy(np.ascontiguousarray(image, dt))
-        self._pending.append((rid, self._upload(img)))
+        if self.admission == "device":
+            # uploaded by its staging, on the staging stream
+            if self.device.type == "cuda":
+                img = img.pin_memory()
+            self._pending.append((rid, img))
+        else:
+            self._pending.append((rid, self._upload(img)))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -650,10 +701,25 @@ class ContinuousDecoder:
         self._admit_seg.pop(slot, None)
         self._pos_ub.pop(slot, None)
         heapq.heappush(self._free, slot)
-        # a new tensor: reports of dispatched segments keep theirs
-        active = self._small.active.clone()
-        active[slot] = False
-        self._small = self._small._replace(active=active)
+        if self.admission == "device":
+            # the entry is skipped if no pull has taken it yet; the slot
+            # is deactivated only while this entry occupies it (a pull of
+            # the slot's next entry may come first on the stream)
+            seq = self._slot_entry.pop(slot)
+            self._staged.pop(seq, None)
+            self._mailbox.cancel(seq)
+            if seq in self._pool_busy:
+                self._cancelled_entries.add(seq)
+            kill = torch.zeros(self._small.active.shape, dtype=torch.bool)
+            kill[slot] = True
+            kill = self._upload(kill) & (self._occupant == seq)
+            self._small = self._small._replace(
+                active=self._small.active & ~kill)
+        else:
+            # a new tensor: reports of dispatched segments keep theirs
+            active = self._small.active.clone()
+            active[slot] = False
+            self._small = self._small._replace(active=active)
         self.cancelled += 1
         return True
 
@@ -769,6 +835,9 @@ class ContinuousDecoder:
             "t_admit_insert_s": round(self.t_admit_insert, 3),
             "t_dispatch_s": round(self.t_dispatch, 3),
             "t_harvest_wait_s": round(self.t_harvest_wait, 3),
+            "staged": (len(self._staged) if self.admission == "device"
+                       else 0),
+            "pulled_early": self.pulled_early,
         }
 
     @torch.no_grad()
@@ -782,6 +851,9 @@ class ContinuousDecoder:
         ``segment_steps``, which really advances the live slots, so their
         position bounds move with it."""
         h, w = image_shape or (self.cfg.img_h, self.cfg.img_w)
+        if self.admission == "device":
+            self._warmup_device(h, w, image_dtype)
+            return
         pad = self._pad_image(h, w, torch.from_numpy(
             np.zeros((), image_dtype)).dtype)
         scratch = self.num_slots
@@ -804,13 +876,19 @@ class ContinuousDecoder:
             torch.cuda.synchronize(self.device)
 
     def close(self) -> None:
-        """Stop the harvester threads (idempotent; they are daemons)."""
+        """Stop the harvester threads and the publisher (idempotent; they
+        are daemons)."""
         live = [t for t in self._harvesters if t.is_alive()]
         for _ in live:
             self._fetch_q.put(None)
         for t in live:
             t.join(timeout=5)
         self._harvesters = []
+        publisher = getattr(self, "_publisher", None)
+        if publisher is not None and publisher.is_alive():
+            self._publish_q.put(None)
+            publisher.join(timeout=5)
+        self._publisher = None
 
     # -- internals ----------------------------------------------------------
 
@@ -840,9 +918,11 @@ class ContinuousDecoder:
                 ring_s=self.max_segment_steps if self.segment_ring else 0,
                 t_active=t_active, tables=self._constraint)
         else:
+            self._dispatch_seg = self._seg_counter + 1
             self._small, self._cache = decode_segment(
                 self._seg_params, self.cfg, self._small, self._cache, n,
-                tables=self._constraint)
+                tables=self._constraint,
+                pull=self._pull if self.admission == "device" else None)
         return pack_report(self._small)
 
     @staticmethod
@@ -882,6 +962,9 @@ class ContinuousDecoder:
         return pad
 
     def _admit(self) -> None:
+        if self.admission == "device":
+            self._stage_pending()
+            return
         n = min(len(self._pending), len(self._free))
         if n == 0:
             return
@@ -933,6 +1016,8 @@ class ContinuousDecoder:
 
     def _process_report(self, seg_idx: int, rep: Dict[str, np.ndarray]
                         ) -> Dict[int, Tuple[str, float]]:
+        if self.admission == "device":
+            self._resolve_pulls()
         finished = rep["finished"]
         done_slots = [s for s in list(self._slot_req)
                       if finished[s] and self._admit_seg.get(s, 0) <= seg_idx]
@@ -951,7 +1036,168 @@ class ContinuousDecoder:
                 conf = float(np.exp(lp[s] / counts[s]))
                 latex = clean_latex_output(self.tokenizer.decode(tokens[s]))
                 results[rid] = (latex, conf)
+            if self.admission == "device":
+                self._slot_entry.pop(s, None)
             # no release on the device: the slot stays (active, finished),
             # skipped by the segments, until its next insert resets it
             heapq.heappush(self._free, s)
         return results
+
+    # -- device admission -----------------------------------------------------
+
+    def _init_device_admission(self) -> None:
+        """The default route's cross K/V as views of one (L, S, H, L_enc,
+        Dh) tensor a side, the staging pool (two rows a slot), the mailbox,
+        the slots' occupants and the staging stream."""
+        cfg, dev = self.cfg, self.device
+        L = cfg.num_decoder_layers
+        row = tuple(self._cache["cross_k_0"].shape)   # (S, H, L_enc, Dh)
+        dtype = self._cache["cross_k_0"].dtype
+        self._cross_all = tuple(torch.zeros((L,) + row, dtype=dtype,
+                                            device=dev) for _ in range(2))
+        for i in range(L):
+            self._cache[f"cross_k_{i}"] = self._cross_all[0][i]
+            self._cache[f"cross_v_{i}"] = self._cross_all[1][i]
+        pool_rows = 2 * self.num_slots
+        self._pool = tuple(torch.zeros((pool_rows, L) + row[1:],
+                                       dtype=dtype, device=dev)
+                           for _ in range(2))
+        self._pool_free: List[int] = list(range(pool_rows))
+        self._pool_busy: Dict[int, int] = {}   # seq -> pool row
+        self._cancelled_entries: set = set()   # of _pool_busy's seqs
+        self._mailbox = Mailbox(max(64, 4 * pool_rows), dev)
+        self._occupant = torch.zeros((row[0],), dtype=torch.int64,
+                                     device=dev)
+        self._staged: Dict[int, Tuple[int, int, int]] = {}
+        self._slot_entry: Dict[int, int] = {}  # slot -> its entry's seq
+        self._stage_stream = (torch.cuda.Stream(dev)
+                              if dev.type == "cuda" else None)
+        self._publish_q: "queue.Queue" = queue.Queue()
+        self._publisher: Optional[threading.Thread] = None
+        self._dispatch_seg = 0
+
+    def _stage(self, img: torch.Tensor, row: int):
+        """Encode one (H, W, 1) host image (batch 1) and write its cross K/V
+        into pool row ``row``; on the card on the staging stream, returning
+        an event recorded after the copy (None on the host)."""
+        cfg = self.cfg
+
+        def run():
+            x = img.to(self.device, non_blocking=True)
+            memory = _encode(self.params, cfg, x[None],
+                             self.pallas_encoder_block, self.model_state)
+            cross = decoder_mod.project_cross_kv(self.params["decoder"], cfg,
+                                                 memory)
+            for i in range(cfg.num_decoder_layers):
+                self._pool[0][row, i].copy_(cross[f"cross_k_{i}"][0])
+                self._pool[1][row, i].copy_(cross[f"cross_v_{i}"][0])
+
+        if self._stage_stream is None:
+            run()
+            return None
+        with torch.cuda.stream(self._stage_stream):
+            run()
+            done = torch.cuda.Event()
+            done.record(self._stage_stream)
+        return done
+
+    def _reclaim_pool(self) -> None:
+        """Pool rows whose entry a pull has taken or skipped are free, and
+        so are those of cancelled entries once no dispatched segment is
+        outstanding: every later pull reads the cancel mark before the row.
+        (Otherwise cancelled entries that no pull reached would hold their
+        rows while no slot is live, and no segment runs to skip them.)"""
+        quiet = self._inflight == 0
+        for seq, row in list(self._pool_busy.items()):
+            if self._mailbox.consumed(seq) or (
+                    quiet and seq in self._cancelled_entries):
+                del self._pool_busy[seq]
+                self._cancelled_entries.discard(seq)
+                self._pool_free.append(row)
+
+    def _stage_pending(self) -> None:
+        """Stage every pending request that has a free slot and pool row:
+        the slot is the request's now (so that no report misattributes
+        it), its device row changes when a pull takes the entry. The
+        entry's sequence number is reserved after its staging: a staging
+        that raises leaves the request queued and no unpublished number
+        for the pulls, which read the numbers in order, to wait on."""
+        self._reclaim_pool()
+        while (self._pending and self._free and self._pool_free
+               and not self._mailbox.full()):
+            row = self._pool_free[-1]
+            ti = time.perf_counter()
+            done = self._stage(self._pending[0][1], row)
+            self.t_admit_insert += time.perf_counter() - ti
+            seq = self._mailbox.reserve()
+            rid, _img = self._pending.pop(0)
+            slot = heapq.heappop(self._free)
+            self._pool_free.pop()
+            self._slot_req[slot] = rid
+            self._pos_ub[slot] = 0
+            self._admit_seg[slot] = _NOT_PULLED
+            self._slot_entry[slot] = seq
+            self._pool_busy[seq] = row
+            self._staged[seq] = (rid, slot, self._seg_counter)
+            if done is None:
+                self._mailbox.publish(seq, row, slot)
+            else:
+                self._ensure_publisher()
+                self._publish_q.put((seq, row, slot, done))
+
+    def _ensure_publisher(self) -> None:
+        if self._publisher is None or not self._publisher.is_alive():
+            self._publisher = threading.Thread(
+                target=self._publish_loop, daemon=True,
+                name="continuous-publisher")
+            self._publisher.start()
+
+    def _publish_loop(self) -> None:
+        """Publish staged entries in sequence order, each once its staging
+        copy has finished."""
+        while True:
+            item = self._publish_q.get()
+            if item is None:
+                return
+            seq, row, slot, done = item
+            done.synchronize()
+            self._mailbox.publish(seq, row, slot)
+
+    def _pull(self, step: int, small: SmallState,
+              cache: Dict[str, torch.Tensor], max_scan=None) -> None:
+        """One pull at the head of ``step`` of the segment being
+        dispatched, into the step's own state tensors."""
+        con = (tuple(cache[k] for k in _CON)
+               if self._constraint is not None else None)
+        admission_pull(self._mailbox, *self._pool, *self._cross_all,
+                       PullState(*small, con, self._occupant),
+                       seg=self._dispatch_seg, step=step, max_scan=max_scan)
+
+    def _resolve_pulls(self) -> None:
+        """Read the pulls' records of the staged slots: a slot whose entry a
+        segment took is harvested from that segment's report on."""
+        for slot, seq in list(self._slot_entry.items()):
+            if self._admit_seg.get(slot) != _NOT_PULLED:
+                continue
+            taken = self._mailbox.taken(seq)
+            if taken is None:
+                continue
+            self._admit_seg[slot] = taken[0]
+            _rid, _slot, staged_at = self._staged.pop(seq)
+            if taken[0] <= staged_at:
+                self.pulled_early += 1
+
+    def _warmup_device(self, h: int, w: int, image_dtype) -> None:
+        """Device admission's warmup: one staging of a zero image into a
+        free pool row (the encoder kernels' build, the allocator), left
+        unpublished, and one pull launch that reads no entry."""
+        pad = torch.zeros((h, w, 1), dtype=torch.from_numpy(
+            np.zeros((), image_dtype)).dtype)
+        self._reclaim_pool()
+        if self._pool_free:
+            done = self._stage(pad, self._pool_free[-1])
+            if done is not None:
+                done.synchronize()
+        self._pull(0, self._small, self._cache, max_scan=0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

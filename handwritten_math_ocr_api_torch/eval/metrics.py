@@ -4,10 +4,11 @@ The port of ``handwritten_math_ocr_api_tpu/eval/metrics.py``: edit distance
 is character-level Levenshtein between the decoded strings, CER is
 corpus-level (total char errors / total target chars), BLEU-4 is corpus
 BLEU with method-4 smoothing over whitespace-split tokens. Edit distance is
-the pure-Python two-row DP (the JAX package's last fallback; the port binds
-neither ``Levenshtein`` nor the JAX package's native library), run on what
-lies between the pair's common prefix and suffix. BLEU-4 keeps
-the JAX rule: nltk's ``corpus_bleu`` where nltk imports, else 0.0.
+the port's host C++ library (``native/``: one pair, or a batch on a thread
+pool) where it builds, as in JAX, else the pure-Python two-row DP (the JAX
+package's last fallback) run on what lies between the pair's common
+prefix and suffix; the two give the same distances. BLEU-4 keeps the JAX
+rule: nltk's ``corpus_bleu`` where nltk imports, else 0.0.
 """
 
 from __future__ import annotations
@@ -42,7 +43,14 @@ def _levenshtein_py(a: str, b: str) -> int:
     return prev[-1]
 
 
-levenshtein = _levenshtein_py
+def levenshtein(a: str, b: str) -> int:
+    """The native library's distance where it builds, else the Python
+    one."""
+    from .. import native
+
+    if native.available():
+        return native.edit_distance(a, b)
+    return _levenshtein_py(a, b)
 
 
 def edit_distance(pred: str, target: str) -> int:
@@ -63,7 +71,12 @@ def cer(pred: str, target: str) -> float:
 
 def batch_edit_distance(preds: Sequence[str],
                         targets: Sequence[str]) -> List[int]:
-    """Pairwise distances."""
+    """Pairwise distances: on the native library's thread pool where it
+    builds."""
+    from .. import native
+
+    if native.available():
+        return [int(d) for d in native.edit_distance_batch(preds, targets)]
     return [edit_distance(p, t) for p, t in zip(preds, targets)]
 
 

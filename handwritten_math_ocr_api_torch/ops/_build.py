@@ -113,6 +113,15 @@ SIGNATURES = {
     "swin_block_f32": (P,) * 15 + (I,) * 12 + (P,),
     # C, heads, hidden, ws, the bf16 plan (5 ints), smem bytes, out
     "swin_block_active_clusters": (I,) * 10 + (P,),
+    # device admission: the mailbox's bytes, out host and device addresses
+    "admission_mailbox_alloc": (ctypes.c_size_t, P, P),
+    "admission_mailbox_free": (P,),
+    # mail, cap, cursor, max_scan, pool_k, pool_v, cross_k, cross_v, L, S,
+    # P, row bytes, prev, pos, active, finished, tokens, T, lp_sum, count,
+    # con_stack, depth, con_ptr, con_mode, con_needs, con_sup, occupant,
+    # seg, step, sos, pad, stream
+    "admission_pull": (P, I, P, I) + (P,) * 4 + (I,) * 4 + (P,) * 5
+                      + (I, P, P, P, I) + (P,) * 5 + (I,) * 4 + (P,),
 }
 
 _lib = None

@@ -25,9 +25,10 @@ What differs from JAX's app:
   in float32). The engines take the artifact's ``model_state`` (a ResNet
   encoder's BatchNorm statistics), as JAX's do;
 - the device: ``cuda`` unless the state is made with ``device="cpu"``
-  (the tests); nothing falls back to the CPU. ``SERVING_MESH_DATA > 1``
-  and ``SERVING_ADMISSION=device`` are not ported: each logs a warning and
-  serves on one device with host admission (the same results);
+  (the tests); nothing falls back to the CPU. ``SERVING_ADMISSION=device``
+  builds a device-admission continuous decoder, as JAX's app does.
+  ``SERVING_MESH_DATA > 1`` is not ported: it logs a warning and serves on
+  one device (the same results);
   ``ENABLE_PROFILER_SERVER`` has no counterpart and is logged;
 - image intake: every upload decodes and resizes through PIL, as in JAX
   (PIL is imported inside ``_decode_image_bytes``).
@@ -163,11 +164,6 @@ class ServerState:
                     "SERVING_QUANTIZE requires SERVING_USE_FUSED in "
                     "continuous batching mode (in-kernel dequant); "
                     "serving float weights")
-            admission = self.cfg.admission
-            if admission == "device":
-                logger.warning("SERVING_ADMISSION=device is not ported; "
-                               "using host admission")
-                admission = "host"
             decoder = ContinuousDecoder(
                 params, model_cfg, self.tokenizer,
                 num_slots=self.cfg.num_slots,
@@ -179,7 +175,7 @@ class ServerState:
                 segment_ring=self.cfg.segment_ring,
                 constrained=self.cfg.constrained_decode,
                 harvest_threads=self.cfg.harvest_threads,
-                admission=admission, model_state=model_state,
+                admission=self.cfg.admission, model_state=model_state,
                 device=device)
             try:  # the kernel build and allocator growth before traffic
                 decoder.warmup(image_dtype=(

@@ -26,11 +26,13 @@ import json
 import os
 import shutil
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
 import torch_app_harness as h
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 TIMING = {"processing_time", "timestamp", "uptime", "model_load_time",
           "device"}
@@ -291,12 +293,35 @@ def test_cors_request_id_and_unknown_routes(servers):
         assert j.body == t.body
 
 
-def test_auth_and_rate_limit(artifact):
+class _FrozenClock:
+    """The ``time`` module with ``time()`` held at one instant."""
+
+    def __init__(self, now: float):
+        self.now = now
+
+    def time(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_auth_and_rate_limit(artifact, monkeypatch):
     """An API key and the default limits (20 requests a minute): 401
     without the key, 403 with a wrong one, 200 with ``X-API-Key`` and with
     ``Bearer``; then anonymous requests (each a 401, each counted) until
     the anonymous client's 21st gets 429: the same status and body at each
-    request of the sequence on both apps, and the same ``client_id``."""
+    request of the sequence on both apps, and the same ``client_id``. Both
+    limiters count in windows keyed on ``time.time()``: the clock both
+    limiter modules read is held one second into a minute, so that the
+    sequence never crosses a window boundary on one app and not the
+    other."""
+    from handwritten_math_ocr_api_torch.serve import rate_limiter as t_rl
+    from handwritten_math_ocr_api_tpu.serve import rate_limiter as j_rl
+
+    clock = _FrozenClock(int(time.time()) // 60 * 60 + 1.0)
+    monkeypatch.setattr(t_rl, "time", clock)
+    monkeypatch.setattr(j_rl, "time", clock)
     kw = dict(model_dir=artifact, api_key="sekrit")
     pair = (h.JaxServer(h.jax_config(**kw)), h.PortServer(h.port_config(**kw)))
     try:

@@ -49,6 +49,7 @@ from handwritten_math_ocr_api_torch.utils import profiling as tprofiling
 
 from test_torch_fused import _j, jitter
 from test_torch_models import jax_config
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 CFG = tcfg.ModelConfig(
     d_model=32, nhead=4, dim_feedforward=64, dropout=0.0,

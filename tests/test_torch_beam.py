@@ -64,6 +64,7 @@ from test_torch_fused import (
     jax_config,
 )
 from test_torch_models import CFG, JCFG
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 SCORE_ATOL, SCORE_RTOL = 5e-3, 2e-3
 STEP_TOL = 1e-5

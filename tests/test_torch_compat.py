@@ -54,6 +54,7 @@ from handwritten_math_ocr_api_torch.train.checkpoint import (
 from handwritten_math_ocr_api_torch.utils import tree
 
 from test_compat import _fake_swin_sd
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 nn = torch.nn
 TOL = 1e-4

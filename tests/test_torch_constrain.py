@@ -67,6 +67,7 @@ from handwritten_math_ocr_api_torch.ops.fused_step import build_stacked
 
 from test_torch_fused import _j, jitter
 from test_torch_models import jax_config
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 STRUCT_TOKENS = ["{", "}", "\\left", "\\right", "\\begin", "\\end", "^", "_",
                  "\\frac", "\\sqrt", "\\hat", "\\binom"]

@@ -32,6 +32,8 @@ from handwritten_math_ocr_api_torch.decode.api import pick_bucket as t_pick
 from handwritten_math_ocr_api_torch.train import loop as tloop
 from handwritten_math_ocr_api_torch.train import step as tstep
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "handwritten_math_ocr_api_torch")
 MODEL_DIR = os.path.join(REPO, "serving_model_r4")

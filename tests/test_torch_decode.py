@@ -32,6 +32,7 @@ from handwritten_math_ocr_api_torch.models import decoder as tdec
 from handwritten_math_ocr_api_torch.models import model as tmodel
 
 from test_torch_models import CFG, JCFG
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 BUCKETS = (1, 2, 4)
 VOCAB = {t: i for i, t in enumerate(

@@ -52,6 +52,7 @@ from handwritten_math_ocr_api_torch.eval import metrics as tmetrics
 from handwritten_math_ocr_api_torch.train import checkpoint as tckpt
 
 from test_torch_fused import _j, jitter
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL_DIR = os.path.join(REPO, "serving_model_r4")
@@ -208,11 +209,16 @@ def test_load_image_png_and_preprocess_file(tmp_path):
     np.testing.assert_array_equal(
         tpre.preprocess_file(path, cfg),
         jpre.preprocess_file(path, jconfig.ModelConfig()))
+    # an image not at the model's size: cv2's stretch resize, as JAX's
+    # loader resizes it
     other = str(tmp_path / "small.png")
     with open(other, "wb") as f:
         f.write(_png(_image(48, 160, 1)))
-    with pytest.raises(ValueError, match="resize is not ported"):
-        tpre.load_image_png(other)
+    np.testing.assert_array_equal(tpre.load_image_png(other),
+                                  jpre.load_image_cv2(other))
+    np.testing.assert_array_equal(
+        tpre.preprocess_file(other, cfg),
+        jpre.preprocess_file(other, jconfig.ModelConfig()))
 
 
 # -- metrics, LaTeX checks, calibration ---------------------------------------
@@ -394,8 +400,10 @@ def test_small_split_batches_match_jax(batch):
 
 
 def test_loader_raises_a_decode_error(tmp_path):
-    """A broken image stops the iteration with the reader's error; an
-    image of another size with the resize's."""
+    """A broken image stops the iteration with the reader's error; images
+    of other sizes are stretch-resized, as JAX's loader does, alone or
+    beside one at the model's size (the batch read falls back to one
+    image at a time); a CSV without the header is refused."""
     (tmp_path / "test_formulas").mkdir()
     (tmp_path / "test_formulas" / "a.png").write_bytes(b"not a png")
     (tmp_path / "test_labels.csv").write_text(
@@ -408,8 +416,24 @@ def test_loader_raises_a_decode_error(tmp_path):
         list(loader)
     (tmp_path / "test_formulas" / "a.png").write_bytes(_png(_image(48, 160,
                                                                    2)))
-    with pytest.raises(ValueError, match="resize is not ported"):
-        list(loader)
+    jtok = _tokenizers()[1]
+
+    def loaders():
+        return (tdataset.get_test_loader(
+                    tok, tconfig.DataConfig(data_root=str(tmp_path)),
+                    tconfig.ModelConfig()),
+                jdataset.get_test_loader(
+                    jtok, jconfig.DataConfig(data_root=str(tmp_path)),
+                    jconfig.ModelConfig()))
+
+    _same_batches(*loaders())
+    (tmp_path / "test_formulas" / "b.png").write_bytes(_png(_image(96, 320,
+                                                                   3)))
+    (tmp_path / "test_formulas" / "c.png").write_bytes(_png(_image(130, 400,
+                                                                   4)))
+    (tmp_path / "test_labels.csv").write_text(
+        "image_filename,latex_label\na.png,x\nb.png,y\nc.png,z\n")
+    assert len(_same_batches(*loaders())) == 1
     (tmp_path / "test_labels.csv").write_text("name,label\na.png,x\n")
     with pytest.raises(ValueError, match="header"):
         tdataset.read_labels(str(tmp_path / "test_labels.csv"))

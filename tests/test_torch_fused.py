@@ -65,6 +65,7 @@ from handwritten_math_ocr_api_torch.ops import swin_block as tblock
 
 from test_torch_decode import BUCKETS, VOCAB
 from test_torch_models import CFG, JCFG, jax_config
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 # the decoder of tests/test_fused.py: 2 layers, d 32, 4 heads, FFN 64
 DEC_CFG = tcfg.ModelConfig(

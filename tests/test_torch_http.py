@@ -48,6 +48,8 @@ from handwritten_math_ocr_api_torch.serve import app as tapp
 from handwritten_math_ocr_api_torch.serve import http as web
 from handwritten_math_ocr_api_torch.serve import rate_limiter as trl
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "data_eval_hard", "test_formulas")
 SIZE = (96, 320)

@@ -30,7 +30,10 @@ top two lie within the step tolerance (a near-tie), and a decode's tokens
 must agree up to such a step in each row; in float32 they are equal, and
 the whole decode's log-prob sums within 1e-2 (150 float32 log-probs).
 The decoder kernels are also held at the ResNet encoders' memory of 10
-columns (``RESNET``), with the same tolerances.
+columns (``RESNET``), with the same tolerances. Device admission's pull
+(``ops/admission.py``) is held exactly against its plain install, on a
+publication made after its launch, and through a device-admission
+``ContinuousDecoder`` against host admission (float32).
 """
 
 import numpy as np
@@ -1426,6 +1429,153 @@ def test_whole_decode_at_resnet_memory(dev, np_params, bundle, B):
                                    atol=1e-2, rtol=0)
     else:
         _hold_decode(got, want, logits, STEP_TOL["bfloat16"][0])
+
+
+# -- device admission's pull (csrc/admission_pull.cu) ------------------------
+
+
+def _pull_setup(dev, dtype, constrained, S=33, P=64, seed=40):
+    """Phase 6's pool at the serving config's cross K/V: pools, caches and
+    a small state of random values."""
+    from handwritten_math_ocr_api_torch.decode.constrain import STACK_DEPTH
+    from handwritten_math_ocr_api_torch.ops import admission as adm
+
+    L, H, Dh, T = 8, CFG.nhead, CFG.head_dim, CFG.max_seq_len
+    row = (H, CFG.encoder_len, Dh)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(hi, *shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    pool = tuple(_randn(dev, dtype, P, L, *row, seed=seed + i)
+                 for i in range(2))
+    cross = tuple(_randn(dev, dtype, L, S, *row, seed=seed + 2 + i)
+                  for i in range(2))
+    state = adm.PullState(
+        prev=ints(138, S), pos=ints(T, S), active=ints(2, S).bool(),
+        finished=ints(2, S).bool(), tokens=ints(138, S, T),
+        lp_sum=torch.randn((S,), generator=gen, device=dev),
+        count=ints(T, S),
+        con=((ints(9, S, STACK_DEPTH), ints(STACK_DEPTH, S), ints(3, S),
+              ints(2, S).bool(), ints(2, S).bool())
+             if constrained else None),
+        occupant=ints(5, S, dtype=torch.int64))
+    return pool, cross, state
+
+
+def _pull_copy(cross, state):
+    from handwritten_math_ocr_api_torch.ops import admission as adm
+
+    return (tuple(t.clone() for t in cross),
+            adm.PullState(*(t.clone() for t in state[:7]),
+                          None if state.con is None
+                          else tuple(t.clone() for t in state.con),
+                          state.occupant.clone()))
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_admission_pull_matches_plain(dev, dtype, constrained):
+    """Six entries (the second cancelled, one out of the pool's range) and
+    eight pulls: the kernel's cross K/V, state, pushdown rows, occupants,
+    cursor and records equal the plain install's exactly, one entry a
+    pull, the cancelled and the out-of-range entries skipped."""
+    from handwritten_math_ocr_api_torch.ops import admission as adm
+
+    pool, cross, state = _pull_setup(dev, dtype, constrained)
+    plan = [(5, 7), (11, 7), (63, 32), (0, 0), (64, 3), (2, 31)]
+    runs = []
+    for pull in (adm.admission_pull, adm.admission_pull_plain):
+        mb = adm.Mailbox(64, dev)
+        for p, slot in plan:
+            mb.publish(mb.reserve(), p, slot)
+        mb.cancel(2)
+        c, st = _pull_copy(cross, state)
+        before = adm.admission_pull.launches
+        for step in range(8):
+            pull(mb, *pool, *c, st, seg=3, step=step)
+        torch.cuda.synchronize()
+        counted = adm.admission_pull.launches - before
+        runs.append((mb, c, st, counted))
+    (mk, ck, sk, nk), (mp, cp, sp, np_) = runs
+    assert (nk, np_) == (8, 0)
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+    for a, b in zip(sk[:7], sp[:7]):
+        assert torch.equal(a, b)
+    if constrained:
+        for a, b in zip(sk.con, sp.con):
+            assert torch.equal(a, b)
+    assert torch.equal(sk.occupant, sp.occupant)
+    assert torch.equal(mk.cursor, mp.cursor) and int(mk.cursor) == 6
+    np.testing.assert_array_equal(mk.entries[:6], mp.entries[:6])
+    assert [mk.taken(s) for s in range(1, 7)] == [
+        (3, 0), None, (3, 1), (3, 2), None, (3, 3)]
+    assert mk.consumed(2) and mk.consumed(5)
+    assert torch.equal(ck[0][:, 32], pool[0][63])
+    assert bool(sk.active[32]) and int(sk.occupant[32]) == 3
+    mk.close()
+    mp.close()
+
+
+def test_admission_pull_reads_a_late_publication(dev):
+    """A pull queued behind 200 ms of work on the stream takes an entry the
+    host publishes after the launch: the kernel reads the mapped mailbox
+    when it runs."""
+    from handwritten_math_ocr_api_torch.ops import admission as adm
+
+    pool, cross, state = _pull_setup(dev, "bfloat16", False, seed=50)
+    mb = adm.Mailbox(64, dev)
+    c, st = _pull_copy(cross, state)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4 * 10 ** 8)
+    adm.admission_pull(mb, *pool, *c, st, seg=1, step=0)
+    mb.publish(mb.reserve(), 9, 4)   # after the launch was queued
+    torch.cuda.synchronize()
+    assert mb.taken(1) == (1, 0)
+    assert torch.equal(c[1][:, 4], pool[1][9])
+    assert int(st.pos[4]) == 0 and int(st.prev[4]) == 1
+    mb.close()
+
+
+def test_device_admission_decoder_on_card(dev):
+    """``ContinuousDecoder(admission="device")`` on the card (a small Swin
+    config, float32): its results equal host admission's with batch-1
+    encodes, one pull launched a scheduled step, and its staging on the
+    side stream published by its thread."""
+    from handwritten_math_ocr_api_torch.core.config import SwinConfig
+    from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_torch.decode import continuous as cont
+    from handwritten_math_ocr_api_torch.ops import admission as adm
+
+    cfg = ModelConfig(
+        d_model=32, nhead=4, dim_feedforward=64, dropout=0.0,
+        num_decoder_layers=2, max_seq_len=12, vocab_size=20,
+        dtype="float32", swin=SwinConfig(embed_dim=8, depths=(1, 1),
+                                         num_heads=(2, 2), window_size=4,
+                                         stochastic_depth=0.0))
+    params = convert.random_params(cfg, seed=3)
+    params["decoder"]["fc_out"]["b"][EOS_ID] += 3.0
+    vocab = {"<pad>": 0, "<sos>": 1, "<eos>": 2, "<unk>": 3,
+             **{f"t{i}": i for i in range(4, 20)}}
+    images = np.random.default_rng(4).integers(
+        0, 256, (7, cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+    out = {}
+    for admission in ("host", "device"):
+        dec = cont.ContinuousDecoder(params, cfg, Tokenizer(vocab),
+                                     num_slots=3, segment_steps=4,
+                                     encode_buckets=(1,),
+                                     admission=admission, device=dev)
+        before = adm.admission_pull.launches
+        out[admission] = dec.run_all(list(images))
+        pulls = adm.admission_pull.launches - before
+        assert pulls == (dec.steps_scheduled if admission == "device"
+                         else 0)
+        dec.close()
+    assert [r[0] for r in out["device"]] == [r[0] for r in out["host"]]
+    for (_, a), (_, b) in zip(out["device"], out["host"]):
+        assert abs(a - b) < 1e-4
 
 
 # host threads launching at once: a server's executor threads (beam,

@@ -33,6 +33,8 @@ from handwritten_math_ocr_api_torch.models import layers as tlayers
 from handwritten_math_ocr_api_torch.models import model as tmodel
 from handwritten_math_ocr_api_torch.models import swin as tswin
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 # embed 24, depths (1,1,2,1), heads (1,2,2,4); 32x80 images give stage
 # maps 8x20, 4x10, 2x5 (odd: padded before the last merge), 1x3 — shifted
 # windows in stage 1, the shift clamped along the short side in stage 2

@@ -60,6 +60,7 @@ from handwritten_math_ocr_api_torch.ops import whole_decode as twd
 from test_torch_beam import SCORE_ATOL, SCORE_RTOL
 from test_torch_fused import DEC_CFG, _j, _t, jitter
 from test_torch_models import jax_config
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 ATTN_TOL = 1e-5
 LOGIT_TOL = 1e-4

@@ -38,6 +38,7 @@ from test_torch_decode import BUCKETS, VOCAB
 from test_torch_fused import _j, jitter
 from test_torch_models import CFG
 from test_torch_mqa import _cfgs
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 
 def _engine_tree(nhead_kv, zero_ln1_bias):

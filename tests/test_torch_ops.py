@@ -35,6 +35,8 @@ from handwritten_math_ocr_api_torch.ops import cache_attention as ca
 from handwritten_math_ocr_api_torch.ops import patch_merging as pm
 from handwritten_math_ocr_api_torch.ops import window_attention as wa
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 ATOL, RTOL = 1e-5, 1e-5
 
 
@@ -260,4 +262,5 @@ def test_kernel_build_and_launch_checks(monkeypatch, tmp_path):
                               "whole_decode", "whole_decode_i8")
          for t in ("bf16", "f32")]
         + ["beam_cache_gather", "cluster_geometry",
-           "swin_block_active_clusters"])
+           "swin_block_active_clusters", "admission_mailbox_alloc",
+           "admission_mailbox_free", "admission_pull"])

@@ -67,6 +67,7 @@ from test_torch_fused import (
     jax_config,
 )
 from test_torch_models import CFG, JCFG
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 MM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 INT8_STEP_ATOL = 5e-3

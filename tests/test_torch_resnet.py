@@ -51,6 +51,8 @@ from handwritten_math_ocr_api_torch.train import optim as toptim
 from handwritten_math_ocr_api_torch.train import step as tstep
 from handwritten_math_ocr_api_torch.utils import tree
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 FEAT_TOL = 1e-4
 STATS_RTOL = 1e-5
 STEP_RTOL = 1e-5

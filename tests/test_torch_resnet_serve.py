@@ -45,6 +45,7 @@ from test_torch_resnet import (
     assert_stats,
     jax_config,
 )
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 CONF_TOL = 1e-4
 

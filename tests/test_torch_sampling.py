@@ -55,6 +55,7 @@ from handwritten_math_ocr_api_torch.ops.fused_step import build_stacked
 
 from test_torch_fused import _j, jitter
 from test_torch_models import jax_config
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 CFG = tcfg.ModelConfig(d_model=32, nhead=4, dim_feedforward=64, dropout=0.0,
                        num_decoder_layers=2, max_seq_len=12, vocab_size=20,

@@ -16,6 +16,8 @@ import os
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL_DIR = os.path.join(REPO, "serving_model_r4")
 IMAGES = sorted(glob.glob(os.path.join(

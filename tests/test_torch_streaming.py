@@ -54,6 +54,7 @@ from handwritten_math_ocr_api_torch.models import decoder as tdec
 
 from test_torch_fused import _j, jitter
 from test_torch_models import jax_config
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 T = 10
 CFG = tcfg.ModelConfig(d_model=32, nhead=4, dim_feedforward=64, dropout=0.0,

@@ -62,6 +62,8 @@ from handwritten_math_ocr_api_torch.train.checkpoint import (
 )
 from handwritten_math_ocr_api_torch.utils import tree
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL_DIR = os.path.join(REPO, "serving_model_r4")
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_r4_train.json")

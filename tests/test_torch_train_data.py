@@ -38,6 +38,8 @@ from handwritten_math_ocr_api_torch.train import checkpoint as tckpt
 from handwritten_math_ocr_api_torch.train import step as tstep
 from handwritten_math_ocr_api_torch.utils import tree
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 CFG = tcfg.ModelConfig(
     img_h=32, img_w=64, d_model=32, nhead=4, dim_feedforward=64,
     dropout=0.0, num_decoder_layers=1, max_seq_len=16, vocab_size=20,
@@ -174,9 +176,8 @@ def test_stream_matches_jax(epoch):
 
 
 def test_corpus_and_learnable_datasets_match_jax(tmp_path):
-    """Labels and pixels of ``make_corpus`` and ``make_learnable_dataset``
-    equal JAX's; ``make_synthetic_dataset``'s labels too (its stroke pixels
-    are drawn by another library)."""
+    """Labels and pixels of ``make_corpus``, ``make_learnable_dataset`` and
+    ``make_synthetic_dataset`` (cv2's polylines, as JAX's) equal JAX's."""
     for name, kw in (("make_corpus", dict(n_train=6, n_val=3, n_test=3,
                                           img_h=32, img_w=96, seed=2)),
                      ("make_learnable_dataset", dict(img_h=32, img_w=96)),
@@ -188,8 +189,7 @@ def test_corpus_and_learnable_datasets_match_jax(tmp_path):
         splits = ("train",) if name == "make_synthetic_dataset" else (
             "train", "validate", "test")
         for split in splits:
-            same_split_files(a, b, split,
-                             pixels=name != "make_synthetic_dataset")
+            same_split_files(a, b, split, pixels=True)
 
 
 # ----------------------------------------------------------------- loader

@@ -50,6 +50,8 @@ from handwritten_math_ocr_api_torch.train import step as tstep
 from handwritten_math_ocr_api_torch.train import vocab_extend as tvext
 from handwritten_math_ocr_api_torch.utils import tree
 
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 32, 96
 SWIN = dict(embed_dim=16, depths=(1, 1), num_heads=(2, 2), window_size=4,
@@ -253,12 +255,15 @@ def test_cli_build_vocab_train_evaluate_predict(tmp_path):
 
 
 def test_cli_refuses_the_stroke_renderer(tmp_path):
+    """The stroke renderer's native backend without the stroke renderer is
+    refused, as JAX's CLI refuses it."""
     out = subprocess.run(
         [sys.executable, "-m", "handwritten_math_ocr_api_torch", "train",
-         "--synthetic-stream", "8", "--stream-renderer", "stroke",
+         "--synthetic-stream", "8", "--stream-native-render",
          "--checkpoint-dir", str(tmp_path)], capture_output=True, text=True,
         timeout=120, env={**os.environ, "PYTHONPATH": REPO})
-    assert out.returncode != 0 and "not ported" in out.stderr
+    assert (out.returncode != 0
+            and "requires --stream-renderer stroke" in out.stderr)
 
 
 # ---------------------------------------------- vocab extension, GQA

@@ -52,6 +52,7 @@ from test_torch_fused import (
     _t,
     decoder,  # noqa: F401  (a fixture)
 )
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 STEP_TOL = 1e-5
 LP_RTOL = 1e-4

@@ -54,6 +54,7 @@ from test_torch_fused import (
     decoder,  # noqa: F401  (a fixture)
 )
 from test_torch_variants import _check_decode, _eos_decoder
+import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
 STEP_TOL = 1e-5
 L, T, D, L_ENC = 2, 12, 32, 6
