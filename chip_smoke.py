@@ -2245,8 +2245,9 @@ def serve(cfg, np_params, tok, entries, route, beam=True,
     against the plain path are not repeated (phase 12 (b): phase 4 holds
     the same decoder route in float32 and phase 12 (a) each decoder kernel
     at its memory columns); the float32 memory is still held. Returns
-    ((images/s, idle share, bf16 greedy tokens) of greedy, serve_beam's
-    result or None)."""
+    ((images/s, idle share, float32 greedy tokens of the first two images
+    or None, bf16 greedy tokens) of greedy, serve_beam's result or
+    None)."""
     import numpy as np
     import torch
 
@@ -2347,6 +2348,7 @@ def serve(cfg, np_params, tok, entries, route, beam=True,
         f"{err32:.3g}")
     if err32 > MEMORY_F32_ATOL:
         raise AssertionError(f"float32 encoder memory differs by {err32}")
+    f32 = None
     if not float32_decodes:
         log(f"serve {route}: float32 decodes not repeated (phase 4 holds "
             f"this decoder route in float32)")
@@ -2365,9 +2367,10 @@ def serve(cfg, np_params, tok, entries, route, beam=True,
         lp_err = (r_k.logprob_sum - r_p.logprob_sum).abs().max().item()
         if lp_err > 1e-2:
             raise AssertionError(f"float32 logprob sums differ by {lp_err}")
+        f32 = r_k.tokens
     if not beam:
-        return (N_IMAGES / best, idle, res_k.tokens), None
-    return ((N_IMAGES / best, idle, res_k.tokens),
+        return (N_IMAGES / best, idle, f32, res_k.tokens), None
+    return ((N_IMAGES / best, idle, f32, res_k.tokens),
             serve_beam(engine, engine32, images, entries, route,
                        float32_decodes))
 
@@ -2465,7 +2468,8 @@ def serve_beam(engine, engine32, images, entries, route,
     the same memory. The fused int8 route's float32 beam tokens are
     reported, not held equal: its steps round their matmul inputs to bf16
     (``fused_int8_trace`` holds its step logits). Returns (images/s, idle
-    share, steps, bf16 beam tokens)."""
+    share, steps, float32 beam tokens of the first two images or None,
+    bf16 beam tokens)."""
     import torch
 
     from handwritten_math_ocr_api_torch.decode.beam import beam_decode
@@ -2518,7 +2522,7 @@ def serve_beam(engine, engine32, images, entries, route,
     log(f"serve {name}: bf16 beam tokens, kernels vs plain on the same "
         f"memory, agree {agree:.4f}")
     if not float32_decodes:
-        return N_IMAGES / best, idle, steps, res_k.tokens
+        return N_IMAGES / best, idle, steps, None, res_k.tokens
 
     x32, B32 = engine32._pad_batch(images[:2])
     with torch.inference_mode():
@@ -2545,7 +2549,7 @@ def serve_beam(engine, engine32, images, entries, route,
             log(f"serve {name}: float32 beam tokens first differ at image "
                 f"{int(differ[0, 0])} step {int(differ[0, 1])} (reported, "
                 f"not held: see the float32 step logits above)")
-        return N_IMAGES / best, idle, steps, res_k.tokens
+        return N_IMAGES / best, idle, steps, None, res_k.tokens
     if not torch.equal(r_k.tokens, r_p.tokens):
         raise AssertionError("float32 beam tokens differ between the "
                              "kernel path and the plain path")
@@ -2555,7 +2559,7 @@ def serve_beam(engine, engine32, images, entries, route,
     if other is not None and not torch.equal(r_k.tokens, other.tokens):
         raise AssertionError("float32 fused beam tokens differ from the "
                              "default route's beam")
-    return N_IMAGES / best, idle, steps, res_k.tokens
+    return N_IMAGES / best, idle, steps, r_k.tokens, res_k.tokens
 
 
 def serve_grouped(cfg, tok, entries):
@@ -2648,9 +2652,9 @@ def continuous_decoder(cfg, np_params, tok, **kw):
             super().__init__(*args, **kwargs)
             self.decoded, self.inserts = {}, 0
 
-        def _insert(self, slots, imgs):
-            self.inserts += 1
-            return super()._insert(slots, imgs)
+        def _insert(self, *args):
+            self.inserts += 1   # one encode: a shard's admissions of a tick
+            return super()._insert(*args)
 
         def _process_report(self, seg_idx, rep):
             held = dict(self._slot_req)
@@ -2667,12 +2671,12 @@ def continuous_decoder(cfg, np_params, tok, **kw):
                      max_segment_steps=CONT_RING, device=DEVICE, **kw)
 
 
-def continuous_traffic(dec, images):
-    """Phase 6's traffic: 8 images submitted at once, then 4 a scheduler
-    tick, so that admissions land mid-flight and slots are reused; run to
-    the end. Returns (the (latex, confidence) results, a GreedyResult of
-    the requests' tokens, both in submission order, and the wall
-    seconds)."""
+def continuous_traffic(dec, images, first=8):
+    """Phase 6's traffic: ``first`` images submitted at once, then 4 a
+    scheduler tick, so that admissions land mid-flight and slots are
+    reused; run to the end. Returns (the (latex, confidence) results, a
+    GreedyResult of the requests' tokens, both in submission order, and
+    the wall seconds)."""
     import numpy as np
     import torch
 
@@ -2680,8 +2684,8 @@ def continuous_traffic(dec, images):
 
     dec.decoded.clear()
     t0 = time.perf_counter()
-    ids = [dec.submit(img) for img in images[:8]]
-    results, n = {}, 8
+    ids = [dec.submit(img) for img in images[:first]]
+    results, n = {}, first
     while not dec.idle:
         results.update(dec.step_once())
         if n < len(images):
@@ -2701,9 +2705,10 @@ def continuous_traffic(dec, images):
 
 def continuous_counts(dec, cfg, route, name):
     """The run's launch counts against its shape: the encoder's kernels in
-    each admission's encode, and one launch of B7's entry for the pool
-    (ring or not, int8 or not, MQA or not) a scheduled step on the fused
-    route (none on the default one), every other kernel none."""
+    each admission's encode (on a mesh, each shard's), and one launch of
+    B7's entry for the pool (ring or not, int8 or not, MQA or not) a
+    scheduled step and a shard on the fused route (none on the default
+    one), every other kernel none."""
     from handwritten_math_ocr_api_torch.ops.fused_step import (
         fused_ragged_step,
     )
@@ -2711,12 +2716,12 @@ def continuous_counts(dec, cfg, route, name):
     counts = read_counts()
     expected = expected_launches(cfg, route, dec.inserts, 0)
     if dec.use_fused:
+        int8 = "w_qkv_s" in dec._shards[0].seg_params
         attr = (("ring_" if dec.segment_ring else "")
                 + ("mqa_" if cfg.kv_heads != cfg.nhead else "")
-                + ("int8_launches" if "w_qkv_s" in dec._seg_params
-                   else "launches"))
+                + ("int8_launches" if int8 else "launches"))
         expected[kernel_counters().index((fused_ragged_step, attr))] = (
-            dec.steps_scheduled)
+            dec.steps_scheduled * len(dec._shards))
     log(f"continuous {name}: {dec.inserts} admission encodes, "
         f"{dec.steps_scheduled} scheduled steps, launches {counts}, "
         f"expected {expected}")
@@ -2793,24 +2798,18 @@ def serve_continuous(cfg, tok, entries):
     (``nhead_kv=1``): float32 equal to the MQA fused engine, and its int8
     bundle in bf16 held as above. The default route, with its decoder
     cut to ``DEFAULT_ROUTE_LAYERS`` layers, in float32: equal to the
-    default engine's."""
+    default engine's. Returns the float32 ring run's (GreedyResult,
+    results), which phase 14 holds its mesh to."""
     import numpy as np
     import torch
 
-    from handwritten_math_ocr_api_torch import convert
     from handwritten_math_ocr_api_torch.core.config import EOS_ID
     from handwritten_math_ocr_api_torch.decode.api import DecodeEngine
     from handwritten_math_ocr_api_torch.models import model as model_mod
 
     fused = {"use_fused": True, "pallas_encoder_block": True}
-    images = np.random.default_rng(SEED + 7).integers(
-        0, 256, (CONT_IMAGES, cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
-
-    def params_of(c):
-        p = convert.random_params(c, SEED)
-        p["decoder"]["fc_out"]["b"][EOS_ID] += EOS_BOOST
-        return p
-
+    images = continuous_images(cfg)
+    params_of = continuous_params
     np_params = params_of(cfg)
     dec = continuous_decoder(cfg, np_params, tok, **fused)
     dec.warmup(image_dtype=np.uint8)
@@ -2919,6 +2918,25 @@ def serve_continuous(cfg, tok, entries):
     continuous_vs("default float32", res, engine.decode_tokens(images),
                   pairs, engine.predict_with_confidence(images))
     d.close()
+    return runs[True]
+
+
+def continuous_images(cfg):
+    """Phase 6's 40 seeded uint8 requests."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 7).integers(
+        0, 256, (CONT_IMAGES, cfg.img_h, cfg.img_w, 1), dtype=np.uint8)
+
+
+def continuous_params(c):
+    """Phase 6's seeded weights, the EOS bias raised (``EOS_BOOST``)."""
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import EOS_ID
+
+    p = convert.random_params(c, SEED)
+    p["decoder"]["fc_out"]["b"][EOS_ID] += EOS_BOOST
+    return p
 
 
 # phase "quality": the shipped weights on the data_eval_hard test split,
@@ -4207,9 +4225,9 @@ def app_continuous(cfg, tok, entries, pngs, images):
         dec.inserts = 0
         insert = dec._insert
 
-        def counted_insert(slots, imgs):
+        def counted_insert(*args):
             dec.inserts += 1
-            return insert(slots, imgs)
+            return insert(*args)
 
         dec._insert = counted_insert
         dec.reset_stats()
@@ -5866,6 +5884,257 @@ def phase13(tok, entries):
         f"{time.perf_counter() - t0:.1f}")
 
 
+# -- phase 14: the device mesh ------------------------------------------------
+
+MESH_SHARDS = 2            # data shards of the serving mesh, on one card
+MESH_TRAIN_STEPS = 5       # float32 steps on a 1 x 1 DeviceMesh under NCCL
+MESH_TRAIN_ATOL = 1e-6     # its losses and params against one device's
+
+
+def mesh_devices():
+    """The serving mesh's devices: the card repeated (a one-card machine's
+    counterpart of the JAX tests' virtual devices)."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    return [torch.device(dev.type, 0) if dev.type == "cuda" else dev
+            ] * MESH_SHARDS
+
+
+def mesh_expected(cfg, route, shard_steps, beam):
+    """A sharded decode's launches: each shard one encode and its own
+    steps."""
+    per_shard = [expected_launches(cfg, route, 1, s, beam=beam)
+                 for s in shard_steps]
+    return [sum(col) for col in zip(*per_shard)]
+
+
+def mesh_serve(cfg, tok, entries, summary):
+    """Phase 14 (a): ``DecodeEngine`` on ``make_mesh(data=2)`` over the
+    card repeated, on the default route (cut to DEFAULT_ROUTE_LAYERS) and
+    the fused one, with bf16 and float32 weights: greedy ``predict_batch``
+    of phase 4's 10 images (bucket 16: 8 rows a shard) and beam 5 (the
+    shards' 8 and 2 request rows), phase 4's second image moved to the
+    first row of shard 1. Each kernel's launches equal the sum of its
+    per-shard counts (each shard one encode and its own steps); the
+    float32 tokens of phase 4's first two images (row 0 of shard 0 and
+    row 0 of shard 1, greedy and beam) equal phase 4's; bf16 images/s
+    printed beside phase 4's, as a record: the two shards share one
+    card."""
+    import numpy as np
+    import torch
+
+    from handwritten_math_ocr_api_torch import convert
+    from handwritten_math_ocr_api_torch.core.config import DecodeConfig
+    from handwritten_math_ocr_api_torch.decode.api import (
+        DecodeEngine,
+        pick_bucket,
+    )
+    from handwritten_math_ocr_api_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=MESH_SHARDS, devices=mesh_devices())
+    rng = np.random.default_rng(SEED)   # phase 4's images
+    images = rng.integers(0, 256, (N_IMAGES, cfg.img_h, cfg.img_w, 1),
+                          dtype=np.uint8)
+    # phase 4's float32 images 0 and 1 on the two shards (rows 0 and 8)
+    second = (pick_bucket(N_IMAGES, DecodeConfig().batch_buckets)
+              // MESH_SHARDS)
+    order = [0] + list(range(2, second + 1)) + [1] + list(
+        range(second + 1, N_IMAGES))
+    images = images[order]
+    fused = {"use_fused": True, "pallas_encoder_block": True}
+    cut = cfg.replace(num_decoder_layers=DEFAULT_ROUTE_LAYERS)
+    for route, c, kw in (("pallas", cut, {}), ("fused", cfg, fused)):
+        params = convert.random_params(c, SEED)
+        for dtype in ("bfloat16", "float32"):
+            cd = c.replace(dtype=dtype)
+            engine = DecodeEngine(params, cd, tokenizer=tok, device=DEVICE,
+                                  mesh=mesh, **kw)
+            engine.warmup((N_IMAGES,), dtype=np.uint8)
+            for beam in (None, BEAM):
+                name = (f"mesh {route} {dtype} "
+                        + ("greedy" if beam is None else f"beam {beam}"))
+                reset_counts()
+                t0 = time.perf_counter()
+                res = engine.decode_tokens(images, beam_size=beam)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                counts = read_counts()
+                expected = mesh_expected(cd, route, engine.last_shard_steps,
+                                         beam is not None)
+                log(f"{name}: shards' steps {engine.last_shard_steps}, "
+                    f"launches {counts}, expected {expected}")
+                check_counts(counts, expected)
+                tally(entries, counts, name)
+                if dtype == "float32":
+                    want = summary[route][0 if beam is None else 1][-2]
+                    got = res.tokens[[0, second]]
+                    equal = torch.equal(got, want.to(got.device))
+                    log(f"{name}: float32 tokens of rows 0 and {second} "
+                        f"(shards 0 and 1) equal to phase 4's of its first "
+                        f"two images {equal}")
+                    if not equal:
+                        raise AssertionError(f"{name}: float32 tokens differ "
+                                             f"from phase 4's")
+                    continue
+                times = [first_s]
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    engine.decode_tokens(images, beam_size=beam)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                alone = summary[route][0 if beam is None else 1][0]
+                log(f"{name}: images/s {N_IMAGES / min(times):.2f} on "
+                    f"{MESH_SHARDS} shards of one card (seconds "
+                    f"{[round(t, 4) for t in times]}; phase 4 unsharded "
+                    f"{alone:.2f}; a record, not a claim)")
+
+
+def mesh_continuous(cfg, tok, entries, want):
+    """Phase 14 (b): ``ContinuousDecoder`` on the same mesh, fused route
+    with the segment ring, float32, phase 6's 32 slots and 40 requests,
+    at ``block_b`` 8: phase 6's 48-row pool as 2 shards of 24 (at 16 the
+    pool pads to 2 x 32 rows and every slot lies on shard 0). The first
+    32 requests are submitted at once, so that slots 24-31 (shard 1)
+    are taken, then 4 a tick. Tokens, counts and strings equal to phase
+    6's float32 ring run (``want``); B7's ring entry launched once a
+    shard a scheduled step (``continuous_counts``); both shards admitted
+    requests."""
+    from handwritten_math_ocr_api_torch.parallel.mesh import make_mesh
+
+    cfg32 = cfg.replace(dtype="float32")
+    mesh = make_mesh(data=MESH_SHARDS, devices=mesh_devices())
+    d = continuous_decoder(cfg32, continuous_params(cfg), tok, mesh=mesh,
+                           use_fused=True, pallas_encoder_block=True,
+                           fused_block_b=8)
+    admitted = {}
+    insert = d._insert
+
+    def recorded(shard, slots, imgs):
+        admitted[shard.lo] = admitted.get(shard.lo, 0) + len(slots)
+        return insert(shard, slots, imgs)
+
+    d._insert = recorded
+    reset_counts()
+    pairs, res, wall = continuous_traffic(d, continuous_images(cfg),
+                                          first=CONT_SLOTS)
+    tally(entries, continuous_counts(d, cfg32, "fused", "mesh fused float32"),
+          "continuous mesh fused float32")
+    st = d.stats
+    log(f"continuous mesh: pool {d._rows * len(d._shards)} rows on "
+        f"{len(d._shards)} shards, stats mesh {st['mesh']}, "
+        f"{d.steps_scheduled} steps in {st['segments_run']} segments, "
+        f"{d.inserts} shard encodes, requests admitted by the shard "
+        f"starting at each slot {admitted}, wall {wall:.3f} s")
+    continuous_vs("mesh fused float32", res, want[0], pairs, want[1])
+    d.close()
+    if len(admitted) != MESH_SHARDS:
+        raise AssertionError(f"continuous mesh: requests went to the shards "
+                             f"at {sorted(admitted)} only")
+
+
+def mesh_train():
+    """Phase 14 (c): MESH_TRAIN_STEPS float32 train steps at full width
+    (the typeset stream, batch RESUME_BATCH, dropout and stochastic depth
+    on) with the params as DTensors on a 1 x 1 ``DeviceMesh`` of a
+    one-rank NCCL group, against the same steps on one device
+    (deterministic algorithms on): losses and params within
+    MESH_TRAIN_ATOL, and no kernel launched."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from handwritten_math_ocr_api_torch.core.config import (
+        TrainConfig,
+        load_model_config,
+    )
+    from handwritten_math_ocr_api_torch.core.tokenizer import Tokenizer
+    from handwritten_math_ocr_api_torch.data.synthetic import grammar_vocab
+    from handwritten_math_ocr_api_torch.parallel import mesh as mesh_lib
+    from handwritten_math_ocr_api_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from handwritten_math_ocr_api_torch.utils import tree
+
+    dev = torch.device(DEVICE)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    tok = Tokenizer(grammar_vocab())
+    r4 = load_model_config(MODEL_DIR)
+    cfg = r4.replace(vocab_size=len(tok), dropout=TRAIN_DROPOUT,
+                     dtype="float32", swin=dataclasses.replace(
+                         r4.swin, stochastic_depth=TRAIN_DROPOUT))
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP, ema_decay=0.999)
+    batches = list(train_stream(cfg, tok, MESH_TRAIN_STEPS * RESUME_BATCH,
+                                SEED + 3, RESUME_BATCH))
+
+    def run(state, step, place=lambda b: b):
+        losses = []
+        for b in batches:
+            images, captions = place((b["image"], b["caption"]))
+            state, m = step(state, images, captions, SEED)
+            losses.append(m["loss"])
+        return state, [float(mesh_lib.full_tensors(x)) for x in losses]
+
+    reset_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, opt = create_train_state(cfg, tc, SEED, dev)
+        one, one_losses = run(state, make_train_step(cfg, tc, opt,
+                                                     device=dev))
+        with tempfile.TemporaryDirectory() as d:
+            if dev.type == "cuda":
+                torch.cuda.set_device(0)
+            dist.init_process_group(
+                backend, store=dist.FileStore(os.path.join(d, "store"), 1),
+                rank=0, world_size=1)
+            try:
+                mesh = mesh_lib.make_device_mesh(1, 1)
+                state, opt = create_train_state(cfg, tc, SEED, dev)
+                params = mesh_lib.shard_params(state.params, mesh)
+                state = state.replace(
+                    params=params,
+                    ema_params=mesh_lib.shard_params(state.ema_params, mesh),
+                    opt_state=mesh_lib.commit_to_mesh(
+                        opt.init(tree.leaves(params)), mesh))
+                meshed, mesh_losses = run(
+                    state, make_train_step(cfg, tc, opt, device=dev),
+                    lambda b: mesh_lib.shard_batch(b, mesh))
+                got = [x.detach() for x in tree.leaves(
+                    mesh_lib.full_tensors(meshed.params))]
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = read_counts()
+    check_counts(counts, [0] * len(counts))
+    loss_err = max(abs(a - b) for a, b in zip(one_losses, mesh_losses))
+    param_err = max(float((a - b.detach()).abs().max())
+                    for a, b in zip(got, tree.leaves(one.params)))
+    log(f"mesh train: {MESH_TRAIN_STEPS} float32 steps of {RESUME_BATCH} "
+        f"images on a 1 x 1 DeviceMesh ({backend}): losses {mesh_losses}, "
+        f"one device {one_losses}; loss max_abs_err {loss_err:.3g}, params "
+        f"max_abs_err {param_err:.3g}; no kernel launched")
+    if loss_err > MESH_TRAIN_ATOL or param_err > MESH_TRAIN_ATOL:
+        raise AssertionError(f"mesh train: losses or params differ from one "
+                             f"device's ({loss_err}, {param_err})")
+
+
+def phase14(cfg, tok, entries, summary, continuous_f32):
+    """Phase 14, "mesh": parts (a)-(c)."""
+    t0 = time.perf_counter()
+    mesh_serve(cfg, tok, entries, summary)
+    log(f"mesh serve: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    mesh_continuous(cfg, tok, entries, continuous_f32)
+    log(f"mesh continuous: seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    mesh_train()
+    log(f"mesh train: seconds {time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -5954,7 +6223,7 @@ def main() -> int:
     summary.update(serve_grouped(cfg, tok, entries))
     log(f"serve mqa: phase seconds {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
-    serve_continuous(cfg, tok, entries)
+    continuous_f32 = serve_continuous(cfg, tok, entries)
     log(f"serve continuous: phase seconds {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     quality(tok, entries)
@@ -5993,6 +6262,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase13(tok, entries)
     log(f"admission and data: phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    phase14(cfg, tok, entries, summary, continuous_f32)
+    log(f"mesh: phase seconds {time.perf_counter() - t0:.1f}")
 
     log(json.dumps({"kernels": [e.d for e in entries]}))
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

@@ -35,7 +35,10 @@ does (``ServeConfig.from_env``). ``convert-checkpoint`` makes a serving
 artifact of a reference ``.pth`` (``compat/torch_convert.py``),
 ``convert-encoder`` an encoder-only artifact of torchvision's ``swin_t``
 for ``train --init-from``, and ``export`` a serving artifact of a training
-checkpoint, with its model state. ``--model-overrides`` also takes a
+checkpoint, with its model state. ``train`` also runs under ``torchrun
+--nproc-per-node=N``, one process a card (``--device cpu``: a gloo group
+on the host), on a ('data', 'tensor') mesh of the ranks
+(``train/loop.py``). ``--model-overrides`` also takes a
 nested ``"resnet"`` dict of ``ResNetConfig`` fields. The synthetic stream
 and ``make-corpus`` take the handwriting-stroke renderer
 (``data/strokes.py``: ``--stream-renderer stroke``, ``--stream-hard`` with
@@ -103,7 +106,37 @@ def cmd_build_vocab(args) -> int:
     return 0
 
 
+def _torchrun_device(device):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): this rank's card
+    (``LOCAL_RANK``), set as the current device, and the process group
+    initialised from torchrun's environment (NCCL on the cards, gloo with
+    ``--device cpu``); returns the rank's device. Otherwise ``device``."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    import torch
+    import torch.distributed as dist
+
+    if device == "cpu":
+        dist.init_process_group("gloo")
+        return device
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl")
+    return f"cuda:{local}"
+
+
 def cmd_train(args) -> int:
+    import torch.distributed as dist
+
+    device = _torchrun_device(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> int:
     from .core.config import Config, DataConfig, TrainConfig
     from .core.tokenizer import Tokenizer, load_vocab, save_vocab
     from .data.dataset import DataLoader, get_data_loaders
@@ -183,7 +216,7 @@ def cmd_train(args) -> int:
                 mlflow_experiment=args.mlflow_experiment,
                 init_from=args.init_from,
                 freeze_encoder_epochs=args.freeze_encoder_epochs,
-                encoder_lr_mult=args.encoder_lr_mult, device=args.device)
+                encoder_lr_mult=args.encoder_lr_mult, device=device)
     return 0
 
 

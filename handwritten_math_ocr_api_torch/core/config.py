@@ -125,8 +125,10 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters, every field and default as the JAX
-    package's. ``data_axis`` and ``tensor_axis`` describe a device mesh,
-    which the port's trainer does not take yet (one card)."""
+    package's. ``data_axis`` and ``tensor_axis`` shape the ('data',
+    'tensor') mesh that ``train/loop.train_model`` builds over the ranks of
+    a ``torch.distributed`` run (``-1``: every rank the tensor axis
+    leaves)."""
 
     learning_rate: float = 3e-4
     epochs: int = 20
@@ -168,9 +170,9 @@ def _env_flag(env, name: str, default: bool) -> bool:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Serving config, env-overridable (``from_env``); every field and
-    default as the JAX package's. The port's app serves on one card:
-    ``admission="device"`` and ``mesh_data_axis > 1`` are accepted and
-    served as host admission on one device (``serve/app.py``)."""
+    default as the JAX package's. ``mesh_data_axis > 1`` shards the
+    continuous pool over that many devices, with host admission
+    (``serve/app.py``)."""
 
     host: str = "0.0.0.0"
     port: int = 8080
@@ -209,8 +211,7 @@ class ServeConfig:
     pipeline_depth: int = 4
     harvest_threads: int = 0
     segment_ring: bool = True
-    # continuous mode over a data-axis mesh of this many devices (1 = off;
-    # the port serves one device)
+    # continuous mode over a data-axis mesh of this many devices (1 = off)
     mesh_data_axis: int = 1
     # serving deadline per prediction (seconds; 0 = off): 504, and the
     # request's device work cancelled as for a client disconnect

@@ -64,12 +64,31 @@ The other decode modes of the JAX engine, on both routes:
   streaming.py``) through ``decoder_step`` on the float (or, on the
   default route, int8) decoder tree, on the fused route too, as JAX's
   engine streams; one host read a segment.
+
+``mesh`` (``parallel/mesh.make_mesh``) shards every decode batch over the
+mesh's data axis, as JAX's engine does: the batch buckets are rounded up
+to multiples of ``data``, the engine holds one replica of its trees
+(params, model state, stacked and int8 bundles, constraint tables) on each
+data device (shards on one device share one), and each shard's rows are
+encoded and decoded on their device, every shard in a host thread of its
+own (greedy and beam read a flag on the host every step: one thread
+would serialise the shards), on either route and in every mode. The
+results are concatenated in row order on the first data device;
+``last_steps`` is the longest shard's and ``last_shard_steps`` each
+shard's. Beam search runs only the shards that hold request rows. A
+sampled shard draws each step's uniforms for the whole bucket and keeps
+its own rows (``sampling.ShardDraws``), so that the tokens are the
+one-device engine's. A stream decodes one image: it runs on the first
+shard.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
-from typing import Iterator, List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import (Callable, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -83,11 +102,12 @@ from ..models import model as model_mod
 from ..ops.fused_step import build_stacked_full, quantize_stacked
 from ..ops.quant import quantize_decoder_params
 from ..ops.swin_block import with_float32_biases
+from ..parallel import mesh as mesh_lib
 from .beam import beam_decode
 from .constrain import build_tables
 from .fused import beam_decode_fused, greedy_decode_fused
 from .greedy import GreedyResult, greedy_decode
-from .sampling import sample_decode
+from .sampling import ShardDraws, sample_decode
 from .streaming import stream_report, stream_segment, stream_start
 
 EMPTY_RESULT_FALLBACK = (
@@ -102,15 +122,26 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+class _Replica(NamedTuple):
+    """The engine's trees on one data device of a mesh."""
+
+    device: torch.device
+    params: dict
+    model_state: dict
+    stacked: Optional[dict]
+    constraint: object
+
+
 class DecodeEngine:
-    """Bucketed image -> LaTeX greedy and beam decoding on one device."""
+    """Bucketed image -> LaTeX greedy and beam decoding on one device, or
+    sharded over a mesh's data axis."""
 
     def __init__(self, params, cfg: ModelConfig,
                  decode_cfg: Optional[DecodeConfig] = None,
                  tokenizer: Optional[Tokenizer] = None, *,
                  use_fused: bool = False, pallas_encoder_block: bool = False,
                  quantize: bool = False, constrained: bool = False,
-                 model_state=None, device=None):
+                 model_state=None, device=None, mesh=None):
         """``params``: the model's parameter tree with numpy or tensor
         leaves (a JAX tree after ``np.asarray`` on each leaf, or
         ``convert.random_params``); ``convert.to_torch`` moves it to
@@ -130,7 +161,16 @@ class DecodeEngine:
         model's state tree (a ResNet encoder's BatchNorm statistics, as
         ``load_params_for_serving`` returns it), moved to ``device`` in
         float32; a ResNet encoder ignores ``pallas_encoder_block``, as in
-        JAX."""
+        JAX. ``mesh``: a ``parallel/mesh.Mesh`` whose data axis shards
+        every batch (module docstring); its first data device takes the
+        place of ``device``."""
+        if mesh is not None:
+            if not isinstance(mesh, mesh_lib.Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                                f"{type(mesh).__name__}")
+            for dev in mesh.data_devices:
+                resolve_device(dev)
+            device = mesh.data_devices[0]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.decode_cfg = decode_cfg or DecodeConfig()
@@ -167,35 +207,95 @@ class DecodeEngine:
             if quantize:
                 self.stacked = quantize_stacked(self.stacked)
         self.last_steps = 0  # decoder steps of the latest decode
+        self.last_shard_steps: List[int] = []  # each shard's
         self.stream_reads = 0  # host reads of predict_stream's segments
+        self.mesh = mesh
+        # unsharded: a mesh of the one device (its replica is the trees)
+        self._grid = mesh or mesh_lib.make_mesh(1, devices=[self.device])
+        n = self._grid.shape["data"]
+        trees = mesh_lib.replicate((self.params, self.model_state,
+                                    self.stacked, self.constraint),
+                                   self._grid)
+        self._replicas = [_Replica(dev, *t) for dev, t in
+                          zip(self._grid.data_devices, trees)]
+        buckets = sorted({max(n, -(-b // n) * n)
+                          for b in self.decode_cfg.batch_buckets})
+        self.decode_cfg = dataclasses.replace(
+            self.decode_cfg, batch_buckets=tuple(buckets))
 
-    def _pad_batch(self, images) -> Tuple[torch.Tensor, int]:
-        """(B, H, W, 1) float or uint8 (or (B, H, W) uint8) -> a normalized
-        float32 batch on the device, padded with zero images to the next
-        batch bucket."""
+    def _pad_host(self, images) -> Tuple[np.ndarray, int]:
+        """(B, H, W, 1) float or uint8 (or (B, H, W) uint8) images padded
+        with zero images to the next batch bucket; and B."""
         images = np.asarray(images)
         B = images.shape[0]
         bucket = pick_bucket(B, self.decode_cfg.batch_buckets)
         if bucket > B:
             pad = np.zeros((bucket - B, *images.shape[1:]), images.dtype)
             images = np.concatenate([images, pad], axis=0)
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        if x.dtype == torch.uint8:  # ship uint8, normalize on the device
+        return images, B
+
+    @staticmethod
+    def _normalized(x: torch.Tensor) -> torch.Tensor:
+        """Images on the device -> a normalized float32 batch (uint8 ships
+        as uint8 and is normalized on the device)."""
+        if x.dtype == torch.uint8:
             x = normalize(x)
             if x.ndim == 3:
                 x = x[..., None]
-        return x.float(), B
+        return x.float()
 
-    def _encode(self, x):
-        return model_mod.encode(self.params, self.cfg, x,
+    def _pad_batch(self, images) -> Tuple[torch.Tensor, int]:
+        """(B, H, W, 1) float or uint8 (or (B, H, W) uint8) -> the whole
+        normalized float32 batch on the (first) device, padded with zero
+        images to the next batch bucket; and B."""
+        images, B = self._pad_host(images)
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        return self._normalized(x), B
+
+    def _shards(self, images) -> Tuple[List[tuple], int]:
+        """The padded batch over the shards: (replica, its rows on its
+        device, the index of its first row) each, and the true batch
+        size."""
+        images, B = self._pad_host(images)
+        parts = mesh_lib.split_rows(
+            torch.from_numpy(np.ascontiguousarray(images)), self._grid)
+        local = parts[0].shape[0]
+        return [(rep, self._normalized(part), i * local)
+                for i, (rep, part) in enumerate(zip(self._replicas, parts))
+                ], B
+
+    def _run_shards(self, fn: Callable, shards: List[tuple]) -> list:
+        """``fn(replica, x, first)`` of each shard: one shard here, several
+        each in a host thread of its own, under its device and in
+        inference mode."""
+        if len(shards) == 1:
+            return [fn(*shards[0])]
+
+        def run(rep, x, first):
+            with torch.inference_mode(), mesh_lib.device_scope(rep.device):
+                return fn(rep, x, first)
+
+        with ThreadPoolExecutor(len(shards),
+                                thread_name_prefix="decode-shard") as pool:
+            futures = [pool.submit(run, *shard) for shard in shards]
+            return [f.result() for f in futures]
+
+    def _gather(self, results: list, B: int):
+        """The shards' results (GreedyResult or BeamResult) in row order on
+        the first device, cut to ``B`` rows; sets ``last_steps``."""
+        self.last_shard_steps = [r.steps for r in results]
+        self.last_steps = max(self.last_shard_steps)
+        first = results[0]
+        return first._replace(steps=self.last_steps, **{
+            f: torch.cat([getattr(r, f).to(self.device)
+                          for r in results])[:B]
+            for f in first._fields if f != "steps"})
+
+    def _encode(self, x, rep: Optional[_Replica] = None):
+        rep = rep or self._replicas[0]
+        return model_mod.encode(rep.params, self.cfg, x,
                                 use_pallas_block=self.pallas_encoder_block,
-                                model_state=self.model_state)
-
-    @staticmethod
-    def _trim(res: GreedyResult, B: int) -> GreedyResult:
-        return GreedyResult(res.tokens[:B], res.lengths[:B],
-                            res.logprob_sum[:B], res.token_count[:B],
-                            res.steps)
+                                model_state=rep.model_state)
 
     def _result(self, tokens, lp_sum, count) -> Tuple[str, float]:
         """(cleaned latex, confidence) of one row's tokens, log-prob sum and
@@ -211,28 +311,33 @@ class DecodeEngine:
         """images: (B, H, W, 1). Returns the GreedyResult, or with
         ``beam_size`` > 1 the BeamResult, of the true batch (bucket padding
         cut off)."""
-        x, B = self._pad_batch(images)
-        memory = self._encode(x)
+        shards, B = self._shards(images)
         max_len = self.decode_cfg.max_seq_len
         if beam_size and beam_size > 1:
+            def beam(rep, x, first):
+                memory = self._encode(x, rep)[:B - first]
+                if self.use_fused:
+                    return beam_decode_fused(rep.params["decoder"],
+                                             rep.stacked, self.cfg, memory,
+                                             beam_size, max_len)
+                return beam_decode(rep.params["decoder"], self.cfg, memory,
+                                   beam_size, max_len)
+
+            # only the request's rows: a shard of padding decodes nothing
+            return self._gather(self._run_shards(
+                beam, [s for s in shards if s[2] < B]), B)
+
+        def greedy(rep, x, first):
+            memory = self._encode(x, rep)
             if self.use_fused:
-                res = beam_decode_fused(self.params["decoder"], self.stacked,
-                                        self.cfg, memory[:B], beam_size,
-                                        max_len)
-            else:
-                res = beam_decode(self.params["decoder"], self.cfg,
-                                  memory[:B], beam_size, max_len)
-            self.last_steps = res.steps
-            return res
-        if self.use_fused:
-            res = greedy_decode_fused(self.params["decoder"], self.stacked,
-                                      self.cfg, memory, max_len,
-                                      constraint=self.constraint)
-        else:
-            res = greedy_decode(self.params["decoder"], self.cfg, memory,
-                                max_len, constraint=self.constraint)
-        self.last_steps = res.steps
-        return self._trim(res, B)
+                return greedy_decode_fused(rep.params["decoder"],
+                                           rep.stacked, self.cfg, memory,
+                                           max_len,
+                                           constraint=rep.constraint)
+            return greedy_decode(rep.params["decoder"], self.cfg, memory,
+                                 max_len, constraint=rep.constraint)
+
+        return self._gather(self._run_shards(greedy, shards), B)
 
     @torch.inference_mode()
     def sample_tokens(self, images, *, temperature: float = 1.0,
@@ -241,22 +346,27 @@ class DecodeEngine:
         """Sampled decode of (B, H, W, 1) images (``decode/sampling.py``):
         greedy's result structure, of the true batch. The draws come from a
         generator on the engine's device seeded with ``seed``, over the
-        batch's bucket."""
-        x, B = self._pad_batch(images)
-        memory = self._encode(x)
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        batch's bucket (on a mesh, each shard's from a generator on its
+        device so seeded: the same draws)."""
+        shards, B = self._shards(images)
+        total = sum(x.shape[0] for _, x, _ in shards)
         filters = {"temperature": temperature, "top_k": top_k,
                    "top_p": top_p}
         max_len = self.decode_cfg.max_seq_len
-        if self.use_fused:
-            res = greedy_decode_fused(self.params["decoder"], self.stacked,
-                                      self.cfg, memory, max_len, rng=gen,
-                                      **filters)
-        else:
-            res = sample_decode(self.params["decoder"], self.cfg, memory,
-                                gen, max_len, **filters)
-        self.last_steps = res.steps
-        return self._trim(res, B)
+
+        def sample(rep, x, first):
+            memory = self._encode(x, rep)
+            gen = ShardDraws(
+                torch.Generator(device=rep.device).manual_seed(int(seed)),
+                first, total)
+            if self.use_fused:
+                return greedy_decode_fused(rep.params["decoder"],
+                                           rep.stacked, self.cfg, memory,
+                                           max_len, rng=gen, **filters)
+            return sample_decode(rep.params["decoder"], self.cfg, memory,
+                                 gen, max_len, **filters)
+
+        return self._gather(self._run_shards(sample, shards), B)
 
     def predict_single_sampled(self, image, *, temperature: float = 1.0,
                                top_k: int = 0, top_p: float = 1.0,
@@ -292,8 +402,9 @@ class DecodeEngine:
         dec = self.params["decoder"]
         max_len = self.decode_cfg.max_seq_len
         with torch.inference_mode():
-            x, _ = self._pad_batch(image)
-            carry = stream_start(dec, self.cfg, self._encode(x)[:1],
+            # the image is the first shard's row: encode that shard's rows
+            rep, x, _ = self._shards(image)[0][0]
+            carry = stream_start(dec, self.cfg, self._encode(x, rep)[:1],
                                  max_len, segment_steps)
         all_ids: List[int] = []
         eos_id, pad_id = self.tokenizer.eos_id, self.tokenizer.pad_id

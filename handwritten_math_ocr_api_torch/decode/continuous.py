@@ -48,10 +48,27 @@ How the port differs:
   still picks each segment's T bucket, whose ``t_active`` B7 checks and
   otherwise ignores (it reads no slot at or past a row's position).
 - Caches are updated in place; the small state is made anew each step.
-- Refused with ``NotImplementedError``: ``mesh`` (a sharded pool, ROADMAP
-  A8), with either admission. JAX's ``MATHOCR_HARVEST_BATCH`` switch (a
-  batched fetch of every queued report, an A/B for a tunnelled transport)
-  is dropped: the harvester lands one report at a time, JAX's default.
+- JAX's ``MATHOCR_HARVEST_BATCH`` switch (a batched fetch of every queued
+  report, an A/B for a tunnelled transport) is dropped: the harvester
+  lands one report at a time, JAX's default.
+
+``mesh`` (``parallel/mesh.make_mesh``) shards the pool's rows over the
+mesh's data axis, as JAX's does, under the one host scheduler. The pool
+has ``ceil((num_slots + 1) / n) * n`` rows on ``n`` shards, and on the
+fused route ``ceil((num_slots + 1) / (n * block_b)) * n * block_b``, so
+that each shard's rows are a multiple of ``block_b``. Slot ``s`` lives on
+shard ``s // rows`` (``rows`` a shard) at local row ``s % rows``; slots
+are still chosen lowest first. Each shard holds its rows of the state and
+the caches and its replica of the trees on its device; an admission
+encodes each shard's requests on that shard's device (padded to the
+shard's own encode bucket; the padding rows are encoded and dropped), so
+cross K/V never cross devices. A segment launches the default route's
+steps, or B7 with its ring, once a shard on the shard's rows, from one
+host thread (a segment reads no device value) and with no collective, as
+JAX's ``shard_map``; the chunk and T buckets are off, as in JAX (live
+slots spread over the shards). The shards' reports land in one pinned
+record. ``admission="device"`` with a mesh raises ``ValueError``, as
+JAX's does.
 
 ``admission="device"`` (JAX's in-loop ``io_callback`` pull) on the default
 route, as in JAX (``use_fused`` warns and takes it): the host stages each
@@ -85,6 +102,7 @@ The log-probs stay on the raw logits.
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import logging
 import queue
@@ -110,6 +128,7 @@ from ..ops.fused_step import (
     quantize_stacked,
 )
 from ..ops.swin_block import with_float32_biases
+from ..parallel import mesh as mesh_lib
 from . import constrain as constrain_mod
 from .api import EMPTY_RESULT_FALLBACK, pick_bucket
 from .fused import project_cross_kv_merged
@@ -270,13 +289,15 @@ def insert_requests(params, cfg: ModelConfig, small: SmallState,
                     num_slots: Optional[int] = None,
                     use_pallas_block: bool = False, model_state=None
                     ) -> Tuple[SmallState, Dict[str, torch.Tensor]]:
-    """Encode ``images`` and install them at ``slots`` ((K,) int64 on the
-    device): the cross K/V written into the cache in place, the slots'
-    small state reset. Rows whose slot is ``num_slots`` or more (a scratch
-    slot: an admission's padding) stay inactive. The self caches are not
-    cleared: a row attends only slots it has written. ``model_state``: a
-    ResNet encoder's BatchNorm statistics."""
-    memory = _encode(params, cfg, images, use_pallas_block, model_state)
+    """Encode ``images`` and install the first K at ``slots`` ((K,) int64
+    on the device; the images past them are padding, encoded and dropped):
+    the cross K/V written into the cache in place, the slots' small state
+    reset. Rows whose slot is ``num_slots`` or more (a scratch slot) stay
+    inactive. The self caches are not cleared: a row attends only slots it
+    has written. ``model_state``: a ResNet encoder's BatchNorm
+    statistics."""
+    memory = _encode(params, cfg, images, use_pallas_block,
+                     model_state)[:slots.shape[0]]
     cross = decoder_mod.project_cross_kv(params["decoder"], cfg, memory)
     S = small.prev.shape[0]
     for name, val in cross.items():
@@ -368,7 +389,8 @@ def insert_requests_fused(params, cfg: ModelConfig, small: SmallState,
     """``insert_requests`` for the fused layout: the merged-head cross K/V
     written at ``slots`` (their self-cache rows need no clearing: a
     re-admitted slot attends only slots its own decode rewrites)."""
-    memory = _encode(params, cfg, images, use_pallas_block, model_state)
+    memory = _encode(params, cfg, images, use_pallas_block,
+                     model_state)[:slots.shape[0]]
     ck, cv = project_cross_kv_merged(params["decoder"], cfg, memory)
     cache["cross_k"].index_copy_(1, slots, ck.to(cache["cross_k"].dtype))
     cache["cross_v"].index_copy_(1, slots, cv.to(cache["cross_v"].dtype))
@@ -472,7 +494,25 @@ def unpack_report(rep: np.ndarray) -> Dict[str, np.ndarray]:
 class _InFlight(NamedTuple):
     seg_idx: int                      # the segment this report reflects
     report: torch.Tensor              # packed (S, T + 3) int32, host memory
-    ready: Optional[torch.cuda.Event]  # recorded after the copy (CUDA)
+    ready: tuple                      # events after each shard's copy (CUDA)
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One data shard of the pool: slots ``lo`` to ``lo + rows - 1`` (the
+    first ``real`` of them slots, the rest scratch rows), on ``device``
+    with its replicas of the trees and its rows of the state."""
+
+    device: torch.device
+    lo: int
+    rows: int
+    real: int
+    params: dict
+    model_state: dict
+    seg_params: dict
+    tables: object
+    small: SmallState
+    cache: Dict[str, torch.Tensor]
 
 
 class ContinuousDecoder:
@@ -513,12 +553,23 @@ class ContinuousDecoder:
         segment boundaries) or ``"device"`` (the mailbox pull, module
         docstring; the default route). ``model_state``: a ResNet encoder's
         BatchNorm statistics, moved to ``device`` in float32 (a ResNet
-        encoder ignores ``pallas_encoder_block``, as in JAX)."""
+        encoder ignores ``pallas_encoder_block``, as in JAX). ``mesh``: a
+        ``parallel/mesh.Mesh`` whose data axis shards the pool (module
+        docstring); its first data device takes the place of ``device``;
+        host admission only."""
         if admission not in ("host", "device"):
             raise ValueError(f"admission must be host|device: {admission}")
         if mesh is not None:
-            raise NotImplementedError(
-                "a sharded slot pool (mesh) is not ported: ROADMAP A8")
+            if admission == "device":
+                raise ValueError("admission='device' does not compose with "
+                                 "a sharded slot pool; use the host "
+                                 "admission path on meshes")
+            if not isinstance(mesh, mesh_lib.Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                                f"{type(mesh).__name__}")
+            for dev in mesh.data_devices:
+                resolve_device(dev)
+            device = mesh.data_devices[0]
         if admission == "device" and use_fused:
             logger.warning("device admission pulls into the default "
                            "segment route, as JAX's (its io_callback runs "
@@ -530,6 +581,7 @@ class ContinuousDecoder:
                              "tokenizer (its vocab derives the constraint "
                              "tables)")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.num_slots = num_slots
@@ -562,16 +614,35 @@ class ContinuousDecoder:
         self._block_b = fused_block_b
         Tmax = cfg.max_seq_len
         self._seg_buckets: Optional[List[int]] = None
+        # the pool: one scratch row at least, padded to the shards (and on
+        # the fused route to the kernel's chunk multiple on every shard)
+        n = mesh.shape["data"] if mesh is not None else 1
+        m = n * (fused_block_b if use_fused else 1)
+        total = -(-(num_slots + 1) // m) * m
+        self._rows = total // n
+        stacked = None
         if use_fused:
-            # the pool padded to the kernel's chunk multiple
-            total = -(-(num_slots + 1) // fused_block_b) * fused_block_b
-            self._small, self._cache = init_slot_state_fused(
-                cfg, total, encoder_len, device=self.device,
-                constrained=constrained)
-            self._seg_params = build_stacked_full(params["decoder"], cfg,
-                                                  self.device)
+            stacked = build_stacked_full(params["decoder"], cfg, self.device)
             if quantize:  # int8 weights, dequantized in the kernel
-                self._seg_params = quantize_stacked(self._seg_params)
+                stacked = quantize_stacked(stacked)
+        trees = (self.params, self.model_state, stacked, self._constraint)
+        replicas = (mesh_lib.replicate(trees, mesh) if mesh is not None
+                    else [trees])
+        devices = mesh.data_devices if mesh is not None else [self.device]
+        self._shards: List[_Shard] = []
+        for i, (dev, (p, ms, st, tables)) in enumerate(zip(devices,
+                                                            replicas)):
+            lo = i * self._rows
+            small, cache = (
+                init_slot_state_fused(cfg, self._rows, encoder_len,
+                                      device=dev, constrained=constrained)
+                if use_fused else
+                init_slot_state(cfg, self._rows, 0, encoder_len, device=dev,
+                                constrained=constrained))
+            self._shards.append(_Shard(
+                dev, lo, self._rows, min(max(num_slots - lo, 0), self._rows),
+                p, ms, st if use_fused else p, tables, small, cache))
+        if use_fused and mesh is None:
             # chunk buckets: powers of two and the whole pool; a segment
             # runs the smallest covering the highest live slot (low slots
             # are taken first)
@@ -584,13 +655,8 @@ class ContinuousDecoder:
             self._t_buckets = sorted(
                 {min(b, Tmax) for b in (t_buckets if t_buckets is not None
                                         else (40, 80, 120))} | {Tmax})
-        else:
-            self._small, self._cache = init_slot_state(
-                cfg, num_slots, 1, encoder_len, device=self.device,
-                constrained=constrained)
-            self._seg_params = self.params
-            if admission == "device":
-                self._init_device_admission()
+        if admission == "device":
+            self._init_device_admission()
         self._free: List[int] = list(range(num_slots))
         self._slot_req: Dict[int, int] = {}
         self._pos_ub: Dict[int, int] = {}     # slot -> position upper bound
@@ -661,20 +727,39 @@ class ContinuousDecoder:
 
     @property
     def state(self) -> SlotState:
-        """The device state at the dispatch frontier."""
-        return SlotState(*self._small, cache=self._cache)
+        """The device state at the dispatch frontier (on a mesh, the
+        shards' rows concatenated on the first device)."""
+        if self.mesh is None:
+            sh = self._shards[0]
+            return SlotState(*sh.small, cache=sh.cache)
+
+        def cat(tensors, dim=0):
+            return torch.cat([t.to(self.device) for t in tensors], dim=dim)
+
+        sh = self._shards
+        cache = {k: cat([x.cache[k] for x in sh],
+                        1 if self.use_fused and not k.startswith("con_")
+                        else 0)
+                 for k in sh[0].cache}
+        return SlotState(*(cat(f) for f in zip(*(x.small for x in sh))),
+                         cache=cache)
+
+    def _shard_of(self, slot: int) -> _Shard:
+        return self._shards[slot // self._rows]
 
     def submit(self, image: np.ndarray) -> int:
         """Queue one (H, W, 1) image (normalized float, or uint8, which the
         insert normalizes on the device); return its request id. The upload
         starts here, from pinned memory and asynchronously, so that it has
-        landed by the time the request is admitted."""
+        landed by the time the request is admitted (on a mesh, where the
+        slot's device is not known yet, at the admission)."""
         rid = self._next_id
         self._next_id += 1
         dt = np.uint8 if np.asarray(image).dtype == np.uint8 else np.float32
         img = torch.from_numpy(np.ascontiguousarray(image, dt))
-        if self.admission == "device":
-            # uploaded by its staging, on the staging stream
+        if self.admission == "device" or self.mesh is not None:
+            # uploaded by its staging, on the staging stream, or by its
+            # admission, to the device of its slot's shard
             if self.device.type == "cuda":
                 img = img.pin_memory()
             self._pending.append((rid, img))
@@ -710,16 +795,17 @@ class ContinuousDecoder:
             self._mailbox.cancel(seq)
             if seq in self._pool_busy:
                 self._cancelled_entries.add(seq)
-            kill = torch.zeros(self._small.active.shape, dtype=torch.bool)
+            sh = self._shards[0]   # device admission: one shard
+            kill = torch.zeros(sh.small.active.shape, dtype=torch.bool)
             kill[slot] = True
             kill = self._upload(kill) & (self._occupant == seq)
-            self._small = self._small._replace(
-                active=self._small.active & ~kill)
+            sh.small = sh.small._replace(active=sh.small.active & ~kill)
         else:
             # a new tensor: reports of dispatched segments keep theirs
-            active = self._small.active.clone()
-            active[slot] = False
-            self._small = self._small._replace(active=active)
+            sh = self._shard_of(slot)
+            active = sh.small.active.clone()
+            active[slot - sh.lo] = False
+            sh.small = sh.small._replace(active=active)
         self.cancelled += 1
         return True
 
@@ -761,6 +847,8 @@ class ContinuousDecoder:
                 for s in self._slot_req:
                     self._pos_ub[s] = min(self._pos_ub.get(s, 0) + n, Tmax)
                 self.rows_scheduled += n * nchunks * self._block_b
+            elif self.use_fused:  # a mesh: every shard's rows
+                self.rows_scheduled += n * self._rows * len(self._shards)
             rep = self._segment(n, nchunks, t_active)
             self._seg_counter += 1
             self._ensure_harvester()
@@ -815,7 +903,7 @@ class ContinuousDecoder:
     def stats(self) -> dict:
         total_steps = self.steps_scheduled or 1
         return {
-            "mesh": None,
+            "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
             "segments_run": self.segments_run,
             "avg_occupancy": (self.occupancy_sum / total_steps
                               if self.segments_run else 0.0),
@@ -844,8 +932,9 @@ class ContinuousDecoder:
     def warmup(self, image_shape: Optional[Tuple[int, int]] = None,
                image_dtype=np.float32) -> None:
         """Run every insert bucket and the segments once (the kernel build,
-        the allocator's growth), safe on live state: the inserts target the
-        scratch slot only. The port's chunk buckets are its only segment
+        the allocator's growth), safe on live state: each shard's insert
+        encodes a bucket of zero images and installs none of them. The
+        port's chunk buckets are its only segment
         variants (JAX also compiles each T bucket, which the port's kernel
         ignores): each one covering every live slot runs one segment of
         ``segment_steps``, which really advances the live slots, so their
@@ -854,12 +943,13 @@ class ContinuousDecoder:
         if self.admission == "device":
             self._warmup_device(h, w, image_dtype)
             return
-        pad = self._pad_image(h, w, torch.from_numpy(
-            np.zeros((), image_dtype)).dtype)
-        scratch = self.num_slots
-        for b in self.encode_buckets:
-            slots = self._upload(torch.full((b,), scratch, dtype=torch.long))
-            self._small, self._cache = self._insert(slots, [pad] * b)
+        dtype = torch.from_numpy(np.zeros((), image_dtype)).dtype
+        for sh in self._shards:  # encodes whose rows are all dropped
+            pad = self._pad_image(sh.device, h, w, dtype)
+            none = self._upload(torch.zeros((0,), dtype=torch.long),
+                                sh.device)
+            for b in self.encode_buckets:
+                self._insert(sh, none, [pad] * b)
         need = -(-(max(self._slot_req, default=-1) + 1) // self._block_b)
         executed = 0
         for nc in self._seg_buckets or [None]:
@@ -872,8 +962,9 @@ class ContinuousDecoder:
             for s in self._slot_req:
                 self._pos_ub[s] = min(self._pos_ub.get(s, Tmax)
                                       + executed * self.segment_steps, Tmax)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for sh in self._shards:
+            if sh.device.type == "cuda":
+                torch.cuda.synchronize(sh.device)
 
     def close(self) -> None:
         """Stop the harvester threads and the publisher (idempotent; they
@@ -900,65 +991,83 @@ class ContinuousDecoder:
             return self.segment_steps
         return self.max_segment_steps
 
-    def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        """A host tensor on the device: from pinned memory, asynchronously,
-        on CUDA."""
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _upload(self, t: torch.Tensor, device=None) -> torch.Tensor:
+        """A host tensor on ``device`` (the first device if not given):
+        from pinned memory, asynchronously, on CUDA."""
+        device = device or self.device
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _segment(self, n: int, nchunks: Optional[int],
-                 t_active: Optional[int]) -> torch.Tensor:
-        """Dispatch one segment of ``n`` steps; return its packed report
-        (on the device)."""
-        if self.use_fused:
-            self._small, self._cache = decode_segment_fused(
-                self._seg_params, self.cfg, self._small, self._cache, n,
-                block_b=self._block_b, n_chunks=nchunks,
-                ring_s=self.max_segment_steps if self.segment_ring else 0,
-                t_active=t_active, tables=self._constraint)
-        else:
-            self._dispatch_seg = self._seg_counter + 1
-            self._small, self._cache = decode_segment(
-                self._seg_params, self.cfg, self._small, self._cache, n,
-                tables=self._constraint,
-                pull=self._pull if self.admission == "device" else None)
-        return pack_report(self._small)
+                 t_active: Optional[int]) -> List[torch.Tensor]:
+        """Dispatch one segment of ``n`` steps on every shard; return the
+        shards' packed reports (on their devices)."""
+        reports = []
+        for sh in self._shards:
+            with mesh_lib.device_scope(sh.device):
+                if self.use_fused:
+                    sh.small, sh.cache = decode_segment_fused(
+                        sh.seg_params, self.cfg, sh.small, sh.cache, n,
+                        block_b=self._block_b, n_chunks=nchunks,
+                        ring_s=(self.max_segment_steps if self.segment_ring
+                                else 0),
+                        t_active=t_active, tables=sh.tables)
+                else:
+                    self._dispatch_seg = self._seg_counter + 1
+                    sh.small, sh.cache = decode_segment(
+                        sh.seg_params, self.cfg, sh.small, sh.cache, n,
+                        tables=sh.tables,
+                        pull=self._pull if self.admission == "device"
+                        else None)
+                reports.append(pack_report(sh.small))
+        return reports
 
     @staticmethod
-    def _start_report_copy(seg_idx: int, rep: torch.Tensor) -> _InFlight:
-        """The report's copy to pinned host memory, queued on the stream
-        behind the segment, and an event recorded after it."""
-        if rep.device.type != "cuda":
-            return _InFlight(seg_idx, rep, None)
-        host = torch.empty(rep.shape, dtype=rep.dtype, pin_memory=True)
-        host.copy_(rep, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(rep.device))
-        return _InFlight(seg_idx, host, ready)
+    def _start_report_copy(seg_idx: int,
+                           reports: List[torch.Tensor]) -> _InFlight:
+        """The shards' reports copied, in slot order, into one pinned host
+        record, each copy queued on its device's stream behind the segment
+        with an event recorded after it."""
+        if reports[0].device.type != "cuda":
+            return _InFlight(seg_idx, torch.cat(reports), ())
+        rows = sum(r.shape[0] for r in reports)
+        host = torch.empty((rows,) + tuple(reports[0].shape[1:]),
+                           dtype=reports[0].dtype, pin_memory=True)
+        ready, lo = [], 0
+        for rep in reports:
+            host[lo:lo + rep.shape[0]].copy_(rep, non_blocking=True)
+            lo += rep.shape[0]
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(rep.device))
+            ready.append(event)
+        return _InFlight(seg_idx, host, tuple(ready))
 
     @staticmethod
     def _land(item: _InFlight) -> Dict[str, np.ndarray]:
-        """Wait for a report's copy; return it unpacked."""
-        if item.ready is not None:
-            item.ready.synchronize()
+        """Wait for a report's copies; return it unpacked."""
+        for event in item.ready:
+            event.synchronize()
         return unpack_report(item.report.numpy())
 
-    def _insert(self, slots, imgs):
-        if self.use_fused:
-            return insert_requests_fused(
-                self.params, self.cfg, self._small, self._cache, slots, imgs,
-                self.num_slots, self.pallas_encoder_block, self.model_state)
-        return insert_requests(self.params, self.cfg, self._small,
-                               self._cache, slots, imgs, self.num_slots,
-                               self.pallas_encoder_block, self.model_state)
+    def _insert(self, sh: _Shard, slots, imgs) -> None:
+        """Install ``imgs`` at ``sh``'s local rows ``slots`` (the images
+        past them are padding), on ``sh``'s device."""
+        fn = insert_requests_fused if self.use_fused else insert_requests
+        with mesh_lib.device_scope(sh.device):
+            sh.small, sh.cache = fn(sh.params, self.cfg, sh.small, sh.cache,
+                                    slots, imgs, sh.real,
+                                    self.pallas_encoder_block,
+                                    sh.model_state)
 
-    def _pad_image(self, h: int, w: int, dtype: torch.dtype) -> torch.Tensor:
-        """A zero image on the device, the padding of an admission."""
-        pad = self._pad_img.get((h, w, dtype))
+    def _pad_image(self, device, h: int, w: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+        """A zero image on ``device``, the padding of an admission."""
+        key = (str(device), h, w, dtype)
+        pad = self._pad_img.get(key)
         if pad is None:
-            pad = torch.zeros((h, w, 1), dtype=dtype, device=self.device)
-            self._pad_img[(h, w, dtype)] = pad
+            pad = torch.zeros((h, w, 1), dtype=dtype, device=device)
+            self._pad_img[key] = pad
         return pad
 
     def _admit(self) -> None:
@@ -976,18 +1085,26 @@ class ContinuousDecoder:
         # to the highest live slot, so packing requests low keeps a
         # partly full pool cheap
         slots = [heapq.heappop(self._free) for _ in range(n)]
-        slot_arr = torch.full((bucket,), self.num_slots, dtype=torch.long)
-        slot_arr[:n] = torch.tensor(slots, dtype=torch.long)
-        h, w = batch[0][1].shape[:2]
-        imgs = ([img for _, img in batch]
-                + [self._pad_image(int(h), int(w), batch[0][1].dtype)]
-                * (bucket - n))
-        tu = time.perf_counter()
-        slot_dev = self._upload(slot_arr)
-        self.t_admit_upload += time.perf_counter() - tu
-        ti = time.perf_counter()
-        self._small, self._cache = self._insert(slot_dev, imgs)
-        self.t_admit_insert += time.perf_counter() - ti
+        h, w = (int(d) for d in batch[0][1].shape[:2])
+        by_shard: Dict[int, List[int]] = {}
+        for i, slot in enumerate(slots):
+            by_shard.setdefault(slot // self._rows, []).append(i)
+        for k, items in by_shard.items():
+            sh = self._shards[k]
+            # each shard's requests at its own encode bucket
+            pad = pick_bucket(len(items), self.encode_buckets) - len(items)
+            imgs = ([batch[i][1].to(sh.device, non_blocking=True)
+                     for i in items]
+                    + [self._pad_image(sh.device, h, w, batch[0][1].dtype)]
+                    * pad)
+            tu = time.perf_counter()
+            slot_dev = self._upload(torch.tensor(
+                [slots[i] - sh.lo for i in items], dtype=torch.long),
+                sh.device)
+            self.t_admit_upload += time.perf_counter() - tu
+            ti = time.perf_counter()
+            self._insert(sh, slot_dev, imgs)
+            self.t_admit_insert += time.perf_counter() - ti
         for slot, (rid, _) in zip(slots, batch):
             self._slot_req[slot] = rid
             self._pos_ub[slot] = 0
@@ -1050,14 +1167,15 @@ class ContinuousDecoder:
         Dh) tensor a side, the staging pool (two rows a slot), the mailbox,
         the slots' occupants and the staging stream."""
         cfg, dev = self.cfg, self.device
+        cache = self._shards[0].cache   # device admission: one shard
         L = cfg.num_decoder_layers
-        row = tuple(self._cache["cross_k_0"].shape)   # (S, H, L_enc, Dh)
-        dtype = self._cache["cross_k_0"].dtype
+        row = tuple(cache["cross_k_0"].shape)   # (S, H, L_enc, Dh)
+        dtype = cache["cross_k_0"].dtype
         self._cross_all = tuple(torch.zeros((L,) + row, dtype=dtype,
                                             device=dev) for _ in range(2))
         for i in range(L):
-            self._cache[f"cross_k_{i}"] = self._cross_all[0][i]
-            self._cache[f"cross_v_{i}"] = self._cross_all[1][i]
+            cache[f"cross_k_{i}"] = self._cross_all[0][i]
+            cache[f"cross_v_{i}"] = self._cross_all[1][i]
         pool_rows = 2 * self.num_slots
         self._pool = tuple(torch.zeros((pool_rows, L) + row[1:],
                                        dtype=dtype, device=dev)
@@ -1198,6 +1316,7 @@ class ContinuousDecoder:
             done = self._stage(pad, self._pool_free[-1])
             if done is not None:
                 done.synchronize()
-        self._pull(0, self._small, self._cache, max_scan=0)
+        self._pull(0, self._shards[0].small, self._shards[0].cache,
+                   max_scan=0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -23,7 +23,7 @@ confidences compare across greedy and sampled decodes.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple
 
 import torch
 
@@ -60,10 +60,28 @@ def filter_logits(logits, temperature: float = 1.0, top_k: int = 0,
     return scaled
 
 
-def gumbel_argmax(logits, generator: torch.Generator):
+class ShardDraws(NamedTuple):
+    """A generator for one shard of a batch: each draw is made for the
+    whole batch of ``total`` rows, and the shard keeps rows ``first`` on,
+    so that a sharded decode draws what the one-device decode draws."""
+
+    generator: torch.Generator
+    first: int
+    total: int
+
+
+def gumbel_argmax(logits, generator):
     """One draw a row of categorical(logits): argmax(logits + Gumbel noise),
-    the noise from ``generator`` (on the logits' device)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    the noise from ``generator`` (on the logits' device; or a
+    ``ShardDraws``)."""
+    if isinstance(generator, ShardDraws):
+        B, V = logits.shape
+        u = torch.rand((generator.total, V), generator=generator.generator,
+                       device=logits.device)[generator.first:
+                                             generator.first + B]
+    else:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
 
@@ -71,13 +89,14 @@ def gumbel_argmax(logits, generator: torch.Generator):
 class TokenPick:
     """Chooses each step's token from its float32 logits (B, V): the
     argmax, with ``constraint`` (``constrain.ConstraintTables``) under its
-    mask, and with ``generator`` a Gumbel-max draw from the logits (masked
+    mask, and with ``generator`` (a ``torch.Generator`` or a
+    ``ShardDraws``) a Gumbel-max draw from the logits (masked
     first, if constrained) filtered by ``filter_logits``. ``fed`` takes the
     tokens fed to the next step (EOS for finished rows) and advances the
     constraint's state. Reads no device value."""
 
     def __init__(self, B: int, T: int, device, *, constraint=None,
-                 generator: Optional[torch.Generator] = None,
+                 generator=None,
                  temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0):
         self.T = T

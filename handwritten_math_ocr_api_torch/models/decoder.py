@@ -37,12 +37,14 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from ..ops.cache_attention import (
     cache_append_attention,
     cache_append_attention_plain,
 )
+from ..parallel.mesh import replicate_on_tensor
 from . import layers
 from .model import compute_dtype
 
@@ -50,8 +52,12 @@ Cache = Dict[str, torch.Tensor]
 
 
 def _embed(params, tgt_ids, positions, dtype):
-    tok = params["embedding"]["table"][tgt_ids]
-    pos = params["pos"]["table"][positions]
+    # F.embedding, not indexing: on a training mesh its DTensor rules
+    # hold a vocab-sharded table (torch 2.11's rule for the backward of an
+    # index, index_put, fails on batch-sharded ids)
+    tok = replicate_on_tensor(
+        F.embedding(tgt_ids, params["embedding"]["table"]))
+    pos = F.embedding(positions, params["pos"]["table"])
     return (tok + pos).to(dtype)
 
 

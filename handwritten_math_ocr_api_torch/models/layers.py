@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import dequant_matmul, dequant_matmul_plain
+from ..parallel.mesh import replicate_on_tensor
 
 Tensor = torch.Tensor
 
@@ -112,12 +113,12 @@ def mha(p, query: Tensor, kv: Tensor, num_heads: int,
     b = p["b_qkv"].to(query.dtype)
     kvd = (w.shape[1] - d) // 2
     kv_heads = num_heads * kvd // d
-    q = query @ w[:, :d] + b[:d]
-    k = kv @ w[:, d:d + kvd] + b[d:d + kvd]
-    v = kv @ w[:, d + kvd:] + b[d + kvd:]
-    out = grouped_attention(split_heads(q, num_heads),
-                            split_heads(k, kv_heads),
-                            split_heads(v, kv_heads), mask, num_heads)
+    q, k, v = (replicate_on_tensor(t) for t in (
+        query @ w[:, :d] + b[:d], kv @ w[:, d:d + kvd] + b[d:d + kvd],
+        kv @ w[:, d + kvd:] + b[d + kvd:]))
+    out = replicate_on_tensor(grouped_attention(
+        split_heads(q, num_heads), split_heads(k, kv_heads),
+        split_heads(v, kv_heads), mask, num_heads))
     return linear({"w": p["w_out"], "b": p["b_out"]}, merge_heads(out))
 
 

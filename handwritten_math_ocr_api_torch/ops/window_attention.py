@@ -22,6 +22,7 @@ import math
 import torch
 
 from ..models import layers
+from ..parallel.mesh import replicate_on_tensor
 from . import _build
 
 _ENTRY = {torch.bfloat16: "window_attention_bf16",
@@ -91,13 +92,14 @@ def fused_window_attention(p, windows, num_heads: int, mask, n_windows: int,
     B = BW // n_windows
     dh = C // num_heads
     qkv = windows @ p["w_qkv"].to(windows.dtype) + p["b_qkv"].to(windows.dtype)
-    q, k, v = qkv.split(C, dim=-1)
+    q, k, v = replicate_on_tensor(qkv).split(C, dim=-1)
 
     def heads(x):
         return layers.split_heads(x, num_heads).reshape(
             B, n_windows, num_heads, N, dh).contiguous()
 
     core = window_attention_core if kernels else window_attention_core_plain
-    out = core(heads(q), heads(k), heads(v), mask.float().contiguous())
+    out = replicate_on_tensor(
+        core(heads(q), heads(k), heads(v), mask.float().contiguous()))
     out = layers.merge_heads(out.reshape(BW, num_heads, N, dh))
     return layers.linear({"w": p["w_out"], "b": p["b_out"]}, out)

@@ -27,8 +27,11 @@ What differs from JAX's app:
 - the device: ``cuda`` unless the state is made with ``device="cpu"``
   (the tests); nothing falls back to the CPU. ``SERVING_ADMISSION=device``
   builds a device-admission continuous decoder, as JAX's app does.
-  ``SERVING_MESH_DATA > 1`` is not ported: it logs a warning and serves on
-  one device (the same results);
+  ``SERVING_MESH_DATA=n > 1`` shards the continuous pool over a data-axis
+  mesh of the first ``n`` CUDA devices (``[cpu] * n`` on the host), as
+  JAX's app shards it over its devices, and warns and serves unsharded
+  where there are fewer (device admission on a mesh falls back to host
+  admission, as in JAX); ``/metrics``' ``batching.mesh`` reports its shape;
   ``ENABLE_PROFILER_SERVER`` has no counterpart and is logged;
 - image intake: every upload decodes and resizes through PIL, as in JAX
   (PIL is imported inside ``_decode_image_bytes``).
@@ -154,16 +157,18 @@ class ServerState:
             from ..decode.continuous import ContinuousDecoder
             from .batcher import ContinuousServingEngine
 
-            if self.cfg.mesh_data_axis > 1:
-                logger.warning(
-                    "SERVING_MESH_DATA=%d: a sharded slot pool is not "
-                    "ported; running unsharded on one device",
-                    self.cfg.mesh_data_axis)
+            mesh = self._serving_mesh(device)
             if self.cfg.quantize_decode and not self.cfg.use_fused_decode:
                 logger.warning(
                     "SERVING_QUANTIZE requires SERVING_USE_FUSED in "
                     "continuous batching mode (in-kernel dequant); "
                     "serving float weights")
+            admission = self.cfg.admission
+            if admission == "device" and mesh is not None:
+                logger.warning("SERVING_ADMISSION=device does not compose "
+                               "with SERVING_MESH_DATA>1; using host "
+                               "admission")
+                admission = "host"
             decoder = ContinuousDecoder(
                 params, model_cfg, self.tokenizer,
                 num_slots=self.cfg.num_slots,
@@ -175,8 +180,8 @@ class ServerState:
                 segment_ring=self.cfg.segment_ring,
                 constrained=self.cfg.constrained_decode,
                 harvest_threads=self.cfg.harvest_threads,
-                admission=self.cfg.admission, model_state=model_state,
-                device=device)
+                admission=admission, model_state=model_state,
+                device=device, mesh=mesh)
             try:  # the kernel build and allocator growth before traffic
                 decoder.warmup(image_dtype=(
                     np.uint8 if self.cfg.uint8_transfer else np.float32))
@@ -210,6 +215,32 @@ class ServerState:
         self.model_load_time = time.time() - t0
         logger.info("model initialized in %.2fs (vocab %d tokens)",
                     self.model_load_time, len(vocab))
+
+    def _serving_mesh(self, device):
+        """The continuous pool's mesh for ``SERVING_MESH_DATA=n`` > 1, as
+        JAX's app builds it: data ``n`` x tensor 1 over the first ``n``
+        CUDA devices, or over ``n`` CPU "devices" on the host (as JAX's
+        tests use virtual ones); None, with a warning, when the machine
+        has fewer devices."""
+        n = self.cfg.mesh_data_axis
+        if n <= 1:
+            return None
+        import torch
+
+        from ..parallel import mesh as mesh_lib
+
+        if device.type == "cpu":
+            devices = [device] * n
+        else:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())][:n]
+        if len(devices) < n:
+            logger.warning("SERVING_MESH_DATA=%d but only %d device(s); "
+                           "running unsharded", n, len(devices))
+            return None
+        mesh = mesh_lib.make_mesh(data=n, tensor=1, devices=devices)
+        logger.info("continuous engine on mesh %s", mesh.shape)
+        return mesh
 
     @property
     def model_loaded(self) -> bool:

@@ -1,1 +1,2 @@
-"""Loading of the serving artifact (training itself is not ported)."""
+"""Training: the step, optimizer, loop, checkpoints and serving artifacts,
+on one device or a device mesh."""

@@ -34,9 +34,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import ModelConfig, load_model_config
 from ..core.tokenizer import load_vocab, save_vocab
+from ..parallel.mesh import full_tensors, is_dtensor
 from ..utils import tree as tree_lib
 from ..utils.ocdbt import OcdbtStore, read_array
 
@@ -148,13 +150,22 @@ def save_checkpoint(directory: str, name: str, state, epoch: int,
                     metric: float, scheduler_state: Optional[Dict] = None,
                     extra: Optional[Dict] = None) -> str:
     """Write ``<directory>/<name>/`` (state.pt and train_meta.json);
-    returns its path."""
+    returns its path. A state on a device mesh (DTensors) is gathered
+    whole, by every rank, and written by rank 0 alone, in the one-device
+    format."""
     path = os.path.abspath(os.path.join(directory, name))
+    with torch.no_grad():
+        whole = [full_tensors(t) for t in (state.params, state.opt_state,
+                                           state.model_state,
+                                           state.ema_params)]
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
     os.makedirs(path, exist_ok=True)
-    tree = {"params": _cpu(state.params), "opt_state": _cpu(state.opt_state),
-            "model_state": _cpu(state.model_state), "step": int(state.step)}
-    if state.ema_params is not None:
-        tree["ema_params"] = _cpu(state.ema_params)
+    params, opt_state, model_state, ema_params = (_cpu(t) for t in whole)
+    tree = {"params": params, "opt_state": opt_state,
+            "model_state": model_state, "step": int(state.step)}
+    if ema_params is not None:
+        tree["ema_params"] = ema_params
     tmp = os.path.join(path, _STATE + ".tmp")
     torch.save(tree, tmp)
     os.replace(tmp, os.path.join(path, _STATE))
@@ -183,8 +194,9 @@ def _read_saved(path: str, params_only: bool) -> Dict:
 
 def _like(template, saved, what: str):
     """``saved`` (a tree, any dict order) in the structure of ``template``,
-    each leaf a tensor of the template leaf's dtype on its device; a
-    missing leaf or another shape raises ValueError."""
+    each leaf a tensor of the template leaf's dtype on its device (a
+    DTensor leaf's: placed as it is); a missing leaf or another shape
+    raises ValueError."""
     by_path = dict(zip(tree_lib.paths(saved), tree_lib.leaves(saved)))
     want = tree_lib.paths(template)
     if set(by_path) != set(want):
@@ -198,6 +210,11 @@ def _like(template, saved, what: str):
         if tuple(x.shape) != tuple(t.shape):
             raise ValueError(f"{what}: {'/'.join(p)} is {tuple(x.shape)} in "
                              f"the checkpoint, {tuple(t.shape)} here")
+        if is_dtensor(t):
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(x.to(device=t.device, dtype=t.dtype),
+                                     t.device_mesh, t.placements)
         return x.to(device=t.device, dtype=t.dtype)
 
     flat = [take(t, p) for t, p in zip(tree_lib.leaves(template), want)]

@@ -19,7 +19,11 @@ its step advanced (the JAX step donates its state), and its metrics as
 device tensors: no value is read on the host. A ResNet encoder runs in
 training mode: the returned state holds its new BatchNorm statistics (the
 forward's, under ``remat`` too); the EMA covers the params only, as in
-JAX.
+JAX. On a device mesh (DTensor params and batches, ``parallel/mesh.py``)
+the same step runs under DTensor's implicit replication, the products on
+the params' ``TP_RULES`` placements; DTensor inserts the collectives, and
+each gradient is reduced to its param's placements before the optimizer
+(``mesh.placed_like``).
 
 The eval step is deterministic and runs the encoder through its kernels on
 a CUDA device (window attention in every block, patch merging between the
@@ -40,6 +44,7 @@ from ..core.device import resolve_device
 from ..data.augment import augment_and_normalize
 from ..data.preprocess import normalize
 from ..models import model as model_mod
+from ..parallel import mesh as mesh_lib
 from ..utils import tree
 from .losses import smoothed_cross_entropy, token_accuracy
 from .optim import Optimizer, make_optimizer
@@ -162,6 +167,10 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     def train_step(state: TrainState, images, captions, seed: int
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with mesh_lib.step_scope(state.params):
+            return step(state, images, captions, seed)
+
+    def step(state, images, captions, seed):
         images, captions = _inputs(images, captions, dev)
         g = step_generator(seed, state.step, dev)
         if images.dtype == torch.uint8:
@@ -174,7 +183,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         targets = captions[:, 1:]
         loss = smoothed_cross_entropy(logits, targets, PAD_ID,
                                       tc.label_smoothing)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = mesh_lib.placed_like(torch.autograd.grad(loss, leaves),
+                                     leaves)
         grad_norm = apply_gradients(state, grads, optimizer, tc,
                                     encoder_update_scale)
         with torch.no_grad():

@@ -79,7 +79,7 @@ def test_run_all_int8_matches_jax(trees):
               pipeline_depth=2, use_fused=True, quantize=True)
     jax_dec = _jax_decoder(tree, **kw)
     dec = _decoder(tree, **kw)
-    assert dec._seg_params["w_qkv"].dtype == torch.int8
+    assert dec._shards[0].seg_params["w_qkv"].dtype == torch.int8
     got = dec.run_all(list(images))
     assert [g[0] for g in got] == [w[0] for w in
                                    jax_dec.run_all(list(images))]
@@ -155,7 +155,7 @@ def test_bucketed_pool_rows_scheduled(trees):
     want = jax_dec.run_all(list(images))
     dec = _decoder(tree, **kw)
     assert dec._seg_buckets == jax_dec._seg_buckets == [1, 2, 3]
-    assert dec._small.prev.shape[0] == 48
+    assert dec._shards[0].small.prev.shape[0] == 48
     _same(dec.run_all(list(images)), want)
     # the same rule as JAX's (the segment counts depend on when reports
     # land, which differs between the two)
@@ -285,8 +285,8 @@ def test_recycled_slot_survives_nan_cache(trees):
                        encode_buckets=(1, 2), pipeline_depth=1,
                        use_fused=True, segment_ring=ring)
         got = dec.run_all(list(images[:2]))
-        dec._cache["self_k"].fill_(float("nan"))
-        dec._cache["self_v"].fill_(float("nan"))
+        dec._shards[0].cache["self_k"].fill_(float("nan"))
+        dec._shards[0].cache["self_v"].fill_(float("nan"))
         got += dec.run_all(list(images[2:]))
         assert all(np.isfinite(c) for _, c in got)
         _same(got, want)
@@ -296,8 +296,8 @@ def test_recycled_slot_survives_nan_cache(trees):
 
 
 @pytest.mark.parametrize("kw,error", [
-    ({"mesh": object()}, NotImplementedError),
-    ({"admission": "device", "mesh": object()}, NotImplementedError),
+    ({"mesh": object()}, TypeError),
+    ({"admission": "device", "mesh": object()}, ValueError),
     ({"constrained": True, "tokenizer": None}, ValueError),
     ({"admission": "nowhere"}, ValueError),
 ])

@@ -163,7 +163,7 @@ def test_device_rejects_bad_combos(setup):
         tcont.ContinuousDecoder(params, cfg, Tokenizer(VOCAB),
                                 model_state=state, device="cpu",
                                 num_slots=2, admission="bogus")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="sharded slot pool"):
         tcont.ContinuousDecoder(params, cfg, Tokenizer(VOCAB),
                                 model_state=state, device="cpu",
                                 num_slots=2, admission="device",
@@ -214,9 +214,9 @@ def test_cancel_pulled_and_fail_reset(setup, host_results):
     dev.step_once()   # both staged, then pulled by segment 1
     assert dev._mailbox.taken(1) == (1, 0)
     assert dev._mailbox.taken(2) == (1, 1)
-    assert dev._occupant[0] == 1 and bool(dev._small.active[0])
-    assert dev.cancel(r0) and not bool(dev._small.active[0])
-    assert bool(dev._small.active[1])
+    assert dev._occupant[0] == 1 and bool(dev._shards[0].small.active[0])
+    assert dev.cancel(r0) and not bool(dev._shards[0].small.active[0])
+    assert bool(dev._shards[0].small.active[1])
     dev.submit(imgs[2])
     dev._admit()      # staged into slot 0, not pulled
     dev.fail_reset()

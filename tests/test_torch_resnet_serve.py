@@ -119,7 +119,7 @@ def test_continuous_matches_jax(encoder, fused):
         list(images))
     dec = tcont.ContinuousDecoder(params, cfg, Tokenizer(VOCAB),
                                   model_state=state, device="cpu", **kw)
-    cross = dec._cache["cross_k" if fused else "cross_k_0"]
+    cross = dec._shards[0].cache["cross_k" if fused else "cross_k_0"]
     assert cross.shape[-2 if fused else 2] == cfg.encoder_len == 2
     got = dec.run_all(list(images))
     _same(got, want)

@@ -1,7 +1,7 @@
 """The port's training loop, CLI and checkpoint surgery on the CPU:
 ``train_model`` over ``make_learnable_dataset`` (checkpoints, ``best_model``,
 early stopping, resume and resume across optimizer chains, ``init_from``,
-``freeze_encoder_epochs``, the refused ``mesh``), a learnability test (a
+``freeze_encoder_epochs``, a ``mesh`` of one rank), a learnability test (a
 tiny model must learn to read its training images), the CLI's
 ``build-vocab`` -> ``train`` -> ``evaluate`` -> ``predict`` through
 ``python -m handwritten_math_ocr_api_torch``, and ``extend-vocab`` /
@@ -173,9 +173,34 @@ def test_train_model_init_from_and_freeze(corpus, tmp_path):
     assert tree.structure(state.params) == tree.structure(fresh.params)
 
 
-def test_train_model_refuses_a_mesh(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
-        run(corpus, tmp_path, epochs=1, mesh=object())
+def test_train_model_refuses_a_mesh(corpus, tmp_path, monkeypatch):
+    """What is not a ``DeviceMesh`` is refused (TypeError); a 1 x 1
+    ``DeviceMesh`` of a one-rank gloo group trains as one device does
+    (``tests/test_torch_train_mesh.py`` runs the larger meshes)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from handwritten_math_ocr_api_torch.parallel import mesh as mesh_lib
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        run(corpus, tmp_path / "refused", epochs=1, mesh=object())
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        got = run(corpus, tmp_path / "mesh", epochs=1,
+                  mesh=mesh_lib.make_device_mesh(1, 1))
+        assert all(type(p).__name__ == "DTensor"
+                   for p in tree.leaves(got.params))
+        got = [p.full_tensor().detach() for p in tree.leaves(got.params)]
+    finally:
+        dist.destroy_process_group()
+    want = run(corpus, tmp_path / "one", epochs=1)
+    for a, b in zip(got, tree.leaves(want.params)):
+        torch.testing.assert_close(a, b.detach(), atol=5e-5, rtol=1e-4)
+    assert os.path.exists(tmp_path / "mesh" / "checkpoint_epoch_1")
 
 
 def test_pipeline_learns_to_read(tmp_path):
