@@ -162,8 +162,9 @@ Run from the root of a checkout. Phases, each printed on its own lines:
    decoded alone, a cancelled waiter dropped or its slot freed, stats and
    images/s. The streams, continuous runs and engines use the seeded
    weights with the EOS bias raised (and the PAD bias lowered);
-10. "serve app", the HTTP app (``serve/app.py`` on ``serve/http.py``)
-   started in this process on 127.0.0.1 and driven by a standard-library
+10. "serve app", the HTTP app (``serve/app.py`` on aiohttp, with
+   ``handler_cancellation`` as ``run_server`` serves it) started in this
+   process on 127.0.0.1 and driven by a standard-library
    client, each step's launch counts set to 0 before it and checked after
    (each decode's encode and its steps on the fused route; B5 in every
    layer of every step of a stream): the shipped weights in float32 (a
@@ -3896,9 +3897,13 @@ def app_predict(port, png, path="/predict", multipart=False):
         ctype = "application/json"
     status, headers, data = http_call(port, "POST", path, body,
                                       {"Content-Type": ctype})
-    if status != 200 or "x-request-id" not in headers:
-        raise AssertionError(f"app POST {path}: {status} {data[:300]!r}")
-    if path.startswith("/predict/stream"):
+    stream = path.startswith("/predict/stream")
+    # a stream's headers went out at prepare, before the request-id
+    # middleware adds its header (as in the JAX package's app)
+    if status != 200 or ("x-request-id" in headers) == stream:
+        raise AssertionError(f"app POST {path}: {status} {headers} "
+                             f"{data[:300]!r}")
+    if stream:
         return [json.loads(line[len("data: "):])
                 for line in data.decode().splitlines()
                 if line.startswith("data: ")]
@@ -3923,15 +3928,70 @@ def app_model_dir(dtype):
     return d
 
 
+class AppServer:
+    """An aiohttp app served as ``serve/app.run_server`` serves it
+    (``handler_cancellation=True``: a client disconnect cancels its
+    handler), on 127.0.0.1 at an ephemeral ``port``, from a thread with
+    its own event loop; the constructor returns once the app's startup
+    (the model's load and warmup) has run, and raises what it raised.
+    ``stop()`` runs the app's cleanup and joins the thread."""
+
+    def __init__(self, app):
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        self.app, self.port, self._error = app, None, None
+        self._loop = asyncio.new_event_loop()
+        self._stop = asyncio.Event()
+        ready = threading.Event()
+
+        async def start():
+            self._runner = web.AppRunner(app, handler_cancellation=True)
+            await self._runner.setup()
+            site = web.TCPSite(self._runner, "127.0.0.1", 0)
+            await site.start()
+            self.port = site._server.sockets[0].getsockname()[1]
+
+        def run():
+            asyncio.set_event_loop(self._loop)
+            try:
+                self._loop.run_until_complete(start())
+            except BaseException as e:  # handed to the constructor
+                self._error = e
+                ready.set()
+                return
+            ready.set()
+            try:
+                self._loop.run_until_complete(self._stop.wait())
+            finally:
+                self._loop.run_until_complete(self._runner.cleanup())
+                self._loop.close()
+
+        self._thread = threading.Thread(target=run, name="serve-app",
+                                        daemon=True)
+        self._thread.start()
+        if not ready.wait(600):
+            raise AssertionError("app: the server did not start")
+        if self._error is not None:
+            raise self._error
+
+    def stop(self):
+        self._loop.call_soon_threadsafe(self._stop.set)
+        self._thread.join(120)
+        if self._thread.is_alive():
+            raise AssertionError("app: the server did not stop")
+
+
 def app_server(model_dir, **kw):
     """The port's app (``serve/app.create_app``) on 127.0.0.1, an
     ephemeral port, served from a thread of this process."""
     from handwritten_math_ocr_api_torch.core.config import ServeConfig
     from handwritten_math_ocr_api_torch.serve.app import create_app
-    from handwritten_math_ocr_api_torch.serve.http import ServerThread
 
     cfg = ServeConfig(model_dir=model_dir, **{**APP_UNLIMITED, **kw})
-    server = ServerThread(create_app(cfg, device=DEVICE), "127.0.0.1", 0)
+    server = AppServer(create_app(cfg, device=DEVICE))
     state = server.app["state"]
     if state.engine is None:
         server.stop()
@@ -6159,6 +6219,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"torch.cuda.get_device_name(0) {torch.cuda.get_device_name(0)}")
+    import aiohttp
+    import pydantic
+
+    log(f"aiohttp {aiohttp.__version__} pydantic {pydantic.VERSION} (the "
+        f"app's transport and schemas)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -9,9 +9,9 @@ decode with ``?temperature=&top_k=&top_p=&seed=``), ``/predict/stream``
 ``/rate-limit/status``), the same JSON shapes (``serve/schemas.py``),
 auth (``X-API-Key`` / ``Bearer``, open when no key is configured),
 middlewares in the same order (errors, recycling, trusted hosts, CORS,
-rate limit, request id), error envelope and worker recycling. It runs on
-``serve/http.py``, a standard-library server with aiohttp's surface,
-instead of aiohttp.
+rate limit, request id), error envelope and worker recycling, on aiohttp
+as JAX's app (``client_max_size`` from ``max_file_size``; ``run_server``
+cancels a handler whose client disconnects).
 
 What differs from JAX's app:
 
@@ -51,12 +51,12 @@ import uuid
 from typing import Any, Dict, Optional
 
 import numpy as np
+from aiohttp import web
 
 from ..core.config import DecodeConfig, ServeConfig
 from ..core.tokenizer import Tokenizer
 from ..data.preprocess import preprocess_pil, resize_pil_u8
 from ..decode.api import DecodeEngine
-from . import http as web
 from .batcher import BatcherOverloaded, BatchingEngine, PredictionTimeout
 from .rate_limiter import (
     ConcurrencyLimitExceeded, ConcurrentRequestTracker, RateLimitConfig,
@@ -79,7 +79,7 @@ def _ts() -> str:
 
 def _error_json(status: int, error: str, detail: str) -> web.Response:
     body = ErrorResponse(error=error, detail=detail,
-                         timestamp=_ts()).to_dict()
+                         timestamp=_ts()).model_dump()
     return web.json_response(body, status=status)
 
 
@@ -110,7 +110,7 @@ class ServerState:
         self.start_time = time.time()
         # worker self-recycling (SERVING_MAX_REQUESTS): see
         # recycle_middleware. exit_callback is a test seam; the default
-        # stops the server, whose cleanup then stops the batcher.
+        # raises web.GracefulExit inside the run_app loop.
         self.draining = False
         self.recycle_requests = 0   # prediction REQUESTS (batch counts 1)
         self.inflight_predictions = 0
@@ -487,7 +487,7 @@ async def handle_predict(request) -> web.Response:
             formula=formula,
             confidence=state.calibrate_confidence(confidence),
             processing_time=processing_time, timestamp=_ts())
-        return web.json_response(resp.to_dict())
+        return web.json_response(resp.model_dump())
 
 
 async def handle_predict_stream(request) -> web.StreamResponse:
@@ -548,7 +548,7 @@ async def handle_predict_batch(request) -> web.Response:
     start = time.time()
     try:
         body = await request.json()
-        batch_req = BatchPredictionRequest.from_dict(body or {})
+        batch_req = BatchPredictionRequest(**(body or {}))
     except ApiError:
         raise
     except Exception as e:
@@ -589,7 +589,7 @@ async def handle_predict_batch(request) -> web.Response:
             results=results, total_images=len(batch_req.images),
             successful_predictions=successful,
             processing_time=time.time() - start, timestamp=_ts())
-        return web.json_response(resp.to_dict())
+        return web.json_response(resp.model_dump())
 
 
 async def handle_status(request) -> web.Response:
@@ -603,7 +603,7 @@ async def handle_status(request) -> web.Response:
         model_load_time=state.model_load_time,
         total_predictions=state.prediction_count,
         uptime=time.time() - state.start_time)
-    return web.json_response(resp.to_dict())
+    return web.json_response(resp.model_dump())
 
 
 async def handle_health(request) -> web.Response:
@@ -630,7 +630,7 @@ async def handle_health(request) -> web.Response:
                    checks["not_draining"],
                    all(model_files_exist.values())])
     resp = HealthResponse(healthy=healthy, checks=checks, timestamp=_ts())
-    return web.json_response(resp.to_dict())
+    return web.json_response(resp.model_dump())
 
 
 async def handle_model_info(request) -> web.Response:
@@ -734,11 +734,12 @@ async def handle_rate_limit_status(request) -> web.Response:
 _PREDICT_PATHS = ("/predict", "/predict/stream", "/predict/batch")
 
 
-def _default_exit(app) -> None:
-    # stops the server: run_app's cleanup stops the batcher (the
-    # continuous scheduler thread drains to idle) and returns, and the
-    # process exits 0 for its supervisor to start a fresh worker
-    app.stop()
+def _default_exit() -> None:
+    # GracefulExit (a SystemExit) raised from a loop callback ends
+    # run_forever; web.run_app catches it, runs the cleanup (the continuous
+    # scheduler thread drains to idle in batcher.stop()) and returns, and
+    # the process exits 0 for its supervisor to start a fresh worker
+    raise web.GracefulExit()
 
 
 async def _drain_and_exit(app) -> None:
@@ -754,12 +755,13 @@ async def _drain_and_exit(app) -> None:
         "%d images, uptime %.1fs, in-flight now %d",
         st.recycle_requests, st.cfg.max_requests, st.prediction_count,
         time.time() - st.start_time, st.inflight_predictions)
-    cb = st.exit_callback or (lambda: _default_exit(app))
+    cb = st.exit_callback or _default_exit
     # a small delay so that the last in-flight response's write is
-    # flushed before the server stops
+    # flushed before GracefulExit ends the loop
     asyncio.get_running_loop().call_later(0.5, cb)
 
 
+@web.middleware
 async def recycle_middleware(request, handler):
     """Worker self-recycling guard (SERVING_MAX_REQUESTS, 0 = off): after
     N prediction requests the worker drains and exits 0 for its supervisor
@@ -789,6 +791,7 @@ async def recycle_middleware(request, handler):
                 _drain_and_exit(request.app))
 
 
+@web.middleware
 async def error_middleware(request, handler):
     try:
         return await handler(request)
@@ -808,6 +811,7 @@ async def error_middleware(request, handler):
                            "An unexpected error occurred")
 
 
+@web.middleware
 async def trusted_host_middleware(request, handler):
     state: ServerState = request.app["state"]
     hosts = state.cfg.trusted_hosts
@@ -818,6 +822,7 @@ async def trusted_host_middleware(request, handler):
     return await handler(request)
 
 
+@web.middleware
 async def cors_middleware(request, handler):
     state: ServerState = request.app["state"]
     origins = state.cfg.cors_origins
@@ -835,6 +840,7 @@ async def cors_middleware(request, handler):
     return resp
 
 
+@web.middleware
 async def rate_limit_middleware(request, handler):
     """Fixed-window limits on inference paths; fails open on limiter
     errors."""
@@ -853,6 +859,7 @@ async def rate_limit_middleware(request, handler):
     return await handler(request)
 
 
+@web.middleware
 async def request_id_middleware(request, handler):
     request["request_id"] = str(uuid.uuid4())
     t0 = time.perf_counter()
@@ -959,11 +966,13 @@ def create_app(cfg: Optional[ServeConfig] = None,
 
 def run_server(model_dir: str = "trained-model", host: str = "0.0.0.0",
                port: int = 8080, device: Optional[str] = None) -> None:
-    """Serve until SIGINT, SIGTERM or a recycle; a client disconnect
-    cancels its handler, and so frees a continuous request's KV slot."""
+    """Serve until SIGINT, SIGTERM or a recycle. ``handler_cancellation``:
+    a client disconnect cancels its handler, and so the awaited prediction,
+    whose continuous request then frees its KV slot
+    (``ContinuousDecoder.cancel``)."""
     import dataclasses
 
     cfg = dataclasses.replace(ServeConfig.from_env(), model_dir=model_dir,
                               host=host, port=port)
     web.run_app(create_app(cfg, device=device), host=cfg.host,
-                port=cfg.port)
+                port=cfg.port, handler_cancellation=True)

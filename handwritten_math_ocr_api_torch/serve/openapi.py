@@ -1,14 +1,13 @@
 """OpenAPI spec + docs pages of the serving API.
 
 The port of ``handwritten_math_ocr_api_tpu/serve/openapi.py``: the same
-spec, assembled from the literal JSON schemas that ``serve/schemas.py``
-keeps (pydantic v2's, for the JAX package's models), and the same Swagger
-UI and ReDoc pages, served at ``/openapi.json``, ``/docs`` and ``/redoc``.
+spec, assembled from the pydantic schemas of ``serve/schemas.py``, and the
+same Swagger UI and ReDoc pages, served at ``/openapi.json``, ``/docs`` and
+``/redoc``.
 """
 
 from __future__ import annotations
 
-import copy
 from typing import Dict
 
 from .schemas import (
@@ -25,7 +24,10 @@ def build_spec(title: str, version: str, description: str) -> Dict:
     for model in (PredictionResponse, BatchPredictionRequest,
                   BatchPredictionResponse, StatusResponse, HealthResponse,
                   ErrorResponse):
-        schemas[model.__name__] = copy.deepcopy(model.JSON_SCHEMA)
+        schema = model.model_json_schema(
+            ref_template="#/components/schemas/{model}")
+        schemas.update(schema.pop("$defs", {}))
+        schemas[model.__name__] = schema
 
     def responses(model, desc="OK"):
         return {

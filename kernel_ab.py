@@ -71,12 +71,13 @@ and MQA (``nhead_kv=1``) fused int8, each greedy (``ROUTE_ROUNDS``
 rounds) and beam 5 (``ROUTE_ROUNDS // 2``), after a warm-up call of each;
 images/s of the median and of the best round.
 
-``app`` runs this tree's ``chip_smoke.app_load`` (the shipped bf16
-weights on the HTTP app, fused route, dynamic batching, 16 closed-loop
-clients, three windows of ``APP_LOAD_REQUESTS`` requests) on the package
-under each DIR and on the tree, in turns as ``steps`` does: requests/s,
-p50/p95 latency and a request's input stage (upload to pixels) of each
-window.
+``app`` runs ``chip_smoke.app_load`` (the shipped bf16 weights on the
+HTTP app, fused route, dynamic batching, 16 closed-loop clients, three
+windows of ``APP_LOAD_REQUESTS`` requests) on the package under each DIR
+and on the tree, in turns as ``steps`` does, each side with the
+``chip_smoke.py`` beside its package (which serves that package's app as
+its own smoke run does): requests/s, p50/p95 latency and a request's input
+stage (upload to pixels) of each window.
 
 Device time from ``chip_smoke.cuda_ms`` (the profiler); the card's name and
 power limit are printed first. Numbers compare only within one run.
@@ -295,13 +296,14 @@ def steps_in_process(root: str, label: str) -> None:
 ROUTE_ROUNDS = 10
 
 
-def load_tree_smoke():
-    """This checkout's ``chip_smoke`` (its constants and its app load),
-    whichever package ``sys.path`` finds first."""
+def load_tree_smoke(root: str = ROOT):
+    """The ``chip_smoke`` of ``root`` (this checkout's by default: its
+    constants and its app load), whichever package ``sys.path`` finds
+    first."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     sys.modules["chip_smoke"] = cs
     spec.loader.exec_module(cs)
@@ -373,7 +375,7 @@ def app_in_process(root: str, label: str) -> None:
     import glob
 
     import_package(root)
-    cs = load_tree_smoke()
+    cs = load_tree_smoke(root)
     paths = sorted(glob.glob(os.path.join(
         cs.QUALITY_DATA, "test_formulas", "*.png")))[:cs.APP_CONCURRENT]
     pngs = []

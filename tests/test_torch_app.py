@@ -1,5 +1,5 @@
-"""The port's serving app (``serve/app.py`` on ``serve/http.py``) against
-the JAX package's aiohttp app, on the same artifact and the same requests.
+"""The port's serving app (``serve/app.py``) against the JAX package's,
+both on aiohttp, on the same artifact and the same requests.
 
 Both apps load one tiny serving artifact that JAX's
 ``save_params_for_serving`` wrote (``torch_app_harness.save_artifact``:
@@ -13,8 +13,8 @@ What is held: the status, the JSON keys and the values of every route's
 answer, with formulas equal and confidences within 1e-5 (float32), and
 only ``processing_time``, ``timestamp``, ``uptime``, ``model_load_time``
 and ``device`` left out; ``/openapi.json`` deep; the 400s of bad input
-and of the sampling parameters, the 422s of bad batch bodies (status and
-keys; pydantic's detail text is not the port's); auth (401, 403, 200 with
+and of the sampling parameters, the 422s of bad batch bodies (status, error
+and pydantic's detail text); auth (401, 403, 200 with
 ``X-API-Key`` and with ``Bearer``); the rate limit's 429 at the same
 request with the same body keys and the same ``client_id``; calibration;
 ``uint8_transfer`` off; continuous batching on the default and the fused
@@ -34,14 +34,6 @@ import pytest
 import torch_app_harness as h
 import torch_threads  # noqa: F401  (one CPU thread: see the module)
 
-TIMING = {"processing_time", "timestamp", "uptime", "model_load_time",
-          "device"}
-
-
-UNLIMITED = dict(rate_limit_per_minute=10 ** 6, rate_limit_per_hour=10 ** 6,
-                 rate_limit_per_day=10 ** 6,
-                 rate_limit_anonymous_daily=10 ** 6)
-
 
 @pytest.fixture(scope="module")
 def artifact(tmp_path_factory):
@@ -53,36 +45,10 @@ def servers(artifact):
     """(JAX's app, the port's app) with the default configuration, but
     for rate limits raised above this file's requests (the default limits
     are held in ``test_auth_and_rate_limit``)."""
-    kw = dict(model_dir=artifact, **UNLIMITED)
+    kw = dict(model_dir=artifact, **h.UNLIMITED)
     pair = (h.JaxServer(h.jax_config(**kw)), h.PortServer(h.port_config(**kw)))
     yield pair
     h.stop_all(*pair)
-
-
-def _strip(obj):
-    if isinstance(obj, dict):
-        return {k: _strip(v) for k, v in obj.items() if k not in TIMING}
-    if isinstance(obj, list):
-        return [_strip(v) for v in obj]
-    return obj
-
-
-def _same_json(j, t):
-    """Equal but for the timing fields, confidences within 1e-5."""
-    j, t = _strip(j), _strip(t)
-    if isinstance(j, dict):
-        assert j.keys() == t.keys(), (j, t)
-        for k in j:
-            if k == "confidence" and j[k] is not None:
-                assert abs(j[k] - t[k]) < h.CONF_TOL, (j, t)
-            else:
-                _same_json(j[k], t[k])
-    elif isinstance(j, list):
-        assert len(j) == len(t), (j, t)
-        for a, b in zip(j, t):
-            _same_json(a, b)
-    else:
-        assert j == t, (j, t)
 
 
 def _both_json(servers, fn, status=200):
@@ -122,7 +88,7 @@ def test_fused_route(artifact, servers):
     port = h.PortServer(h.port_config(model_dir=artifact,
                                       use_fused_decode=True,
                                       pallas_encoder_block=True,
-                                      **UNLIMITED))
+                                      **h.UNLIMITED))
     try:
         # the shared apps answer too, so that their counters stay equal
         for seed, shape in ((0, (50, 120)), (6, (96, 320)), (7, (96, 320))):
@@ -138,7 +104,7 @@ def test_fused_route(artifact, servers):
             p, "/predict/stream?segment_steps=4", body))
         fused = h.post_json(port.port, "/predict/stream?segment_steps=4",
                             body)
-        _same_json(j.events(), fused.events())
+        h.same_json(j.events(), fused.events())
         assert port.state.engine.use_fused
     finally:
         port.stop()
@@ -168,7 +134,7 @@ def test_predict_batch_mixed(servers):
         p, "/predict/batch", {"images": [good, "%%%bad", other]}))
     assert t["total_images"] == 3 and t["successful_predictions"] == 2
     assert [r["success"] for r in t["results"]] == [True, False, True]
-    _same_json(j, t)
+    h.same_json(j, t)
 
 
 @pytest.mark.parametrize("body", [
@@ -180,6 +146,10 @@ def test_predict_batch_422(servers, body):
     assert set(j.json()) == set(t.json()) == {"error", "detail",
                                               "timestamp"}
     assert j.json()["error"] == t.json()["error"]
+    # a body that is not a mapping: Python's TypeError names the schema
+    # class by its module, whose package is each app's own
+    assert j.json()["detail"] == t.json()["detail"].replace(
+        "handwritten_math_ocr_api_torch.", "handwritten_math_ocr_api_tpu.")
 
 
 def test_predict_stream(servers):
@@ -189,9 +159,12 @@ def test_predict_stream(servers):
     assert j.status == t.status == 200
     assert j.headers["content-type"] == t.headers["content-type"] \
         == "text/event-stream"
+    assert set(j.headers) - {"date"} == set(t.headers) - {"date"}
+    for k in set(j.headers) - {"date"}:
+        assert j.headers[k] == t.headers[k], k
     ej, et = j.events(), t.events()
     assert et and et[-1]["done"] is True
-    _same_json(ej, et)
+    h.same_json(ej, et)
     plain = _both_json(servers, lambda p: h.post_json(p, "/predict", body))
     assert et[-1]["formula"] == plain[1]["formula"]
 
@@ -234,13 +207,13 @@ BAD_INPUTS = {
 def test_predict_invalid_inputs(servers, case):
     j, t = h.both(servers, BAD_INPUTS[case])
     assert j.status == t.status == 400, (j.body, t.body)
-    _same_json(j.json(), t.json())
+    h.same_json(j.json(), t.json())
 
 
 def test_status_health_model_info(servers):
     for path in ("/status", "/health", "/model/info"):
         j, t = _both_json(servers, lambda p: h.call(p, "GET", path))
-        _same_json(j, t)
+        h.same_json(j, t)
     assert h.call(servers[1].port, "GET", "/status").json()["device"] \
         == "cpu"
 
@@ -361,7 +334,7 @@ def test_auth_and_rate_limit(artifact, monkeypatch):
 
 
 def test_uint8_transfer_off(artifact, servers):
-    kw = dict(model_dir=artifact, uint8_transfer=False, **UNLIMITED)
+    kw = dict(model_dir=artifact, uint8_transfer=False, **h.UNLIMITED)
     pair = (h.JaxServer(h.jax_config(**kw)), h.PortServer(h.port_config(**kw)))
     try:
         for shape in ((50, 120), (96, 320)):
@@ -393,7 +366,7 @@ def test_calibration(artifact, tmp_path):
         h.same_prediction(*raw)
         j, t = _both_json(pair, lambda p: h.post_json(
             p, "/predict/batch", {"images": [h.b64(png)]}))
-        _same_json(j, t)
+        h.same_json(j, t)
     finally:
         h.stop_all(*pair)
     plain = h.PortServer(h.port_config(model_dir=artifact))
@@ -409,7 +382,7 @@ CONT = dict(batching_mode="continuous", num_slots=4, segment_steps=4)
 
 @pytest.fixture(scope="module")
 def jax_continuous(artifact):
-    s = h.JaxServer(h.jax_config(model_dir=artifact, **CONT, **UNLIMITED))
+    s = h.JaxServer(h.jax_config(model_dir=artifact, **CONT, **h.UNLIMITED))
     yield s
     s.stop()
 
@@ -430,7 +403,7 @@ def test_continuous_mode(artifact, jax_continuous, fused):
     port = h.PortServer(h.port_config(model_dir=artifact,
                                       use_fused_decode=fused,
                                       pallas_encoder_block=fused, **CONT,
-                                      **UNLIMITED))
+                                      **h.UNLIMITED))
     try:
         want = _burst(jax_continuous.port, images)
         got = _burst(port.port, images)
@@ -440,7 +413,7 @@ def test_continuous_mode(artifact, jax_continuous, fused):
         body = {"images": [h.b64(images[0]), h.b64(images[1])]}
         j, t = h.post_json(jax_continuous.port, "/predict/batch", body), \
             h.post_json(port.port, "/predict/batch", body)
-        _same_json(j.json(), t.json())
+        h.same_json(j.json(), t.json())
         m = h.call(port.port, "GET", "/metrics").json()["batching"]
         assert m["mode"] == "continuous" and m["segments_run"] >= 1
         assert port.state.batcher.decoder.use_fused == fused
@@ -454,7 +427,7 @@ def test_recycle_after_max_requests(artifact):
     called once, on both apps; then the port's server with its default
     exit stops itself and runs its cleanup (the batcher stopped)."""
     exits = {"jax": [], "port": []}
-    kw = dict(model_dir=artifact, max_requests=3, **UNLIMITED)
+    kw = dict(model_dir=artifact, max_requests=3, **h.UNLIMITED)
     pair = (h.JaxServer(h.jax_config(**kw),
                         exit_callback=lambda: exits["jax"].append(1)),
             h.PortServer(h.port_config(**kw),
@@ -468,10 +441,10 @@ def test_recycle_after_max_requests(artifact):
         j, t = h.both(pair, lambda p: h.post_json(p, "/predict", body))
         assert j.status == t.status == 503
         assert j.headers["retry-after"] == t.headers["retry-after"] == "1"
-        _same_json(j.json(), t.json())
+        h.same_json(j.json(), t.json())
         hj, ht = _both_json(pair, lambda p: h.call(p, "GET", "/health"))
         assert ht["checks"]["not_draining"] is False and not ht["healthy"]
-        _same_json(hj, ht)
+        h.same_json(hj, ht)
         mj, mt = _both_json(pair, lambda p: h.call(p, "GET", "/metrics"))
         assert mj["recycle"] == mt["recycle"] == {
             "max_requests": 3, "requests_served": 3, "draining": True}

@@ -76,7 +76,7 @@ def test_port_imports_no_jax_and_no_host_only_packages(path):
     assert not anywhere & {"jax", "jaxlib", "handwritten_math_ocr_api_tpu",
                            "flax", "optax", "orbax"}, anywhere
     top = set(_imports(tree, top_level_only=True))
-    assert not top & {"PIL", "cv2", "aiohttp", "fastapi", "triton"}, top
+    assert not top & {"PIL", "cv2", "fastapi", "triton"}, top
 
 
 def test_port_imports_with_jax_blocked():

@@ -1,25 +1,21 @@
-"""The port's HTTP transport (``serve/http.py``) and the serving units
-around the app, against the JAX package's where it has them.
+"""The serving units around the port's app, against the JAX package's
+where it has them.
 
-Transport: the multipart parser on files whose bytes hold CR, LF, CRLF and
-lines that begin like the boundary; chunked request bodies; two requests
-(and a pipelined pair) on one kept-alive connection; HTTP/1.0; HEAD;
-``Expect: 100-continue``; 404, 405, 413 and 400 on a malformed request; a
-client that disconnects mid-request, whose handler is cancelled and whose
-continuous request's slot is freed (``tests/test_cancel.py:211`` over
-HTTP, on the port's app and on JAX's aiohttp app with the same blocking
-fake decoder); a startup that fails.
+A client that disconnects mid-request, whose handler is cancelled and
+whose continuous request's slot is freed (``tests/test_cancel.py:211``
+over HTTP, on the port's app and on JAX's, both on aiohttp with
+``handler_cancellation=True``, with the same blocking fake decoder).
 
 Units: the image intake (every upload through PIL, as JAX's: corpus images
 and synthesized PNGs of every filter type give the port's PNG reader's
 pixels, and every size and kind of upload gives JAX's intake's pixels, in
-both transfer modes); each schema's literal JSON
-schema against pydantic's ``model_json_schema`` of the JAX model and
-``to_dict`` against ``model_dump``; the rate limiter's units on both
-packages; ``ServeConfig.from_env`` under a patched environment; the CLI's
-``serve --help`` and ``calibrate`` against JAX's; and, in a subprocess,
-that no module of the port imports jax, aiohttp, pydantic or the JAX
-package.
+both transfer modes); each pydantic schema's ``model_json_schema``,
+``model_dump`` and validation errors against the JAX model's; the rate
+limiter's units on both packages; ``ServeConfig.from_env`` under a patched
+environment; the CLI's ``serve --help`` and ``calibrate`` against JAX's;
+and, in a subprocess, that no module of the port imports jax or the JAX
+package. The transport itself is held against JAX's app in
+``test_torch_app_transport.py``.
 """
 
 import asyncio
@@ -45,7 +41,6 @@ from handwritten_math_ocr_api_tpu.serve import rate_limiter as jrl
 
 from handwritten_math_ocr_api_torch.data import png
 from handwritten_math_ocr_api_torch.serve import app as tapp
-from handwritten_math_ocr_api_torch.serve import http as web
 from handwritten_math_ocr_api_torch.serve import rate_limiter as trl
 
 import torch_threads  # noqa: F401  (one CPU thread: see the module)
@@ -53,242 +48,6 @@ import torch_threads  # noqa: F401  (one CPU thread: see the module)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "data_eval_hard", "test_formulas")
 SIZE = (96, 320)
-
-
-# ---------------------------------------------------------------------------
-# A bare app over the transport
-# ---------------------------------------------------------------------------
-
-async def _echo(request):
-    body = await request.read()
-    return web.json_response({
-        "method": request.method, "path": request.path,
-        "query": request.query, "n": len(body),
-        "sha": __import__("hashlib").sha256(body).hexdigest(),
-        "ctype": request.content_type,
-        "x": request.headers.get("x-custom")})
-
-
-async def _form(request):
-    form = await request.post()
-    out = {}
-    for name, field in form.items():
-        if isinstance(field, web.FileField):
-            data = field.file.read()
-            out[name] = {"filename": field.filename, "n": len(data),
-                         "bytes": list(data)}
-        else:
-            out[name] = field
-    return web.json_response(out)
-
-
-@pytest.fixture(scope="module")
-def echo():
-    app = web.Application(client_max_size=4096)
-    app.router.add_post("/echo", _echo)
-    app.router.add_get("/echo", _echo)
-    app.router.add_post("/form", _form)
-    server = web.ServerThread(app)
-    yield server.port
-    server.stop()
-
-
-def _raw(port, data, read_until_close=True, timeout=10):
-    """Send raw bytes; return what the server wrote until it closed (or
-    the timeout)."""
-    s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
-    try:
-        s.sendall(data)
-        out = b""
-        while read_until_close:
-            try:
-                chunk = s.recv(65536)
-            except socket.timeout:
-                break
-            if not chunk:
-                break
-            out += chunk
-        return out
-    finally:
-        s.close()
-
-
-def _bodies(raw):
-    """The JSON bodies of HTTP responses with Content-Length, in order."""
-    out = []
-    while raw:
-        head, _, rest = raw.partition(b"\r\n\r\n")
-        n = int([ln.split(b":")[1] for ln in head.split(b"\r\n")
-                 if ln.lower().startswith(b"content-length")][0])
-        out.append((head.split(b"\r\n")[0], rest[:n]))
-        raw = rest[n:]
-    return out
-
-
-TRICKY = [
-    b"",
-    b"\r\n",
-    b"line one\r\nline two\r\n",
-    b"ends with CR\r",
-    b"lone \r and \n and \r\n\r\n",
-    b"\r\n--" + b"----mathocr-test-boundary-7f3a9c" + b"X\r\n",
-    b"--" + b"----mathocr-test-boundary-7f3a9c" + b"-- not the end\r\ntail",
-    bytes(range(256)) * 3,
-]
-
-
-@pytest.mark.parametrize("i", range(len(TRICKY)))
-def test_multipart_parser(i):
-    """A file's bytes come back exactly, whatever CR/LF or boundary-like
-    lines they hold; a plain field comes back as text."""
-    data = TRICKY[i]
-    body, ctype = h.multipart([("file", "a.png", data),
-                               ("note", None, "héllo".encode()),
-                               ("file", "second.png", b"ignored")])
-    form = web.parse_multipart(body, ctype)
-    assert isinstance(form["file"], web.FileField)
-    assert form["file"].filename == "a.png"
-    assert form["file"].file.read() == data
-    assert form["note"] == "héllo"
-
-
-def test_multipart_over_http(echo):
-    data = TRICKY[5] + TRICKY[4]
-    body, ctype = h.multipart([("file", "f.png", data)])
-    r = h.call(echo, "POST", "/form", body, {"Content-Type": ctype})
-    assert r.status == 200
-    assert bytes(r.json()["file"]["bytes"]) == data
-
-
-def test_chunked_request_body(echo):
-    payload = b"0123456789" * 50
-    chunks = b"".join(b"%x\r\n%s\r\n" % (len(c), c)
-                      for c in (payload[:7], payload[7:300], payload[300:]))
-    raw = _raw(echo, b"POST /echo?a=1&b=x%20y&a=2 HTTP/1.1\r\nHost: x\r\n"
-               b"Transfer-Encoding: chunked\r\nConnection: close\r\n"
-               b"X-Custom: v\r\n\r\n" + chunks + b"0\r\nTrailer: t\r\n\r\n")
-    (status, body), = _bodies(raw)
-    assert status == b"HTTP/1.1 200 OK"
-    got = json.loads(body)
-    import hashlib
-
-    assert got["n"] == len(payload)
-    assert got["sha"] == hashlib.sha256(payload).hexdigest()
-    assert got["query"] == {"a": "1", "b": "x y"} and got["x"] == "v"
-
-
-def test_keep_alive_and_pipelining(echo):
-    import http.client
-
-    conn = http.client.HTTPConnection("127.0.0.1", echo, timeout=10)
-    try:
-        for i in range(2):
-            conn.request("POST", f"/echo?i={i}", b"x" * (i + 1))
-            r = conn.getresponse()
-            assert r.status == 200 and r.getheader("Connection") == \
-                "keep-alive"
-            assert json.loads(r.read())["n"] == i + 1
-    finally:
-        conn.close()
-    # two requests in one write, then a close
-    raw = _raw(echo, b"GET /echo?i=0 HTTP/1.1\r\nHost: x\r\n\r\n"
-               b"POST /echo?i=1 HTTP/1.1\r\nHost: x\r\nContent-Length: 3"
-               b"\r\nConnection: close\r\n\r\nabc")
-    replies = _bodies(raw)
-    assert [json.loads(b)["query"]["i"] for _, b in replies] == ["0", "1"]
-    assert json.loads(replies[1][1])["n"] == 3
-
-
-def test_http10_head_and_expect(echo):
-    raw = _raw(echo, b"GET /echo HTTP/1.0\r\n\r\n")
-    assert raw.startswith(b"HTTP/1.1 200 OK") and b"Connection: close" in raw
-    raw = _raw(echo, b"HEAD /echo HTTP/1.1\r\nConnection: close\r\n\r\n")
-    head, _, rest = raw.partition(b"\r\n\r\n")
-    assert head.startswith(b"HTTP/1.1 200 OK") and rest == b""
-    assert b"Content-Length: " in head
-    s = socket.create_connection(("127.0.0.1", echo), timeout=10)
-    try:
-        s.sendall(b"POST /echo HTTP/1.1\r\nContent-Length: 4\r\n"
-                  b"Expect: 100-continue\r\nConnection: close\r\n\r\n")
-        assert s.recv(100).startswith(b"HTTP/1.1 100 Continue")
-        s.sendall(b"abcd")
-        rest = b""
-        while True:
-            chunk = s.recv(65536)
-            if not chunk:
-                break
-            rest += chunk
-        assert json.loads(_bodies(rest)[0][1])["n"] == 4
-    finally:
-        s.close()
-
-
-def test_404_405_413_and_400(echo):
-    assert h.call(echo, "GET", "/missing").status == 404
-    r = h.call(echo, "PUT", "/echo")
-    assert r.status == 405 and r.headers["allow"] == "GET,HEAD,POST"
-    r = h.call(echo, "POST", "/echo", b"x" * 5000)
-    assert r.status == 413
-    assert r.body == b"Maximum request body size 4096 exceeded, actual " \
-                     b"body size 5000"
-    raw = _raw(echo, b"POST /echo HTTP/1.1\r\nTransfer-Encoding: chunked"
-               b"\r\n\r\n1001\r\n" + b"x" * 4097 + b"\r\n0\r\n\r\n")
-    assert raw.startswith(b"HTTP/1.1 413 ")
-    # the connection serves on after a 413 whose body it read
-    conn = __import__("http.client").client.HTTPConnection(
-        "127.0.0.1", echo, timeout=10)
-    try:
-        conn.request("POST", "/echo", b"x" * 5000)
-        assert conn.getresponse().read() and True
-        conn.request("POST", "/echo", b"ok")
-        assert json.loads(conn.getresponse().read())["n"] == 2
-    finally:
-        conn.close()
-    assert _raw(echo, b"NONSENSE\r\n\r\n").startswith(b"HTTP/1.1 400 ")
-    assert _raw(echo, b"POST /echo HTTP/1.1\r\nContent-Length: x\r\n\r\n"
-                ).startswith(b"HTTP/1.1 400 ")
-
-
-def test_startup_failure_raises():
-    app = web.Application()
-
-    async def boom(app):
-        raise RuntimeError("no model")
-
-    app.on_startup.append(boom)
-    with pytest.raises(RuntimeError, match="no model"):
-        web.ServerThread(app)
-    taken = web.ServerThread(web.Application())
-    try:
-        with pytest.raises(OSError):
-            web.ServerThread(web.Application(), port=taken.port)
-    finally:
-        taken.stop()
-
-
-def test_shutdown_waits_for_handlers_then_cleans_up():
-    app = web.Application()
-    events = []
-
-    async def slow(request):
-        await asyncio.sleep(0.3)
-        events.append("handled")
-        return web.json_response({"ok": True})
-
-    async def cleanup(app):
-        events.append("cleanup")
-
-    app.router.add_get("/slow", slow)
-    app.on_cleanup.append(cleanup)
-    server = web.ServerThread(app)
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(1) as ex:
-        fut = ex.submit(h.call, server.port, "GET", "/slow")
-        time.sleep(0.1)
-        server.stop()
-        assert fut.result().status == 200
-    assert events == ["handled", "cleanup"]
 
 
 # ---------------------------------------------------------------------------
@@ -589,22 +348,30 @@ SCHEMA_INVALID = {
 
 @pytest.mark.parametrize("name", sorted(SCHEMA_SAMPLES))
 def test_schema_matches_pydantic(name):
+    """The port's model against the JAX package's: the JSON schema,
+    ``model_dump`` (keys in order) and, for each invalid body, the same
+    ``ValidationError``."""
+    import pydantic
+
     from handwritten_math_ocr_api_tpu.serve import schemas as jschemas
 
     from handwritten_math_ocr_api_torch.serve import schemas as tschemas
 
     jcls, tcls = getattr(jschemas, name), getattr(tschemas, name)
-    assert tcls.JSON_SCHEMA == jcls.model_json_schema(
-        ref_template="#/components/schemas/{model}")
+    assert tcls.model_json_schema() == jcls.model_json_schema()
+    ref = "#/components/schemas/{model}"
+    assert tcls.model_json_schema(ref_template=ref) == \
+        jcls.model_json_schema(ref_template=ref)
     for kw in SCHEMA_SAMPLES[name]:
-        assert tcls(**kw).to_dict() == jcls(**kw).model_dump()
-        assert list(tcls(**kw).to_dict()) == list(jcls(**kw).model_dump())
+        assert tcls(**kw).model_dump() == jcls(**kw).model_dump()
+        assert list(tcls(**kw).model_dump()) == list(jcls(**kw).model_dump())
     for kw in SCHEMA_INVALID.get(name, []):
-        with pytest.raises(ValueError):
+        with pytest.raises(pydantic.ValidationError) as je:
             jcls(**kw)
-        with pytest.raises((ValueError, TypeError)):
-            (tcls.from_dict(kw) if name == "BatchPredictionRequest"
-             else tcls(**kw))
+        with pytest.raises(pydantic.ValidationError) as te:
+            tcls(**kw)
+        assert str(te.value) == str(je.value)
+        assert te.value.errors() == je.value.errors()
 
 
 # ---------------------------------------------------------------------------
@@ -801,10 +568,10 @@ def test_cli_calibrate(tmp_path, capsys, method):
         tcli.main(["calibrate", "--results", str(few)]) == 1
 
 
-def test_port_imports_no_jax_aiohttp_or_pydantic():
-    """Every module of the port imported in a fresh interpreter: none of
-    jax, aiohttp, pydantic or the JAX package is loaded because of them
-    (nor PIL, which the upload intake imports inside the function)."""
+def test_port_imports_no_jax():
+    """Every module of the port imported in a fresh interpreter: neither
+    jax nor the JAX package is loaded because of them (nor PIL, which the
+    upload intake imports inside the function)."""
     script = r"""
 import importlib, pkgutil, sys
 before = set(sys.modules)
@@ -813,7 +580,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in set(sys.modules) - before
-             if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic",
+             if m.split(".")[0] in ("jax", "jaxlib",
                                     "handwritten_math_ocr_api_tpu", "PIL"))
 print(len(names), bad)
 """

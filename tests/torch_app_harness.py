@@ -1,7 +1,8 @@
 """Shared pieces of the serving-app tests (``test_torch_app.py``,
-``test_torch_http.py``): a tiny serving artifact saved by the JAX package,
-the JAX app and the port's app each served on 127.0.0.1 from a thread of
-its own, and one standard-library HTTP client for both.
+``test_torch_app_transport.py``, ``test_torch_http.py`` and others): a
+tiny serving artifact saved by the JAX package, the JAX app and the
+port's app (both on aiohttp) each served on 127.0.0.1 from a thread of its
+own, and one standard-library HTTP client for both.
 
 The artifact is ``tests/test_serve.py``'s ``TINY`` configuration (a
 two-stage Swin on 96x320 images, d_model 32, 2 decoder layers, vocab 20,
@@ -70,25 +71,26 @@ def b64(data: bytes) -> str:
 # Servers
 # ---------------------------------------------------------------------------
 
-class JaxServer:
-    """The JAX package's aiohttp app on 127.0.0.1, served as its
+class _AppThread:
+    """An aiohttp app on 127.0.0.1 (an ephemeral port), served as
     ``run_server`` serves it (``handler_cancellation=True``) from a thread
-    with its own event loop."""
+    with its own event loop: ``web.AppRunner`` and a ``TCPSite``. The
+    constructor raises what the app's startup raised. A ``GracefulExit``
+    from the app (a recycle's default exit) ends the loop as it ends
+    ``web.run_app``'s, and the cleanup runs after it, as there."""
 
-    def __init__(self, cfg, exit_callback=None, state=None):
+    def __init__(self, app, exit_callback=None):
         from aiohttp import web
 
-        from handwritten_math_ocr_api_tpu.serve.app import create_app
-
-        self.app = create_app(cfg, state)
-        self.state = self.app["state"]
+        self.app = app
+        self.state = app["state"]
         self.state.exit_callback = exit_callback
         self._loop = asyncio.new_event_loop()
+        self._error = None
         ready = threading.Event()
 
         async def start():
-            self._runner = web.AppRunner(self.app,
-                                         handler_cancellation=True)
+            self._runner = web.AppRunner(app, handler_cancellation=True)
             await self._runner.setup()
             site = web.TCPSite(self._runner, "127.0.0.1", 0)
             await site.start()
@@ -96,42 +98,73 @@ class JaxServer:
 
         def run():
             asyncio.set_event_loop(self._loop)
-            self._loop.run_until_complete(start())
+            try:
+                self._loop.run_until_complete(start())
+            except BaseException as e:  # handed to the constructor
+                self._error = e
+                ready.set()
+                self._loop.close()
+                return
             ready.set()
-            self._loop.run_forever()
+            try:
+                self._loop.run_until_complete(self._stop.wait())
+            except web.GracefulExit:
+                pass
+            finally:
+                self._loop.run_until_complete(self._runner.cleanup())
+                rest = asyncio.all_tasks(self._loop)
+                for task in rest:
+                    task.cancel()
+                self._loop.run_until_complete(
+                    asyncio.gather(*rest, return_exceptions=True))
+                self._loop.close()
 
+        self._stop = asyncio.Event()
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
         if not ready.wait(300):
-            raise TimeoutError("the JAX app did not start")
+            raise TimeoutError("the app did not start")
+        if self._error is not None:
+            self._thread.join(60)
+            raise self._error
 
     def stop(self):
-        fut = asyncio.run_coroutine_threadsafe(self._runner.cleanup(),
-                                               self._loop)
-        fut.result(120)
-        self._loop.call_soon_threadsafe(self._loop.stop)
-        self._thread.join(60)
+        try:
+            self._loop.call_soon_threadsafe(self._stop.set)
+        except RuntimeError:  # the loop has closed: the app stopped itself
+            pass
+        if not self.join(120):
+            raise TimeoutError("the app did not stop")
+
+    def join(self, timeout_s):
+        """Wait for the serving thread; True if it has ended."""
+        self._thread.join(timeout_s)
+        return not self._thread.is_alive()
 
 
-class PortServer:
-    """The port's app on 127.0.0.1 (its own server, ``ServerThread``), on
-    the CPU."""
+class JaxServer(_AppThread):
+    """The JAX package's aiohttp app."""
+
+    def __init__(self, cfg, exit_callback=None, state=None):
+        from handwritten_math_ocr_api_tpu.serve.app import create_app
+
+        super().__init__(create_app(cfg, state), exit_callback)
+
+
+class PortServer(_AppThread):
+    """The port's aiohttp app, on the CPU."""
 
     def __init__(self, cfg, exit_callback=None, state=None):
         from handwritten_math_ocr_api_torch.serve.app import create_app
-        from handwritten_math_ocr_api_torch.serve.http import ServerThread
 
-        self.app = create_app(cfg, state, device="cpu")
-        self.state = self.app["state"]
-        self.state.exit_callback = exit_callback
-        self._server = ServerThread(self.app)
-        self.port = self._server.port
+        super().__init__(create_app(cfg, state, device="cpu"),
+                         exit_callback)
 
-    def stop(self):
-        self._server.stop()
 
-    def join(self, timeout_s):
-        return self._server.join(timeout_s)
+# rate limits above any test's requests
+UNLIMITED = dict(rate_limit_per_minute=10 ** 6, rate_limit_per_hour=10 ** 6,
+                 rate_limit_per_day=10 ** 6,
+                 rate_limit_anonymous_daily=10 ** 6)
 
 
 def port_config(**kw):
@@ -217,6 +250,37 @@ def same_prediction(j, t, tol=CONF_TOL):
         assert t["confidence"] is None
     else:
         assert abs(j["confidence"] - t["confidence"]) < tol, (j, t)
+
+
+TIMING = {"processing_time", "timestamp", "uptime", "model_load_time",
+          "device"}
+
+
+def _strip(obj):
+    if isinstance(obj, dict):
+        return {k: _strip(v) for k, v in obj.items() if k not in TIMING}
+    if isinstance(obj, list):
+        return [_strip(v) for v in obj]
+    return obj
+
+
+def same_json(j, t):
+    """Equal but for the timing fields (and the device), confidences
+    within ``CONF_TOL``."""
+    j, t = _strip(j), _strip(t)
+    if isinstance(j, dict):
+        assert j.keys() == t.keys(), (j, t)
+        for k in j:
+            if k == "confidence" and isinstance(j[k], float):
+                assert abs(j[k] - t[k]) < CONF_TOL, (j, t)
+            else:
+                same_json(j[k], t[k])
+    elif isinstance(j, list):
+        assert len(j) == len(t), (j, t)
+        for a, b in zip(j, t):
+            same_json(a, b)
+    else:
+        assert j == t, (j, t)
 
 
 def stop_all(*servers):
